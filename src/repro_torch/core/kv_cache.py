@@ -1,0 +1,324 @@
+"""KV caches of the port: the slot-compacted DMS cache and its block table.
+
+:class:`SlotDMSCache` is the paper's production cache (§3.3): ``P << S``
+slots per (lane, kv head), a free-list ring allocator, and a pending ring
+that executes each eviction decision ``w`` steps late (delayed eviction).
+Keys are stored post-RoPE.  :class:`BlockTable` is the compacted list of
+live ``block_p``-sized blocks the flash-decode kernel loops over.
+
+Layout as in the reference ``repro.core.kv_cache``: ``k, v``: (B, Hkv, P,
+Dh); per-slot metadata (B, Hkv, P); ``length`` per lane (B,).  Decode
+states stack these over layers (lane axis at position 1).
+
+Unlike the reference's pure functions, :meth:`SlotDMSCache.step` updates
+the cache **in place** (it may be a per-layer view of a stacked state):
+the new token's K/V row is written by index, one row per (lane, head), and
+only for active lanes, so a step never reads or rewrites the whole arena.
+The metadata of every lane is advanced first, as the reference does before
+its ``lane_select``, then committed only for active lanes — the resulting
+state equals the reference's leaf for leaf.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Dict, Optional, Tuple
+
+import torch
+
+INVALID_POS = torch.iinfo(torch.int32).max
+_I32 = torch.int32
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m if m else x
+
+
+def _lane_where(active: Optional[torch.Tensor], new: torch.Tensor,
+                old: torch.Tensor) -> torch.Tensor:
+    if active is None:
+        return new
+    return torch.where(active.reshape((-1,) + (1,) * (old.dim() - 1)), new, old)
+
+
+# ---------------------------------------------------------------------------
+# Block tables: compacted live-block indices for the flash-decode kernel
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class BlockTable:
+    """Per-(lane, kv-head) compacted index table of *live* KV blocks.
+
+    Maintained incrementally by :meth:`insert` / :meth:`evict` (O(NB) per
+    slot event, never an O(P) pass on the step path).  The table is an
+    unordered compacted list — eviction swaps the last entry into the hole.
+    Invariant: ``{tbl[..., :n]}`` is the set of blocks with a live slot and
+    ``count`` the per-block live-slot population.  ``block_p == 0`` turns
+    the machinery off (zero-width arrays, updates are no-ops).
+
+    :meth:`insert` and :meth:`evict` are functional (new tensors, as in the
+    reference); :meth:`SlotDMSCache.step` commits their result in place."""
+
+    count: torch.Tensor   # (B, H, NB) int32 — live slots per block
+    tbl: torch.Tensor     # (B, H, NB) int32 — live block ids, first n entries
+    pos: torch.Tensor     # (B, H, NB) int32 — block id -> index in tbl, or -1
+    n: torch.Tensor       # (B, H) int32 — number of live blocks
+    block_p: int = field(default=0, metadata={"static": True})
+
+    @staticmethod
+    def init(batch: int, kv_heads: int, num_slots: int, block_p: int,
+             device=None) -> "BlockTable":
+        nb = num_slots // block_p if block_p else 0
+        shape = (batch, kv_heads, nb)
+        return BlockTable(
+            count=torch.zeros(shape, dtype=_I32, device=device),
+            tbl=torch.zeros(shape, dtype=_I32, device=device),
+            pos=torch.full(shape, -1, dtype=_I32, device=device),
+            n=torch.zeros((batch, kv_heads), dtype=_I32, device=device),
+            block_p=block_p)
+
+    def spec(self):
+        """``(block_tbl, block_n, block_p)`` for the kernel, or
+        ``(None, None, 0)`` when tables are off."""
+        if not self.block_p:
+            return None, None, 0
+        return self.tbl, self.n, self.block_p
+
+    @staticmethod
+    def from_valid(valid: torch.Tensor, block_p: int) -> "BlockTable":
+        """The canonical table of a ``valid`` bitmap (live ids ascending) —
+        the test oracle, never the step path."""
+        b, h, p = valid.shape
+        if not block_p:
+            return BlockTable.init(b, h, 0, 0, device=valid.device)
+        nb = p // block_p
+        count = valid.reshape(b, h, nb, block_p).sum(dim=-1).to(_I32)
+        live = count > 0
+        tbl = torch.argsort((~live).to(torch.int8), dim=-1, stable=True).to(_I32)
+        rank = torch.cumsum(live.to(_I32), dim=-1).to(_I32) - 1
+        return BlockTable(count=count, tbl=tbl,
+                          pos=torch.where(live, rank, -1),
+                          n=live.sum(dim=-1).to(_I32), block_p=block_p)
+
+    # -- O(NB) one-hot helpers ------------------------------------------------
+
+    @staticmethod
+    def _take(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        return arr.gather(2, idx.long()[..., None])[..., 0]
+
+    @staticmethod
+    def _put(arr: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
+             mask: torch.Tensor) -> torch.Tensor:
+        nb = arr.shape[2]
+        hit = ((torch.arange(nb, device=arr.device) == idx[..., None])
+               & mask[..., None])
+        return torch.where(hit, val[..., None], arr)
+
+    def _off(self) -> bool:
+        return not self.block_p or self.count.shape[2] == 0
+
+    def insert(self, slot: torch.Tensor, mask: torch.Tensor) -> "BlockTable":
+        """A slot turned live where ``mask`` (B, H) is True."""
+        if self._off():
+            return self
+        nb = self.count.shape[2]
+        blk = torch.clamp(slot // self.block_p, 0, nb - 1)
+        cnt = self._take(self.count, blk)
+        new_live = mask & (cnt == 0)
+        return dataclasses.replace(
+            self,
+            count=self._put(self.count, blk, cnt + 1, mask),
+            tbl=self._put(self.tbl, torch.clamp(self.n, max=nb - 1), blk,
+                          new_live),
+            pos=self._put(self.pos, blk, self.n, new_live),
+            n=self.n + new_live.to(_I32))
+
+    def evict(self, slot: torch.Tensor, mask: torch.Tensor) -> "BlockTable":
+        """A slot turned dead.  When its block empties the block leaves the
+        table: the last entry swaps into its place."""
+        if self._off():
+            return self
+        nb = self.count.shape[2]
+        blk = torch.clamp(slot // self.block_p, 0, nb - 1)
+        cnt_after = self._take(self.count, blk) - 1
+        dead = mask & (cnt_after == 0)
+        hole = torch.clamp(self._take(self.pos, blk), 0, nb - 1)
+        last_blk = self._take(self.tbl, torch.clamp(self.n - 1, 0, nb - 1))
+        pos = self._put(self.pos, last_blk, hole, dead)
+        pos = self._put(pos, blk, torch.full_like(blk, -1), dead)
+        return dataclasses.replace(
+            self,
+            count=self._put(self.count, blk, cnt_after, mask),
+            tbl=self._put(self.tbl, hole, last_blk, dead),
+            pos=pos,
+            n=self.n - dead.to(_I32))
+
+
+# ---------------------------------------------------------------------------
+# Slot-compacted DMS cache
+# ---------------------------------------------------------------------------
+
+_META = ("pos", "valid", "free_ring", "free_head", "free_count",
+         "pending_slot", "pending_alpha", "length", "overflowed")
+
+
+@dataclass
+class SlotDMSCache:
+    """Physically compacted cache: P slots per (lane, kv head).
+
+    If the arena overflows (the model under-evicts against the provisioned
+    CR) the allocator recycles the oldest live slot (the lowest position;
+    ties go to the lowest slot, as the reference's ``argmin``) and flags
+    ``overflowed``."""
+
+    k: torch.Tensor             # (B, H, P, Dh) post-RoPE; P padded to block_p
+    v: torch.Tensor             # (B, H, P, Dh)
+    pos: torch.Tensor           # (B, H, P) int32 — logical position; INVALID_POS = empty
+    valid: torch.Tensor         # (B, H, P) bool
+    free_ring: torch.Tensor     # (B, H, P) int32 — circular buffer of free slot ids
+    free_head: torch.Tensor     # (B, H) int32
+    free_count: torch.Tensor    # (B, H) int32
+    pending_slot: torch.Tensor  # (B, H, w) int32
+    pending_alpha: torch.Tensor  # (B, H, w) bool
+    length: torch.Tensor        # (B,) int32 — logical tokens written, per lane
+    overflowed: torch.Tensor    # (B, H) bool
+    blocks: BlockTable          # incremental live-block table (flash-decode)
+    window: int = field(metadata={"static": True})
+    #: logical arena capacity (the physical extent of ``k`` may be padded)
+    slots: int = field(metadata={"static": True})
+
+    @staticmethod
+    def init(batch: int, kv_heads: int, num_slots: int, head_dim: int,
+             window: int, dtype=torch.bfloat16, block_p: int = 0,
+             device=None) -> "SlotDMSCache":
+        p = _round_up(num_slots, block_p)
+        bh = (batch, kv_heads)
+        ring = torch.arange(p, dtype=_I32, device=device) % num_slots
+        return SlotDMSCache(
+            k=torch.zeros(bh + (p, head_dim), dtype=dtype, device=device),
+            v=torch.zeros(bh + (p, head_dim), dtype=dtype, device=device),
+            pos=torch.full(bh + (p,), INVALID_POS, dtype=_I32, device=device),
+            valid=torch.zeros(bh + (p,), dtype=torch.bool, device=device),
+            free_ring=ring.expand(bh + (p,)).contiguous(),
+            free_head=torch.zeros(bh, dtype=_I32, device=device),
+            free_count=torch.full(bh, num_slots, dtype=_I32, device=device),
+            pending_slot=torch.full(bh + (window,), -1, dtype=_I32,
+                                    device=device),
+            pending_alpha=torch.zeros(bh + (window,), dtype=torch.bool,
+                                      device=device),
+            length=torch.zeros((batch,), dtype=_I32, device=device),
+            overflowed=torch.zeros(bh, dtype=torch.bool, device=device),
+            blocks=BlockTable.init(batch, kv_heads, p, block_p, device=device),
+            window=window, slots=num_slots)
+
+    @staticmethod
+    def provision_slots(seq_len: int, cr: float, window: int) -> int:
+        """P = S / CR + w + slack — the arena size for a target CR."""
+        return int(seq_len / cr) + window + 16
+
+    # -- the step -------------------------------------------------------------
+
+    def _advance(self, alpha_new: torch.Tensor
+                 ) -> Tuple[Dict[str, torch.Tensor], BlockTable, torch.Tensor]:
+        """New metadata of every lane after one step: execute the eviction
+        decided ``w`` steps ago, pop a slot, record the new token.  Returns
+        (metadata by field name, block table, the slot (B, H) written)."""
+        t = self.length
+        w = self.window
+        b, h, p = self.valid.shape
+        p_idx = torch.arange(p, device=t.device)
+
+        # execute the pending decision of ring slot t mod w
+        ring_idx = (t % w).long()[:, None, None].expand(b, h, 1)
+        slot = self.pending_slot.gather(2, ring_idx)[..., 0]
+        alpha = self.pending_alpha.gather(2, ring_idx)[..., 0]
+        slot_c = torch.clamp(slot, 0, p - 1)
+        was_valid = self.valid.gather(2, slot_c.long()[..., None])[..., 0]
+        do_evict = (t >= w)[:, None] & alpha & (slot >= 0) & was_valid
+        hit = (p_idx == slot_c[..., None]) & do_evict[..., None]
+        valid = self.valid & ~hit
+        pos = torch.where(hit, INVALID_POS, self.pos)
+        ring_len = self.free_ring.shape[2]
+        tail = (self.free_head + self.free_count) % ring_len
+        free_ring = torch.where((p_idx == tail[..., None]) & do_evict[..., None],
+                                slot_c[..., None], self.free_ring)
+        free_count = self.free_count + do_evict.to(_I32)
+        blocks = self.blocks.evict(slot_c, do_evict)
+
+        # allocate: the free ring's head, or recycle the oldest live slot
+        have_free = free_count > 0
+        head_slot = free_ring.gather(2, self.free_head.long()[..., None])[..., 0]
+        oldest = torch.where(valid, pos, INVALID_POS).argmin(dim=2).to(_I32)
+        slot = torch.where(have_free, head_slot, oldest)
+        free_head = torch.where(have_free, (self.free_head + 1) % ring_len,
+                                self.free_head)
+        free_count = torch.where(have_free, free_count - 1, free_count)
+        overflowed = self.overflowed | ~have_free
+
+        # write the new token's metadata; recycling a live slot is no insert
+        hit = p_idx == slot[..., None]
+        was_valid = valid.gather(2, slot.long()[..., None])[..., 0]
+        blocks = blocks.insert(slot, ~was_valid)
+        pos = torch.where(hit, t[:, None, None], pos)
+        valid = valid | hit
+        ring_hit = (torch.arange(w, device=t.device)
+                    == (t % w)[:, None, None])                    # (B, 1, w)
+        pending_slot = torch.where(ring_hit, slot[..., None], self.pending_slot)
+        pending_alpha = torch.where(ring_hit, alpha_new[..., None],
+                                    self.pending_alpha)
+        meta = dict(pos=pos, valid=valid, free_ring=free_ring,
+                    free_head=free_head, free_count=free_count,
+                    pending_slot=pending_slot, pending_alpha=pending_alpha,
+                    length=t + 1, overflowed=overflowed)
+        return meta, blocks, slot
+
+    def step(self, k_new: torch.Tensor, v_new: torch.Tensor,
+             alpha_new: torch.Tensor,
+             active: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Append one token per (lane, head) and execute delayed evictions,
+        in place.  ``k_new``/``v_new``: (B, H, 1, Dh) post-RoPE;
+        ``alpha_new``: (B, H) bool; ``active``: (B,) bool, None = all lanes.
+        Inactive lanes are left exactly as they were.
+
+        Returns the (B, H) retained-token count every lane *would* hold
+        after the step — the count the reference's metrics report, which it
+        takes before freezing inactive lanes."""
+        meta, blocks, slot = self._advance(alpha_new)
+        retained = meta["valid"].sum(dim=-1)
+        for name in _META:
+            cur = getattr(self, name)
+            cur.copy_(_lane_where(active, meta[name], cur))
+        if not self.blocks._off():
+            for name in ("count", "tbl", "pos", "n"):
+                cur = getattr(self.blocks, name)
+                cur.copy_(_lane_where(active, getattr(blocks, name), cur))
+        self._write_rows(slot, k_new, v_new, active)
+        return retained
+
+    def _write_rows(self, slot, k_new, v_new, active) -> None:
+        """Scatter one K/V row per (lane, head) into its slot; an inactive
+        lane rewrites the row it already holds."""
+        b, h = slot.shape
+        bi = torch.arange(b, device=slot.device)[:, None].expand(b, h)
+        hi = torch.arange(h, device=slot.device)[None, :].expand(b, h)
+        si = slot.long()
+        for arena, new in ((self.k, k_new), (self.v, v_new)):
+            rows = new[:, :, 0].to(arena.dtype)
+            if active is not None:
+                rows = torch.where(active[:, None, None], rows, arena[bi, hi, si])
+            arena[bi, hi, si] = rows
+
+    # -- views ----------------------------------------------------------------
+
+    def block_spec(self):
+        return self.blocks.spec()
+
+    def valid_mask(self) -> torch.Tensor:
+        return self.valid
+
+    def positions(self) -> torch.Tensor:
+        return self.pos
+
+    def retained_tokens(self) -> torch.Tensor:
+        return self.valid.sum(dim=-1)

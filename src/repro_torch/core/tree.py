@@ -1,0 +1,37 @@
+"""Minimal pytree helpers over the port's state containers.
+
+Decode states are nested dicts and dataclasses of tensors (the layout of the
+reference's pytrees).  Dataclass fields whose metadata says ``static`` are
+configuration, not state, and pass through untouched.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+
+def is_static(f: dataclasses.Field) -> bool:
+    return bool(f.metadata.get("static"))
+
+
+def tree_map(fn: Callable[..., torch.Tensor], tree: Any, *rest: Any) -> Any:
+    """Apply ``fn`` to every tensor leaf of ``tree`` (and the matching leaves
+    of ``rest``), rebuilding the same structure."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree, *rest)
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if dataclasses.is_dataclass(tree):
+        kw = {}
+        for f in dataclasses.fields(tree):
+            val = getattr(tree, f.name)
+            kw[f.name] = val if is_static(f) else tree_map(
+                fn, val, *(getattr(r, f.name) for r in rest))
+        return type(tree)(**kw)
+    raise TypeError(f"not a state tree node: {type(tree).__name__}")
+

@@ -1,0 +1,180 @@
+"""Wrapper of the block-table flash-decode kernel (inference only).
+
+Two call modes, as in the reference ``repro.kernels.dms_decode.ops``:
+
+* **Block-table mode** (``block_tbl``/``block_n``/``block_p`` given — what
+  the policies' :class:`~repro_torch.core.policy.AttendSpec` supplies): the
+  arena is allocated pre-padded to a ``block_p`` multiple in the kernel's
+  per-(lane, kv-head) layout, so the wrapper only reshapes — no copy, no pad,
+  no cast.  Traffic scales with live blocks.
+* **Legacy dense mode** (no table — direct kernel tests on arbitrary
+  shapes): a table covering every block that holds a visible slot is derived
+  from ``valid`` and the arena is padded to a block multiple.  Traffic then
+  scales with arena capacity.
+
+CUDA tensors go to the hand-written kernel (``csrc/dms_decode.cu``) or the
+call raises; CPU tensors go to the plain version (:mod:`.ref`).  Nothing
+else picks the path.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.dms_decode.ref import dms_decode_plain
+
+DEFAULT_BLOCK_P = 128
+MAX_G, MAX_DH, MAX_BLOCK_P = 16, 256, 128
+SOURCE = Path(__file__).resolve().parent / "csrc" / "dms_decode.cu"
+
+#: kernel launches since the last reset (the CPU path never counts)
+launches = 0
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def _library() -> ctypes.CDLL:
+    lib = _build.load(SOURCE)
+    fn = lib.dms_decode_fwd
+    if fn.argtypes is None:
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [ptr] * 7 + [i32] * 6 + [ctypes.c_float, i32,
+                                               ctypes.c_float, ptr]
+        fn.restype = i32
+    return lib
+
+
+def build() -> None:
+    """Compile and load the kernel now (``chip_smoke.py`` times this)."""
+    _library()
+
+
+def modeled_hbm_bytes(block_n: torch.Tensor, block_p: int, head_dim: int,
+                      k_dtype: torch.dtype, v_dtype: torch.dtype) -> int:
+    """K/V bytes the kernel reads for one decode step: ``sum(n)`` listed
+    blocks × block bytes (reads a host copy of ``block_n``)."""
+    per_slot = head_dim * (torch.empty((), dtype=k_dtype).element_size()
+                           + torch.empty((), dtype=v_dtype).element_size())
+    return int(block_n.sum().item()) * block_p * per_slot
+
+
+def _launch(qf, kf, vf, valf, tblf, nf, block_p, logit_cap):
+    """The kernel on CUDA tensors of the flattened layout; raises on what it
+    does not take."""
+    global launches
+    bh, g, dh = qf.shape
+    p = kf.shape[1]
+    if not (1 <= g <= MAX_G and 8 <= dh <= MAX_DH and dh % 8 == 0):
+        raise ValueError(f"dms_decode kernel takes G <= {MAX_G} and Dh a "
+                         f"multiple of 8 up to {MAX_DH}; got G={g}, Dh={dh}")
+    if not 1 <= block_p <= MAX_BLOCK_P:
+        raise ValueError(f"dms_decode kernel takes block_p <= {MAX_BLOCK_P}, "
+                         f"got {block_p}")
+    for name, t, dt in (("q", qf, torch.bfloat16), ("k", kf, torch.bfloat16),
+                        ("v", vf, torch.bfloat16), ("block_tbl", tblf, torch.int32),
+                        ("block_n", nf, torch.int32)):
+        if t.dtype != dt:
+            raise TypeError(f"dms_decode kernel: {name} must be {dt}, got {t.dtype}")
+    if valf.dtype not in (torch.bool, torch.uint8):
+        raise TypeError(f"dms_decode kernel: valid must be bool or uint8, "
+                        f"got {valf.dtype}")
+    for name, t in (("q", qf), ("k", kf), ("v", vf), ("valid", valf),
+                    ("block_tbl", tblf), ("block_n", nf)):
+        if not t.is_contiguous():
+            raise ValueError(f"dms_decode kernel: {name} must be contiguous")
+        if t.device != qf.device:
+            raise ValueError(f"dms_decode kernel: {name} on {t.device}, "
+                             f"q on {qf.device}")
+    if kf.data_ptr() % 16 or vf.data_ptr() % 16:
+        raise ValueError("dms_decode kernel: k/v must be 16-byte aligned")
+    out = torch.empty_like(qf)
+    if bh == 0:
+        return out
+    lib = _library()
+    with torch.cuda.device(qf.device):
+        stream = torch.cuda.current_stream(qf.device).cuda_stream
+        err = lib.dms_decode_fwd(
+            qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), valf.data_ptr(),
+            tblf.data_ptr(), nf.data_ptr(), out.data_ptr(),
+            bh, g, dh, p, tblf.shape[1], block_p, float(dh ** -0.5),
+            int(logit_cap is not None),
+            float(logit_cap if logit_cap is not None else 0.0), stream)
+    if err != 0:
+        raise RuntimeError(f"dms_decode kernel launch failed: CUDA error {err}")
+    launches += 1
+    return out
+
+
+def decode_rows(qf, kf, vf, valf, tblf, nf, block_p: int,
+                logit_cap: Optional[float] = None) -> torch.Tensor:
+    """The kernel's own interface: q (BH, G, Dh); k, v (BH, P, Dh); valid
+    (BH, P); block_tbl (BH, NB_tbl) int32; block_n (BH,) int32 -> (BH, G,
+    Dh).  CUDA tensors launch the kernel; CPU tensors run the plain
+    version."""
+    if qf.is_cuda:
+        return _launch(qf, kf, vf, valf, tblf, nf, block_p, logit_cap)
+    if qf.device.type == "cpu":
+        return dms_decode_plain(qf, kf, vf, valf, tblf, nf, block_p, logit_cap)
+    raise ValueError(f"dms_decode: unsupported device {qf.device}")
+
+
+def dms_decode_attention(
+    q: torch.Tensor,       # (B, 1, Hq, Dh)
+    k: torch.Tensor,       # (B, Hkv, P, Dh)
+    v: torch.Tensor,
+    valid: torch.Tensor,   # (B, Hkv, P) bool
+    *,
+    block_tbl: Optional[torch.Tensor] = None,   # (B, Hkv, NB) int32
+    block_n: Optional[torch.Tensor] = None,     # (B, Hkv) int32
+    block_p: Optional[int] = None,
+    logit_cap: Optional[float] = None,
+) -> torch.Tensor:
+    """One decode token's attention over a slot arena -> (B, 1, Hq, Dh)."""
+    if q.dim() != 4 or q.shape[1] != 1:
+        raise ValueError(f"q must be (B, 1, Hq, Dh), got {tuple(q.shape)}")
+    b, _, hq, dh = q.shape
+    if k.dim() != 4 or k.shape[0] != b or k.shape[3] != dh or v.shape != k.shape:
+        raise ValueError(f"k/v must be (B, Hkv, P, Dh) matching q; got "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    hkv, p = k.shape[1], k.shape[2]
+    if hq % hkv:
+        raise ValueError(f"{hq} query heads do not group over {hkv} kv heads")
+    if valid.shape != k.shape[:3]:
+        raise ValueError(f"valid must be {tuple(k.shape[:3])}, got "
+                         f"{tuple(valid.shape)}")
+    g = hq // hkv
+
+    if block_tbl is not None:
+        if not block_p or p % block_p:
+            raise ValueError(
+                f"arena extent {p} not a multiple of block_p {block_p}; "
+                "caches must allocate pre-padded (KVPolicyConfig.block_p)")
+        if block_tbl.shape[:2] != (b, hkv) or block_n.shape != (b, hkv):
+            raise ValueError("block_tbl must be (B, Hkv, NB) and block_n (B, Hkv)")
+        bp = block_p
+        kf, vf = k.reshape(b * hkv, p, dh), v.reshape(b * hkv, p, dh)
+        valf = valid.reshape(b * hkv, p)
+        tblf = block_tbl.reshape(b * hkv, -1)
+        nf = block_n.reshape(b * hkv)
+    else:
+        # legacy dense mode: a written-blocks table derived from `valid`
+        bp = min(block_p or DEFAULT_BLOCK_P, _round_up(p, 8))
+        pp = _round_up(p, bp)
+        pad = (0, 0, 0, pp - p)
+        kf = torch.nn.functional.pad(k.reshape(b * hkv, p, dh), pad)
+        vf = torch.nn.functional.pad(v.reshape(b * hkv, p, dh), pad)
+        valf = torch.nn.functional.pad(valid.reshape(b * hkv, p), (0, pp - p))
+        blk_live = (valf.reshape(b * hkv, pp // bp, bp) != 0).any(dim=-1)
+        tblf = torch.argsort((~blk_live).to(torch.int8), dim=-1,
+                             stable=True).to(torch.int32)
+        nf = blk_live.sum(dim=-1).to(torch.int32)
+
+    qf = q[:, 0].reshape(b * hkv, g, dh)
+    out = decode_rows(qf, kf, vf, valf, tblf, nf, bp, logit_cap)
+    return out.reshape(b, 1, hq, dh)

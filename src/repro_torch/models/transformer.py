@@ -1,0 +1,225 @@
+"""Dense decoder-only transformer of the port: init, decode step, lanes.
+
+Params keep the reference's layout (``repro.models.transformer``)::
+
+    {"embed": (V_pad, D),
+     "blocks": {"0": <every leaf stacked over layers>},
+     "final_norm": {"scale": (D,)}, "lm_head": (D, V_pad) unless tied}
+
+Matmul weights are stored in the compute dtype (cast once, at load or
+init); norm scales stay fp32.  The decode state mirrors it: ``{"0":
+PolicyCache}`` with every cache leaf stacked over layers and the lane axis
+at position 1.  The reference scans superblocks with ``jax.lax.scan``; here
+a Python loop walks the layers and each layer's cache is a view into the
+stacked state, updated in place by the step.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.core import policy as policy_lib
+from repro_torch.core.config import ArchConfig, KVPolicyConfig
+from repro_torch.core.tree import tree_map
+from repro_torch.device import DeviceLike, resolve_device, torch_dtype
+from repro_torch.models import attention as attn_lib
+from repro_torch.models.layers import mlp_apply, norm_apply, softcap
+
+
+def check_supported(arch: ArchConfig) -> None:
+    """This slice ports dense decoder-only attention models."""
+    if (arch.layer_pattern != ("attn",) or arch.attn is None
+            or arch.mlp is None or arch.mlp.moe is not None
+            or arch.post_norm or arch.encoder_layers or arch.cross_attention
+            or arch.frontend != "none"):
+        raise NotImplementedError(
+            f"{arch.name}: only dense decoder-only 'attn' models are ported")
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def init_model(arch: ArchConfig, *, seed: int = 0,
+               device: DeviceLike = None) -> dict:
+    """Random weights with the reference's distributions and scales
+    (N(0, 1) · d_in^-0.5 for projections, N(0, 1) · 0.02 for the
+    embedding, ones for norm scales), drawn from a seeded
+    :class:`torch.Generator` on ``device``.  The draws differ from the
+    reference's threefry streams; tests copy reference weights in through
+    :func:`repro_torch.bridge.params_from_numpy` instead."""
+    check_supported(arch)
+    dev = resolve_device(device)
+    dtype = torch_dtype(arch.dtype)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    d, nl, vp = arch.d_model, arch.num_layers, arch.padded_vocab
+    a, f = arch.attn, arch.mlp.d_ff
+
+    def normal(shape, scale):
+        out = torch.empty(shape, dtype=dtype, device=dev)
+        row = out[0].numel()
+        step = max(1, (1 << 26) // row)     # bounded fp32 temporaries
+        for i in range(0, shape[0], step):
+            n = min(step, shape[0] - i)
+            out[i:i + n] = torch.randn((n,) + tuple(shape[1:]), generator=gen,
+                                       device=dev) * scale
+        return out
+
+    def dense(d_in, d_out):
+        return normal((nl, d_in, d_out), d_in ** -0.5)
+
+    def ones():
+        return torch.ones((nl, d), dtype=torch.float32, device=dev)
+
+    params: Dict[str, Any] = {
+        "embed": normal((vp, d), 0.02),
+        "final_norm": {"scale": torch.ones((d,), dtype=torch.float32,
+                                           device=dev)},
+    }
+    if not arch.tie_embeddings:
+        params["lm_head"] = normal((d, vp), d ** -0.5)
+    params["blocks"] = {"0": {
+        "attn_norm": {"scale": ones()},
+        "attn": {"wq": dense(d, a.num_heads * a.head_dim),
+                 "wk": dense(d, a.num_kv_heads * a.head_dim),
+                 "wv": dense(d, a.num_kv_heads * a.head_dim),
+                 "wo": dense(a.num_heads * a.head_dim, d)},
+        "mlp_norm": {"scale": ones()},
+        "mlp": {"w_gate": dense(d, f), "w_up": dense(d, f),
+                "w_down": dense(f, d)},
+    }}
+    return params
+
+
+# ---------------------------------------------------------------------------
+# embedding / head
+# ---------------------------------------------------------------------------
+
+
+def embed_tokens(params: dict, tokens: torch.Tensor,
+                 arch: ArchConfig) -> torch.Tensor:
+    x = params["embed"][tokens.long()].to(torch_dtype(arch.dtype))
+    if arch.embedding_multiplier != 1.0:
+        x = x * arch.embedding_multiplier
+    return x
+
+
+def lm_logits(params: dict, x: torch.Tensor, arch: ArchConfig) -> torch.Tensor:
+    """fp32 logits over the padded vocab; pad rows masked to -1e30."""
+    h = norm_apply(params["final_norm"], x, arch.norm, arch.norm_eps)
+    dtype = torch_dtype(arch.dtype)
+    w = params["embed"].t() if arch.tie_embeddings else params["lm_head"]
+    logits = softcap((h.to(dtype) @ w.to(dtype)).float(), arch.logit_softcap)
+    if arch.padded_vocab != arch.vocab_size:
+        live = torch.arange(arch.padded_vocab, device=x.device) < arch.vocab_size
+        logits = torch.where(live, logits, -1e30)
+    return logits
+
+
+# ---------------------------------------------------------------------------
+# decode state and lane lifecycle
+# ---------------------------------------------------------------------------
+
+
+def init_decode_state(arch: ArchConfig, batch: int, max_len: int,
+                      policy: KVPolicyConfig,
+                      device: DeviceLike = None) -> Dict[str, Any]:
+    """One cache per layer, stacked over layers (lane axis at position 1),
+    provisioned through the policy registry."""
+    check_supported(arch)
+    dev = resolve_device(device)
+    one = policy_lib.init_policy_cache(arch, batch, max_len, policy,
+                                       device=dev)
+    nl = arch.num_layers
+    return {"0": tree_map(
+        lambda a: a.unsqueeze(0).expand((nl,) + a.shape).contiguous(), one)}
+
+
+def _map_caches(fn, state: Dict[str, Any], *rest) -> Dict[str, Any]:
+    return {key: fn(pc, *(r[key] for r in rest)) for key, pc in state.items()}
+
+
+def fork_decode_state(state: Dict[str, Any], width: int) -> Dict[str, Any]:
+    """Shared-prefill fork: clone every lane into ``width`` chains."""
+    return _map_caches(lambda pc: policy_lib.PolicyCache(
+        policy_lib.get_policy(pc.policy).fork_cache(pc.cache, width, axis=1),
+        pc.policy), state)
+
+
+def gather_lanes(state: Dict[str, Any], src) -> Dict[str, Any]:
+    """Lane shuffle: new lane ``l`` is a copy of old lane ``src[l]``."""
+    src = torch.as_tensor(src)
+    return _map_caches(lambda pc: policy_lib.PolicyCache(
+        policy_lib.get_policy(pc.policy).gather_cache(pc.cache, src, axis=1),
+        pc.policy), state)
+
+
+def reclaim_lanes(state: Dict[str, Any], reset_mask: torch.Tensor,
+                  fresh: Dict[str, Any]) -> Dict[str, Any]:
+    """Lanes where ``reset_mask`` (B,) is True return to ``fresh``."""
+    return _map_caches(lambda pc, init: policy_lib.PolicyCache(
+        policy_lib.get_policy(pc.policy).reclaim_cache(
+            pc.cache, reset_mask, init.cache, axis=1), pc.policy),
+        state, fresh)
+
+
+def lane_select(mask: torch.Tensor, on_true: Any, on_false: Any) -> Any:
+    """Per-lane select over two decode states (lane axis at position 1)."""
+
+    def sel(a, b):
+        return torch.where(mask.reshape((1, -1) + (1,) * (a.dim() - 2)), a, b)
+
+    return tree_map(sel, on_true, on_false)
+
+
+# ---------------------------------------------------------------------------
+# decode step
+# ---------------------------------------------------------------------------
+
+
+def decode_step(
+    params: dict,
+    token: torch.Tensor,              # (B, 1) int
+    state: Dict[str, Any],
+    arch: ArchConfig,
+    pos_t,                            # int or per-lane (B,)
+    *,
+    use_kernel: bool = False,
+    active: Optional[torch.Tensor] = None,   # (B,) bool lane mask
+) -> Tuple[torch.Tensor, Dict[str, Any], Dict[str, Any]]:
+    """One decode step.  Returns (logits (B, V_pad) fp32, state, aux).
+
+    ``state`` is updated in place and returned.  Lanes where ``active`` is
+    False keep their state exactly and add zero to ``reads_tokens``; their
+    ``live_tokens`` is what the step would have left, as the reference
+    reports it."""
+    check_supported(arch)
+    x = embed_tokens(params, token, arch)
+    b = x.shape[0]
+    live = torch.zeros((b,), dtype=torch.float32, device=x.device)
+    reads = torch.zeros_like(live)
+    blocks, stacked = params["blocks"]["0"], state["0"]
+    dtype = torch_dtype(arch.dtype)
+    impls = set()
+    for i in range(arch.num_layers):
+        p = tree_map(lambda a: a[i], blocks)         # views of layer i
+        cache = tree_map(lambda a: a[i], stacked)
+        h = norm_apply(p["attn_norm"], x, arch.norm, arch.norm_eps)
+        a_out, _, aux = attn_lib.decode_attention(
+            p["attn"], h, cache, arch.attn, arch, pos_t=pos_t,
+            use_kernel=use_kernel, active=active)
+        impls.add(aux["attn_impl"])
+        x = x + a_out
+        live = live + aux["live_tokens"]
+        reads = reads + aux["reads_tokens"]
+        h = norm_apply(p["mlp_norm"], x, arch.norm, arch.norm_eps)
+        m_out, _ = mlp_apply(p["mlp"], h, arch.mlp, dtype)
+        x = x + m_out
+    if active is not None:
+        reads = reads * active.to(reads.dtype)
+    logits = lm_logits(params, x, arch)[:, 0]
+    return logits, state, {"live_tokens": live, "reads_tokens": reads,
+                           "attn_impl_kernel": int(impls == {"kernel"})}

@@ -13,6 +13,11 @@ from repro.configs import get_smoke
 from repro.models import transformer as tfm
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips where CUDA is absent")
+
+
 @pytest.fixture
 def rng():
     return jax.random.PRNGKey(0)

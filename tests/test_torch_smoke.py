@@ -1,0 +1,40 @@
+"""A CPU rehearsal of ``chip_smoke.py``: its serving phase on the smoke
+config (the decode kernel's plain version in place of the CUDA kernel) and
+its NaN-poisoned kernel cases, so the script's own logic is exercised by
+the CPU suite before it meets the card."""
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402
+from repro_torch.kernels.dms_decode.ref import dms_decode_plain  # noqa: E402
+
+# tiny shapes run fastest on one thread, and test workers share the cores
+torch.set_num_threads(1)
+
+
+@pytest.mark.parametrize("case", [dict(density=0.85), dict(density=0.03),
+                                  dict(density=0.5, table="partial"),
+                                  dict(density=0.5, empty_rows=(0, 3))])
+def test_smoke_cases_poison_only_unlisted_blocks(case):
+    gen = torch.Generator().manual_seed(0)
+    q, k, v, valid, tbl, n = chip_smoke.make_case(
+        torch, gen, bh=8, g=6, dh=128, p=416, bp=16, device="cpu", **case)
+    # unlisted blocks, and only those, hold NaN
+    assert bool(torch.isnan(k.float()).any()) == bool((n < 416 // 16).any())
+    out = dms_decode_plain(q, k, v, valid, tbl, n, 16)
+    assert torch.isfinite(out.float()).all()
+    for r in case.get("empty_rows", ()):
+        assert int(n[r]) == 0 and not out[r].float().abs().any()
+
+
+def test_smoke_serving_phase_on_the_cpu(capsys):
+    out = chip_smoke.phase_serve(torch, device="cpu", lens=(24, 16, 12, 8),
+                                 news=(8, 6, 5, 8), hs=(12, 6, 4), short=6)
+    assert out["launches"] == 0 and out["steps"] > 0
+    assert out["arena"][:3] == (2, 4, 2)
+    printed = capsys.readouterr().out
+    assert "all ok" in printed and "profile:" in printed
