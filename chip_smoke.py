@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port on one NVIDIA GPU: build, check, serve.
+"""Smoke run of the PyTorch port on one NVIDIA GPU: build, check, serve, train.
 
     python3 chip_smoke.py
 
@@ -7,13 +7,20 @@ Phases (any failure raises, so the exit code is non-zero):
 
 1. device   — a CUDA device must be present; prints the card's name and
               power limit as nvidia-smi reports them.
-2. build    — compiles every hand-written kernel from ``src/repro_torch``
-              (nvcc, sm_90a) and prints the build seconds and ptxas report.
+2. build    — compiles every hand-written kernel source from
+              ``src/repro_torch`` (one nvcc per source, all started together,
+              sm_90a) and prints the build seconds and ptxas report.
 3. kernels  — each kernel against its plain PyTorch version on the same CUDA
-              tensors: the main-path shape, a fragmented table, a partial
-              table, empty rows (n = 0) and a tiny shape.  The K/V of blocks
-              the table does not list is NaN, so a finite, equal output shows
-              that unlisted blocks are never read.
+              tensors.  Decode: the main-path shape, a fragmented table, a
+              partial table, empty rows (n = 0) and a tiny shape; the K/V of
+              blocks the table does not list is NaN, so a finite, equal output
+              shows that unlisted blocks are never read.  Flash attention
+              (fwd, dq, dkv): the retrofit shape, T = 1000 (padding), window
+              64 with softcap 30, vanilla, binarised α with block skipping,
+              each in bf16 and in fp32, and a tiny shape; then the autograd
+              Function's
+              gradients (q, k, v, log_surv, α) against autograd through the
+              dense oracle.
 4. serve    — qwen-r1-1.5b at full width (28 layers, d_model 1536, random
               weights from a seed, bf16) served by ``Engine`` with the ``dms``
               policy at CR 8: four staggered requests, then one width-4
@@ -21,7 +28,13 @@ Phases (any failure raises, so the exit code is non-zero):
               full token count, and the decode kernel must have launched once
               per layer per decode step.  A short teacher-forced trace then
               holds the kernel path's logits against the reference path's.
-5. timing   — per kernel at the main-path shape: the median device time of
+5. train    — qwen-r1-1.5b at full width, fp32 weights from seed 0, DMS
+              retrofit (one phase-1 step, three distillation steps) on the
+              synthetic stream at (B 2, T 1024) through the flash kernels:
+              finite metrics, 56/28/28 launches of fwd/dq/dkv per step, step
+              time, tokens/s and peak memory; then one step's loss and
+              gradient norm held against the reference attention path's.
+6. timing   — per kernel at the main-path shape: the median device time of
               one call (a CUDA-graph replay after an L2 flush) beside its
               bound, its plain version's and one library call's.
 
@@ -32,6 +45,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -44,6 +58,13 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
 BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core peak
 KERNEL_TOL = dict(atol=2e-2, rtol=2e-2)   # bf16 output: ~3 significant digits
+# flash kernels vs plain, max |kernel - plain| / max |plain| per output:
+# bf16 outputs round to 8 significant bits (2^-8 = 0.4%), so 1e-2; fp32
+# outputs differ only by the order of fp32 sums over <= 6 x 1024 terms, so 1e-5
+FLASH_REL_TOL = {"bfloat16": 1e-2, "float32": 1e-5}
+# the autograd Function's gradients vs autograd through the dense oracle, fp32
+# (the reference's own kernel-vs-autodiff test uses the same 1e-4)
+GRAD_REL_TOL = 1e-4
 
 
 def log(*args) -> None:
@@ -74,15 +95,21 @@ def phase_device(torch):
 
 def phase_build():
     from repro_torch.kernels import _build
+    from repro_torch.kernels.dms_attention import ops as fops
     from repro_torch.kernels.dms_decode import ops
     t0 = time.perf_counter()
+    _build.build([ops.SOURCE, fops.SOURCE])       # one nvcc each, in parallel
     ops.build()
-    log(f"build: dms_decode in {time.perf_counter() - t0:.2f} s")
-    report = _build.library_path(ops.SOURCE).with_suffix(".log")
-    if report.exists():
-        for line in report.read_text().splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                log("  ptxas:", line.strip())
+    fops.build()
+    log(f"build: dms_decode, dms_attention in {time.perf_counter() - t0:.2f} s")
+    for src in (ops.SOURCE, fops.SOURCE):
+        report = _build.library_path(src).with_suffix(".log")
+        if report.exists():
+            for line in report.read_text().splitlines():
+                if "Compiling entry" in line:
+                    log(f"  ptxas {src.name}:", line.split("'")[1][:90])
+                if "registers" in line or "spill" in line or "smem" in line:
+                    log(f"  ptxas {src.name}:", line.strip())
 
 
 # -- phase 3 ---------------------------------------------------------------
@@ -158,6 +185,169 @@ def phase_kernels(torch, main_shape):
         raise AssertionError(f"launch counter moved {ops.launches - before}, "
                              f"expected {len(cases)}")
     return errs["main-path shape"]
+
+
+def flash_case(torch, *, b, t, hq, hkv, dh, dtype, alpha="relaxed",
+               delay=256, window=None, cap=None, skip=False, seed=0,
+               device="cuda"):
+    """Folded flash-attention operands as ``dms_flash_attention`` builds them
+    (q/k/v ~ N(0, 1); α uniform in [0.02, 0.9], or binarised: 1 with
+    probability 0.9 and on every key of [128, 640), so that four whole
+    128-key blocks hold no retained key and their tiles below the diagonal
+    are skipped), with a random dO (zero on padded rows):
+    (qf, kf, vf, ls, hr, cfg, do)."""
+    from repro_torch.kernels.dms_attention import ops as fops
+    from repro_torch.kernels.dms_attention.ref import FlashConfig
+    gen = torch.Generator(device=device).manual_seed(seed)
+    bk, tp = fops.padded_blocks(t)
+    qf = fops.fold_heads(torch.randn((b, t, hq, dh), generator=gen,
+                                     device=device).to(dtype), tp)
+    kf = fops.fold_heads(torch.randn((b, t, hkv, dh), generator=gen,
+                                     device=device).to(dtype), tp)
+    vf = fops.fold_heads(torch.randn((b, t, hkv, dh), generator=gen,
+                                     device=device).to(dtype), tp)
+    u = torch.rand((b, hkv, t), generator=gen, device=device)
+    if alpha is None:
+        ls = torch.zeros((b * hkv, tp), device=device)
+        delay, skip = 0, False
+    else:
+        if alpha == "relaxed":
+            a = u * 0.88 + 0.02
+        else:
+            a = (u < 0.9).float()
+            a[:, :, 128:640] = 1.0
+        ls = fops.kernel_log_survival(a, tp)
+    cfg = FlashConfig(t=t, orig_dh=dh, hq=hq, hkv=hkv, window=window,
+                      dms_delay=delay, causal=True, logit_cap=cap,
+                      block_k=bk, skip_blocks=skip)
+    hr = fops.prep_tables(ls, cfg)
+    do = torch.randn(qf.shape, generator=gen, device=device).to(dtype)
+    do[:, t:] = 0
+    return qf, kf, vf, ls, hr, cfg, do
+
+
+MAIN_FLASH = dict(b=2, t=1024, hq=12, hkv=2, dh=128, dtype="bfloat16")
+
+
+def phase_flash_kernels(torch):
+    """fwd, dq and dkv against their plain versions on the same CUDA
+    tensors; returns each kernel's max abs error at the main shape."""
+    from repro_torch.kernels.dms_attention import ops as fops
+    from repro_torch.kernels.dms_attention import ref as fref
+    torch.backends.cuda.matmul.allow_tf32 = False   # the plain version in fp32
+    torch.backends.cudnn.allow_tf32 = False
+    variants = {
+        "retrofit shape": {},
+        "T = 1000 (padding)": dict(t=1000),
+        "window 64, softcap 30": dict(window=64, cap=30.0),
+        "vanilla (alpha None)": dict(alpha=None),
+        "binarised alpha, skip": dict(alpha="bin", skip=True),
+    }
+    # each in bf16 (the path) and in fp32, where the tolerance is tight
+    cases = {f"{name}, {short}": dict(MAIN_FLASH, dtype=dtype, **kw)
+             for name, kw in variants.items()
+             for short, dtype in (("bf16", "bfloat16"), ("fp32", "float32"))}
+    cases["tiny shape, fp32"] = dict(b=2, t=33, hq=6, hkv=3, dh=8,
+                                     dtype="float32", delay=4)
+    before = dict(fops.launches)
+    main_err = {}
+    for name, kw in cases.items():
+        dtype = getattr(torch, kw.pop("dtype"))
+        qf, kf, vf, ls, hr, cfg, do = flash_case(torch, dtype=dtype, **kw)
+        t = cfg.t
+        out, lse = fops.flash_fwd(qf, kf, vf, ls, hr, cfg)
+        torch.cuda.synchronize()
+        out_p, lse_p = fref.flash_fwd_plain(qf, kf, vf, ls, hr, cfg)
+        delta = (do.float() * out_p.float()).sum(-1)
+        dq = fops.flash_dq(qf, kf, vf, ls, do, lse_p, delta, hr, cfg)
+        dk, dv, dls = fops.flash_dkv(qf, kf, vf, ls, do, lse_p, delta, hr, cfg)
+        torch.cuda.synchronize()
+        dq_p = fref.flash_dq_plain(qf, kf, vf, ls, do, lse_p, delta, hr, cfg)
+        dk_p, dv_p, dls_p = fref.flash_dkv_plain(qf, kf, vf, ls, do, lse_p,
+                                                 delta, hr, cfg)
+        tol = FLASH_REL_TOL[str(dtype).removeprefix("torch.")]
+        pairs = {"out": (out[:, :t], out_p[:, :t]),
+                 "lse": (lse[:, :t], lse_p[:, :t]), "dq": (dq, dq_p),
+                 "dk": (dk, dk_p), "dv": (dv, dv_p), "dls": (dls, dls_p)}
+        parts = []
+        for key, (got, want) in pairs.items():
+            got, want = got.float(), want.float()
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"flash [{name}]: non-finite {key}")
+            err = (got - want).abs().max().item()
+            scale = want.abs().max().item()
+            # lse is an absolute log-scale quantity: hold it to tol x max(1, |lse|)
+            if err > tol * max(scale, 1.0 if key == "lse" else 0.0) + 1e-30:
+                raise AssertionError(f"flash [{name}] {key}: max abs err {err:.3e}"
+                                     f" > {tol} x max |plain| {scale:.3e}")
+            parts.append(f"{key} {err:.2e}/{scale:.2e}")
+            if name == "retrofit shape, bf16":
+                main_err[key] = err
+        if hr is not None:
+            parts.append(f"{int((hr == 0).sum())} of {hr.numel()} key blocks "
+                         "hold no retained key")
+        log(f"flash vs plain [{name}]: max abs err / max |plain|: "
+            + ", ".join(parts) + f" (tolerance {tol} relative: {dtype})")
+    n = len(cases)
+    got = {k: fops.launches[k] - before[k] for k in fops.launches}
+    if got != {"flash_fwd": n, "flash_dq": n, "flash_dkv": n}:
+        raise AssertionError(f"flash launch counters moved {got}, expected {n}")
+    return {"flash_fwd": max(main_err["out"], main_err["lse"]),
+            "flash_dq": main_err["dq"],
+            "flash_dkv": max(main_err["dk"], main_err["dv"], main_err["dls"])}
+
+
+def phase_flash_grads(torch):
+    """The autograd Function on the card (fp32, retrofit shape) against
+    torch.autograd through the dense oracle: grads in q, k, v, log_surv
+    and, through the α -> log_surv chain, α."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.dms_attention import ops as fops
+    from repro_torch.kernels.dms_attention.ref import NEG_INF, dms_attention_plain
+    b, t, hq, hkv, dh = 2, 1024, 12, 2, 128
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    leaves = [torch.randn(shape, generator=gen, device="cuda")
+              for shape in ((b, t, hq, dh), (b, t, hkv, dh), (b, t, hkv, dh))]
+    alpha0 = torch.rand((b, hkv, t), generator=gen, device="cuda") * 0.88 + 0.02
+    tgt = torch.randn((b, t, hq, dh), generator=gen, device="cuda")
+
+    def grads(kernel):
+        q, k, v = (x.clone().requires_grad_() for x in leaves)
+        alpha = alpha0.clone().requires_grad_()
+        ls = torch.clamp(torch.log1p(-torch.clamp(alpha, 0.0, 1.0)), min=NEG_INF)
+        ls.retain_grad()
+        if kernel:
+            bk, tp = fops.padded_blocks(t)
+            cfg = fops.FlashConfig(t=t, orig_dh=dh, hq=hq, hkv=hkv, window=None,
+                                   dms_delay=256, causal=True, logit_cap=None,
+                                   block_k=bk, skip_blocks=False)
+            lsf = F.pad(ls.reshape(b * hkv, t), (0, tp - t), value=NEG_INF)
+            out = fops.FlashAttention.apply(
+                fops.fold_heads(q, tp), fops.fold_heads(k, tp),
+                fops.fold_heads(v, tp), lsf, cfg)
+            out = out[:, :t].reshape(b, hq, t, dh).transpose(1, 2)
+        else:
+            out = dms_attention_plain(q, k, v, ls, dms_window=256)
+        (out * tgt).sum().backward()
+        return {"q": q.grad, "k": k.grad, "v": v.grad, "log_surv": ls.grad,
+                "alpha": alpha.grad}
+
+    before = dict(fops.launches)
+    got, want = grads(True), grads(False)
+    torch.cuda.synchronize()
+    moved = {k: fops.launches[k] - before[k] for k in before}
+    if moved != {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}:
+        raise AssertionError(f"autograd Function launched {moved}")
+    parts = []
+    for key in want:
+        rel = ((got[key] - want[key]).abs().max()
+               / want[key].abs().max().clamp_min(1e-30)).item()
+        if not rel < GRAD_REL_TOL:
+            raise AssertionError(f"flash grad {key}: relative error {rel:.3e}")
+        parts.append(f"d{key} {rel:.2e}")
+    log(f"flash autograd vs dense oracle (fp32, B={b} T={t} Hq={hq} Hkv={hkv} "
+        f"Dh={dh}, delay 256): max |diff| / max |oracle|: " + ", ".join(parts)
+        + f" (tolerance {GRAD_REL_TOL}: fp32 sums in another order)")
 
 
 # -- phase 4 ---------------------------------------------------------------
@@ -289,11 +479,19 @@ def phase_serve(torch, device="cuda", arch_name="qwen-r1-1.5b", lens=None,
             "arena": tuple(sched.state["0"].cache.k.shape)}
 
 
+def device_events(torch, prof):
+    """The profiler's device-side entries (kernels, copies, memsets).  A
+    host op's own entry carries the device time of the kernels it launched
+    as well, so summing every entry would count each kernel twice."""
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
 def phase_profile(torch, params, arch, policy, *, lanes, max_len, device,
                   steps=4):
     """Where a decode step's time goes: host-dispatched ATen ops per step
     (counted with a dispatch mode), wall time per step, and the device's
-    busy time under torch.profiler (its self device time, summed)."""
+    busy time under torch.profiler (its device-side entries, summed)."""
     from torch.utils._python_dispatch import TorchDispatchMode
     from repro_torch.models import transformer as tfm
     state = tfm.init_decode_state(arch, lanes, max_len, policy, device=device)
@@ -327,8 +525,8 @@ def phase_profile(torch, params, arch, policy, *, lanes, max_len, device,
                 torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
             run(steps)
-        dev_us = sum(getattr(e, "self_device_time_total", 0.0)
-                     for e in prof.key_averages())
+        dev_us = sum(e.self_device_time_total
+                     for e in device_events(torch, prof))
         if dev_us > 0:
             busy = (f"{dev_us / 1e3 / steps:.3f} ms device time per step, "
                     f"busy share {dev_us / 1e3 / steps / wall_ms:.4f}")
@@ -338,6 +536,135 @@ def phase_profile(torch, params, arch, policy, *, lanes, max_len, device,
 
 
 # -- phase 5 ---------------------------------------------------------------
+
+
+def phase_train(torch, device="cuda", arch_name="qwen-r1-1.5b", seq_len=1024,
+                batch=2, steps=4):
+    """DMS retrofit of the main path through the flash kernels; returns the
+    launch counts of the run."""
+    from repro_torch.configs import get_arch, get_smoke
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.kernels.dms_attention import ops as fops
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.optim import adamw
+    from repro_torch.train.loop import TrainConfig, train
+
+    arch = get_arch(arch_name) if device == "cuda" else get_smoke(arch_name)
+    data = DataConfig(vocab_size=arch.vocab_size, seq_len=seq_len,
+                      global_batch=batch)
+    cfg = TrainConfig(retrofit=True, phase1_steps=1, total_steps=steps,
+                      use_kernel=True, log_every=1, ckpt_every=10 ** 9)
+    log(f"train: {arch.name} L={arch.num_layers} d={arch.d_model} "
+        f"V={arch.padded_vocab}, fp32 weights (seed 0), retrofit "
+        f"(phase-1 steps {cfg.phase1_steps}, {steps} steps), B={batch} "
+        f"T={seq_len}, use_kernel=True")
+    per_step, stamps = [], []
+    last = {}
+
+    def log_fn(m):
+        # metrics were read to the host: the step's device work is done
+        stamps.append(time.perf_counter())
+        per_step.append({k: fops.launches[k] - last.get(k, 0)
+                         for k in fops.launches})
+        last.update(fops.launches)
+        log("train: step " + json.dumps(m))
+
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    for k in fops.launches:
+        fops.launches[k] = 0
+    t0 = time.perf_counter()
+    out = train(arch, data, cfg, log_fn=log_fn, device=device)
+    launches = dict(fops.launches)
+    peak_mem = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+
+    for m in out["history"]:
+        for key in ("loss", "loss_aux", "alpha_mean", "grad_norm"):
+            if not math.isfinite(m[key]):
+                raise AssertionError(f"train step {m['step']}: {key} = {m[key]}")
+    # per step: teacher forward + student forward (fwd), student backward
+    want = ({"flash_fwd": 2 * arch.num_layers, "flash_dq": arch.num_layers,
+             "flash_dkv": arch.num_layers} if device == "cuda" else
+            {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0})
+    for i, got in enumerate(per_step):
+        if got != want:
+            raise AssertionError(f"train step {i}: launches {got}, want {want}")
+    # step 0 carries the first-call set-up (cuBLAS handles, allocator)
+    warm = [b - a for a, b in zip(stamps, stamps[1:])]
+    s_step = statistics.mean(warm) if warm else stamps[0] - t0
+    log(f"train: {steps} steps in {stamps[-1] - t0:.2f} s (first step "
+        f"{stamps[0] - t0:.2f} s); {s_step:.3f} s/step over steps 1-{steps - 1}"
+        f" = {batch * seq_len / s_step:.1f} tokens/s; launches {launches} = "
+        f"{steps} x {want}; peak device memory {peak_mem} B")
+
+    # the kernel path's loss and grad norm against the reference attention
+    # path's, from the same params, teacher, batch and Gumbel noise (a step
+    # seeds its noise from its index)
+    step = steps
+    batch_t = {k: torch.from_numpy(v).to(device)
+               for k, v in make_batch(data, step).items()}
+    res = {}
+    for use_kernel in (True, False):
+        loss, metrics, grads = steps_lib.retrofit_loss_and_grads(
+            arch, out["params"], out["teacher"], batch_t, step,
+            use_kernel=use_kernel)
+        res[use_kernel] = (loss.item(), adamw.global_norm(grads).item(),
+                           metrics["loss_main"].item())
+        del grads
+    if device == "cuda":
+        profile_train_step(torch, arch, out, batch_t, step)
+    (lk, gk, mk), (lr_, gr, mr) = res[True], res[False]
+    # bf16 activations through 28 layers: the two attention paths round their
+    # bf16 outputs after fp32 sums in another order, so logits, the loss and
+    # the gradient drift apart by a few bf16 ulps
+    loss_rel = abs(lk - lr_) / max(abs(lr_), 1e-12)
+    g_rel = abs(gk - gr) / max(abs(gr), 1e-12)
+    log(f"train: step {step} kernel vs reference attention path: loss "
+        f"{lk:.6e} vs {lr_:.6e} (rel {loss_rel:.2e}, of which distillation "
+        f"{mk:.3e} vs {mr:.3e}), grad norm {gk:.6e} vs {gr:.6e} (rel "
+        f"{g_rel:.2e}); tolerance 1e-2 relative on both")
+    if not (loss_rel < 1e-2 and g_rel < 1e-2):
+        raise AssertionError("kernel-path training step disagrees with the "
+                             "reference path")
+    return {"launches": launches, "s_step": s_step, "peak_mem": peak_mem}
+
+
+
+def profile_train_step(torch, arch, out, batch_t, step):
+    """Where a retrofit step's time goes: wall time of the loss and
+    gradient (teacher forward, student forward and backward; no optimizer
+    update) beside the device's busy time under torch.profiler and the
+    share of it in the three flash kernels."""
+    from repro_torch.launch import steps as steps_lib
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        steps_lib.retrofit_loss_and_grads(arch, out["params"], out["teacher"],
+                                          batch_t, step, use_kernel=True)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = device_events(torch, prof)
+    dev_ms = sum(e.self_device_time_total for e in events) / 1e3
+    flash_ms = sum(e.self_device_time_total for e in events
+                   if "flash_" in e.key) / 1e3
+    top = sorted(events, key=lambda e: -e.self_device_time_total)
+    if dev_ms <= 0:
+        log(f"profile: retrofit loss + gradient {wall_ms:.1f} ms wall; device "
+            "time not measured (the profiler recorded no device entries)")
+        return
+    log(f"profile: retrofit loss + gradient (no update) {wall_ms:.1f} ms wall "
+        f"under the profiler; device busy {dev_ms:.1f} ms (share "
+        f"{dev_ms / wall_ms:.4f}), of which flash kernels {flash_ms:.1f} ms "
+        f"({flash_ms / dev_ms:.4f})")
+    for e in top[:8]:
+        log(f"profile:   {e.self_device_time_total / 1e3:9.2f} ms  "
+            f"x{e.count:<5d} {e.key[:90]}")
+
+
+# -- phase 6 ---------------------------------------------------------------
 
 
 def time_cuda(torch, fn, *, iters=50):
@@ -413,6 +740,110 @@ def phase_timing(torch, main_shape, launches, max_abs_err):
     return [entry]
 
 
+def sdpa_times(torch, qf, kf, vf, ls, do, cfg, *, b):
+    """Yardsticks only: SDPA with the DMS mask materialised as a (B, Hq, T,
+    T) additive tensor and K/V expanded to the query heads.  The forward is
+    ``F.scaled_dot_product_attention``; the backward is the memory-efficient
+    attention's backward op (the backend that takes an additive mask),
+    called directly so that a graph replay times it with no host gap.  It
+    gives dq, dk and dv but no d(log_surv), and is checked once against
+    autograd through SDPA."""
+    import torch.nn.functional as F
+    hq, hkv, t, dh = cfg.hq, cfg.hkv, cfg.t, cfg.orig_dh
+    g = hq // hkv
+    qs = qf.reshape(b, hq, t, dh)
+    ks = kf.reshape(b, hkv, t, dh).repeat_interleave(g, dim=1)
+    vs = vf.reshape(b, hkv, t, dh).repeat_interleave(g, dim=1)
+    i = torch.arange(t, device="cuda")[:, None]
+    j = torch.arange(t, device="cuda")[None, :]
+    lsb = ls.reshape(b, hkv, 1, t)
+    mask = torch.where(j <= i, torch.where(i - j >= cfg.dms_delay, lsb, 0.0),
+                       float("-inf")).repeat_interleave(g, dim=1).to(qf.dtype)
+    do_lib = do.reshape(b, hq, t, dh)
+    fwd = time_cuda(torch, lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=mask))
+    aten = torch.ops.aten
+    o, lse, seed, offset = aten._scaled_dot_product_efficient_attention(
+        qs, ks, vs, mask, True)
+    bwd_op = lambda: aten._scaled_dot_product_efficient_attention_backward(  # noqa: E731
+        do_lib, qs, ks, vs, mask, o, lse, seed, offset, 0.0,
+        [True, True, True, False])
+    xs = [x.detach().requires_grad_() for x in (qs, ks, vs)]
+    want = torch.autograd.grad(F.scaled_dot_product_attention(
+        *xs, attn_mask=mask), xs, do_lib)
+    for name, got, ref in zip("qkv", bwd_op()[:3], want):
+        err = (got.float() - ref.float()).abs().max().item()
+        if not err <= 2e-2 * ref.float().abs().max().item():
+            raise AssertionError(f"SDPA backward op d{name} disagrees with "
+                                 f"autograd through SDPA: {err:.3e}")
+    bwd = time_cuda(torch, bwd_op)
+    return {"flash_fwd": fwd, "flash_dq": bwd, "flash_dkv": bwd}
+
+
+def phase_flash_timing(torch, launches, errs):
+    """fwd, dq and dkv at the retrofit shape (B 2, T 1024, Hq 12, Hkv 2,
+    Dh 128, bf16, relaxed α, delay 256): kernel, plain version, bound and
+    the SDPA yardstick."""
+    from repro_torch.kernels.dms_attention import ops as fops
+    from repro_torch.kernels.dms_attention import ref as fref
+    kw = dict(MAIN_FLASH)
+    dtype = getattr(torch, kw.pop("dtype"))
+    qf, kf, vf, ls, hr, cfg, do = flash_case(torch, dtype=dtype, seed=99, **kw)
+    b, t, hq, hkv, dh = kw["b"], kw["t"], kw["hq"], kw["hkv"], kw["dh"]
+    out, lse = fops.flash_fwd(qf, kf, vf, ls, hr, cfg)
+    delta = (do.float() * out.float()).sum(-1)
+    fwd = lambda: fops.flash_fwd(qf, kf, vf, ls, hr, cfg)  # noqa: E731
+    dq = lambda: fops.flash_dq(qf, kf, vf, ls, do, lse, delta, hr, cfg)  # noqa: E731
+    dkv = lambda: fops.flash_dkv(qf, kf, vf, ls, do, lse, delta, hr, cfg)  # noqa: E731
+    saved = dict(fops.launches)
+    ms = {"flash_fwd": time_cuda(torch, fwd), "flash_dq": time_cuda(torch, dq),
+          "flash_dkv": time_cuda(torch, dkv)}
+    fops.launches.update(saved)           # timing launches are not the path's
+    plain = {
+        "flash_fwd": time_cuda(torch, lambda: fref.flash_fwd_plain(
+            qf, kf, vf, ls, hr, cfg)),
+        "flash_dq": time_cuda(torch, lambda: fref.flash_dq_plain(
+            qf, kf, vf, ls, do, lse, delta, hr, cfg)),
+        "flash_dkv": time_cuda(torch, lambda: fref.flash_dkv_plain(
+            qf, kf, vf, ls, do, lse, delta, hr, cfg)),
+    }
+    library = sdpa_times(torch, qf, kf, vf, ls, do, cfg, b=b)
+
+    # bounds: live (i, j) pairs of this causal mask, each input byte read and
+    # each output byte written once, bf16 tensor-core peak for the products
+    pairs = b * hq * t * (t + 1) // 2
+    nbytes = lambda *xs: sum(x.numel() * x.element_size() for x in xs)  # noqa: E731
+    ins = nbytes(qf, kf, vf, ls)          # hr is read only when skipping
+    grad_ins = ins + nbytes(do, lse, delta)
+    work = {"flash_fwd": (4 * dh * pairs, ins + nbytes(out, lse)),
+            "flash_dq": (6 * dh * pairs, grad_ins + nbytes(qf)),
+            "flash_dkv": (8 * dh * pairs, grad_ins + nbytes(kf, vf, ls))}
+    entries = []
+    for name, (flops, moved) in work.items():
+        ops_ms = flops / BF16_FLOPS_PER_S * 1e3
+        bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+        entry = {
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/dms_attention/csrc/dms_attention.cu",
+            "replaces": {"flash_fwd": "src/repro/kernels/dms_attention/dms_attention.py:142",
+                         "flash_dq": "src/repro/kernels/dms_attention/dms_attention.py:242",
+                         "flash_dkv": "src/repro/kernels/dms_attention/dms_attention.py:343",
+                         }[name],
+            "launches": launches[name], "max_abs_err": errs[name],
+            "ms": ms[name], "plain_ms": plain[name],
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": library[name],
+        }
+        entries.append(entry)
+        log(f"timing: {name} at (B={b}, T={t}, Hq={hq}, Hkv={hkv}, Dh={dh}, "
+            f"bf16): kernel {ms[name]:.4f} ms, bound {entry['bound_ms']:.5f} "
+            f"ms ({flops} flop, {moved} B), plain {plain[name]:.4f} ms, "
+            f"library {library[name]:.4f} ms "
+            f"({'SDPA forward' if name == 'flash_fwd' else 'SDPA backward'})")
+    return entries
+
+
 def main() -> int:
     import torch
     phase_device(torch)
@@ -427,13 +858,17 @@ def main() -> int:
     main_shape = (lanes * arch.attn.num_kv_heads, arch.attn.q_per_kv,
                   arch.attn.head_dim, (slots + bp - 1) // bp * bp, bp)
     err = phase_kernels(torch, main_shape)
+    flash_errs = phase_flash_kernels(torch)
+    phase_flash_grads(torch)
     served = phase_serve(torch)
     want = (arch.num_layers, lanes, arch.attn.num_kv_heads, main_shape[3],
             arch.attn.head_dim)
     if served["arena"] != want:
         raise AssertionError(f"main-path arena {served['arena']} is not the "
                              f"checked shape {want}")
+    trained = phase_train(torch)
     kernels = phase_timing(torch, main_shape, served["launches"], err)
+    kernels += phase_flash_timing(torch, trained["launches"], flash_errs)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -35,3 +35,26 @@ def tree_map(fn: Callable[..., torch.Tensor], tree: Any, *rest: Any) -> Any:
         return type(tree)(**kw)
     raise TypeError(f"not a state tree node: {type(tree).__name__}")
 
+
+def tree_leaves(tree: Any) -> list:
+    """Every tensor leaf of ``tree`` in a fixed order (dict insertion order,
+    tuple and dataclass field order); ``None`` holds no leaf."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in tree_leaves(v)]
+    if dataclasses.is_dataclass(tree):
+        return [x for f in dataclasses.fields(tree) if not is_static(f)
+                for x in tree_leaves(getattr(tree, f.name))]
+    raise TypeError(f"not a state tree node: {type(tree).__name__}")
+
+
+def tree_unflatten(like: Any, leaves) -> Any:
+    """``like``'s structure with its tensor leaves replaced, in
+    :func:`tree_leaves` order, by ``leaves``."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)

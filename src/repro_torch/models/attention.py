@@ -1,10 +1,16 @@
-"""GQA decode attention over a policy cache; DMS is a first-class mode.
+"""GQA attention with pluggable KV-cache policies; DMS is a first-class mode.
 
-:func:`decode_attention` runs one decode token against a
-:class:`~repro_torch.core.policy.PolicyCache`: project q/k/v, take the DMS
-eviction decision from the borrowed query neuron, rotate q and k, let the
-policy absorb the token, and attend — through the block-table flash-decode
-kernel (``use_kernel=True``) or the reference einsum path.
+* :func:`full_attention` — full-sequence forward (training / prefill).  In
+  DMS modes it takes α from the borrowed query neuron, relaxes it with a
+  Gumbel-sigmoid (``dms_train``) or binarises it (``dms_eval``), and applies
+  the delayed-eviction mask — through the flash-attention kernels
+  (``impl="kernel"``) or the masked-softmax reference.
+* :func:`decode_attention` runs one decode token against a
+  :class:`~repro_torch.core.policy.PolicyCache`: project q/k/v, take the DMS
+  eviction decision from the borrowed query neuron, rotate q and k, let the
+  policy absorb the token, and attend — through the block-table
+  flash-decode kernel (``use_kernel=True``) or the reference einsum path.
+* :func:`attention_ref` — the O(T²) masked-softmax oracle.
 """
 from __future__ import annotations
 
@@ -17,6 +23,7 @@ from repro_torch.core import dms as dms_lib
 from repro_torch.core import policy as policy_lib
 from repro_torch.core.config import ArchConfig, AttentionConfig
 from repro_torch.device import torch_dtype
+from repro_torch.kernels.dms_attention import ops as fkops
 from repro_torch.kernels.dms_decode import ops as dkops
 from repro_torch.models.layers import apply_rope, softcap
 
@@ -31,6 +38,107 @@ def project_qkv(p: dict, x: torch.Tensor, cfg: AttentionConfig,
     k = (xd @ p["wk"].to(dtype)).reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
     v = (xd @ p["wv"].to(dtype)).reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
     return q, k, v
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  mask: Optional[torch.Tensor],
+                  logit_cap: Optional[float] = None) -> torch.Tensor:
+    """Masked-softmax GQA oracle with fp32 statistics.  q: (B, Tq, Hq, Dh);
+    k/v: (B, Tk, Hkv, Dh); mask: (B, Hkv, Tq, Tk) additive, or None."""
+    b, tq, hq, dh = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, tq, hkv, hq // hkv, dh)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float())
+    scores = softcap(scores * (dh ** -0.5), logit_cap)
+    if mask is not None:
+        scores = scores + mask[:, :, None].float()
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", w, v.float())
+    return out.reshape(b, tq, hq, dh).to(q.dtype)
+
+
+def full_attention(
+    p: dict,
+    x: torch.Tensor,                 # (B, T, D)
+    cfg: AttentionConfig,
+    arch: ArchConfig,
+    *,
+    layer_window: Optional[int] = None,
+    mode: str = "vanilla",           # vanilla | dms_train | dms_eval | dms_phase1
+    dms_u: Optional[torch.Tensor] = None,   # (B, Hkv, T) uniforms for dms_train
+    positions: Optional[torch.Tensor] = None,
+    neuron_scale=0.0,
+    use_kernel: bool = False,
+    collect_kv: bool = False,
+    kv_override=None,
+) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Full-sequence attention; returns (output (B, T, D), aux).
+
+    aux keys: ``alpha_sum`` / ``alpha_count`` (the DMS loss) in the DMS
+    modes, ``alpha_bin`` in ``dms_eval``.  ``dms_train`` takes its Gumbel
+    noise from the uniforms ``dms_u``; without them it uses the
+    deterministic relaxation, as the reference does without ``dms_rng``.
+    ``use_kernel`` routes attention through the flash kernels, else the
+    masked-softmax reference."""
+    if collect_kv or kv_override is not None:
+        raise NotImplementedError("collect_kv and kv_override (cross-attention) "
+                                  "are not ported yet")
+    dtype = torch_dtype(arch.dtype)
+    b, t, _ = x.shape
+    if positions is None:
+        positions = torch.arange(t, dtype=torch.int32, device=x.device)
+    q_raw, k, v = project_qkv(p, x, cfg, dtype)
+
+    aux: Dict[str, Any] = {}
+    alpha = None
+    dms = arch.dms
+    if mode == "dms_train" and dms.enabled:
+        alpha, q_raw = dms_lib.train_alphas(q_raw, cfg.num_kv_heads, dms,
+                                            u=dms_u)
+        aux["alpha_sum"] = alpha.sum()
+        aux["alpha_count"] = float(alpha.numel())
+    elif mode == "dms_eval" and dms.enabled:
+        alpha_bin, q_raw = dms_lib.infer_alphas(q_raw, cfg.num_kv_heads, dms)
+        alpha = alpha_bin.float()
+        aux["alpha_bin"] = alpha_bin
+        aux["alpha_sum"] = alpha.sum()
+        aux["alpha_count"] = float(alpha.numel())
+    elif mode == "dms_phase1" and dms.enabled:
+        # phase-1 retrofit: gradually zero the borrowed neuron, no masking yet
+        q_raw = dms_lib.zero_borrowed_neuron(q_raw, cfg.num_kv_heads,
+                                             neuron_scale)
+
+    q = apply_rope(q_raw, positions, cfg.rope_theta, cfg.rope)
+    k = apply_rope(k, positions, cfg.rope_theta, cfg.rope)
+    window = layer_window if layer_window is not None else cfg.window
+
+    if use_kernel:
+        out = fkops.dms_flash_attention(
+            q, k, v, alpha, window=window,
+            dms_window=dms.window if alpha is not None else 0,
+            causal=cfg.causal, logit_cap=cfg.logit_softcap,
+            immediate=dms.immediate_eviction)
+    else:
+        i = torch.arange(t, device=x.device)[:, None]
+        j = torch.arange(t, device=x.device)[None, :]
+        mask = None
+        if cfg.causal:
+            mask = torch.where(j <= i, 0.0, NEG_INF)
+        if window is not None:
+            wm = torch.where((i - j) < window, 0.0, NEG_INF)
+            mask = wm if mask is None else mask + wm
+        if mask is not None:
+            mask = mask.expand(b, cfg.num_kv_heads, t, t)
+        if alpha is not None:
+            qpos = positions if positions.dim() == 1 else torch.arange(
+                t, device=x.device)
+            dmask = dms_lib.build_dms_mask(
+                alpha, qpos, torch.arange(t, device=x.device), dms, causal=False)
+            mask = dmask if mask is None else mask + dmask
+        out = attention_ref(q, k, v, mask, cfg.logit_softcap)
+
+    y = out.reshape(b, t, cfg.num_heads * cfg.head_dim) @ p["wo"].to(dtype)
+    return y.to(x.dtype), aux
 
 
 def decode_attention(

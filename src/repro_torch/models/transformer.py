@@ -1,4 +1,5 @@
-"""Dense decoder-only transformer of the port: init, decode step, lanes.
+"""Dense decoder-only transformer of the port: init, the full-sequence
+forward (training), the decode step and the lane lifecycle.
 
 Params keep the reference's layout (``repro.models.transformer``)::
 
@@ -6,8 +7,10 @@ Params keep the reference's layout (``repro.models.transformer``)::
      "blocks": {"0": <every leaf stacked over layers>},
      "final_norm": {"scale": (D,)}, "lm_head": (D, V_pad) unless tied}
 
-Matmul weights are stored in the compute dtype (cast once, at load or
-init); norm scales stay fp32.  The decode state mirrors it: ``{"0":
+For serving, matmul weights are stored in the compute dtype (cast once, at
+load or init); for training they are fp32 (``init_model(dtype=float32)``),
+as the reference keeps them, and cast at each matmul.  Norm scales stay
+fp32.  The decode state mirrors it: ``{"0":
 PolicyCache}`` with every cache leaf stacked over layers and the lane axis
 at position 1.  The reference scans superblocks with ``jax.lax.scan``; here
 a Python loop walks the layers and each layer's cache is a view into the
@@ -15,13 +18,15 @@ stacked state, updated in place by the step.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.utils.checkpoint
 
+from repro_torch.core import dms as dms_lib
 from repro_torch.core import policy as policy_lib
 from repro_torch.core.config import ArchConfig, KVPolicyConfig
-from repro_torch.core.tree import tree_map
+from repro_torch.core.tree import tree_leaves, tree_map, tree_unflatten
 from repro_torch.device import DeviceLike, resolve_device, torch_dtype
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.layers import mlp_apply, norm_apply, softcap
@@ -43,16 +48,18 @@ def check_supported(arch: ArchConfig) -> None:
 
 
 def init_model(arch: ArchConfig, *, seed: int = 0,
-               device: DeviceLike = None) -> dict:
+               device: DeviceLike = None,
+               dtype: Optional[torch.dtype] = None) -> dict:
     """Random weights with the reference's distributions and scales
     (N(0, 1) · d_in^-0.5 for projections, N(0, 1) · 0.02 for the
     embedding, ones for norm scales), drawn from a seeded
     :class:`torch.Generator` on ``device``.  The draws differ from the
     reference's threefry streams; tests copy reference weights in through
-    :func:`repro_torch.bridge.params_from_numpy` instead."""
+    :func:`repro_torch.bridge.params_from_numpy` instead.  Matmul weights
+    take ``dtype`` (default: the compute dtype ``arch.dtype``)."""
     check_supported(arch)
     dev = resolve_device(device)
-    dtype = torch_dtype(arch.dtype)
+    dtype = dtype or torch_dtype(arch.dtype)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     d, nl, vp = arch.d_model, arch.num_layers, arch.padded_vocab
@@ -117,6 +124,91 @@ def lm_logits(params: dict, x: torch.Tensor, arch: ArchConfig) -> torch.Tensor:
         live = torch.arange(arch.padded_vocab, device=x.device) < arch.vocab_size
         logits = torch.where(live, logits, -1e30)
     return logits
+
+
+# ---------------------------------------------------------------------------
+# full-sequence forward
+# ---------------------------------------------------------------------------
+
+
+def layer_noise(arch: ArchConfig, batch: int, seq: int,
+                generator: Optional[torch.Generator],
+                device) -> List[torch.Tensor]:
+    """One (B, Hkv, T) tensor of Gumbel uniforms per layer, all drawn before
+    the layer loop (so a recomputed layer sees the same noise)."""
+    gen = generator
+    if gen is None:                 # the reference falls back to PRNGKey(0)
+        gen = torch.Generator(device=device).manual_seed(0)
+    shape = (batch, arch.attn.num_kv_heads, seq)
+    return [dms_lib.uniform_noise(shape, gen, device=device)
+            for _ in range(arch.num_layers)]
+
+
+def model_forward(
+    params: dict,
+    tokens: torch.Tensor,                      # (B, T) int
+    arch: ArchConfig,
+    *,
+    mode: str = "vanilla",                     # vanilla | dms_train | dms_eval | dms_phase1
+    generator: Optional[torch.Generator] = None,
+    uniforms: Optional[Sequence[torch.Tensor]] = None,   # per layer, dms_train
+    positions: Optional[torch.Tensor] = None,
+    neuron_scale=0.0,
+    use_kernel: bool = False,
+    collect_kv: bool = False,
+    remat: bool = False,
+) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Full forward.  Returns (logits (B, T, V_pad) fp32, aux) with aux
+    ``alpha_sum`` (0-d fp32 tensor), ``alpha_count`` (float) and
+    ``moe_aux_loss`` summed over layers, as the reference's
+    ``_scan_blocks`` aggregates them.
+
+    ``dms_train`` draws each layer's Gumbel noise from ``uniforms[layer]``
+    if given (a test feeds the reference's draws), else from ``generator``
+    (seed 0 when None).  ``remat`` recomputes each layer in the backward
+    pass (:func:`torch.utils.checkpoint.checkpoint`)."""
+    check_supported(arch)
+    if collect_kv:
+        raise NotImplementedError("collect_kv (prefill export) is not ported yet")
+    x = embed_tokens(params, tokens, arch)
+    b, t = x.shape[:2]
+    if positions is None:
+        positions = torch.arange(t, dtype=torch.int32, device=x.device)
+    if mode == "dms_train" and arch.dms.enabled and uniforms is None:
+        uniforms = layer_noise(arch, b, t, generator, x.device)
+    dtype = torch_dtype(arch.dtype)
+    # one unbind per leaf: a single backward node stacks every layer's grad
+    blocks = params["blocks"]["0"]
+    columns = [leaf.unbind(0) for leaf in tree_leaves(blocks)]
+    a_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    a_cnt = 0.0
+
+    def layer(x, i, u):
+        p = tree_unflatten(blocks, [c[i] for c in columns])
+        h = norm_apply(p["attn_norm"], x, arch.norm, arch.norm_eps)
+        a_out, aux = attn_lib.full_attention(
+            p["attn"], h, arch.attn, arch, mode=mode, dms_u=u,
+            positions=positions, neuron_scale=neuron_scale,
+            use_kernel=use_kernel)
+        x = x + a_out
+        h = norm_apply(p["mlp_norm"], x, arch.norm, arch.norm_eps)
+        m_out, _ = mlp_apply(p["mlp"], h, arch.mlp, dtype)
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        return x + m_out, aux.get("alpha_sum", zero), aux.get("alpha_count", 0.0)
+
+    for i in range(arch.num_layers):
+        u = uniforms[i] if uniforms is not None else None
+        if remat:
+            x, s, cnt = torch.utils.checkpoint.checkpoint(
+                layer, x, i, u, use_reentrant=False)
+        else:
+            x, s, cnt = layer(x, i, u)
+        a_sum = a_sum + s
+        a_cnt += cnt
+    logits = lm_logits(params, x, arch)
+    return logits, {"alpha_sum": a_sum, "alpha_count": a_cnt,
+                    "moe_aux_loss": torch.zeros((), dtype=torch.float32,
+                                                device=x.device)}
 
 
 # ---------------------------------------------------------------------------

@@ -63,3 +63,109 @@ def test_decode_wrapper_rejects_what_the_kernel_cannot_take(cuda_device):
     with pytest.raises(TypeError, match="bfloat16"):
         ops.dms_decode_attention(q.float()[..., :8], k.float()[..., :8],
                                  k.float()[..., :8], valid, block_p=16)
+
+
+# -- flash attention: fwd, dq, dkv -------------------------------------------
+
+
+def _flash_operands(device, dtype, b=2, t=200, hq=6, hkv=2, dh=64, delay=32,
+                    window=None, cap=None, skip=False, seed=0):
+    from repro_torch.kernels.dms_attention import ops as fops
+    from repro_torch.kernels.dms_attention.ref import FlashConfig
+    gen = torch.Generator(device=device).manual_seed(seed)
+    bk, tp = fops.padded_blocks(t)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+    qf = fops.fold_heads(rnd(b, t, hq, dh), tp)
+    kf, vf = fops.fold_heads(rnd(b, t, hkv, dh), tp), fops.fold_heads(
+        rnd(b, t, hkv, dh), tp)
+    u = torch.rand((b, hkv, t), generator=gen, device=device)
+    alpha = u * 0.88 + 0.02
+    if skip:                    # the first 128-key block holds no retained key
+        alpha = (u < 0.8).float()
+        alpha[:, :, :128] = 1.0
+    ls = fops.kernel_log_survival(alpha, tp)
+    cfg = FlashConfig(t=t, orig_dh=dh, hq=hq, hkv=hkv, window=window,
+                      dms_delay=delay, causal=True, logit_cap=cap,
+                      block_k=bk, skip_blocks=skip)
+    hr = fops.prep_tables(ls, cfg)
+    do = rnd(*qf.shape)
+    do[:, t:] = 0
+    return qf, kf, vf, ls, hr, cfg, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,kw", [
+    (torch.bfloat16, {}), (torch.float32, {}),
+    (torch.float32, dict(window=48, cap=30.0)),
+    (torch.float32, dict(skip=True)), (torch.float32, dict(t=33, dh=8))])
+def test_flash_kernels_match_plain(cuda_device, dtype, kw):
+    """fwd, dq and dkv against their plain versions: each output within
+    1e-2 (bf16: 8 significant bits) or 1e-5 (fp32: sums in another order)
+    of the plain output's largest magnitude."""
+    from repro_torch.kernels.dms_attention import ops as fops
+    from repro_torch.kernels.dms_attention import ref as fref
+    qf, kf, vf, ls, hr, cfg, do = _flash_operands(cuda_device, dtype, **kw)
+    before = dict(fops.launches)
+    out, lse = fops.flash_fwd(qf, kf, vf, ls, hr, cfg)
+    out_p, lse_p = fref.flash_fwd_plain(qf, kf, vf, ls, hr, cfg)
+    delta = (do.float() * out_p.float()).sum(-1)
+    dq = fops.flash_dq(qf, kf, vf, ls, do, lse_p, delta, hr, cfg)
+    dk, dv, dls = fops.flash_dkv(qf, kf, vf, ls, do, lse_p, delta, hr, cfg)
+    torch.cuda.synchronize()
+    assert {k: fops.launches[k] - before[k] for k in before} == {
+        "flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
+    dq_p = fref.flash_dq_plain(qf, kf, vf, ls, do, lse_p, delta, hr, cfg)
+    dk_p, dv_p, dls_p = fref.flash_dkv_plain(qf, kf, vf, ls, do, lse_p, delta,
+                                             hr, cfg)
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    t = cfg.t
+    for got, want in ((out[:, :t], out_p[:, :t]), (dq, dq_p), (dk, dk_p),
+                      (dv, dv_p), (dls, dls_p)):
+        got, want = got.float(), want.float()
+        assert torch.isfinite(got).all()
+        assert (got - want).abs().max() <= tol * want.abs().max() + 1e-30
+    assert (lse[:, :t] - lse_p[:, :t]).abs().max() <= tol * 10
+
+
+@pytest.mark.cuda
+def test_flash_autograd_matches_dense_oracle(cuda_device):
+    """Gradients in q, k, v and α of the autograd Function against autograd
+    through the dense oracle, fp32, within 1e-4 of their largest magnitude."""
+    from repro_torch.kernels.dms_attention import ops as fops
+    from repro_torch.kernels.dms_attention.ref import dms_attention_plain
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    b, t, hq, hkv, dh = 2, 300, 6, 2, 64
+    base = [torch.randn(s, generator=gen, device=cuda_device)
+            for s in ((b, t, hq, dh), (b, t, hkv, dh), (b, t, hkv, dh))]
+    a0 = torch.rand((b, hkv, t), generator=gen, device=cuda_device) * 0.9
+    tgt = torch.randn((b, t, hq, dh), generator=gen, device=cuda_device)
+    grads = []
+    for kernel in (True, False):
+        xs = [x.clone().requires_grad_() for x in base + [a0]]
+        if kernel:
+            out = fops.dms_flash_attention(*xs, dms_window=40)
+        else:
+            out = dms_attention_plain(*xs[:3], torch.log1p(-xs[3]),
+                                      dms_window=40)
+        (out * tgt).sum().backward()
+        grads.append([x.grad for x in xs])
+    for got, want in zip(*grads):
+        assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_flash_wrapper_rejects_what_the_kernels_cannot_take(cuda_device):
+    from repro_torch.kernels.dms_attention import ops as fops
+    qf, kf, vf, ls, hr, cfg, _ = _flash_operands(cuda_device, torch.float32)
+    with pytest.raises(TypeError, match="share one dtype"):
+        fops.flash_fwd(qf.half(), kf.half(), vf.half(), ls, hr, cfg)
+    with pytest.raises(ValueError, match="contiguous"):
+        fops.flash_fwd(qf.transpose(1, 2).contiguous().transpose(1, 2), kf,
+                       vf, ls, hr, cfg)
+    big = torch.zeros((qf.shape[0], qf.shape[1], 256), device=cuda_device)
+    with pytest.raises(ValueError, match="head_dim"):
+        fops.flash_fwd(big, big[:kf.shape[0]], big[:kf.shape[0]], ls, hr,
+                       cfg._replace(orig_dh=256))
