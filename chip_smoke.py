@@ -11,30 +11,43 @@ Phases (any failure raises, so the exit code is non-zero):
               ``src/repro_torch`` (one nvcc per source, all started together,
               sm_90a) and prints the build seconds and ptxas report.
 3. kernels  — each kernel against its plain PyTorch version on the same CUDA
-              tensors.  Decode: the main-path shape, a fragmented table, a
-              partial table, empty rows (n = 0) and a tiny shape; the K/V of
-              blocks the table does not list is NaN, so a finite, equal output
-              shows that unlisted blocks are never read.  Flash attention
-              (fwd, dq, dkv): the retrofit shape, T = 1000 (padding), window
-              64 with softcap 30, vanilla, binarised α with block skipping,
-              each in bf16 and in fp32, and a tiny shape; then the autograd
-              Function's
-              gradients (q, k, v, log_surv, α) against autograd through the
-              dense oracle.
+              tensors.  Decode, fixed arenas: the main-path shape, a
+              fragmented table, a partial table, empty rows (n = 0) and a
+              tiny shape; the K/V of blocks the table does not list is NaN,
+              so a finite, equal output shows that unlisted blocks are never
+              read.  Decode, shared pool (paged): the main-path shape with
+              pages scattered over a pool twice the size needed, NaN in every
+              unlisted page, a stale table tail with phys = -1 past n, and a
+              row with n = 0 — each also bitwise equal to the fixed-arena
+              mode on the same logical contents.  Flash attention (fwd, dq,
+              dkv): the retrofit shape, T = 1000 (padding), window 64 with
+              softcap 30, vanilla, binarised α with block skipping, each in
+              bf16 and in fp32, and a tiny shape; then the autograd
+              Function's gradients (q, k, v, log_surv, α) against autograd
+              through the dense oracle.
 4. serve    — qwen-r1-1.5b at full width (28 layers, d_model 1536, random
               weights from a seed, bf16) served by ``Engine`` with the ``dms``
-              policy at CR 8: four staggered requests, then one width-4
-              ``hyperscale_generate``.  Every request must end ``ok`` with its
-              full token count, and the decode kernel must have launched once
-              per layer per decode step.  A short teacher-forced trace then
-              holds the kernel path's logits against the reference path's.
-5. train    — qwen-r1-1.5b at full width, fp32 weights from seed 0, DMS
+              policy at CR 8 on fixed arenas: four staggered requests
+              (prompts 512/384/256/128, new 64/48/32/64), then one width-4
+              hyperscale request (prompt 256, 64 new).  Every request must
+              end ``ok`` with its full token count, and the decode kernel
+              must have launched once per layer per decode step.  A short
+              teacher-forced trace then holds the kernel path's logits
+              against the reference path's.
+5. paged    — the same trace on the paged KV block pool (shared-pool
+              kernel, 28 launches per decode step): tokens equal to phase
+              4's, no page copied at the fork and copies once the chains
+              write, every page back at the end.  Then two of its requests
+              oversubscribe a pool of 1.5x one lane's worst case
+              (``oversub`` 2, preemption): all ``ok``, preemptions equal
+              resumes and are > 0, the pool never exhausted, tokens equal.
+6. train    — qwen-r1-1.5b at full width, fp32 weights from seed 0, DMS
               retrofit (one phase-1 step, three distillation steps) on the
               synthetic stream at (B 2, T 1024) through the flash kernels:
               finite metrics, 56/28/28 launches of fwd/dq/dkv per step, step
               time, tokens/s and peak memory; then one step's loss and
               gradient norm held against the reference attention path's.
-6. timing   — per kernel at the main-path shape: the median device time of
+7. timing   — per kernel at the main-path shape: the median device time of
               one call (a CUDA-graph replay after an L2 flush) beside its
               bound, its plain version's and one library call's.
 
@@ -184,6 +197,116 @@ def phase_kernels(torch, main_shape):
     if ops.launches - before != len(cases):
         raise AssertionError(f"launch counter moved {ops.launches - before}, "
                              f"expected {len(cases)}")
+    return errs["main-path shape"]
+
+
+def make_pool_case(torch, gen, *, bh, g, dh, nb, bp, density, nan=False,
+                   stale=False, empty_rows=(), device="cuda"):
+    """Random shared-pool decode operands, and the same logical contents as
+    fixed arenas.  Each row lists its live blocks in shuffled order; their
+    pages are scattered in shuffled order over a pool twice the pages
+    needed.  ``nan``: every page the table does not list is NaN (else it
+    holds random stale data).  ``stale``: a row lists only half of its live
+    blocks and its table past n names unmapped blocks (phys = -1).  Returns
+    a dict: ``shared`` = (q, k, v, valid, tbl, n) for the kernel's shared
+    mode, ``fixed`` = the same for its fixed mode."""
+    cpu = torch.Generator().manual_seed(int(torch.randint(
+        0, 2 ** 31, (1,), generator=gen, device=device).item()))
+    valid = torch.rand((bh, nb * bp), generator=cpu) < density
+    live = valid.reshape(bh, nb, bp).any(-1)
+    tbl = torch.zeros((bh, nb), dtype=torch.int64)
+    n = torch.zeros((bh,), dtype=torch.int32)
+    phys = torch.full((bh, nb), -1, dtype=torch.int64)
+    need = int(live.sum())
+    npool = 2 * max(need, 1)
+    pages = iter(torch.randperm(npool, generator=cpu).tolist())
+    for r in range(bh):
+        ids = torch.nonzero(live[r]).flatten()
+        ids = ids[torch.randperm(len(ids), generator=cpu)]
+        listed = ids[:len(ids) // 2] if stale else ids
+        if r in empty_rows:
+            listed = ids[:0]
+        n[r] = len(listed)
+        rest = torch.tensor([b for b in range(nb) if b not in set(listed.tolist())],
+                            dtype=torch.int64)
+        tbl[r] = torch.cat([listed, rest])    # stale tail: unmapped blocks
+        for blk in listed.tolist():
+            phys[r, blk] = next(pages)
+    pk = torch.randn((npool, bp, dh), generator=cpu)
+    pv = torch.randn((npool, bp, dh), generator=cpu)
+    if nan:
+        unlisted = torch.ones(npool, dtype=torch.bool)
+        unlisted[phys[phys >= 0]] = False
+        pk[unlisted] = float("nan")
+        pv[unlisted] = float("nan")
+    q = torch.randn((bh, g, dh), generator=cpu)
+    # the same contents as per-row arenas: listed blocks hold their pages
+    mapped = phys >= 0
+    ka = torch.where(mapped[..., None, None], pk[phys.clamp(min=0)], 0.0)
+    va = torch.where(mapped[..., None, None], pv[phys.clamp(min=0)], 0.0)
+    tbl_pages = phys.gather(1, tbl).clamp(0, npool - 1)
+    valid_tbl = valid.reshape(bh, nb, bp).gather(
+        1, tbl[..., None].expand(-1, -1, bp)).reshape(bh, nb * bp)
+
+    def dev(*xs):
+        return [x.to(device) for x in xs]
+
+    q, pk, pv, ka, va = (x.to(torch.bfloat16) for x in (q, pk, pv, ka, va))
+    return {
+        "shared": dev(q, pk.reshape(1, npool * bp, dh),
+                      pv.reshape(1, npool * bp, dh), valid_tbl,
+                      tbl_pages.to(torch.int32), n),
+        "fixed": dev(q, ka.reshape(bh, nb * bp, dh), va.reshape(bh, nb * bp, dh),
+                     valid, tbl.to(torch.int32), n),
+        "npool": npool, "n_blocks": int(n.sum()),
+    }
+
+
+POOL_CASES = {
+    "main-path shape": dict(density=0.85),
+    "NaN in every unlisted page": dict(density=0.85, nan=True),
+    "stale tail, phys -1 past n": dict(density=0.5, nan=True, stale=True),
+    "n = 0 row": dict(density=0.5, nan=True, empty_rows=(2,)),
+}
+
+
+def phase_pool_kernels(torch, main_shape):
+    """The shared-pool mode against its plain version, and bitwise against
+    the fixed-arena mode on the same logical contents in the same table
+    order; returns the main case's max abs error."""
+    from repro_torch.kernels.dms_decode import ops
+    from repro_torch.kernels.dms_decode.ref import dms_decode_plain_shared
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    bh, g, dh, p, bp = main_shape
+    before = (ops.launches, ops.shared_launches)
+    errs = {}
+    for name, kw in POOL_CASES.items():
+        case = make_pool_case(torch, gen, bh=bh, g=g, dh=dh, nb=p // bp, bp=bp,
+                              **kw)
+        shared = case["shared"]
+        out = ops.decode_rows(*shared, bp, None, shared_kv=True)
+        fixed = ops.decode_rows(*case["fixed"], bp, None)
+        torch.cuda.synchronize()
+        ref = dms_decode_plain_shared(*shared, bp, None)
+        if not bool(torch.isfinite(out.float()).all()):
+            raise AssertionError(f"shared-pool kernel [{name}]: non-finite")
+        err = (out.float() - ref.float()).abs().max().item()
+        torch.testing.assert_close(out.float(), ref.float(), **KERNEL_TOL)
+        if not torch.equal(out, fixed):
+            raise AssertionError(f"shared-pool kernel [{name}]: not bitwise "
+                                 "equal to the fixed-arena kernel")
+        for r in kw.get("empty_rows", ()):
+            if out[r].abs().max().item() != 0.0:
+                raise AssertionError(f"shared-pool kernel [{name}]: row {r} "
+                                     "with n = 0 is not zero")
+        errs[name] = err
+        log(f"shared-pool kernel vs plain [{name}] (pool {case['npool']} pages,"
+            f" {case['n_blocks']} listed): max_abs_err {err:.3e} (tolerance "
+            f"atol {KERNEL_TOL['atol']}, rtol {KERNEL_TOL['rtol']}); bitwise "
+            "equal to the fixed-arena kernel")
+    moved = (ops.launches - before[0], ops.shared_launches - before[1])
+    if moved != (len(POOL_CASES), len(POOL_CASES)):
+        raise AssertionError(f"launch counters moved {moved}")
     return errs["main-path shape"]
 
 
@@ -353,17 +476,13 @@ def phase_flash_grads(torch):
 # -- phase 4 ---------------------------------------------------------------
 
 
-def phase_serve(torch, device="cuda", arch_name="qwen-r1-1.5b", lens=None,
-                news=None, hs=(512, 64, 4), short=32):
-    """Serve the main path; returns the numbers the later phases print."""
+def serving_setup(torch, device="cuda", arch_name="qwen-r1-1.5b",
+                  lens=(512, 384, 256, 128), news=(64, 48, 32, 64),
+                  hs=(256, 64, 4)):
+    """The served model (random weights from seed 0) and the trace phases 4
+    and 7 share: staggered requests and one width-W hyperscale prompt."""
     from repro_torch.configs import get_arch, get_smoke
-    from repro_torch.core.config import KVPolicyConfig
-    from repro_torch.core.hyperscale import ScalingConfig
-    from repro_torch.kernels.dms_decode import ops
     from repro_torch.models import transformer as tfm
-    from repro_torch.serving.engine import Engine
-    from repro_torch.serving.scheduler import Request
-
     arch = get_arch(arch_name) if device == "cuda" else get_smoke(arch_name)
     # random weights almost never evict at the trained bias of -5; a bias of
     # Phi^-1(7/8) makes P(alpha = 1) = 7/8 for an N(0, 1) neuron, the
@@ -371,85 +490,122 @@ def phase_serve(torch, device="cuda", arch_name="qwen-r1-1.5b", lens=None,
     bias = statistics.NormalDist().inv_cdf(7 / 8)
     arch = dataclasses.replace(arch, dms=dataclasses.replace(arch.dms,
                                                              logit_bias=bias))
-    lens = lens or (1024, 768, 512, 256)
-    news = news or (128, 96, 64, 128)
     t0 = time.perf_counter()
     params = tfm.init_model(arch, seed=0, device=device)
     if device == "cuda":
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
     log(f"serve: {arch.name} L={arch.num_layers} d={arch.d_model} "
         f"Hq={arch.attn.num_heads} Hkv={arch.attn.num_kv_heads} "
         f"Dh={arch.attn.head_dim} d_ff={arch.mlp.d_ff} V={arch.padded_vocab}; "
         f"init {time.perf_counter() - t0:.1f} s; dms logit_bias {bias:.4f}")
-    policy = KVPolicyConfig(kind="dms", cr=8.0, block_p=16)
-    engine = Engine(arch, params, policy, use_kernel=True, device=device)
     rng = torch.Generator().manual_seed(7)
 
     def prompt(t):
         return torch.randint(3, arch.vocab_size, (t,), generator=rng,
                              dtype=torch.int32).numpy()
 
-    ops.launches = 0
+    prompts = [prompt(t) for t in lens]
+    return {"arch": arch, "params": params, "device": device,
+            "prompts": prompts, "news": list(news), "hs": hs,
+            "hs_prompt": prompt(hs[0]),
+            "max_len": max(len(p) + m for p, m in zip(prompts, news))}
+
+
+def serve_trace(torch, engine, setup, *, on_fork=None):
+    """Phase 4's trace through ``engine``: the staggered requests on one
+    lane per request, then the width-W hyperscale request on W lanes.
+    ``on_fork(sched)`` runs right after the hyperscale prefill is forked.
+    Returns (results by uid, hyperscale result, wall s, decode steps,
+    staggered scheduler)."""
+    from repro_torch.serving.scheduler import Request
+    arch, device = setup["arch"], setup["device"]
+    prompts, news, hs = setup["prompts"], setup["news"], setup["hs"]
     engine.chunk_fn.steps = 0
     t_serve = time.perf_counter()
-    max_len = max(a + b for a, b in zip(lens, news))
-    sched = engine.scheduler(num_lanes=len(lens), max_len=max_len)
-    reqs = [Request(uid=i, prompt=prompt(t), max_new=m, arrival=i)
-            for i, (t, m) in enumerate(zip(lens, news))]
-    for r in reqs:
-        sched.submit(r)
+    sched = engine.scheduler(num_lanes=len(prompts), max_len=setup["max_len"])
+    for i, (p, m) in enumerate(zip(prompts, news)):
+        sched.submit(Request(uid=i, prompt=p, max_new=m, arrival=i))
     results = {r.uid: r for r in sched.run()}
-    hs_prompt = prompt(hs[0])
-    hs_res = engine.hyperscale_generate(
-        hs_prompt, ScalingConfig(max_len=hs[0] + hs[1], width=hs[2], cr=8.0))
+    hs_sched = engine.scheduler(num_lanes=hs[2], max_len=hs[0] + hs[1])
+    hs_sched.submit(Request(uid=0, prompt=setup["hs_prompt"], max_new=hs[1],
+                            width=hs[2]))
+    if on_fork is not None:
+        fork_ready = hs_sched._fork_ready
+
+        def hooked():
+            forked = [len(r.lanes) for r in hs_sched.active_reqs]
+            fork_ready()
+            if [len(r.lanes) for r in hs_sched.active_reqs] != forked:
+                on_fork(hs_sched)
+        hs_sched._fork_ready = hooked
+    hres = hs_sched.run()[0]
+    if on_fork is not None:
+        del hs_sched._fork_ready     # the hook refers to the scheduler: a cycle
     if device == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t_serve
-    launches, steps = ops.launches, engine.chunk_fn.steps
 
-    for r in reqs:
-        res = results[r.uid]
-        if res.status != "ok" or res.tokens.shape != (1, r.max_new) \
-                or int(res.lengths[0]) != r.max_new:
-            raise AssertionError(f"request {r.uid}: status {res.status}, "
-                                 f"lengths {res.lengths}, want {r.max_new}")
-    hres = hs_res.requests[0]
-    if hres.status != "ok" or hs_res.tokens.shape != (hs[2], hs[1]) \
+    for i, m in enumerate(news):
+        res = results[i]
+        if res.status != "ok" or res.tokens.shape != (1, m) \
+                or int(res.lengths[0]) != m:
+            raise AssertionError(f"request {i}: status {res.status}, "
+                                 f"lengths {res.lengths}, want {m}")
+    if hres.status != "ok" or hres.tokens.shape != (hs[2], hs[1]) \
             or not (hres.lengths == hs[1]).all():
         raise AssertionError(f"hyperscale: status {hres.status}, "
                              f"lengths {hres.lengths}")
     for res in list(results.values()) + [hres]:
         if ((res.tokens < 0) | (res.tokens >= arch.vocab_size)).any():
             raise AssertionError(f"request {res.uid}: token outside the vocab")
-    # the CPU rehearsal runs the plain version, which launches nothing
-    if launches != (arch.num_layers * steps if device == "cuda" else 0):
-        raise AssertionError(f"kernel launches {launches} != "
-                             f"{arch.num_layers} x {steps} decode steps")
     if hres.prefill_meter.kv_reads <= 0:
         raise AssertionError("hyperscale prefill metered no reads")
+    return results, hres, wall, engine.chunk_fn.steps, sched
 
+
+def phase_serve(torch, setup, short=32):
+    """Serve the main path on fixed arenas; returns what the later phases
+    compare with and print."""
+    from repro_torch.core.config import KVPolicyConfig
+    from repro_torch.kernels.dms_decode import ops
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving.engine import Engine
+    arch, params, device = setup["arch"], setup["params"], setup["device"]
+    lens = [len(p) for p in setup["prompts"]]
+    news, hs = setup["news"], setup["hs"]
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    policy = KVPolicyConfig(kind="dms", cr=8.0, block_p=setup.get("block_p", 16))
+    engine = Engine(arch, params, policy, use_kernel=True, device=device)
+    ops.launches = ops.shared_launches = 0
+    results, hres, wall, steps, sched = serve_trace(torch, engine, setup)
+    launches = ops.launches
+    # the CPU rehearsal runs the plain version, which launches nothing
+    if launches != (arch.num_layers * steps if device == "cuda" else 0) \
+            or ops.shared_launches:
+        raise AssertionError(f"kernel launches {launches} (shared-pool "
+                             f"{ops.shared_launches}) != {arch.num_layers} x "
+                             f"{steps} decode steps")
     generated = sum(int(r.lengths.sum()) for r in results.values()) \
         + int(hres.lengths.sum())
-    longest = reqs[0]
-    live_frac = results[longest.uid].meter.peak_tokens / (
-        arch.num_layers * (len(longest.prompt) + longest.max_new))
+    live_frac = results[0].meter.peak_tokens / (
+        arch.num_layers * (lens[0] + news[0]))
     peak_mem = torch.cuda.max_memory_allocated() if device == "cuda" else 0
-    log(f"serve: {len(reqs)} staggered requests (prompts {list(lens)}, new "
-        f"{list(news)}) + hyperscale W={hs[2]} (prompt {hs[0]}, new {hs[1]}): "
+    log(f"serve: {len(lens)} staggered requests (prompts {lens}, new "
+        f"{news}) + hyperscale W={hs[2]} (prompt {hs[0]}, new {hs[1]}): "
         f"all ok; {generated} tokens in {wall:.2f} s = "
         f"{generated / wall:.2f} tokens/s; {steps} decode steps, "
         f"{1e3 * wall / steps:.2f} ms/step; kernel launches {launches} = "
         f"{arch.num_layers} x {steps}")
-    log(f"serve: live fraction at the end of the {len(longest.prompt)}+"
-        f"{longest.max_new} request {live_frac:.4f}; KV arena "
-        f"{int(sched.peak_bytes)} B for {len(lens)} lanes; peak device memory "
-        f"{peak_mem} B; hyperscale prefill reads "
+    log(f"serve: live fraction at the end of the {lens[0]}+{news[0]} request "
+        f"{live_frac:.4f}; KV arena {int(sched.peak_bytes)} B for {len(lens)} "
+        f"lanes; peak device memory {peak_mem} B; hyperscale prefill reads "
         f"{hres.prefill_meter.kv_reads:.0f}, decode reads "
         f"{hres.decode_meter.kv_reads:.0f}")
 
     # the kernel path against the reference path on a short teacher-forced
     # trace (launches here are not the main path's)
+    rng = torch.Generator().manual_seed(8)
     tokens = torch.randint(3, arch.vocab_size, (2, short), generator=rng)
     states = [tfm.init_decode_state(arch, 2, short + 1, policy, device=device)
               for _ in range(2)]
@@ -473,10 +629,147 @@ def phase_serve(torch, device="cuda", arch_name="qwen-r1-1.5b", lens=None,
         f"{worst:.4e}, max |logit| {scale:.4e} (tolerance 0.05 x max |logit|)")
     if not worst <= 0.05 * scale:
         raise AssertionError("kernel-path logits disagree with the reference")
-    phase_profile(torch, params, arch, policy, lanes=len(lens), max_len=max_len,
-                  device=device)
-    return {"launches": launches, "steps": steps,
-            "arena": tuple(sched.state["0"].cache.k.shape)}
+    phase_profile(torch, params, arch, {"fixed": policy}, lanes=len(lens),
+                  max_len=setup["max_len"], device=device)
+    return {"launches": launches, "steps": steps, "ms_step": 1e3 * wall / steps,
+            "arena": tuple(sched.state["0"].cache.k.shape),
+            "tokens": {uid: r.tokens for uid, r in results.items()},
+            "hs_tokens": hres.tokens}
+
+
+def phase_paged_serve(torch, setup, fixed, pair=(3, 1)):
+    """The same trace on the paged pool, then an oversubscribed pair.
+
+    (a) Phase 4's requests and hyperscale fork with ``paged=True`` and the
+    default pool (the fixed arenas' bytes): tokens equal to phase 4's, no
+    page copied at the fork, copies once the chains write, every page back
+    at the end.  (b) Requests ``pair`` = (A, B) of (a) on the same lanes,
+    the pool at 1.5x one lane's worst-case demand, ``oversub`` 2 and
+    preemption: B arrives once A holds more pages than the pool can spare
+    for B, so B is preempted at admission and resumed once A is done; every
+    request ok, tokens equal to (a)'s, the pool never exhausted."""
+    from repro_torch.core.config import KVPolicyConfig
+    from repro_torch.kernels.dms_decode import ops
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.scheduler import Request
+    arch, params, device = setup["arch"], setup["params"], setup["device"]
+    bp = setup.get("block_p", 16)
+    base = dict(kind="dms", cr=8.0, block_p=bp, paged=True)
+    engine = Engine(arch, params, KVPolicyConfig(**base), use_kernel=True,
+                    device=device)
+    at_fork = {}
+
+    def on_fork(hs_sched):
+        at_fork.update(hs_sched.pool_stats(), sched=hs_sched)
+
+    ops.launches = ops.shared_launches = 0
+    results, hres, wall, steps, sched = serve_trace(torch, engine, setup,
+                                                    on_fork=on_fork)
+    launches_a = ops.shared_launches
+    if ops.launches or launches_a != (arch.num_layers * steps
+                                      if device == "cuda" else 0):
+        raise AssertionError(f"paged serving launched {launches_a} shared-pool"
+                             f" and {ops.launches} fixed-arena kernels for "
+                             f"{steps} decode steps")
+    for uid, toks in fixed["tokens"].items():
+        if not (results[uid].tokens == toks).all():
+            raise AssertionError(f"paged request {uid}: tokens differ from "
+                                 "the fixed arenas'")
+    if not (hres.tokens == fixed["hs_tokens"]).all():
+        raise AssertionError("paged hyperscale: tokens differ from the fixed "
+                             "arenas'")
+    stats = sched.pool_stats()
+    if at_fork.get("cow_copies") != 0 or at_fork.get("shared_blocks", 0) <= 0:
+        raise AssertionError(f"the fork copied pages or shared none: {at_fork}")
+    hs_stats = at_fork["sched"].pool_stats()
+    if hs_stats["cow_copies"] <= 0:
+        raise AssertionError("the forked chains wrote without a CoW copy")
+    for st in (stats, hs_stats):
+        if st["allocated_blocks"] != 0 or st["exhausted"]:
+            raise AssertionError(f"pool not empty at the end: {st}")
+    h, nb = sched._pool_descs[0][:2]
+    provisioned = arch.num_layers * len(setup["prompts"]) * h * nb
+    generated = sum(int(r.lengths.sum()) for r in results.values()) \
+        + int(hres.lengths.sum())
+    log(f"paged (a): phase 4's trace on the pool: tokens equal to the fixed "
+        f"arenas'; {generated} tokens in {wall:.2f} s = {generated / wall:.2f}"
+        f" tokens/s; {steps} decode steps, {1e3 * wall / steps:.2f} ms/step "
+        f"(fixed {fixed['ms_step']:.2f}); shared-pool kernel launches "
+        f"{launches_a} = {launches_a / max(steps, 1):.1f} per decode step")
+    log(f"paged (a): pool high water {stats['high_water_blocks']} blocks "
+        f"(summed over {arch.num_layers} layers) against {provisioned} blocks "
+        f"the fixed arenas provision for {len(setup['prompts'])} lanes "
+        f"({stats['high_water_blocks'] / provisioned:.4f}); at the "
+        f"hyperscale fork: {at_fork['shared_blocks']} shared blocks, "
+        f"cow_copies {at_fork['cow_copies']}, at its end "
+        f"{hs_stats['cow_copies']}")
+
+    # (b) oversubscribed: A runs, B arrives when A holds more than the pool
+    # can spare for B's worst case, and waits out A as a preempted request
+    ia, ib = pair
+    prompts, news = setup["prompts"], setup["news"]
+    demand = sched._lane_pool_demand(setup["max_len"])[0]
+    pool_blocks = int(1.5 * demand)
+    tok_a, tok_b = (len(prompts[i]) + news[i] for i in pair)
+    need_b = sched._lane_pool_demand(tok_b)[0]
+    chunk = engine.chunk
+    # A's pages after T tokens, before its first delayed eviction (T <=
+    # window): H * ceil(T / bp); B's first resume attempt is one tick after
+    # its arrival, and must find fewer than need_b pages free
+    t_need = bp * ((pool_blocks - need_b) // h) + 1
+    arrival_b = max(0, min(-(-t_need // chunk) - 1, tok_a // chunk - 2))
+    if t_need > min(arch.dms.window, tok_a - chunk) and device == "cuda":
+        raise AssertionError(f"pair {pair} cannot block B's resume: needs A at"
+                             f" {t_need} tokens")
+    engine_b = Engine(arch, params,
+                      KVPolicyConfig(**base, pool_blocks=pool_blocks),
+                      use_kernel=True, device=device)
+    engine_b.chunk_fn.steps = 0
+    t_b = time.perf_counter()
+    sched_b = engine_b.scheduler(num_lanes=len(prompts),
+                                 max_len=setup["max_len"], oversub=2.0,
+                                 on_pressure="preempt")
+    for uid, arr in ((ia, 0), (ib, arrival_b)):
+        sched_b.submit(Request(uid=uid, prompt=prompts[uid],
+                               max_new=news[uid], arrival=arr))
+    res_b = {r.uid: r for r in sched_b.run()}
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall_b = time.perf_counter() - t_b
+    steps_b = engine_b.chunk_fn.steps
+    launches = ops.shared_launches
+    stats_b = sched_b.pool_stats()
+    life = stats_b["lifecycle"]
+    if ops.launches or launches - launches_a != (
+            arch.num_layers * steps_b if device == "cuda" else 0):
+        raise AssertionError(f"oversubscribed run launched "
+                             f"{launches - launches_a} for {steps_b} steps")
+    if any(r.status != "ok" for r in res_b.values()) \
+            or not life["preemptions"] == life["resumes"] > 0 \
+            or stats_b["exhausted"] or stats_b["allocated_blocks"] != 0:
+        raise AssertionError(f"oversubscribed run: statuses "
+                             f"{ {u: r.status for u, r in res_b.items()} }, "
+                             f"pool {stats_b}")
+    for uid in pair:
+        if not (res_b[uid].tokens == results[uid].tokens).all():
+            raise AssertionError(f"oversubscribed request {uid}: tokens differ"
+                                 " from (a)'s")
+    log(f"paged (b): requests {ia} ({tok_a} tokens, arrival 0) and {ib} "
+        f"({tok_b} tokens, arrival {arrival_b}) on {len(prompts)} lanes, pool "
+        f"{pool_blocks} blocks a layer (1.5 x one lane's worst case {demand};"
+        f" together {sched._lane_pool_demand(tok_a)[0] + need_b}), oversub 2:"
+        f" all ok, tokens equal to (a)'s; preemptions {life['preemptions']}, "
+        f"resumes {life['resumes']} (preempt_count, latency ticks: "
+        f"{ {u: (r.preempt_count, r.latency_ticks) for u, r in res_b.items()} });"
+        f" cow_copies {stats_b['cow_copies']}, high water "
+        f"{stats_b['high_water_blocks']} blocks, never exhausted; {steps_b} "
+        f"decode steps in {wall_b:.2f} s = {1e3 * wall_b / steps_b:.2f} "
+        f"ms/step; shared-pool kernel launches {launches - launches_a}")
+    phase_profile(torch, params, arch,
+                  {"fixed": KVPolicyConfig(**dict(base, paged=False)),
+                   "paged": KVPolicyConfig(**base)},
+                  lanes=len(prompts), max_len=setup["max_len"], device=device)
+    return {"launches": launches, "steps": steps + steps_b}
 
 
 def device_events(torch, prof):
@@ -487,22 +780,27 @@ def device_events(torch, prof):
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-def phase_profile(torch, params, arch, policy, *, lanes, max_len, device,
-                  steps=4):
-    """Where a decode step's time goes: host-dispatched ATen ops per step
-    (counted with a dispatch mode), wall time per step, and the device's
-    busy time under torch.profiler (its device-side entries, summed)."""
+def phase_profile(torch, params, arch, policies, *, lanes, max_len, device,
+                  steps=4, pairs=4):
+    """Where a decode step's time goes, for each named policy: host-
+    dispatched ATen ops per step (counted with a dispatch mode), wall time
+    per step, and the device's busy time under torch.profiler (its device-
+    side entries, summed).  With two policies the wall times are taken in
+    ``pairs`` alternating turns (A B, B A, ...), since the host's speed
+    drifts between runs; the line gives each pair's ratio."""
     from torch.utils._python_dispatch import TorchDispatchMode
     from repro_torch.models import transformer as tfm
-    state = tfm.init_decode_state(arch, lanes, max_len, policy, device=device)
     tok = torch.full((lanes, 1), 7, dtype=torch.int32, device=device)
     pos = torch.zeros((lanes,), dtype=torch.int32, device=device)
     act = torch.ones((lanes,), dtype=torch.bool, device=device)
+    states = {name: tfm.init_decode_state(arch, lanes, max_len, pol,
+                                          device=device)
+              for name, pol in policies.items()}
 
-    def run(n):
+    def run(name, n):
         for _ in range(n):
-            tfm.decode_step(params, tok, state, arch, pos, use_kernel=True,
-                            active=act)
+            tfm.decode_step(params, tok, states[name], arch, pos,
+                            use_kernel=True, active=act)
         if device == "cuda":
             torch.cuda.synchronize()
 
@@ -513,26 +811,57 @@ def phase_profile(torch, params, arch, policy, *, lanes, max_len, device,
             Count.ops += 1
             return func(*args, **(kwargs or {}))
 
-    run(2)                                          # warm
-    with Count():
-        run(1)
-    t0 = time.perf_counter()
-    run(steps)
-    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    busy = "not measured"
-    if device == "cuda":
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            run(steps)
-        dev_us = sum(e.self_device_time_total
-                     for e in device_events(torch, prof))
-        if dev_us > 0:
-            busy = (f"{dev_us / 1e3 / steps:.3f} ms device time per step, "
-                    f"busy share {dev_us / 1e3 / steps / wall_ms:.4f}")
-    log(f"profile: {lanes} lanes, one decode step = {Count.ops} ATen ops "
-        f"dispatched from the host ({Count.ops / arch.num_layers:.1f} per "
-        f"layer); {wall_ms:.2f} ms wall per step; {busy}")
+    names = list(policies)
+    ops = {}
+    for name in names:
+        run(name, 2)                                # warm
+        Count.ops = 0
+        with Count():
+            run(name, 1)
+        ops[name] = Count.ops
+    walls = {name: [] for name in names}
+    for i in range(pairs if len(names) > 1 else 1):
+        for name in (names if i % 2 == 0 else names[::-1]):
+            t0 = time.perf_counter()
+            run(name, steps)
+            walls[name].append((time.perf_counter() - t0) * 1e3 / steps)
+    for name in names:
+        wall_ms = statistics.median(walls[name])
+        busy = "not measured"
+        if device == "cuda":
+            # a step that syncs the host could not be captured in a CUDA
+            # graph (ROADMAP E1); the debug mode raises on the syncs it sees
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                tfm.decode_step(params, tok, states[name], arch, pos,
+                                use_kernel=True, active=act)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            acts = [torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                run(name, steps)
+            dev_us = sum(e.self_device_time_total
+                         for e in device_events(torch, prof))
+            launched = sum(e.count for e in prof.key_averages()
+                           if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                                        "cuLaunchKernelEx"))
+            if dev_us > 0:
+                busy = (f"{dev_us / 1e3 / steps:.3f} ms device time per step,"
+                        f" busy share {dev_us / 1e3 / steps / wall_ms:.4f}, "
+                        f"{launched / steps:.0f} kernel launches per step; no "
+                        "host sync seen in a step (sync debug mode)")
+        log(f"profile: {name}, {lanes} lanes, one decode step = {ops[name]} "
+            f"ATen ops dispatched from the host ({ops[name] / arch.num_layers:.1f}"
+            f" per layer); {wall_ms:.2f} ms wall per step (median of "
+            f"{[round(w, 2) for w in walls[name]]}); {busy}")
+    if len(names) == 2:
+        a, b = names
+        ratios = [round(y / x, 3) for x, y in zip(walls[a], walls[b])]
+        log(f"profile: {b} / {a} wall per step in alternating pairs: {ratios}"
+            f" (median {statistics.median(ratios):.3f}); ATen ops "
+            f"{ops[b] / ops[a]:.3f}x")
 
 
 # -- phase 5 ---------------------------------------------------------------
@@ -695,28 +1024,33 @@ def time_cuda(torch, fn, *, iters=50):
     return statistics.median(times)
 
 
-def phase_timing(torch, main_shape, launches, max_abs_err):
+def decode_entry(torch, name, mode, operands, shape, launches, max_abs_err):
+    """One decode-kernel row of the ``kernels`` line: the kernel (``mode``
+    "fixed" or "shared") and its plain version timed on ``operands``, the
+    bound, and SDPA over the dense per-row arenas ``dense`` = (k, v, valid)
+    as the yardstick (for the shared pool, the dense view is built outside
+    the timed call)."""
     import torch.nn.functional as F
     from repro_torch.kernels.dms_decode import ops
-    from repro_torch.kernels.dms_decode.ref import dms_decode_plain
-    bh, g, dh, p, bp = main_shape
-    gen = torch.Generator(device="cuda").manual_seed(99)
-    q, k, v, valid, tbl, n = make_case(torch, gen, bh=bh, g=g, dh=dh, p=p,
-                                       bp=bp, density=0.85)
-    saved = ops.launches
-    ms = time_cuda(torch, lambda: ops.decode_rows(q, k, v, valid, tbl, n, bp))
-    ops.launches = saved                  # timing launches are not the path's
-    plain_ms = time_cuda(torch, lambda: dms_decode_plain(q, k, v, valid, tbl,
-                                                         n, bp))
+    from repro_torch.kernels.dms_decode import ref
+    bh, g, dh, p, bp = shape
+    q, k, v, valid, tbl, n = operands["kernel"]
+    shared = mode == "shared"
+    plain = ref.dms_decode_plain_shared if shared else ref.dms_decode_plain
+    saved = (ops.launches, ops.shared_launches)
+    ms = time_cuda(torch, lambda: ops.decode_rows(q, k, v, valid, tbl, n, bp,
+                                                  shared_kv=shared))
+    ops.launches, ops.shared_launches = saved     # timing is not the path's
+    plain_ms = time_cuda(torch, lambda: plain(q, k, v, valid, tbl, n, bp))
     # yardstick only: one SDPA call over the whole arena with the bool mask
+    kd, vd, vald = operands["dense"]
     b, hkv = bh // 2, 2
     qs = q.reshape(b, hkv * g, 1, dh)
-    ks = torch.nan_to_num(k).reshape(b, hkv, p, dh)
-    vs = torch.nan_to_num(v).reshape(b, hkv, p, dh)
-    mask = valid.reshape(b, hkv, 1, p).repeat_interleave(g, dim=1)
-    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        qs, ks, vs, attn_mask=mask, enable_gqa=True)
-    library_ms = time_cuda(torch, lib)
+    ks = torch.nan_to_num(kd).reshape(b, hkv, p, dh)
+    vs = torch.nan_to_num(vd).reshape(b, hkv, p, dh)
+    mask = vald.reshape(b, hkv, 1, p).repeat_interleave(g, dim=1)
+    library_ms = time_cuda(torch, lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=mask, enable_gqa=True))
     # bound: each input byte read once (K/V, valid and table entries of the
     # listed blocks, q), the output written once; flops of QK^T and PV
     n_blocks = int(n.sum().item())
@@ -726,7 +1060,7 @@ def phase_timing(torch, main_shape, launches, max_abs_err):
     bytes_ms = (kv_bytes + other) / HBM_BYTES_PER_S * 1e3
     ops_ms = 4.0 * g * dh * n_blocks * bp / BF16_FLOPS_PER_S * 1e3
     entry = {
-        "name": "dms_decode", "route": "cuda",
+        "name": name, "route": "cuda",
         "source": "src/repro_torch/kernels/dms_decode/csrc/dms_decode.cu",
         "replaces": "src/repro/kernels/dms_decode/dms_decode.py:118",
         "launches": launches, "max_abs_err": max_abs_err, "ms": ms,
@@ -734,10 +1068,32 @@ def phase_timing(torch, main_shape, launches, max_abs_err):
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": library_ms,
     }
-    log(f"timing: dms_decode at (BH={bh}, G={g}, Dh={dh}, P={p}, block_p={bp},"
-        f" {n_blocks} listed blocks): kernel {ms:.4f} ms, bound {entry['bound_ms']:.5f}"
-        f" ms ({kv_bytes + other} B), plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms")
-    return [entry]
+    pool = f", pool {k.shape[1] // bp} pages" if shared else ""
+    lib = " (over the dense view, gather not timed)" if shared else ""
+    log(f"timing: {name} at (BH={bh}, G={g}, Dh={dh}, P={p}, block_p={bp}, "
+        f"{n_blocks} listed blocks{pool}): kernel {ms:.4f} ms, bound "
+        f"{entry['bound_ms']:.5f} ms ({kv_bytes + other} B), plain "
+        f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms{lib}")
+    return entry
+
+
+def phase_timing(torch, main_shape, launches, errs):
+    """The decode kernel in both modes at the main-path shape."""
+    bh, g, dh, p, bp = main_shape
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    q, k, v, valid, tbl, n = make_case(torch, gen, bh=bh, g=g, dh=dh, p=p,
+                                       bp=bp, density=0.85)
+    fixed = decode_entry(torch, "dms_decode", "fixed",
+                         {"kernel": (q, k, v, valid, tbl, n),
+                          "dense": (k, v, valid)},
+                         main_shape, launches["fixed"], errs["fixed"])
+    case = make_pool_case(torch, gen, bh=bh, g=g, dh=dh, nb=p // bp, bp=bp,
+                          density=0.85)
+    kd, vd, vald = case["fixed"][1:4]
+    shared = decode_entry(torch, "dms_decode_shared_kv", "shared",
+                          {"kernel": case["shared"], "dense": (kd, vd, vald)},
+                          main_shape, launches["shared"], errs["shared"])
+    return [fixed, shared]
 
 
 def sdpa_times(torch, qf, kf, vf, ls, do, cfg, *, b):
@@ -852,22 +1208,28 @@ def main() -> int:
     from repro_torch.configs import get_arch
     from repro_torch.core.kv_cache import SlotDMSCache
     arch = get_arch("qwen-r1-1.5b")
-    lanes, max_len, bp = 4, 1024 + 128, 16
+    setup = serving_setup(torch)
+    lanes, max_len, bp = len(setup["prompts"]), setup["max_len"], 16
     slots = min(SlotDMSCache.provision_slots(max_len, 8.0, arch.dms.window),
                 max_len + 1)
     main_shape = (lanes * arch.attn.num_kv_heads, arch.attn.q_per_kv,
                   arch.attn.head_dim, (slots + bp - 1) // bp * bp, bp)
-    err = phase_kernels(torch, main_shape)
+    errs = {"fixed": phase_kernels(torch, main_shape),
+            "shared": phase_pool_kernels(torch, main_shape)}
     flash_errs = phase_flash_kernels(torch)
     phase_flash_grads(torch)
-    served = phase_serve(torch)
+    served = phase_serve(torch, setup)
     want = (arch.num_layers, lanes, arch.attn.num_kv_heads, main_shape[3],
             arch.attn.head_dim)
     if served["arena"] != want:
         raise AssertionError(f"main-path arena {served['arena']} is not the "
                              f"checked shape {want}")
+    paged = phase_paged_serve(torch, setup, served)
+    del setup["params"]
     trained = phase_train(torch)
-    kernels = phase_timing(torch, main_shape, served["launches"], err)
+    kernels = phase_timing(torch, main_shape, {"fixed": served["launches"],
+                                               "shared": paged["launches"]},
+                           errs)
     kernels += phase_flash_timing(torch, trained["launches"], flash_errs)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

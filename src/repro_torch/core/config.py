@@ -40,9 +40,10 @@ class KVPolicyConfig:
     ``block_p`` is the KV-block granularity of the flash-decode kernel:
     caches allocate their arenas pre-padded to a ``block_p`` multiple and
     keep compacted live-block tables, so decode reads only live blocks
-    (0 disables the tables).  ``paged``/``pool_blocks``/``layer_map`` are
-    kept for field parity with the reference; this port serves fixed arenas
-    only and rejects ``paged=True``.
+    (0 disables the tables).  ``paged=True`` backs each cache with a shared
+    page pool of ``pool_blocks`` pages (default: the fixed arenas'
+    capacity; see :mod:`repro_torch.core.block_pool`).  ``layer_map`` is
+    kept for field parity with the reference.
     """
 
     kind: str = "vanilla"

@@ -17,6 +17,15 @@ only for active lanes, so a step never reads or rewrites the whole arena.
 The metadata of every lane is advanced first, as the reference does before
 its ``lane_select``, then committed only for active lanes — the resulting
 state equals the reference's leaf for leaf.
+
+A **paged** cache (``KVPolicyConfig(paged=True)``) keeps its K/V bytes in a
+shared :class:`~repro_torch.core.block_pool.BlockPool` addressed through a
+per-(lane, head) page map ``phys``; its own ``k``/``v`` are zero-width
+(B, H, P, 0) placeholders, as in the reference, so every shape-derived
+invariant keeps working.  Its step frees the pages of blocks that died and
+writes the new token through the page map, both gated by the lane mask:
+the pool has no lane axis, so nothing can roll an inactive lane's pool
+event back.
 """
 from __future__ import annotations
 
@@ -25,6 +34,9 @@ from dataclasses import dataclass, field
 from typing import Dict, Optional, Tuple
 
 import torch
+
+from repro_torch.core import block_pool
+from repro_torch.core.block_pool import BlockPool
 
 INVALID_POS = torch.iinfo(torch.int32).max
 _I32 = torch.int32
@@ -137,8 +149,14 @@ class BlockTable:
     def evict(self, slot: torch.Tensor, mask: torch.Tensor) -> "BlockTable":
         """A slot turned dead.  When its block empties the block leaves the
         table: the last entry swaps into its place."""
+        return self.evict_ex(slot, mask)[0]
+
+    def evict_ex(self, slot: torch.Tensor, mask: torch.Tensor
+                 ) -> Tuple["BlockTable", torch.Tensor]:
+        """:meth:`evict` plus the (B, H) mask of blocks that turned dead —
+        what frees a page in the paged pool."""
         if self._off():
-            return self
+            return self, torch.zeros_like(mask)
         nb = self.count.shape[2]
         blk = torch.clamp(slot // self.block_p, 0, nb - 1)
         cnt_after = self._take(self.count, blk) - 1
@@ -152,7 +170,68 @@ class BlockTable:
             count=self._put(self.count, blk, cnt_after, mask),
             tbl=self._put(self.tbl, hole, last_blk, dead),
             pos=pos,
-            n=self.n - dead.to(_I32))
+            n=self.n - dead.to(_I32)), dead
+
+
+# ---------------------------------------------------------------------------
+# Paged-pool plumbing
+# ---------------------------------------------------------------------------
+
+
+def init_paged(batch: int, kv_heads: int, padded_slots: int, head_dim: int,
+               block_p: int, dtype, pool_blocks: Optional[int], device=None
+               ) -> Tuple[BlockPool, torch.Tensor, torch.Tensor]:
+    """(pool, phys, zero-width arena) of a paged cache; the pool defaults to
+    one page per (lane, head, block), the fixed arenas' capacity."""
+    if not block_p:
+        raise ValueError("paged KV cache requires block_p > 0")
+    nb = padded_slots // block_p
+    pool = BlockPool.init(pool_blocks or batch * kv_heads * nb, block_p,
+                          head_dim, dtype, device=device)
+    phys = torch.full((batch, kv_heads, nb), -1, dtype=_I32, device=device)
+    zero = torch.zeros((batch, kv_heads, padded_slots, 0), dtype=dtype,
+                       device=device)
+    return pool, phys, zero
+
+
+def event_mask(active: Optional[torch.Tensor], shape,
+               device=None) -> torch.Tensor:
+    """The scheduler's lane mask (B,) broadcast over an event shape (B, H[,
+    T]); None = every lane.  Pool mutations are gated on it."""
+    if active is None:
+        return torch.ones(shape, dtype=torch.bool, device=device)
+    return active.reshape((-1,) + (1,) * (len(shape) - 1)).expand(shape)
+
+
+def cache_block_p(cache) -> int:
+    """The kernel block granularity of a cache (its stored field or its
+    block table's)."""
+    bp = getattr(cache, "block_p", None)
+    if bp is None and hasattr(cache, "blocks"):
+        bp = cache.blocks.block_p
+    return bp or 0
+
+
+def pack_dense(cache, pool_blocks: Optional[int] = None):
+    """A fixed-arena cache converted to its pooled twin: a page for every
+    block with a live slot, filled from the arena; dead blocks get none.
+    Attention over either is the same (unmapped blocks are masked)."""
+    bp = cache_block_p(cache)
+    if not bp:
+        raise ValueError("pack_dense requires block_p > 0")
+    b, h, p, dh = cache.k.shape
+    nb = p // bp
+    pool = BlockPool.init(pool_blocks or b * h * nb, bp, dh, cache.k.dtype,
+                          device=cache.k.device)
+    valid = cache.valid_mask().expand(b, h, p)
+    need = valid.reshape(b, h, nb, bp).any(dim=-1).reshape(-1)
+    pool, page, ok = block_pool.alloc(pool, need)
+    phys = torch.where(need & ok, page, -1).reshape(b, h, nb)
+    dst = torch.where(need & ok, page, pool.num_blocks).long()
+    pool.k_buf[dst] = cache.k.reshape(b * h * nb, bp, dh)
+    pool.v_buf[dst] = cache.v.reshape(b * h * nb, bp, dh)
+    return dataclasses.replace(cache, k=cache.k[..., :0], v=cache.v[..., :0],
+                               pool=pool, phys=phys)
 
 
 # ---------------------------------------------------------------------------
@@ -187,17 +266,27 @@ class SlotDMSCache:
     window: int = field(metadata={"static": True})
     #: logical arena capacity (the physical extent of ``k`` may be padded)
     slots: int = field(metadata={"static": True})
+    pool: Optional[BlockPool] = None     # paged: the shared page arena
+    phys: Optional[torch.Tensor] = None  # paged: (B, H, NB) int32, -1 = unmapped
 
     @staticmethod
     def init(batch: int, kv_heads: int, num_slots: int, head_dim: int,
              window: int, dtype=torch.bfloat16, block_p: int = 0,
+             paged: bool = False, pool_blocks: Optional[int] = None,
              device=None) -> "SlotDMSCache":
         p = _round_up(num_slots, block_p)
         bh = (batch, kv_heads)
         ring = torch.arange(p, dtype=_I32, device=device) % num_slots
+        pool = phys = None
+        if paged:
+            pool, phys, k = init_paged(batch, kv_heads, p, head_dim, block_p,
+                                       dtype, pool_blocks, device=device)
+            v = k
+        else:
+            k = torch.zeros(bh + (p, head_dim), dtype=dtype, device=device)
+            v = torch.zeros(bh + (p, head_dim), dtype=dtype, device=device)
         return SlotDMSCache(
-            k=torch.zeros(bh + (p, head_dim), dtype=dtype, device=device),
-            v=torch.zeros(bh + (p, head_dim), dtype=dtype, device=device),
+            k=k, v=v,
             pos=torch.full(bh + (p,), INVALID_POS, dtype=_I32, device=device),
             valid=torch.zeros(bh + (p,), dtype=torch.bool, device=device),
             free_ring=ring.expand(bh + (p,)).contiguous(),
@@ -210,7 +299,7 @@ class SlotDMSCache:
             length=torch.zeros((batch,), dtype=_I32, device=device),
             overflowed=torch.zeros(bh, dtype=torch.bool, device=device),
             blocks=BlockTable.init(batch, kv_heads, p, block_p, device=device),
-            window=window, slots=num_slots)
+            window=window, slots=num_slots, pool=pool, phys=phys)
 
     @staticmethod
     def provision_slots(seq_len: int, cr: float, window: int) -> int:
@@ -219,11 +308,11 @@ class SlotDMSCache:
 
     # -- the step -------------------------------------------------------------
 
-    def _advance(self, alpha_new: torch.Tensor
-                 ) -> Tuple[Dict[str, torch.Tensor], BlockTable, torch.Tensor]:
+    def _advance(self, alpha_new: torch.Tensor):
         """New metadata of every lane after one step: execute the eviction
         decided ``w`` steps ago, pop a slot, record the new token.  Returns
-        (metadata by field name, block table, the slot (B, H) written)."""
+        (metadata by field name, block table, the slot (B, H) written, the
+        evicted slot (B, H), the mask of blocks that eviction emptied)."""
         t = self.length
         w = self.window
         b, h, p = self.valid.shape
@@ -244,7 +333,7 @@ class SlotDMSCache:
         free_ring = torch.where((p_idx == tail[..., None]) & do_evict[..., None],
                                 slot_c[..., None], self.free_ring)
         free_count = self.free_count + do_evict.to(_I32)
-        blocks = self.blocks.evict(slot_c, do_evict)
+        blocks, dead = self.blocks.evict_ex(slot_c, do_evict)
 
         # allocate: the free ring's head, or recycle the oldest live slot
         have_free = free_count > 0
@@ -271,7 +360,7 @@ class SlotDMSCache:
                     free_head=free_head, free_count=free_count,
                     pending_slot=pending_slot, pending_alpha=pending_alpha,
                     length=t + 1, overflowed=overflowed)
-        return meta, blocks, slot
+        return meta, blocks, slot, slot_c, dead
 
     def step(self, k_new: torch.Tensor, v_new: torch.Tensor,
              alpha_new: torch.Tensor,
@@ -284,7 +373,7 @@ class SlotDMSCache:
         Returns the (B, H) retained-token count every lane *would* hold
         after the step — the count the reference's metrics report, which it
         takes before freezing inactive lanes."""
-        meta, blocks, slot = self._advance(alpha_new)
+        meta, blocks, slot, evicted, dead = self._advance(alpha_new)
         retained = meta["valid"].sum(dim=-1)
         for name in _META:
             cur = getattr(self, name)
@@ -293,7 +382,13 @@ class SlotDMSCache:
             for name in ("count", "tbl", "pos", "n"):
                 cur = getattr(self.blocks, name)
                 cur.copy_(_lane_where(active, getattr(blocks, name), cur))
-        self._write_rows(slot, k_new, v_new, active)
+        if self.pool is None:
+            self._write_rows(slot, k_new, v_new, active)
+            return retained
+        act = event_mask(active, slot.shape, device=slot.device)
+        block_pool.free_block(self.pool, self.phys, evicted, dead & act)
+        block_pool.token_write(self.pool, self.phys, slot[..., None], k_new,
+                               v_new, act[..., None])
         return retained
 
     def _write_rows(self, slot, k_new, v_new, active) -> None:

@@ -2,22 +2,28 @@
 
 The same contract as the reference ``repro.core.policy``: every policy owns
 its cache's lifecycle (``init_cache``, ``decode_update``, ``fork_cache``,
-``gather_cache``, ``reclaim_cache``, ``metrics``, ``peak_bytes``) and the
-model dispatches only through the registry, keyed by the name a
-:class:`PolicyCache` carries.  This slice registers ``dms``; the other
-reference policies are queued in ROADMAP.md.
+``gather_cache``, ``reclaim_cache``, ``export_prefix``, ``import_prefix``,
+``metrics``, ``peak_bytes``) and the model dispatches only through the
+registry, keyed by the name a :class:`PolicyCache` carries.  This port
+registers ``dms``; the other reference policies are queued in ROADMAP.md.
 
 Lane lifecycle operations are functional and return new tensors, so lanes
 forked or gathered from one source never share storage; ``decode_update``
-updates the cache in place (see :meth:`SlotDMSCache.step`).
+updates the cache in place (see :meth:`SlotDMSCache.step`).  A paged
+cache's :class:`~repro_torch.core.block_pool.BlockPool` is the exception:
+it has no lane axis and is shared by every lane, so lifecycle operations
+recount its refcounts from the new page map and move no page (a fork is
+copy-on-write), and an import writes the pages it allocates in place.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import torch
 
+from repro_torch.core import block_pool
 from repro_torch.core.config import ArchConfig, KVPolicyConfig
 from repro_torch.core.kv_cache import SlotDMSCache
 from repro_torch.core.tree import tree_map
@@ -37,15 +43,38 @@ class AttendSpec:
     None.  ``block_tbl`` (B, Hkv, NB) int32 lists each row's live
     ``block_p``-sized blocks in its first ``block_n`` (B, Hkv) entries — the
     block-table contract with the flash-decode kernel; every visible slot
-    lies in a listed block.  ``block_p == 0`` means no table."""
+    lies in a listed block.  ``block_p == 0`` means no table.
 
-    k: torch.Tensor
-    v: torch.Tensor
+    A paged cache gives ``pool`` and ``phys`` (B, Hkv, NB) instead of
+    ``k``/``v``: the kernel streams the pool's pages (``pool_k``/``pool_v``)
+    through the page map, and only the reference path gathers the dense
+    view, through :meth:`kv`.  (The reference builds that view always and
+    lets XLA delete it under the kernel; eager PyTorch deletes nothing, and
+    the gather would read the whole pool in every layer of every step.)"""
+
+    k: Optional[torch.Tensor]
+    v: Optional[torch.Tensor]
     visible: torch.Tensor
     positions: Optional[torch.Tensor] = None
     block_tbl: Optional[torch.Tensor] = None
     block_n: Optional[torch.Tensor] = None
     block_p: int = 0
+    pool: Optional[block_pool.BlockPool] = None
+    phys: Optional[torch.Tensor] = None
+
+    @property
+    def pool_k(self) -> Optional[torch.Tensor]:
+        return None if self.pool is None else self.pool.k
+
+    @property
+    def pool_v(self) -> Optional[torch.Tensor]:
+        return None if self.pool is None else self.pool.v
+
+    def kv(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The dense (B, Hkv, P, Dh) K/V, gathered from the pool if paged."""
+        if self.pool is None:
+            return self.k, self.v
+        return block_pool.dense_kv(self.pool, self.phys)
 
 
 @dataclass
@@ -95,8 +124,6 @@ def init_policy_cache(arch: ArchConfig, batch: int, max_len: int,
                       layer_window: Optional[int] = None, dtype=None,
                       device=None) -> PolicyCache:
     """Provision one attention layer's cache through the registry."""
-    if cfg.paged:
-        raise NotImplementedError("the paged KV pool is not ported yet")
     name = cfg.kind_for_layer(layer_kind)
     pol = get_policy(name)
     dtype = dtype or torch_dtype(arch.dtype)
@@ -115,10 +142,62 @@ def iter_policy_caches(tree: Any) -> Iterator[PolicyCache]:
             yield from iter_policy_caches(v)
 
 
+def map_pooled_caches(state: Any, fn: Callable[[int, Any], Any]) -> Any:
+    """A decode state with ``fn(pooled_idx, cache)`` applied to every pooled
+    cache (others pass through).  ``pooled_idx`` counts pooled caches in
+    :func:`iter_policy_caches` order, the order of the scheduler's pool
+    descriptors and the fault injector's ghost ledgers."""
+    counter = [0]
+
+    def visit(node):
+        if isinstance(node, PolicyCache):
+            if getattr(node.cache, "pool", None) is None:
+                return node
+            idx = counter[0]
+            counter[0] += 1
+            return PolicyCache(fn(idx, node.cache), node.policy)
+        if isinstance(node, dict):
+            return {k: visit(v) for k, v in node.items()}
+        return node
+
+    return visit(state)
+
+
 def state_peak_bytes(state: Any) -> int:
     """Physical KV arena bytes of a decode state (shape-derived)."""
     return sum(get_policy(pc.policy).peak_bytes(pc.cache)
                for pc in iter_policy_caches(state))
+
+
+def state_pool_stats(state: Any) -> Optional[Dict[str, Any]]:
+    """Paged-pool counters summed over every pooled cache of a decode state
+    (reads the device), or None when nothing is paged.  ``live_tokens``
+    comes from each cache's block table counts, so ``fragmentation`` is the
+    share of mapped page capacity that holds no live token."""
+    out: Optional[Dict[str, Any]] = None
+    mapped_cap = 0
+    for pc in iter_policy_caches(state):
+        pool = getattr(pc.cache, "pool", None)
+        if pool is None:
+            continue
+        s = block_pool.stats(pool, pc.cache.phys,
+                             live_tokens=pc.cache.blocks.count)
+        mapped_cap += s["mapped_entries"] * pool.block_p
+        if out is None:
+            out = dict(s)
+            out["pools"] = 1
+        else:
+            for key in ("pool_blocks", "allocated_blocks", "free_blocks",
+                        "shared_blocks", "cow_copies", "alloc_events",
+                        "high_water_blocks", "superblocks", "mapped_entries",
+                        "live_tokens"):
+                out[key] += s[key]
+            out["exhausted"] = out["exhausted"] or s["exhausted"]
+            out["pools"] += 1
+    if out is not None:
+        out["fragmentation"] = (1.0 - out["live_tokens"] / mapped_cap
+                                if mapped_cap else 0.0)
+    return out
 
 
 def _nbytes(a: torch.Tensor) -> int:
@@ -160,25 +239,74 @@ class KVPolicy:
     # -- lane lifecycle (continuous batching / hyperscale fork) --------------
 
     def fork_cache(self, cache: Any, width: int, *, axis: int = 0) -> Any:
-        """Clone every lane into ``width`` adjacent lanes (new storage)."""
-        return tree_map(lambda a: a.repeat_interleave(width, dim=axis), cache)
+        """Clone every lane into ``width`` adjacent lanes (new storage).  A
+        paged cache forks copy-on-write: its page map tiles, refcounts are
+        recounted, and no page moves."""
+        return _per_lane(lambda a: a.repeat_interleave(width, dim=axis), cache)
 
     def gather_cache(self, cache: Any, src: torch.Tensor, *,
                      axis: int = 0) -> Any:
-        """Lane shuffle: new lane ``l`` is a copy of old lane ``src[l]``."""
+        """Lane shuffle: new lane ``l`` is a copy of old lane ``src[l]``.
+        Paged: duplicated lanes become CoW sharers of their pages, dropped
+        lanes' pages return to the free list."""
         idx = src.to(device=_device_of(cache), dtype=torch.long)
-        return tree_map(lambda a: a.index_select(axis, idx), cache)
+        return _per_lane(lambda a: a.index_select(axis, idx), cache)
 
     def reclaim_cache(self, cache: Any, reset_mask: torch.Tensor, fresh: Any,
                       *, axis: int = 0) -> Any:
-        """Lanes where ``reset_mask`` (B,) is True return to ``fresh``."""
+        """Lanes where ``reset_mask`` (B,) is True return to ``fresh``.
+        Paged: the lanes' page maps reset to -1 and their pages return to
+        the free list once no CoW sharer maps them; the pool's counters are
+        kept."""
 
         def sel(cur, init):
             m = reset_mask.reshape((1,) * axis + (-1,)
                                    + (1,) * (cur.dim() - axis - 1))
             return torch.where(m.to(cur.device), init, cur)
 
-        return tree_map(sel, cache, fresh)
+        return _per_lane(sel, cache, fresh)
+
+    # -- prefix lifecycle (preemption snapshots) ------------------------------
+
+    def export_prefix(self, cache: Any, lane: int, *, axis: int = 0) -> Any:
+        """One lane's complete state, as a width-1-lane cache of the same
+        structure (new tensors): everything needed to continue decoding.
+        A paged cache densifies: the lane's pages are gathered into
+        fixed-arena-shaped ``k``/``v`` and ``pool``/``phys`` are None, so a
+        snapshot has one format whatever the layout."""
+
+        def take(a):
+            return a.narrow(axis, lane, 1).clone()
+
+        pool = getattr(cache, "pool", None)
+        if pool is None:
+            return tree_map(take, cache)
+        k, v = block_pool.dense_kv(pool, cache.phys.narrow(axis, lane, 1))
+        snap = tree_map(take, dataclasses.replace(cache, pool=None, phys=None))
+        return dataclasses.replace(snap, k=k, v=v)
+
+    def import_prefix(self, cache: Any, snap: Any, lane: int, *,
+                      axis: int = 0) -> Any:
+        """Restore an :meth:`export_prefix` snapshot into lane ``lane``,
+        which must be pristine; every per-lane leaf comes back new.  Paged:
+        a page is allocated for every block with a live slot and filled
+        from the snapshot, and the lane's page map and the refcounts are
+        rebuilt.  Exhaustion drops the affected blocks (they read as
+        zeros, masked) and latches ``pool.exhausted``."""
+        pool = getattr(cache, "pool", None)
+        if pool is None:
+            return _put_lane(cache, snap, lane, axis)
+        body = _put_lane(
+            dataclasses.replace(cache, pool=None, phys=None),
+            dataclasses.replace(snap, k=snap.k[..., :0], v=snap.v[..., :0]),
+            lane, axis)
+        phys = cache.phys.clone()
+        valid = snap.valid_mask()
+        for ix in ([()] if axis == 0 else [(i,) for i in range(phys.shape[0])]):
+            _import_pages(tree_map(lambda a: a[ix], pool), phys[ix],
+                          snap.k[ix], snap.v[ix], valid[ix], lane)
+        return dataclasses.replace(body, pool=block_pool.set_refcounts(pool, phys),
+                                   phys=phys)
 
     # -- accounting ----------------------------------------------------------
 
@@ -190,6 +318,9 @@ class KVPolicy:
                 "peak_bytes": self.peak_bytes(cache)}
 
     def peak_bytes(self, cache: Any) -> int:
+        pool = getattr(cache, "pool", None)
+        if pool is not None:       # the footprint is the pool's pages
+            return _nbytes(pool.k) + _nbytes(pool.v)
         return _nbytes(cache.k) + _nbytes(cache.v)
 
 
@@ -197,9 +328,50 @@ def _device_of(cache: Any) -> torch.device:
     return cache.length.device
 
 
+def _per_lane(fn, cache, *rest):
+    """``fn`` over every per-lane leaf (and the matching leaves of ``rest``);
+    a paged cache keeps its pool and gets refcounts recounted from the new
+    page map."""
+    pool = getattr(cache, "pool", None)
+    if pool is None:
+        return tree_map(fn, cache, *rest)
+    body = tree_map(fn, *(dataclasses.replace(c, pool=None)
+                          for c in (cache,) + rest))
+    return dataclasses.replace(body,
+                               pool=block_pool.set_refcounts(pool, body.phys))
+
+
+def _put_lane(cache, snap, lane: int, axis: int):
+    """``cache`` with lane ``lane`` of every leaf replaced by ``snap``'s."""
+    idx = torch.tensor([lane], device=_device_of(cache))
+    return tree_map(lambda a, s: a.index_copy(axis, idx, s.to(a.dtype)),
+                    cache, snap)
+
+
+def _import_pages(pool, phys, k, v, valid, lane: int) -> None:
+    """One layer's import into a pristine lane: allocate a page for each of
+    the snapshot's blocks that holds a live slot and fill it (in place)."""
+    _, h, nb = phys.shape
+    bp = pool.block_p
+    p, dh = k.shape[2], k.shape[3]
+    need = valid.expand(1, h, p).reshape(h, nb, bp).any(dim=-1).reshape(-1)
+    pool, page, ok = block_pool.alloc(pool, need)
+    got = need & ok
+    dst = torch.where(got, page, pool.num_blocks).long()
+    pool.k_buf[dst] = k.reshape(h * nb, bp, dh).to(pool.k_buf.dtype)
+    pool.v_buf[dst] = v.reshape(h * nb, bp, dh).to(pool.v_buf.dtype)
+    phys[lane] = torch.where(got, page, -1).reshape(h, nb)
+
+
 def _attend_spec(cache) -> AttendSpec:
-    """The AttendSpec of a cache, with its live-block table when it keeps one."""
+    """The AttendSpec of a cache, with its live-block table when it keeps
+    one; a paged cache hands over its pool and page map instead of K/V."""
     tbl, n, bp = cache.block_spec()
+    pool = getattr(cache, "pool", None)
+    if pool is not None:
+        return AttendSpec(None, None, cache.valid_mask(), cache.positions(),
+                          block_tbl=tbl, block_n=n, block_p=bp, pool=pool,
+                          phys=cache.phys)
     return AttendSpec(cache.k, cache.v, cache.valid_mask(), cache.positions(),
                       block_tbl=tbl, block_n=n, block_p=bp)
 
@@ -232,7 +404,8 @@ class DMSPolicy(_SlotRingMixin, KVPolicy):
         slots = SlotDMSCache.provision_slots(eff_len, cfg.cr, arch.dms.window)
         return SlotDMSCache.init(batch, a.num_kv_heads, min(slots, eff_len + 1),
                                  a.head_dim, arch.dms.window, dtype,
-                                 block_p=cfg.block_p, device=device)
+                                 block_p=cfg.block_p, paged=cfg.paged,
+                                 pool_blocks=cfg.pool_blocks, device=device)
 
     def decode_update(self, cache, q, k_new, v_new, aux):
         return self._slot_update(cache, k_new, v_new, aux)

@@ -7,7 +7,7 @@ configuration, not state, and pass through untouched.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -16,22 +16,25 @@ def is_static(f: dataclasses.Field) -> bool:
     return bool(f.metadata.get("static"))
 
 
-def tree_map(fn: Callable[..., torch.Tensor], tree: Any, *rest: Any) -> Any:
+def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any,
+             is_leaf: Optional[Callable[[Any], bool]] = None) -> Any:
     """Apply ``fn`` to every tensor leaf of ``tree`` (and the matching leaves
-    of ``rest``), rebuilding the same structure."""
-    if isinstance(tree, torch.Tensor):
+    of ``rest``), rebuilding the same structure.  A node for which
+    ``is_leaf`` is true goes to ``fn`` whole."""
+    if isinstance(tree, torch.Tensor) or (is_leaf is not None
+                                          and is_leaf(tree)):
         return fn(tree, *rest)
     if tree is None:
         return None
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v, *(r[k] for r in rest))
+        return {k: tree_map(fn, v, *(r[k] for r in rest), is_leaf=is_leaf)
                 for k, v in tree.items()}
     if dataclasses.is_dataclass(tree):
         kw = {}
         for f in dataclasses.fields(tree):
             val = getattr(tree, f.name)
             kw[f.name] = val if is_static(f) else tree_map(
-                fn, val, *(getattr(r, f.name) for r in rest))
+                fn, val, *(getattr(r, f.name) for r in rest), is_leaf=is_leaf)
         return type(tree)(**kw)
     raise TypeError(f"not a state tree node: {type(tree).__name__}")
 

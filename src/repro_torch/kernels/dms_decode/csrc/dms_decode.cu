@@ -1,21 +1,37 @@
 // Block-table flash-decode for Hopper (sm_90a): one decode token's GQA
 // attention per (lane, kv head) over only the live blocks of a compacted
-// DMS slot arena.
+// DMS slot arena, in one of two layouts.
 //
-// Replaces the Pallas TPU kernel `decode_fwd` (fixed-arena mode) in
-// src/repro/kernels/dms_decode/dms_decode.py (body `_decode_kernel`).
+// Replaces the Pallas TPU kernel `decode_fwd` in
+// src/repro/kernels/dms_decode/dms_decode.py (body `_decode_kernel`) in two
+// of its three modes:
+//   * fixed-arena mode: K/V and `valid` are each row's own arena (BH, P, .),
+//     and table entries are block ids into that arena;
+//   * shared-pool mode (`shared_kv`, the TPU kernel's `DecodeConfig.
+//     shared_kv=True`, its index maps at dms_decode.py:147-151): K/V are one
+//     page arena (NPOOL * block_p, Dh) shared by every row of a paged cache,
+//     table entries are page ids (the logical table translated through the
+//     page map by the wrapper), and `valid` arrives gathered into table
+//     order (BH, NB_tbl * block_p).  So K/V of entry i sit at
+//     page * block_p, whatever the row, and its `valid` at
+//     (row * NB_tbl + i) * block_p.
+// The `weights_out` mode is not ported yet.
 //
 // What bounds it: device-memory bytes.  A decode step does ~2*G*Dh flops per
 // K/V slot it reads (G = 6 query heads per kv head on Qwen-R1), far below
 // the ~295 flop/byte the H100 needs before its tensor cores are the limit.
 // The bytes it must move are `ops.modeled_hbm_bytes`: sum(n) live blocks x
-// block_p x Dh x (2 + 2) bytes of K/V, plus q, out, the table and `valid`.
+// block_p x Dh x (2 + 2) bytes of K/V, plus q, out, the table and `valid` —
+// in shared-pool mode the same, plus the wrapper's gathered `valid` rows and
+// translated table.
 //
-// What the design does about it:
-//   * the loop runs over `tbl[row, :n[row]]` only, so a block that holds no
-//     live slot is never read: traffic scales with live tokens, not with the
-//     arena's capacity (the property the TPU kernel got from its clamped
-//     index maps);
+// What the design does about it (the same in both modes; only the two
+// addresses differ, so the same logical contents in the same table order
+// give the same bits):
+//   * the loop runs over `tbl[row, :n[row]]` only, so a block (or page)
+//     that no listed entry names is never read: traffic scales with live
+//     tokens, not with the arena's or the pool's capacity (the property the
+//     TPU kernel got from its clamped index maps);
 //   * the G query heads of a group share each K/V block: a block is staged
 //     once in shared memory (16-byte vector loads) and read by all G rows;
 //   * the next block's K/V is loaded into registers while the current one is
@@ -26,9 +42,10 @@
 //     rows padded by 16 bytes, so the threads of a warp hit distinct banks);
 //     scores, the online softmax and the PV accumulator stay on chip in
 //     fp32, and only the bf16 output row goes back.
-// Not done here (first performance items, see PERF.md): a split of the table
-// across several thread blocks with an LSE combine (Qwen-R1 has Hkv = 2, so
-// B*Hkv blocks cannot fill 132 SMs), cp.async/TMA pipelines, wgmma.
+// Not done here (first performance items, see PERF.md and ROADMAP E2): a
+// split of the table across several thread blocks with an LSE combine
+// (Qwen-R1 has Hkv = 2, so B*Hkv blocks cannot fill 132 SMs), cp.async/TMA
+// pipelines, wgmma.
 //
 // Plain C interface, loaded with ctypes; launches on the caller's stream and
 // returns cudaGetLastError().
@@ -91,7 +108,7 @@ dms_decode_kernel(const __nv_bfloat16* __restrict__ q,     // (BH, G, Dh)
                   const int32_t* __restrict__ n,           // (BH,)
                   __nv_bfloat16* __restrict__ out,         // (BH, G, Dh)
                   int g, int dh, int p, int nb_tbl, int block_p,
-                  float scale, int has_cap, float cap) {
+                  float scale, int has_cap, float cap, int shared_kv) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int kstride = dh + kPad;
   __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -122,19 +139,23 @@ dms_decode_kernel(const __nv_bfloat16* __restrict__ q,     // (BH, G, Dh)
 #pragma unroll
   for (int j = 0; j < kAccPerThread; ++j) acc[j] = 0.f;
 
-  const int nblk = p / block_p;
+  const int nblk = p / block_p;        // blocks of a row's arena, or pages
   const int count = min(max(n[row], 0), nb_tbl);
   const int32_t* tbl_row = tbl + (size_t)row * nb_tbl;
-  auto block_slot0 = [&](int i) {
-    const int blk = min(max(tbl_row[i], 0), nblk - 1);
-    return (size_t)row * p + (size_t)blk * block_p;
+  // first slot of table entry i: in K/V, and in `valid`
+  auto kv_slot0 = [&](int i) {
+    const size_t blk = (size_t)min(max(tbl_row[i], 0), nblk - 1);
+    return shared_kv ? blk * block_p : (size_t)row * p + blk * block_p;
+  };
+  auto valid_slot0 = [&](int i) {
+    return shared_kv ? ((size_t)row * nb_tbl + i) * block_p : kv_slot0(i);
   };
 
   // register staging for the next block (used when `in_regs`)
   uint4 kr[kPrefetch], vr[kPrefetch];
   uint8_t lr = 0;
   auto fetch = [&](int i) {
-    const size_t slot0 = block_slot0(i);
+    const size_t slot0 = kv_slot0(i);
     const uint4* k_src = reinterpret_cast<const uint4*>(k + slot0 * dh);
     const uint4* v_src = reinterpret_cast<const uint4*>(v + slot0 * dh);
 #pragma unroll
@@ -145,7 +166,7 @@ dms_decode_kernel(const __nv_bfloat16* __restrict__ q,     // (BH, G, Dh)
         vr[r] = v_src[e];
       }
     }
-    if (tid < block_p) lr = valid[slot0 + tid] != 0;
+    if (tid < block_p) lr = valid[valid_slot0(i) + tid] != 0;
   };
   auto stash = [&]() {
 #pragma unroll
@@ -161,7 +182,7 @@ dms_decode_kernel(const __nv_bfloat16* __restrict__ q,     // (BH, G, Dh)
     if (tid < block_p) live_s[tid] = lr;
   };
   auto load_direct = [&](int i) {
-    const size_t slot0 = block_slot0(i);
+    const size_t slot0 = kv_slot0(i);
     const uint4* k_src = reinterpret_cast<const uint4*>(k + slot0 * dh);
     const uint4* v_src = reinterpret_cast<const uint4*>(v + slot0 * dh);
     for (int e = tid; e < vecs; e += kThreads) {
@@ -170,7 +191,7 @@ dms_decode_kernel(const __nv_bfloat16* __restrict__ q,     // (BH, G, Dh)
       *reinterpret_cast<uint4*>(k_s + j * kstride + c * 8) = k_src[e];
       reinterpret_cast<uint4*>(v_s)[e] = v_src[e];
     }
-    if (tid < block_p) live_s[tid] = valid[slot0 + tid] != 0;
+    if (tid < block_p) live_s[tid] = valid[valid_slot0(i) + tid] != 0;
   };
 
   if (in_regs && count > 0) fetch(0);
@@ -258,7 +279,8 @@ extern "C" int dms_decode_fwd(const void* q, const void* k, const void* v,
                               const void* valid, const void* tbl,
                               const void* n, void* out, int bh, int g, int dh,
                               int p, int nb_tbl, int block_p, float scale,
-                              int has_cap, float cap, void* stream) {
+                              int has_cap, float cap, int shared_kv,
+                              void* stream) {
   if (bh < 0 || g < 1 || g > kMaxG || dh < 8 || dh > kMaxDh || dh % 8 != 0 ||
       block_p < 1 || block_p > kMaxBlockP || p < block_p || p % block_p != 0 ||
       nb_tbl < 0)
@@ -273,6 +295,7 @@ extern "C" int dms_decode_fwd(const void* q, const void* k, const void* v,
   dms_decode_kernel<<<bh, kThreads, smem, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
       (const uint8_t*)valid, (const int32_t*)tbl, (const int32_t*)n,
-      (__nv_bfloat16*)out, g, dh, p, nb_tbl, block_p, scale, has_cap, cap);
+      (__nv_bfloat16*)out, g, dh, p, nb_tbl, block_p, scale, has_cap, cap,
+      shared_kv);
   return (int)cudaGetLastError();
 }

@@ -7,6 +7,12 @@ Two call modes, as in the reference ``repro.kernels.dms_decode.ops``:
   arena is allocated pre-padded to a ``block_p`` multiple in the kernel's
   per-(lane, kv-head) layout, so the wrapper only reshapes — no copy, no pad,
   no cast.  Traffic scales with live blocks.
+  With ``pool_k``/``pool_v``/``phys`` also given (a paged cache, see
+  :mod:`repro_torch.core.block_pool`) the kernel runs in **shared-pool
+  mode**: K/V come from the one page arena, the logical table is translated
+  to page ids through ``phys`` (one (B, Hkv, NB_tbl) int32 gather) and
+  ``valid`` is gathered into table order (bool rows).  No page is copied and
+  nothing is padded; the dense per-lane view is never built.
 * **Legacy dense mode** (no table — direct kernel tests on arbitrary
   shapes): a table covering every block that holds a visible slot is derived
   from ``valid`` and the arena is padded to a block multiple.  Traffic then
@@ -25,14 +31,17 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.dms_decode.ref import dms_decode_plain
+from repro_torch.kernels.dms_decode.ref import (dms_decode_plain,
+                                                dms_decode_plain_shared)
 
 DEFAULT_BLOCK_P = 128
 MAX_G, MAX_DH, MAX_BLOCK_P = 16, 256, 128
 SOURCE = Path(__file__).resolve().parent / "csrc" / "dms_decode.cu"
 
-#: kernel launches since the last reset (the CPU path never counts)
+#: kernel launches since the last reset (the CPU path never counts), in
+#: fixed-arena mode and in shared-pool mode
 launches = 0
+shared_launches = 0
 
 
 def _round_up(x: int, m: int) -> int:
@@ -45,7 +54,7 @@ def _library() -> ctypes.CDLL:
     if fn.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [ptr] * 7 + [i32] * 6 + [ctypes.c_float, i32,
-                                               ctypes.c_float, ptr]
+                                               ctypes.c_float, i32, ptr]
         fn.restype = i32
     return lib
 
@@ -64,10 +73,10 @@ def modeled_hbm_bytes(block_n: torch.Tensor, block_p: int, head_dim: int,
     return int(block_n.sum().item()) * block_p * per_slot
 
 
-def _launch(qf, kf, vf, valf, tblf, nf, block_p, logit_cap):
+def _launch(qf, kf, vf, valf, tblf, nf, block_p, logit_cap, shared_kv):
     """The kernel on CUDA tensors of the flattened layout; raises on what it
     does not take."""
-    global launches
+    global launches, shared_launches
     bh, g, dh = qf.shape
     p = kf.shape[1]
     if not (1 <= g <= MAX_G and 8 <= dh <= MAX_DH and dh % 8 == 0):
@@ -104,50 +113,73 @@ def _launch(qf, kf, vf, valf, tblf, nf, block_p, logit_cap):
             tblf.data_ptr(), nf.data_ptr(), out.data_ptr(),
             bh, g, dh, p, tblf.shape[1], block_p, float(dh ** -0.5),
             int(logit_cap is not None),
-            float(logit_cap if logit_cap is not None else 0.0), stream)
+            float(logit_cap if logit_cap is not None else 0.0),
+            int(shared_kv), stream)
     if err != 0:
         raise RuntimeError(f"dms_decode kernel launch failed: CUDA error {err}")
-    launches += 1
+    if shared_kv:
+        shared_launches += 1
+    else:
+        launches += 1
     return out
 
 
 def decode_rows(qf, kf, vf, valf, tblf, nf, block_p: int,
-                logit_cap: Optional[float] = None) -> torch.Tensor:
-    """The kernel's own interface: q (BH, G, Dh); k, v (BH, P, Dh); valid
-    (BH, P); block_tbl (BH, NB_tbl) int32; block_n (BH,) int32 -> (BH, G,
-    Dh).  CUDA tensors launch the kernel; CPU tensors run the plain
+                logit_cap: Optional[float] = None,
+                shared_kv: bool = False) -> torch.Tensor:
+    """The kernel's own interface: q (BH, G, Dh); block_tbl (BH, NB_tbl)
+    int32; block_n (BH,) int32 -> (BH, G, Dh).  Fixed-arena mode: k, v (BH,
+    P, Dh), valid (BH, P), table entries index the row's own arena.
+    ``shared_kv``: k, v (1, NPOOL * block_p, Dh), one page arena for every
+    row, valid (BH, NB_tbl * block_p) in table order, table entries are
+    page ids.  CUDA tensors launch the kernel; CPU tensors run the plain
     version."""
     if qf.is_cuda:
-        return _launch(qf, kf, vf, valf, tblf, nf, block_p, logit_cap)
+        return _launch(qf, kf, vf, valf, tblf, nf, block_p, logit_cap,
+                       shared_kv)
     if qf.device.type == "cpu":
-        return dms_decode_plain(qf, kf, vf, valf, tblf, nf, block_p, logit_cap)
+        plain = dms_decode_plain_shared if shared_kv else dms_decode_plain
+        return plain(qf, kf, vf, valf, tblf, nf, block_p, logit_cap)
     raise ValueError(f"dms_decode: unsupported device {qf.device}")
 
 
 def dms_decode_attention(
-    q: torch.Tensor,       # (B, 1, Hq, Dh)
-    k: torch.Tensor,       # (B, Hkv, P, Dh)
-    v: torch.Tensor,
-    valid: torch.Tensor,   # (B, Hkv, P) bool
+    q: torch.Tensor,                 # (B, 1, Hq, Dh)
+    k: Optional[torch.Tensor],       # (B, Hkv, P, Dh); None with a pool
+    v: Optional[torch.Tensor],
+    valid: torch.Tensor,             # (B, Hkv, P) bool
     *,
     block_tbl: Optional[torch.Tensor] = None,   # (B, Hkv, NB) int32
     block_n: Optional[torch.Tensor] = None,     # (B, Hkv) int32
     block_p: Optional[int] = None,
     logit_cap: Optional[float] = None,
+    pool_k: Optional[torch.Tensor] = None,      # (NPOOL, block_p, Dh) pages
+    pool_v: Optional[torch.Tensor] = None,
+    phys: Optional[torch.Tensor] = None,        # (B, Hkv, NB) page map, -1 free
 ) -> torch.Tensor:
-    """One decode token's attention over a slot arena -> (B, 1, Hq, Dh)."""
+    """One decode token's attention over a slot arena, or over the pages of
+    a shared pool -> (B, 1, Hq, Dh)."""
     if q.dim() != 4 or q.shape[1] != 1:
         raise ValueError(f"q must be (B, 1, Hq, Dh), got {tuple(q.shape)}")
     b, _, hq, dh = q.shape
-    if k.dim() != 4 or k.shape[0] != b or k.shape[3] != dh or v.shape != k.shape:
-        raise ValueError(f"k/v must be (B, Hkv, P, Dh) matching q; got "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
-    hkv, p = k.shape[1], k.shape[2]
+    shared = pool_k is not None
+    if shared:
+        if valid.dim() != 3 or valid.shape[0] != b:
+            raise ValueError(f"valid must be (B, Hkv, P), got "
+                             f"{tuple(valid.shape)}")
+        hkv, p = valid.shape[1], valid.shape[2]
+    else:
+        if k is None or k.dim() != 4 or k.shape[0] != b or k.shape[3] != dh \
+                or v is None or v.shape != k.shape:
+            raise ValueError("k/v must be (B, Hkv, P, Dh) matching q; got "
+                             f"{None if k is None else tuple(k.shape)}, "
+                             f"{None if v is None else tuple(v.shape)}")
+        hkv, p = k.shape[1], k.shape[2]
+        if valid.shape != k.shape[:3]:
+            raise ValueError(f"valid must be {tuple(k.shape[:3])}, got "
+                             f"{tuple(valid.shape)}")
     if hq % hkv:
         raise ValueError(f"{hq} query heads do not group over {hkv} kv heads")
-    if valid.shape != k.shape[:3]:
-        raise ValueError(f"valid must be {tuple(k.shape[:3])}, got "
-                         f"{tuple(valid.shape)}")
     g = hq // hkv
 
     if block_tbl is not None:
@@ -158,10 +190,32 @@ def dms_decode_attention(
         if block_tbl.shape[:2] != (b, hkv) or block_n.shape != (b, hkv):
             raise ValueError("block_tbl must be (B, Hkv, NB) and block_n (B, Hkv)")
         bp = block_p
-        kf, vf = k.reshape(b * hkv, p, dh), v.reshape(b * hkv, p, dh)
-        valf = valid.reshape(b * hkv, p)
-        tblf = block_tbl.reshape(b * hkv, -1)
         nf = block_n.reshape(b * hkv)
+        if shared:
+            npool = pool_k.shape[0]
+            if pool_k.shape[1:] != (bp, dh) or pool_v.shape != pool_k.shape:
+                raise ValueError(f"pool pages must be (NPOOL, {bp}, {dh}), got "
+                                 f"{tuple(pool_k.shape)}, {tuple(pool_v.shape)}")
+            if phys is None or phys.shape != (b, hkv, p // bp):
+                raise ValueError(f"phys must be {(b, hkv, p // bp)}")
+            # logical block ids -> page ids (the twin of
+            # core.block_pool.translate_table, inlined so kernels import no
+            # core); a stale tail entry may map to -1 and is clamped, the
+            # kernel never reads past n
+            tbl_c = block_tbl.clamp(0, p // bp - 1).long()
+            tblf = (phys.gather(2, tbl_c).clamp(0, npool - 1)
+                    .to(torch.int32).reshape(b * hkv, -1))
+            kf = pool_k.reshape(1, npool * bp, dh)
+            vf = pool_v.reshape(1, npool * bp, dh)
+            valf = (valid.reshape(b, hkv, p // bp, bp)
+                    .gather(2, tbl_c[..., None].expand(-1, -1, -1, bp))
+                    .reshape(b * hkv, -1))
+        else:
+            kf, vf = k.reshape(b * hkv, p, dh), v.reshape(b * hkv, p, dh)
+            valf = valid.reshape(b * hkv, p)
+            tblf = block_tbl.reshape(b * hkv, -1)
+    elif shared:
+        raise ValueError("a shared pool needs block_tbl/block_n/block_p")
     else:
         # legacy dense mode: a written-blocks table derived from `valid`
         bp = min(block_p or DEFAULT_BLOCK_P, _round_up(p, 8))
@@ -176,5 +230,6 @@ def dms_decode_attention(
         nf = blk_live.sum(dim=-1).to(torch.int32)
 
     qf = q[:, 0].reshape(b * hkv, g, dh)
-    out = decode_rows(qf, kf, vf, valf, tblf, nf, bp, logit_cap)
+    out = decode_rows(qf, kf, vf, valf, tblf, nf, bp, logit_cap,
+                      shared_kv=shared)
     return out.reshape(b, 1, hq, dh)

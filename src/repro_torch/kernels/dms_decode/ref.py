@@ -8,6 +8,12 @@ the listed blocks and touches nothing else, so unlisted blocks may hold any
 bytes, NaN included.  That is what the CUDA kernel (``csrc/dms_decode.cu``)
 computes and what ``chip_smoke.py`` holds it against on the card; the CPU
 tests run it in the kernel's place.
+
+Two layouts, as the kernel's two modes: :func:`dms_decode_plain` reads each
+row's own arena (fixed arenas); :func:`dms_decode_plain_shared` reads pages
+of one shared pool (the paged pool), with ``valid`` already in table order.
+Both gather the listed blocks in table order and share the arithmetic, so
+the same logical contents give the same bits in either layout.
 """
 from __future__ import annotations
 
@@ -18,29 +24,15 @@ import torch
 NEG_INF = -1e30
 
 
-def dms_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     valid: torch.Tensor, block_tbl: torch.Tensor,
-                     block_n: torch.Tensor, block_p: int,
-                     logit_cap: Optional[float] = None) -> torch.Tensor:
-    """q: (BH, G, Dh); k, v: (BH, P, Dh) with P a ``block_p`` multiple;
-    valid: (BH, P) (``!= 0`` is live); block_tbl: (BH, NB_tbl) int;
-    block_n: (BH,) int.  Returns (BH, G, Dh) in q's dtype."""
-    bh, p, dh = k.shape
-    nb, nbt = p // block_p, block_tbl.shape[1]
-    idx = block_tbl.long().clamp(0, max(nb - 1, 0))              # (BH, NBt)
-    entry = (torch.arange(nbt, device=k.device)[None, :]
-             < block_n[:, None])                                 # (BH, NBt)
-
-    def gather(x):                                   # (BH, P, ...) -> listed
-        blocks = x.reshape((bh, nb, block_p) + x.shape[2:])
-        ix = idx.reshape((bh, nbt) + (1,) * (blocks.dim() - 2))
-        got = blocks.gather(1, ix.expand((bh, nbt) + blocks.shape[2:]))
-        return got.reshape((bh, nbt * block_p) + x.shape[2:])
-
-    live = (gather(valid != 0)
-            & entry.repeat_interleave(block_p, dim=1))[:, None, :]  # (BH,1,L)
-    kl = torch.where(live[:, 0, :, None], gather(k).float(), 0.0)
-    vl = torch.where(live[:, 0, :, None], gather(v).float(), 0.0)
+def _attend_listed(q: torch.Tensor, kl: torch.Tensor, vl: torch.Tensor,
+                   live: torch.Tensor, logit_cap: Optional[float]
+                   ) -> torch.Tensor:
+    """q (BH, G, Dh); kl, vl (BH, L, Dh), the listed blocks' slots in table
+    order; live (BH, L) bool.  Returns (BH, G, Dh) in q's dtype."""
+    dh = q.shape[-1]
+    live = live[:, None, :]                                        # (BH,1,L)
+    kl = torch.where(live[:, 0, :, None], kl.float(), 0.0)
+    vl = torch.where(live[:, 0, :, None], vl.float(), 0.0)
     s = torch.einsum("hgd,hpd->hgp", q.float(), kl) * (dh ** -0.5)
     if logit_cap is not None:
         s = logit_cap * torch.tanh(s / logit_cap)
@@ -50,3 +42,51 @@ def dms_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     l = p_.sum(dim=-1, keepdim=True)
     out = torch.einsum("hgp,hpd->hgd", p_, vl)
     return (out / torch.where(l > 0, l, 1.0)).to(q.dtype)
+
+
+def _listed(block_n: torch.Tensor, nbt: int, block_p: int) -> torch.Tensor:
+    """(BH, NBt * block_p) bool: the slot lies in one of the first n entries."""
+    entry = (torch.arange(nbt, device=block_n.device)[None, :]
+             < block_n[:, None])
+    return entry.repeat_interleave(block_p, dim=1)
+
+
+def dms_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     valid: torch.Tensor, block_tbl: torch.Tensor,
+                     block_n: torch.Tensor, block_p: int,
+                     logit_cap: Optional[float] = None) -> torch.Tensor:
+    """q: (BH, G, Dh); k, v: (BH, P, Dh) with P a ``block_p`` multiple;
+    valid: (BH, P) (``!= 0`` is live); block_tbl: (BH, NB_tbl) int;
+    block_n: (BH,) int.  Returns (BH, G, Dh) in q's dtype."""
+    bh, p, _ = k.shape
+    nb, nbt = p // block_p, block_tbl.shape[1]
+    idx = block_tbl.long().clamp(0, max(nb - 1, 0))              # (BH, NBt)
+
+    def gather(x):                                   # (BH, P, ...) -> listed
+        blocks = x.reshape((bh, nb, block_p) + x.shape[2:])
+        ix = idx.reshape((bh, nbt) + (1,) * (blocks.dim() - 2))
+        got = blocks.gather(1, ix.expand((bh, nbt) + blocks.shape[2:]))
+        return got.reshape((bh, nbt * block_p) + x.shape[2:])
+
+    live = gather(valid != 0) & _listed(block_n, nbt, block_p)
+    return _attend_listed(q, gather(k), gather(v), live, logit_cap)
+
+
+def dms_decode_plain_shared(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            valid: torch.Tensor, block_tbl: torch.Tensor,
+                            block_n: torch.Tensor, block_p: int,
+                            logit_cap: Optional[float] = None) -> torch.Tensor:
+    """The shared-pool layout.  q: (BH, G, Dh); k, v: (1, NPOOL * block_p,
+    Dh), one page arena for every row; valid: (BH, NB_tbl * block_p) in
+    table order; block_tbl: (BH, NB_tbl) pool page ids; block_n: (BH,).
+    Only the listed pages are gathered."""
+    bh, nbt = block_tbl.shape
+    dh = k.shape[-1]
+    npool = k.shape[1] // block_p
+    idx = block_tbl.long().clamp(0, max(npool - 1, 0)).reshape(-1)
+
+    def gather(x):
+        return x.reshape(npool, block_p, dh)[idx].reshape(bh, nbt * block_p, dh)
+
+    live = (valid != 0) & _listed(block_n, nbt, block_p)
+    return _attend_listed(q, gather(k), gather(v), live, logit_cap)

@@ -195,18 +195,21 @@ def _masked_decode(q, spec, window, cfg, use_kernel, pos_t=None):
     hide slots with position <= t - window (a subset of ``spec.visible``, so
     the table stays a valid cover).  Returns (out (B, 1, Hq, Dh), the
     implementation used: "kernel" | "ref")."""
-    k, v, vis, pos = spec.k, spec.v, spec.visible, spec.positions
+    vis, pos = spec.visible, spec.positions
     b, _, hq, dh = q.shape
-    hkv = k.shape[1]
+    hkv = vis.shape[1]
     g = hq // hkv
     if window is not None and pos is not None and pos_t is not None:
         ptl = torch.as_tensor(pos_t, dtype=torch.int32, device=q.device).expand(b)
         vis = vis & (pos > (ptl[:, None, None] - window))
     if use_kernel:
         out = dkops.dms_decode_attention(
-            q, k, v, vis, block_tbl=spec.block_tbl, block_n=spec.block_n,
-            block_p=spec.block_p or None, logit_cap=cfg.logit_softcap)
+            q, spec.k, spec.v, vis, block_tbl=spec.block_tbl,
+            block_n=spec.block_n, block_p=spec.block_p or None,
+            logit_cap=cfg.logit_softcap, pool_k=spec.pool_k,
+            pool_v=spec.pool_v, phys=spec.phys)
         return out, "kernel"
+    k, v = spec.kv()              # a paged spec gathers its dense view here
     # bf16 operands, fp32 accumulation: the products of bf16 values are exact
     # in fp32, so fp32 matmuls of the upcast operands reproduce it
     qg = q[:, 0].reshape(b, hkv, g, dh).to(k.dtype)

@@ -25,6 +25,7 @@ import torch.utils.checkpoint
 
 from repro_torch.core import dms as dms_lib
 from repro_torch.core import policy as policy_lib
+from repro_torch.core.block_pool import BlockPool
 from repro_torch.core.config import ArchConfig, KVPolicyConfig
 from repro_torch.core.tree import tree_leaves, tree_map, tree_unflatten
 from repro_torch.device import DeviceLike, resolve_device, torch_dtype
@@ -220,7 +221,8 @@ def init_decode_state(arch: ArchConfig, batch: int, max_len: int,
                       policy: KVPolicyConfig,
                       device: DeviceLike = None) -> Dict[str, Any]:
     """One cache per layer, stacked over layers (lane axis at position 1),
-    provisioned through the policy registry."""
+    provisioned through the policy registry.  A paged policy gets one pool
+    per layer, stacked too: pages (L, NPOOL, block_p, Dh), ref (L, NPOOL)."""
     check_supported(arch)
     dev = resolve_device(device)
     one = policy_lib.init_policy_cache(arch, batch, max_len, policy,
@@ -258,13 +260,41 @@ def reclaim_lanes(state: Dict[str, Any], reset_mask: torch.Tensor,
         state, fresh)
 
 
+def export_lane_state(state: Dict[str, Any], lane: int) -> Dict[str, Any]:
+    """One lane's complete decode state as a width-1-lane state of the same
+    structure (new tensors; a paged cache densifies its pages) — the
+    preemption snapshot."""
+    return _map_caches(lambda pc: policy_lib.PolicyCache(
+        policy_lib.get_policy(pc.policy).export_prefix(pc.cache, lane, axis=1),
+        pc.policy), state)
+
+
+def import_lane_state(state: Dict[str, Any], snap: Dict[str, Any],
+                      lane: int) -> Dict[str, Any]:
+    """Restore an :func:`export_lane_state` snapshot (on any device) into
+    the pristine lane ``lane``; the lane continues exactly where the
+    snapshot was taken."""
+    dev = next(iter(state.values())).length.device
+    snap = tree_map(lambda a: a.to(dev), snap)
+    return _map_caches(lambda pc, s: policy_lib.PolicyCache(
+        policy_lib.get_policy(pc.policy).import_prefix(pc.cache, s.cache, lane,
+                                                       axis=1), pc.policy),
+        state, snap)
+
+
 def lane_select(mask: torch.Tensor, on_true: Any, on_false: Any) -> Any:
-    """Per-lane select over two decode states (lane axis at position 1)."""
+    """Per-lane select over two decode states (lane axis at position 1).
+    A :class:`~repro_torch.core.block_pool.BlockPool` has no lane axis: its
+    mutations already took the lane mask, so ``on_true``'s is kept whole
+    (the per-lane page map selects like any other leaf)."""
 
     def sel(a, b):
+        if isinstance(a, BlockPool):
+            return a
         return torch.where(mask.reshape((1, -1) + (1,) * (a.dim() - 2)), a, b)
 
-    return tree_map(sel, on_true, on_false)
+    return tree_map(sel, on_true, on_false,
+                    is_leaf=lambda x: isinstance(x, BlockPool))
 
 
 # ---------------------------------------------------------------------------

@@ -3,15 +3,16 @@ DMS-compressed slot arenas, the shared-prefill hyperscale fork, and exact
 budget metering (the reference ``repro.serving.engine``).
 
 A request asks for W parallel chains of up to L tokens at compression CR;
-the engine provisions slot arenas of ``P ≈ L/CR + w`` per kv head, decodes
-with the compressed cache through the block-table flash-decode kernel, and
-reports the paper's two budget metrics (KV reads, peak tokens) measured from
-the real cache state.
+the engine provisions slot arenas of ``P ≈ L/CR + w`` per kv head (or, with
+``KVPolicyConfig(paged=True)``, a shared page pool that lanes draw blocks
+from as they write them), decodes with the compressed cache through the
+block-table flash-decode kernel, and reports the paper's two budget metrics
+(KV reads, peak tokens) measured from the real cache state.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Any, List, Optional
 
 import numpy as np
 
@@ -54,11 +55,18 @@ class Engine:
                                       temperature=temperature)
 
     def scheduler(self, num_lanes: int, max_len: int, *,
-                  chunk: Optional[int] = None) -> Scheduler:
-        """A lane arena bound to this engine's chunk step."""
+                  chunk: Optional[int] = None, faults: Any = None,
+                  on_pressure: str = "preempt",
+                  oversub: float = 1.0) -> Scheduler:
+        """A lane arena bound to this engine's chunk step.  ``faults``
+        attaches a :class:`~repro_torch.serving.faults.FaultPlan`;
+        ``on_pressure`` and ``oversub`` configure the preemption layer (see
+        :class:`Scheduler`)."""
         return Scheduler(self.arch, self.params, self.policy, self.chunk_fn,
                          num_lanes=num_lanes, max_len=max_len,
-                         chunk=chunk or self.chunk, device=self.device)
+                         chunk=chunk or self.chunk, device=self.device,
+                         faults=faults, on_pressure=on_pressure,
+                         oversub=oversub)
 
     def generate(self, prompts: np.ndarray, max_new: int,
                  eos_id: Optional[int] = None) -> GenerationResult:

@@ -65,6 +65,60 @@ def test_decode_wrapper_rejects_what_the_kernel_cannot_take(cuda_device):
                                  k.float()[..., :8], valid, block_p=16)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,dh,nb,cap", [(6, 128, 26, None), (2, 16, 4, None),
+                                         (4, 64, 8, 30.0)])
+def test_shared_pool_kernel_matches_plain_and_fixed(cuda_device, g, dh, nb, cap):
+    """Shared-pool mode through the wrapper: pages scattered in shuffled
+    order over a pool twice the size needed, NaN in every unlisted page,
+    stale table entries past n whose blocks are unmapped, a row with n = 0.
+    Within bf16 rounding of the plain version on the CPU, and bitwise equal
+    to fixed-arena mode on the dense view of the same pages."""
+    from repro_torch.core import block_pool
+    gen = torch.Generator().manual_seed(g * dh + nb)
+    b, hkv = 4, 2
+    valid = torch.rand((b, hkv, nb * BP), generator=gen) < 0.6
+    live = valid.reshape(b, hkv, nb, BP).any(-1)
+    live[0, 1] = False                                   # an n = 0 row
+    tbl = torch.argsort((~live).to(torch.int8), dim=-1, stable=True)
+    n = live.sum(-1).int()
+    need = int(n.sum())
+    npool = 2 * need
+    pages = torch.randperm(npool, generator=gen)[:need]
+    phys = torch.full((b, hkv, nb), -1, dtype=torch.int32)
+    phys[live] = pages.int()
+    pool = block_pool.BlockPool.init(npool, BP, dh, torch.bfloat16)
+    pool.k_buf[:-1] = torch.randn((npool, BP, dh), generator=gen).bfloat16()
+    pool.v_buf[:-1] = torch.randn((npool, BP, dh), generator=gen).bfloat16()
+    unlisted = torch.ones(npool + 1, dtype=torch.bool)
+    unlisted[pages] = False
+    pool.k_buf[unlisted] = float("nan")
+    pool.v_buf[unlisted] = float("nan")
+    q = torch.randn((b, 1, hkv * g, dh), generator=gen).bfloat16()
+    args = dict(block_tbl=tbl.int(), block_n=n, block_p=BP, logit_cap=cap)
+    plain = ops.dms_decode_attention(q, None, None, valid, pool_k=pool.k,
+                                     pool_v=pool.v, phys=phys, **args)
+    kd, vd = block_pool.dense_kv(pool, phys)
+
+    def on_card(*xs):
+        return [x.to(cuda_device) for x in xs]
+
+    qc, validc, kc, vc, physc, kdc, vdc = on_card(q, valid, pool.k, pool.v,
+                                                  phys, kd, vd)
+    argc = {k: (v.to(cuda_device) if isinstance(v, torch.Tensor) else v)
+            for k, v in args.items()}
+    before = (ops.launches, ops.shared_launches)
+    shared = ops.dms_decode_attention(qc, None, None, validc, pool_k=kc,
+                                      pool_v=vc, phys=physc, **argc)
+    fixed = ops.dms_decode_attention(qc, kdc, vdc, validc, **argc)
+    torch.cuda.synchronize()
+    assert (ops.launches, ops.shared_launches) == (before[0] + 1, before[1] + 1)
+    assert torch.isfinite(shared.float()).all()
+    assert not shared[0, 0, g:2 * g].float().abs().any()
+    assert torch.equal(shared, fixed)
+    torch.testing.assert_close(shared.cpu().float(), plain.float(), **BF16)
+
+
 # -- flash attention: fwd, dq, dkv -------------------------------------------
 
 

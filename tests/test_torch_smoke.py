@@ -31,10 +31,45 @@ def test_smoke_cases_poison_only_unlisted_blocks(case):
         assert int(n[r]) == 0 and not out[r].float().abs().any()
 
 
+def _cpu_setup():
+    return chip_smoke.serving_setup(torch, device="cpu", lens=(48, 36, 24, 12),
+                                    news=(6, 4, 3, 6), hs=(32, 8, 4))
+
+
 def test_smoke_serving_phase_on_the_cpu(capsys):
-    out = chip_smoke.phase_serve(torch, device="cpu", lens=(24, 16, 12, 8),
-                                 news=(8, 6, 5, 8), hs=(12, 6, 4), short=6)
+    setup = _cpu_setup()
+    out = chip_smoke.phase_serve(torch, setup, short=6)
     assert out["launches"] == 0 and out["steps"] > 0
     assert out["arena"][:3] == (2, 4, 2)
     printed = capsys.readouterr().out
     assert "all ok" in printed and "profile:" in printed
+
+
+def test_smoke_paged_phase_on_the_cpu(capsys):
+    """Phase 5 on the smoke config with block_p 4 (the smoke arenas hold
+    only two 16-slot blocks): token equality with phase 4, the CoW fork,
+    and the oversubscribed pair preempted and resumed."""
+    setup = dict(_cpu_setup(), block_p=4)
+    fixed = chip_smoke.phase_serve(torch, setup, short=2)
+    out = chip_smoke.phase_paged_serve(torch, setup, fixed)
+    assert out["launches"] == 0 and out["steps"] > 0
+    printed = capsys.readouterr().out
+    assert "tokens equal to the fixed arenas'" in printed
+    assert "all ok, tokens equal to (a)'s" in printed
+
+
+@pytest.mark.parametrize("name", sorted(chip_smoke.POOL_CASES))
+def test_smoke_pool_cases_shared_equals_fixed(name):
+    """The shared-pool cases of phase 3 on the CPU: the plain versions of
+    both modes agree bitwise on the same logical contents, and the output
+    is finite with NaN in unlisted pages."""
+    from repro_torch.kernels.dms_decode.ref import (dms_decode_plain,
+                                                    dms_decode_plain_shared)
+    gen = torch.Generator().manual_seed(1)
+    case = chip_smoke.make_pool_case(torch, gen, bh=8, g=6, dh=128, nb=26,
+                                     bp=16, device="cpu",
+                                     **chip_smoke.POOL_CASES[name])
+    out = dms_decode_plain_shared(*case["shared"], 16)
+    assert torch.isfinite(out.float()).all()
+    assert torch.equal(out, dms_decode_plain(*case["fixed"], 16))
+    assert case["npool"] >= 2 * case["n_blocks"]
