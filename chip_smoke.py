@@ -24,10 +24,19 @@ Phases (any failure raises, so the exit code is non-zero):
               softcap 30, vanilla, binarised α with block skipping, each in
               bf16 and in fp32, and a tiny shape; then the autograd
               Function's gradients (q, k, v, log_surv, α) against autograd
-              through the dense oracle.
-4. serve    — qwen-r1-1.5b at full width (28 layers, d_model 1536, random
-              weights from a seed, bf16) served by ``Engine`` with the ``dms``
-              policy at CR 8 on fixed arenas: four staggered requests
+              through the dense oracle.  Decode, weights-out mode (both
+              layouts, at the weights phase's arena): the main-path shape,
+              a fragmented table, NaN in unlisted pages with a stale tail,
+              an n = 0 row and a listed block that a window hides — the
+              output and the raw outputs (per-entry weights and maxima,
+              final max and denominator) against the plain version, the
+              group-summed weights zero off the visible listed slots and
+              summing to G, the shared-pool layout bitwise equal to the
+              fixed one.
+4. serve    — qwen-r1-1.5b at full width (d_model 1536, 12/2 heads of 128,
+              random weights from a seed, bf16) and half its depth (the
+              first 14 of its 28 layers: the script's time limit) served
+              by ``Engine`` with the ``dms`` policy at CR 8 on fixed arenas: four staggered requests
               (prompts 512/384/256/128, new 64/48/32/64), then one width-4
               hyperscale request (prompt 256, 64 new).  Every request must
               end ``ok`` with its full token count, and the decode kernel
@@ -35,12 +44,22 @@ Phases (any failure raises, so the exit code is non-zero):
               teacher-forced trace then holds the kernel path's logits
               against the reference path's.
 5. paged    — the same trace on the paged KV block pool (shared-pool
-              kernel, 28 launches per decode step): tokens equal to phase
+              kernel, 14 launches per decode step): tokens equal to phase
               4's, no page copied at the fork and copies once the chains
               write, every page back at the end.  Then two of its requests
               oversubscribe a pool of 1.5x one lane's worst case
               (``oversub`` 2, preemption): all ``ok``, preemptions equal
               resumes and are > 0, the pool never exhausted, tokens equal.
+5b. weights — the same model at its full depth of 28 layers serving
+              requests 2 and 3 of the trace with the weight-driven
+              policies at CR 8 (budget 72, 80-slot arenas):
+              TOVA on fixed arenas and on the pool, H2O and Keyformer on
+              fixed arenas, through the weights-out kernel (28 launches per
+              decode step): all ok, live tokens within the budget, the
+              pool's tokens equal to the fixed arenas'.  A teacher-forced
+              trace per policy holds the kernel path's logits against the
+              reference path's and every weights-out call against the
+              plain version; then a profiled step of each beside dms.
 6. train    — qwen-r1-1.5b at full width, fp32 weights from seed 0, DMS
               retrofit (one phase-1 step, three distillation steps) on the
               synthetic stream at (B 2, T 1024) through the flash kernels:
@@ -71,6 +90,9 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
 BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core peak
 KERNEL_TOL = dict(atol=2e-2, rtol=2e-2)   # bf16 output: ~3 significant digits
+# weights-out's fp32 outputs (weights, maxima, denominators): scores summed
+# over Dh in another order, then exponentiated; rtol is of the output's scale
+WEIGHTS_TOL = dict(atol=1e-4, rtol=1e-4)
 # flash kernels vs plain, max |kernel - plain| / max |plain| per output:
 # bf16 outputs round to 8 significant bits (2^-8 = 0.4%), so 1e-2; fp32
 # outputs differ only by the order of fp32 sums over <= 6 x 1024 terms, so 1e-5
@@ -201,15 +223,17 @@ def phase_kernels(torch, main_shape):
 
 
 def make_pool_case(torch, gen, *, bh, g, dh, nb, bp, density, nan=False,
-                   stale=False, empty_rows=(), device="cuda"):
+                   stale=False, empty_rows=(), hidden_rows=(), device="cuda"):
     """Random shared-pool decode operands, and the same logical contents as
     fixed arenas.  Each row lists its live blocks in shuffled order; their
     pages are scattered in shuffled order over a pool twice the pages
     needed.  ``nan``: every page the table does not list is NaN (else it
     holds random stale data).  ``stale``: a row lists only half of its live
-    blocks and its table past n names unmapped blocks (phys = -1).  Returns
-    a dict: ``shared`` = (q, k, v, valid, tbl, n) for the kernel's shared
-    mode, ``fixed`` = the same for its fixed mode."""
+    blocks and its table past n names unmapped blocks (phys = -1).
+    ``hidden_rows``: the first listed block of these rows has every slot
+    hidden, as a local window hides old slots.  Returns a dict: ``shared``
+    = (q, k, v, valid, tbl, n) for the kernel's shared mode, ``fixed`` = the
+    same for its fixed mode."""
     cpu = torch.Generator().manual_seed(int(torch.randint(
         0, 2 ** 31, (1,), generator=gen, device=device).item()))
     valid = torch.rand((bh, nb * bp), generator=cpu) < density
@@ -232,6 +256,11 @@ def make_pool_case(torch, gen, *, bh, g, dh, nb, bp, density, nan=False,
         tbl[r] = torch.cat([listed, rest])    # stale tail: unmapped blocks
         for blk in listed.tolist():
             phys[r, blk] = next(pages)
+    for r in hidden_rows:
+        blk = int(tbl[r, 0])
+        if n[r] < 1:
+            raise AssertionError(f"row {r} lists no block to hide")
+        valid[r, blk * bp:(blk + 1) * bp] = False
     pk = torch.randn((npool, bp, dh), generator=cpu)
     pv = torch.randn((npool, bp, dh), generator=cpu)
     if nan:
@@ -308,6 +337,108 @@ def phase_pool_kernels(torch, main_shape):
     if moved != (len(POOL_CASES), len(POOL_CASES)):
         raise AssertionError(f"launch counters moved {moved}")
     return errs["main-path shape"]
+
+
+WEIGHTS_CASES = {
+    "main-path shape": dict(density=0.85),
+    "fragmented table": dict(density=0.03),
+    "NaN in unlisted pages, stale tail": dict(density=0.5, nan=True,
+                                                         stale=True),
+    "n = 0 row": dict(density=0.5, nan=True, empty_rows=(2,)),
+    "window-hidden block": dict(density=0.85, nan=True, hidden_rows=(1, 5)),
+}
+
+
+def weights_errors(torch, got, want, n, ltbl, nb):
+    """The weights-out mode's outputs against its plain version's: each
+    raw output (entries < n only: the kernel leaves the rest unwritten) and
+    the group-summed weights the wrapper makes of them
+    (``ops.table_weights_to_arena``).  Raises beyond KERNEL_TOL (the bf16
+    output) or WEIGHTS_TOL (the fp32 rest); returns ({name: max abs err},
+    the kernel's weights)."""
+    from repro_torch.kernels.dms_decode import ops
+    listed = (torch.arange(got[1].shape[1], device=n.device)[None, :]
+              < n[:, None])
+    weights = ops.table_weights_to_arena(*got[1:], n, ltbl, nb)
+    pairs = {"out": (got[0].float(), want[0].float()),
+             "w_blk": (got[1][listed], want[1][listed]),
+             "m_blk": (got[2][listed], want[2][listed]),
+             "m_out": (got[3], want[3]), "l_out": (got[4], want[4]),
+             "weights": (weights,
+                         ops.table_weights_to_arena(*want[1:], n, ltbl, nb))}
+    errs = {}
+    for key, (a, b) in pairs.items():
+        if not bool(torch.isfinite(a[b > -1e29]).all()):
+            raise AssertionError(f"weights-out {key}: non-finite values")
+        errs[key] = (a - b).abs().max().item() if a.numel() else 0.0
+        torch.testing.assert_close(a, b, **(KERNEL_TOL if key == "out"
+                                            else WEIGHTS_TOL))
+    return errs, weights
+
+
+def phase_weights_kernels(torch, main_shape, device="cuda"):
+    """The weights-out mode in both layouts against its plain version on
+    the same tensors (output within KERNEL_TOL, the fp32 raw outputs and the
+    group-summed weights within WEIGHTS_TOL), the shared-pool layout bitwise
+    equal to the fixed one, zero weight off the visible listed slots, every
+    row that sees a slot summing to G; returns the main case's max abs
+    error over all outputs."""
+    from repro_torch.kernels.dms_decode import ops
+    from repro_torch.kernels.dms_decode.ref import dms_decode_plain_weights
+    gen = torch.Generator(device=device).manual_seed(2468)
+    bh, g, dh, p, bp = main_shape
+    nb = p // bp
+    before = (ops.launches, ops.shared_launches, ops.weights_launches)
+    main_err = None
+    for name, kw in WEIGHTS_CASES.items():
+        case = make_pool_case(torch, gen, bh=bh, g=g, dh=dh, nb=nb, bp=bp,
+                              device=device, **kw)
+        fixed, shared = case["fixed"], case["shared"]
+        got = ops.decode_rows(*fixed, bp, None, need_weights=True)
+        got_s = ops.decode_rows(*shared, bp, None, shared_kv=True,
+                                need_weights=True)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        want = dms_decode_plain_weights(*shared, bp, None, shared_kv=True)
+        n, ltbl = fixed[5], fixed[4]
+        listed = (torch.arange(nb, device=n.device)[None, :] < n[:, None])
+        for a, b, what in zip(got, got_s, ("out", "w_blk", "m_blk", "m_out",
+                                           "l_out")):
+            same = (torch.equal(a[listed], b[listed]) if what in ("w_blk",
+                                                                  "m_blk")
+                    else torch.equal(a, b))
+            if not same:
+                raise AssertionError(f"weights-out [{name}]: shared-pool {what}"
+                                     " not bitwise equal to the fixed layout's")
+        errs, weights = weights_errors(torch, got, want, n, ltbl, nb)
+        # the table rows are permutations of the blocks: entry flags -> blocks
+        blk = torch.zeros_like(listed).scatter_(1, ltbl.long(), listed)
+        seen = fixed[3] & blk.repeat_interleave(bp, dim=1)
+        if weights[~seen].any():
+            raise AssertionError(f"weights-out [{name}]: weight off the "
+                                 "visible listed slots")
+        sums = weights.sum(-1)
+        rows = seen.any(-1)
+        if not torch.allclose(sums[rows], torch.full_like(sums[rows], g),
+                              rtol=WEIGHTS_TOL["rtol"]) or sums[~rows].any():
+            raise AssertionError(f"weights-out [{name}]: row sums {sums}")
+        for r in kw.get("hidden_rows", ()):
+            if got[1][r, 0].any():
+                raise AssertionError(f"weights-out [{name}]: a hidden block "
+                                     "emitted weight")
+        if name == "main-path shape":
+            main_err = max(errs.values())
+        log(f"weights-out kernel vs plain [{name}] (both layouts, "
+            f"{int(n.sum())} listed blocks): max abs err "
+            + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+            + f" (tolerance: out {KERNEL_TOL}, fp32 outputs {WEIGHTS_TOL}); "
+            "shared-pool bitwise equal to fixed; rows sum to G")
+    moved = (ops.launches - before[0], ops.shared_launches - before[1],
+             ops.weights_launches - before[2])
+    # the CPU rehearsal runs the plain version, which launches nothing
+    if moved != (0, 0, 2 * len(WEIGHTS_CASES) if device == "cuda" else 0):
+        raise AssertionError(f"launch counters moved {moved}")
+    return main_err
 
 
 def flash_case(torch, *, b, t, hq, hkv, dh, dtype, alpha="relaxed",
@@ -511,6 +642,26 @@ def serving_setup(torch, device="cuda", arch_name="qwen-r1-1.5b",
             "max_len": max(len(p) + m for p, m in zip(prompts, news))}
 
 
+# phases 4 and 5 serve the first SERVE_LAYERS layers of the model: the
+# script's time limit (the eager decode step costs ~3.5 ms of host time a
+# layer); phase 5b serves all of them
+SERVE_LAYERS = 14
+
+
+def cut_depth(setup, layers):
+    """``setup`` with its model cut to its first ``layers`` layers (views
+    of the same weights, and of their noise salts)."""
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models.transformer import Params
+    params = setup["params"]
+    cut = Params(params)
+    cut["blocks"] = {"0": tree_map(lambda a: a[:layers],
+                                   params["blocks"]["0"])}
+    cut.layer_salt = params.layer_salt[:layers]
+    arch = dataclasses.replace(setup["arch"], num_layers=layers)
+    return dict(setup, arch=arch, params=cut)
+
+
 def serve_trace(torch, engine, setup, *, on_fork=None):
     """Phase 4's trace through ``engine``: the staggered requests on one
     lane per request, then the width-W hyperscale request on W lanes.
@@ -632,6 +783,7 @@ def phase_serve(torch, setup, short=32):
     phase_profile(torch, params, arch, {"fixed": policy}, lanes=len(lens),
                   max_len=setup["max_len"], device=device)
     return {"launches": launches, "steps": steps, "ms_step": 1e3 * wall / steps,
+            "layers": arch.num_layers,
             "arena": tuple(sched.state["0"].cache.k.shape),
             "tokens": {uid: r.tokens for uid, r in results.items()},
             "hs_tokens": hres.tokens}
@@ -772,6 +924,196 @@ def phase_paged_serve(torch, setup, fixed, pair=(3, 1)):
     return {"launches": launches, "steps": steps + steps_b}
 
 
+# the weight-driven policies the weights phase serves: (kind, paged)
+WEIGHT_RUNS = (("tova", False), ("tova", True), ("h2o", False),
+               ("keyformer", False))
+
+
+def checked_weights(torch, real, worst):
+    """``ops.decode_rows`` that also runs each weights-out call's plain
+    version on the same inputs (fixed arenas) and holds the kernel's
+    outputs and group-summed weights against it (``weights_errors``),
+    recording the largest errors in ``worst``; every row that sees a slot
+    must sum to G within 2e-2 (bf16 activations upstream).  The plain
+    version launches nothing, so the launch counters stay the path's."""
+    from repro_torch.kernels.dms_decode.ref import dms_decode_plain_weights
+
+    def decode_rows(qf, kf, vf, valf, tblf, nf, block_p, logit_cap=None,
+                    shared_kv=False, need_weights=False):
+        got = real(qf, kf, vf, valf, tblf, nf, block_p, logit_cap,
+                   shared_kv=shared_kv, need_weights=need_weights)
+        if not need_weights or shared_kv:
+            return got
+        want = dms_decode_plain_weights(qf, kf, vf, valf, tblf, nf, block_p,
+                                        logit_cap)
+        errs, weights = weights_errors(torch, got, want, nf, tblf,
+                                       kf.shape[1] // block_p)
+        for key, err in errs.items():
+            worst[key] = max(worst.get(key, 0.0), err)
+        sums = weights.sum(-1)
+        live = got[4].sum(-1) > 0
+        g = qf.shape[1]
+        if not torch.allclose(sums[live], torch.full_like(sums[live], g),
+                              rtol=2e-2) or sums[~live].any():
+            raise AssertionError(f"weights-out rows do not sum to G = {g}: "
+                                 f"{sums.tolist()}")
+        worst["rows"] = worst.get("rows", 0) + int(live.sum())
+        return got
+    return decode_rows
+
+
+def phase_weights_serve(torch, setup, fixed, reqs=(2, 3), short=24,
+                        short_len=128):
+    """The weight-driven policies through the weights-out kernel.
+
+    Requests ``reqs`` of phase 4's trace (at their phase-4 arrivals) on the
+    same lanes and model, at CR 8: TOVA on fixed arenas and on the paged
+    pool, H2O and Keyformer on fixed arenas.  Every request ends ok with
+    its full token count, the weights-out kernel launches once per layer per
+    decode step (and no other mode launches), ``live_tokens`` never exceeds
+    the budget, and the pool's TOVA tokens equal the fixed arenas'.  Then
+    for each policy a teacher-forced trace (``short`` steps, ``short_len``
+    arenas, so that it evicts) holds the kernel path's logits against the
+    reference path's from the same cache at each step, and every
+    weights-out call in it against the plain version
+    (``checked_weights``); the greedy tokens of the two paths and the
+    evictions that differ are reported, not required equal (near-tied
+    evictions may flip)."""
+    from repro_torch.core.config import KVPolicyConfig
+    from repro_torch.kernels.dms_decode import ops
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.scheduler import Request
+    arch, params, device = setup["arch"], setup["params"], setup["device"]
+    bp = setup.get("block_p", 16)
+    lanes, max_len = len(setup["prompts"]), setup["max_len"]
+    budget = int(max_len / 8.0)
+    cuda = device == "cuda"
+    runs = {}
+    for kind, paged in WEIGHT_RUNS:
+        policy = KVPolicyConfig(kind=kind, cr=8.0, block_p=bp, paged=paged)
+        engine = Engine(arch, params, policy, use_kernel=True, device=device)
+        engine.chunk_fn.steps = 0
+        ops.launches = ops.shared_launches = ops.weights_launches = 0
+        t0 = time.perf_counter()
+        sched = engine.scheduler(num_lanes=lanes, max_len=max_len)
+        for uid in reqs:
+            sched.submit(Request(uid=uid, prompt=setup["prompts"][uid],
+                                 max_new=setup["news"][uid], arrival=uid))
+        res = {r.uid: r for r in sched.run()}
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps, launches = engine.chunk_fn.steps, ops.weights_launches
+        name = f"{kind} ({'paged' if paged else 'fixed'})"
+        if ops.launches or ops.shared_launches \
+                or launches != (arch.num_layers * steps if cuda else 0):
+            raise AssertionError(f"{name}: weights-out launches {launches}, "
+                                 f"other modes {ops.launches}, "
+                                 f"{ops.shared_launches}, for {steps} steps")
+        for uid in reqs:
+            r, m = res[uid], setup["news"][uid]
+            if r.status != "ok" or r.tokens.shape != (1, m) \
+                    or int(r.lengths[0]) != m \
+                    or ((r.tokens < 0) | (r.tokens >= arch.vocab_size)).any():
+                raise AssertionError(f"{name} request {uid}: status {r.status},"
+                                     f" lengths {r.lengths}, want {m}")
+            if r.meter.peak_tokens > arch.num_layers * budget:
+                raise AssertionError(f"{name} request {uid}: peak live tokens "
+                                     f"{r.meter.peak_tokens} over "
+                                     f"{arch.num_layers} x {budget}")
+        cache = sched.state["0"].cache
+        nb = (cache.phys if paged else cache.valid).shape[-1]
+        runs[(kind, paged)] = {
+            "tokens": {uid: res[uid].tokens for uid in reqs},
+            "launches": launches, "steps": steps,
+            "ms_step": 1e3 * wall / steps, "arena": cache.valid.shape[-1]}
+        log(f"weights: {name}, requests {list(reqs)} (prompts "
+            f"{[len(setup['prompts'][u]) for u in reqs]}, new "
+            f"{[setup['news'][u] for u in reqs]}) on {lanes} lanes, CR 8 "
+            f"(budget {budget}, arena {cache.valid.shape[-1]} slots, "
+            f"{nb if paged else nb // bp} blocks a head): all ok; {steps} "
+            f"decode steps in {wall:.2f} s = {1e3 * wall / steps:.2f} ms/step "
+            f"({1e3 * wall / steps / arch.num_layers:.2f} a layer; phase 4's "
+            f"dms {fixed['ms_step'] / fixed['layers']:.2f} a layer); "
+            f"weights-out launches "
+            f"{launches} = {launches / max(steps, 1):.1f} per decode step; "
+            f"peak live tokens {[res[u].meter.peak_tokens for u in reqs]} "
+            f"<= {arch.num_layers} x {budget}")
+    for uid, toks in runs[("tova", False)]["tokens"].items():
+        if not (runs[("tova", True)]["tokens"][uid] == toks).all():
+            raise AssertionError(f"tova request {uid}: pool tokens differ from "
+                                 "the fixed arenas'")
+
+    # kernel path against reference path, teacher-forced: each step runs
+    # both paths from the same cache (a copy), so the logits differ only by
+    # this step's attention; the trace goes on from the kernel path's cache.
+    # An eviction that differs between the two is a near tie flipped by
+    # rounding (ROADMAP C): counted, not failed.  Launches here are not the
+    # main path's.
+    from repro_torch.core.tree import tree_map
+    rng = torch.Generator().manual_seed(9)
+    tokens = torch.randint(3, arch.vocab_size, (2, short), generator=rng)
+    live = torch.arange(arch.padded_vocab, device=device) < arch.vocab_size
+    real = ops.decode_rows
+    for kind in ("tova", "h2o", "keyformer"):
+        policy = KVPolicyConfig(kind=kind, cr=8.0, block_p=bp)
+        state = tfm.init_decode_state(arch, 2, short_len, policy,
+                                      device=device)
+        small = int(short_len / 8.0)
+        worst, gap, scale, agree, flips, evictions = {}, 0.0, 0.0, 0, 0, 0
+        ops.decode_rows = checked_weights(torch, real, worst)
+        try:
+            for t in range(short):
+                tok = tokens[:, t:t + 1].to(device)
+                before = state["0"].cache.valid.clone()
+                ref_state = tree_map(torch.clone, state)
+                lk, _, _ = tfm.decode_step(params, tok, state, arch, t,
+                                           use_kernel=True)
+                lr, _, _ = tfm.decode_step(params, tok, ref_state, arch, t,
+                                           use_kernel=False)
+                if not bool(torch.isfinite(lk[:, live]).all()):
+                    raise AssertionError(f"{kind}: non-finite kernel-path "
+                                         f"logits at step {t}")
+                valid = state["0"].cache.valid
+                if int(valid.sum(-1).max()) > small:
+                    raise AssertionError(f"{kind}: a layer holds more than "
+                                         f"its budget {small}")
+                evicted = (before & ~valid).any(-1)
+                evictions += int(evicted.sum())
+                flips += int((valid != ref_state["0"].cache.valid)
+                             .any(-1).sum())
+                gap = max(gap, (lk - lr)[:, live].abs().max().item())
+                scale = max(scale, lr[:, live].abs().max().item())
+                agree += int((lk[:, live].argmax(-1)
+                              == lr[:, live].argmax(-1)).sum())
+        finally:
+            ops.decode_rows = real
+        log(f"weights: {kind} kernel vs reference path over {short} "
+            f"teacher-forced steps, both from the same cache each step (arena "
+            f"budget {small}): max abs logit diff {gap:.4e}, max |logit| "
+            f"{scale:.4e} (tolerance 0.05 x max |logit|); greedy tokens agree "
+            f"at {agree} of {2 * short} positions and evictions differ in "
+            f"{flips} of {evictions} (layer, lane, head) rows (reported only);"
+            f" {worst.get('rows', 0)} weights-out rows against the plain "
+            "version: max abs err "
+            + ", ".join(f"{k} {v:.2e}" for k, v in worst.items() if k != "rows"))
+        if not gap <= 0.05 * scale:
+            raise AssertionError(f"{kind}: kernel-path logits disagree with "
+                                 "the reference path")
+    phase_profile(torch, params, arch,
+                  {"dms": KVPolicyConfig(kind="dms", cr=8.0, block_p=bp),
+                   **{k: KVPolicyConfig(kind=k, cr=8.0, block_p=bp)
+                      for k in ("tova", "h2o", "keyformer")}},
+                  lanes=lanes, max_len=max_len, device=device, pairs=2)
+    return {"fixed": sum(r["launches"] for (k, paged), r in runs.items()
+                         if not paged),
+            "shared": runs[("tova", True)]["launches"],
+            "arena": runs[("tova", False)]["arena"],
+            "ms_step": {f"{k}{' paged' if p else ''}": r["ms_step"]
+                        for (k, p), r in runs.items()}}
+
+
 def device_events(torch, prof):
     """The profiler's device-side entries (kernels, copies, memsets).  A
     host op's own entry carries the device time of the kernels it launched
@@ -785,9 +1127,10 @@ def phase_profile(torch, params, arch, policies, *, lanes, max_len, device,
     """Where a decode step's time goes, for each named policy: host-
     dispatched ATen ops per step (counted with a dispatch mode), wall time
     per step, and the device's busy time under torch.profiler (its device-
-    side entries, summed).  With two policies the wall times are taken in
-    ``pairs`` alternating turns (A B, B A, ...), since the host's speed
-    drifts between runs; the line gives each pair's ratio."""
+    side entries, summed).  With several policies the wall times are taken
+    in ``pairs`` alternating turns (A B ..., ... B A), since the host's
+    speed drifts between runs; a line gives each pair's ratio to the
+    first policy."""
     from torch.utils._python_dispatch import TorchDispatchMode
     from repro_torch.models import transformer as tfm
     tok = torch.full((lanes, 1), 7, dtype=torch.int32, device=device)
@@ -856,8 +1199,8 @@ def phase_profile(torch, params, arch, policies, *, lanes, max_len, device,
             f"ATen ops dispatched from the host ({ops[name] / arch.num_layers:.1f}"
             f" per layer); {wall_ms:.2f} ms wall per step (median of "
             f"{[round(w, 2) for w in walls[name]]}); {busy}")
-    if len(names) == 2:
-        a, b = names
+    a = names[0]
+    for b in names[1:]:
         ratios = [round(y / x, 3) for x, y in zip(walls[a], walls[b])]
         log(f"profile: {b} / {a} wall per step in alternating pairs: {ratios}"
             f" (median {statistics.median(ratios):.3f}); ATen ops "
@@ -1077,6 +1420,66 @@ def decode_entry(torch, name, mode, operands, shape, launches, max_abs_err):
     return entry
 
 
+def weights_entry(torch, name, mode, operands, shape, launches, max_abs_err):
+    """One row of the ``kernels`` line for the weights-out mode (``mode``
+    "fixed" or "shared"): the kernel's call (its raw outputs; the wrapper's
+    rescale and scatter are separate ops, ROADMAP E4) and its plain
+    version's, timed on ``operands``, and the bound.  No single PyTorch
+    call returns the group-summed softmax weights, so there is no library
+    time."""
+    from repro_torch.kernels.dms_decode import ops
+    from repro_torch.kernels.dms_decode import ref
+    bh, g, dh, p, bp = shape
+    q, k, v, valid, tbl, n = operands
+    shared = mode == "shared"
+    saved = (ops.launches, ops.shared_launches, ops.weights_launches)
+    ms = time_cuda(torch, lambda: ops.decode_rows(
+        q, k, v, valid, tbl, n, bp, shared_kv=shared, need_weights=True))
+    ops.launches, ops.shared_launches, ops.weights_launches = saved
+    plain_ms = time_cuda(torch, lambda: ref.dms_decode_plain_weights(
+        q, k, v, valid, tbl, n, bp, shared_kv=shared))
+    # bound: the listed blocks' K/V, valid and table entries, q and n read
+    # once; the output, the listed entries' weights and maxima, and the
+    # final max and denominator written once
+    n_blocks = int(n.sum().item())
+    kv_bytes = ops.modeled_hbm_bytes(n, bp, dh, k.dtype, v.dtype)
+    other = (2 * q.numel() * q.element_size() + n_blocks * bp
+             + 4 * (n_blocks + bh))
+    written = 4 * (n_blocks * g * (bp + 1) + 2 * bh * g)
+    moved = kv_bytes + other + written
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = 4.0 * g * dh * n_blocks * bp / BF16_FLOPS_PER_S * 1e3
+    entry = {
+        "name": name, "route": "cuda",
+        "source": "src/repro_torch/kernels/dms_decode/csrc/dms_decode.cu",
+        "replaces": "src/repro/kernels/dms_decode/dms_decode.py:118",
+        "launches": launches, "max_abs_err": max_abs_err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,
+    }
+    pool = f", pool {k.shape[1] // bp} pages" if shared else ""
+    log(f"timing: {name} at (BH={bh}, G={g}, Dh={dh}, P={p}, block_p={bp}, "
+        f"{n_blocks} listed blocks{pool}): kernel {ms:.4f} ms, bound "
+        f"{entry['bound_ms']:.5f} ms ({moved} B, of which {written} B "
+        f"written weights and statistics), plain {plain_ms:.4f} ms; library: "
+        "none (no single PyTorch call returns the group-summed softmax "
+        "weights)")
+    return entry
+
+
+def phase_weights_timing(torch, shape, launches, err):
+    """The weights-out mode in both layouts at the weights phase's arena."""
+    bh, g, dh, p, bp = shape
+    gen = torch.Generator(device="cuda").manual_seed(98)
+    case = make_pool_case(torch, gen, bh=bh, g=g, dh=dh, nb=p // bp, bp=bp,
+                          density=0.85)
+    return [weights_entry(torch, "dms_decode_weights_out", "fixed",
+                          case["fixed"], shape, launches["fixed"], err),
+            weights_entry(torch, "dms_decode_weights_out_shared_kv", "shared",
+                          case["shared"], shape, launches["shared"], err)]
+
+
 def phase_timing(torch, main_shape, launches, errs):
     """The decode kernel in both modes at the main-path shape."""
     bh, g, dh, p, bp = main_shape
@@ -1209,27 +1612,38 @@ def main() -> int:
     from repro_torch.core.kv_cache import SlotDMSCache
     arch = get_arch("qwen-r1-1.5b")
     setup = serving_setup(torch)
+    shallow = cut_depth(setup, SERVE_LAYERS)
     lanes, max_len, bp = len(setup["prompts"]), setup["max_len"], 16
     slots = min(SlotDMSCache.provision_slots(max_len, 8.0, arch.dms.window),
                 max_len + 1)
     main_shape = (lanes * arch.attn.num_kv_heads, arch.attn.q_per_kv,
                   arch.attn.head_dim, (slots + bp - 1) // bp * bp, bp)
+    # the weight-driven policies' arena at CR 8: budget + 1 slots, padded
+    weights_shape = main_shape[:3] + ((int(max_len / 8.0) + bp) // bp * bp, bp)
     errs = {"fixed": phase_kernels(torch, main_shape),
-            "shared": phase_pool_kernels(torch, main_shape)}
+            "shared": phase_pool_kernels(torch, main_shape),
+            "weights": phase_weights_kernels(torch, weights_shape)}
     flash_errs = phase_flash_kernels(torch)
     phase_flash_grads(torch)
-    served = phase_serve(torch, setup)
-    want = (arch.num_layers, lanes, arch.attn.num_kv_heads, main_shape[3],
+    served = phase_serve(torch, shallow)
+    want = (SERVE_LAYERS, lanes, arch.attn.num_kv_heads, main_shape[3],
             arch.attn.head_dim)
     if served["arena"] != want:
         raise AssertionError(f"main-path arena {served['arena']} is not the "
                              f"checked shape {want}")
-    paged = phase_paged_serve(torch, setup, served)
+    paged = phase_paged_serve(torch, shallow, served)
+    del shallow
+    weighted = phase_weights_serve(torch, setup, served)
+    if weighted["arena"] != weights_shape[3]:
+        raise AssertionError(f"weights-phase arena {weighted['arena']} is not "
+                             f"the checked {weights_shape[3]} slots")
     del setup["params"]
     trained = phase_train(torch)
     kernels = phase_timing(torch, main_shape, {"fixed": served["launches"],
                                                "shared": paged["launches"]},
                            errs)
+    kernels += phase_weights_timing(torch, weights_shape, weighted,
+                                    errs["weights"])
     kernels += phase_flash_timing(torch, trained["launches"], flash_errs)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

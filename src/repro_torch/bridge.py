@@ -16,6 +16,7 @@ from repro_torch.core.config import (ArchConfig, AttentionConfig, DMSConfig,
                                      MLPConfig, MoEConfig, RGLRUConfig,
                                      SSMConfig)
 from repro_torch.device import DeviceLike, resolve_device, torch_dtype
+from repro_torch.models.transformer import Params
 
 #: leaves kept in fp32 whatever the compute dtype (norm parameters)
 _FP32_LEAVES = ("scale", "bias")
@@ -53,7 +54,9 @@ def params_from_numpy(tree: Dict[str, Any], arch: ArchConfig,
     the ``x @ W`` orientation: W stays ``(in, out)``, no transpose.  Matmul
     weights are cast once to ``dtype`` (default ``arch.dtype``) — the
     reference keeps fp32 masters and casts at every matmul, which gives the
-    same values; norm scales stay fp32, as the reference applies them."""
+    same values; norm scales stay fp32, as the reference applies them.
+    Returns :class:`~repro_torch.models.transformer.Params`, with each
+    layer's noise salt taken from the fp32 ``wo`` before the cast."""
     dev = resolve_device(device)
     dtype = dtype or torch_dtype(arch.dtype)
     if ("lm_head" in tree) == arch.tie_embeddings:
@@ -67,4 +70,8 @@ def params_from_numpy(tree: Dict[str, Any], arch: ArchConfig,
         want = torch.float32 if key in _FP32_LEAVES else dtype
         return arr.to(device=dev, dtype=want)
 
-    return conv(tree, "")
+    params = Params(conv(tree, ""))
+    wo = np.asarray(tree["blocks"]["0"]["attn"]["wo"], dtype=np.float32)
+    params.layer_salt = torch.from_numpy(
+        wo[:, 0, 0].view(np.uint32).astype(np.int64)).to(dev)
+    return params

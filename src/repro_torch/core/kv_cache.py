@@ -53,6 +53,36 @@ def _lane_where(active: Optional[torch.Tensor], new: torch.Tensor,
     return torch.where(active.reshape((-1,) + (1,) * (old.dim() - 1)), new, old)
 
 
+def commit(cache, meta: Dict[str, torch.Tensor], blocks: "BlockTable",
+           active: Optional[torch.Tensor]) -> None:
+    """Write a step's new per-lane leaves (``meta`` by field name) and block
+    table into ``cache`` in place, for active lanes only (None = all)."""
+    for name, val in meta.items():
+        cur = getattr(cache, name)
+        cur.copy_(_lane_where(active, val, cur))
+    if not cache.blocks._off():
+        for name in ("count", "tbl", "pos", "n"):
+            cur = getattr(cache.blocks, name)
+            cur.copy_(_lane_where(active, getattr(blocks, name), cur))
+
+
+def write_rows(k_arena: torch.Tensor, v_arena: torch.Tensor,
+               slot: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+               active: Optional[torch.Tensor]) -> None:
+    """Scatter one K/V row per (lane, head) into its slot of a fixed arena
+    (B, H, P, Dh), in place; an inactive lane rewrites the row it already
+    holds."""
+    b, h = slot.shape
+    bi = torch.arange(b, device=slot.device)[:, None].expand(b, h)
+    hi = torch.arange(h, device=slot.device)[None, :].expand(b, h)
+    si = slot.long()
+    for arena, new in ((k_arena, k_new), (v_arena, v_new)):
+        rows = new[:, :, 0].to(arena.dtype)
+        if active is not None:
+            rows = torch.where(active[:, None, None], rows, arena[bi, hi, si])
+        arena[bi, hi, si] = rows
+
+
 # ---------------------------------------------------------------------------
 # Block tables: compacted live-block indices for the flash-decode kernel
 # ---------------------------------------------------------------------------
@@ -238,10 +268,6 @@ def pack_dense(cache, pool_blocks: Optional[int] = None):
 # Slot-compacted DMS cache
 # ---------------------------------------------------------------------------
 
-_META = ("pos", "valid", "free_ring", "free_head", "free_count",
-         "pending_slot", "pending_alpha", "length", "overflowed")
-
-
 @dataclass
 class SlotDMSCache:
     """Physically compacted cache: P slots per (lane, kv head).
@@ -375,34 +401,15 @@ class SlotDMSCache:
         takes before freezing inactive lanes."""
         meta, blocks, slot, evicted, dead = self._advance(alpha_new)
         retained = meta["valid"].sum(dim=-1)
-        for name in _META:
-            cur = getattr(self, name)
-            cur.copy_(_lane_where(active, meta[name], cur))
-        if not self.blocks._off():
-            for name in ("count", "tbl", "pos", "n"):
-                cur = getattr(self.blocks, name)
-                cur.copy_(_lane_where(active, getattr(blocks, name), cur))
+        commit(self, meta, blocks, active)
         if self.pool is None:
-            self._write_rows(slot, k_new, v_new, active)
+            write_rows(self.k, self.v, slot, k_new, v_new, active)
             return retained
         act = event_mask(active, slot.shape, device=slot.device)
         block_pool.free_block(self.pool, self.phys, evicted, dead & act)
         block_pool.token_write(self.pool, self.phys, slot[..., None], k_new,
                                v_new, act[..., None])
         return retained
-
-    def _write_rows(self, slot, k_new, v_new, active) -> None:
-        """Scatter one K/V row per (lane, head) into its slot; an inactive
-        lane rewrites the row it already holds."""
-        b, h = slot.shape
-        bi = torch.arange(b, device=slot.device)[:, None].expand(b, h)
-        hi = torch.arange(h, device=slot.device)[None, :].expand(b, h)
-        si = slot.long()
-        for arena, new in ((self.k, k_new), (self.v, v_new)):
-            rows = new[:, :, 0].to(arena.dtype)
-            if active is not None:
-                rows = torch.where(active[:, None, None], rows, arena[bi, hi, si])
-            arena[bi, hi, si] = rows
 
     # -- views ----------------------------------------------------------------
 

@@ -5,7 +5,10 @@ its cache's lifecycle (``init_cache``, ``decode_update``, ``fork_cache``,
 ``gather_cache``, ``reclaim_cache``, ``export_prefix``, ``import_prefix``,
 ``metrics``, ``peak_bytes``) and the model dispatches only through the
 registry, keyed by the name a :class:`PolicyCache` carries.  This port
-registers ``dms``; the other reference policies are queued in ROADMAP.md.
+registers ``dms``, ``tova``, ``h2o`` and ``keyformer``; the other
+reference policies are queued in ROADMAP.md.  The last three evict by the
+step's attention weights: their :class:`AttendSpec` asks for them
+(``needs_weights``) and :meth:`KVPolicy.post_attend` takes them.
 
 Lane lifecycle operations are functional and return new tensors, so lanes
 forked or gathered from one source never share storage; ``decode_update``
@@ -19,11 +22,12 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, Iterator, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
 from repro_torch.core import block_pool
+from repro_torch.core.baselines import H2OCache, TOVACache
 from repro_torch.core.config import ArchConfig, KVPolicyConfig
 from repro_torch.core.kv_cache import SlotDMSCache
 from repro_torch.core.tree import tree_map
@@ -40,7 +44,9 @@ class AttendSpec:
 
     ``k``/``v``: (B, Hkv, P, Dh); ``visible``: (B, Hkv, P) bool;
     ``positions``: per-slot logical positions (for local-window masking) or
-    None.  ``block_tbl`` (B, Hkv, NB) int32 lists each row's live
+    None.  ``needs_weights`` asks attention for the group-summed
+    post-softmax weights, which go to :meth:`KVPolicy.post_attend`.
+    ``block_tbl`` (B, Hkv, NB) int32 lists each row's live
     ``block_p``-sized blocks in its first ``block_n`` (B, Hkv) entries — the
     block-table contract with the flash-decode kernel; every visible slot
     lies in a listed block.  ``block_p == 0`` means no table.
@@ -56,6 +62,7 @@ class AttendSpec:
     v: Optional[torch.Tensor]
     visible: torch.Tensor
     positions: Optional[torch.Tensor] = None
+    needs_weights: bool = False
     block_tbl: Optional[torch.Tensor] = None
     block_n: Optional[torch.Tensor] = None
     block_p: int = 0
@@ -204,6 +211,10 @@ def _nbytes(a: torch.Tensor) -> int:
     return a.numel() * a.element_size()
 
 
+def _budget_tokens(cfg: KVPolicyConfig, max_len: int) -> int:
+    return cfg.budget or max(int(max_len / cfg.cr), 1)
+
+
 # ---------------------------------------------------------------------------
 # the protocol
 # ---------------------------------------------------------------------------
@@ -233,8 +244,33 @@ class KVPolicy:
         ``attn_cfg``, ``arch``, ``dtype`` and ``active``.  Returns (cache,
         spec, live): ``live`` (B,) is the step's ``live_tokens`` metric as
         the reference reports it — counted for every lane, inactive ones
-        included, before they are frozen."""
+        included, before they are frozen.  A policy whose spec
+        ``needs_weights`` returns None there: its count exists only after
+        :meth:`post_attend`."""
         raise NotImplementedError
+
+    def post_attend(self, cache: Any, weights: torch.Tensor,
+                    active: Optional[torch.Tensor] = None,
+                    aux: Optional[Dict[str, Any]] = None
+                    ) -> Tuple[Any, torch.Tensor]:
+        """Second phase when ``AttendSpec.needs_weights``: ``weights`` (B,
+        Hkv, P) fp32 is the post-softmax distribution summed over each
+        group's query heads.  Updates the cache in place for the lanes of
+        ``active`` (None = all) and returns (cache, live) with ``live`` as
+        :meth:`decode_update` describes it.  ``aux`` is the step's aux, as
+        :meth:`decode_update` got it."""
+        return cache, self.metrics(cache)["live_tokens"]
+
+    def prepare_step(self, stacked: Any, aux: Dict[str, Any]
+                     ) -> Optional[List[Dict[str, Any]]]:
+        """Once per decode step, before the layer loop: per-layer entries
+        for the aux of :meth:`decode_update` and :meth:`post_attend`,
+        computed for every layer at once from the stacked cache (leaves
+        (L, B, ...)); ``aux`` carries ``layer_salt`` (L,).  One batched
+        computation in place of one per layer: the step is host-bound, so
+        what counts is the number of ops dispatched.  None (the default):
+        nothing to prepare."""
+        return None
 
     # -- lane lifecycle (continuous batching / hyperscale fork) --------------
 
@@ -363,7 +399,7 @@ def _import_pages(pool, phys, k, v, valid, lane: int) -> None:
     phys[lane] = torch.where(got, page, -1).reshape(h, nb)
 
 
-def _attend_spec(cache) -> AttendSpec:
+def _attend_spec(cache, **kw) -> AttendSpec:
     """The AttendSpec of a cache, with its live-block table when it keeps
     one; a paged cache hands over its pool and page map instead of K/V."""
     tbl, n, bp = cache.block_spec()
@@ -371,9 +407,9 @@ def _attend_spec(cache) -> AttendSpec:
     if pool is not None:
         return AttendSpec(None, None, cache.valid_mask(), cache.positions(),
                           block_tbl=tbl, block_n=n, block_p=bp, pool=pool,
-                          phys=cache.phys)
+                          phys=cache.phys, **kw)
     return AttendSpec(cache.k, cache.v, cache.valid_mask(), cache.positions(),
-                      block_tbl=tbl, block_n=n, block_p=bp)
+                      block_tbl=tbl, block_n=n, block_p=bp, **kw)
 
 
 class _SlotRingMixin:
@@ -409,3 +445,44 @@ class DMSPolicy(_SlotRingMixin, KVPolicy):
 
     def decode_update(self, cache, q, k_new, v_new, aux):
         return self._slot_update(cache, k_new, v_new, aux)
+
+
+class _WeightEvictPolicy(KVPolicy):
+    """Insert, attend, evict: the shape of the weight-driven policies."""
+
+    def decode_update(self, cache, q, k_new, v_new, aux):
+        self._insert(cache, k_new, v_new, aux)
+        return cache, _attend_spec(cache, needs_weights=True), None
+
+    def _insert(self, cache, k_new, v_new, aux):
+        cache.insert(k_new, v_new, active=aux.get("active"))
+
+    def post_attend(self, cache, weights, active=None, aux=None):
+        return cache, cache.evict(weights, active=active)
+
+
+@register_policy("tova")
+class TOVAPolicy(_WeightEvictPolicy):
+    def init_cache(self, arch, batch, max_len, cfg, *, layer_window, dtype,
+                   device):
+        a = arch.attn
+        budget = _budget_tokens(cfg, max_len)
+        return TOVACache.init(batch, a.num_kv_heads, budget + 1, a.head_dim,
+                              dtype, block_p=cfg.block_p, paged=cfg.paged,
+                              pool_blocks=cfg.pool_blocks, device=device)
+
+
+@register_policy("h2o")
+class H2OPolicy(_WeightEvictPolicy):
+    def init_cache(self, arch, batch, max_len, cfg, *, layer_window, dtype,
+                   device):
+        a = arch.attn
+        budget = _budget_tokens(cfg, max_len)
+        return H2OCache.init(batch, a.num_kv_heads, budget + 1, a.head_dim,
+                             max(budget // 2, 1), dtype, block_p=cfg.block_p,
+                             paged=cfg.paged, pool_blocks=cfg.pool_blocks,
+                             device=device)
+
+
+# policies that live in their own modules register themselves on import
+from repro_torch.core import keyformer as _keyformer  # noqa: E402,F401

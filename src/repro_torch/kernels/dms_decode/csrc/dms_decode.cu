@@ -1,10 +1,10 @@
 // Block-table flash-decode for Hopper (sm_90a): one decode token's GQA
 // attention per (lane, kv head) over only the live blocks of a compacted
-// DMS slot arena, in one of two layouts.
+// DMS slot arena, in one of two layouts, optionally with its softmax weights.
 //
 // Replaces the Pallas TPU kernel `decode_fwd` in
-// src/repro/kernels/dms_decode/dms_decode.py (body `_decode_kernel`) in two
-// of its three modes:
+// src/repro/kernels/dms_decode/dms_decode.py (body `_decode_kernel`) in its
+// three modes; the first two are layouts, the third adds outputs to either:
 //   * fixed-arena mode: K/V and `valid` are each row's own arena (BH, P, .),
 //     and table entries are block ids into that arena;
 //   * shared-pool mode (`shared_kv`, the TPU kernel's `DecodeConfig.
@@ -14,8 +14,17 @@
 //     page map by the wrapper), and `valid` arrives gathered into table
 //     order (BH, NB_tbl * block_p).  So K/V of entry i sit at
 //     page * block_p, whatever the row, and its `valid` at
-//     (row * NB_tbl + i) * block_p.
-// The `weights_out` mode is not ported yet.
+//     (row * NB_tbl + i) * block_p;
+//   * weights-out mode (`weights_out`, the TPU kernel's `DecodeConfig.
+//     weights_out=True`, dms_decode.py:53-55, :87-91, :98-100, :158-176), in
+//     either layout: for each listed entry i < n[row] the kernel also writes
+//     the block's probabilities relative to the running max, w_blk[row, i] =
+//     exp(s - m_running) as (G, block_p) fp32 (0 on dead slots), and that
+//     running max, m_blk[row, i] (G); after the loop the final statistics
+//     m_out[row] and l_out[row] (G).  Entries i >= n are never written.  The
+//     wrapper (ops.py) rescales each entry by exp(m_blk - m_out) / l_out,
+//     sums the G heads and scatters to logical arena rows: the weights that
+//     TOVA, H2O and Keyformer evict by.
 //
 // What bounds it: device-memory bytes.  A decode step does ~2*G*Dh flops per
 // K/V slot it reads (G = 6 query heads per kv head on Qwen-R1), far below
@@ -23,9 +32,10 @@
 // The bytes it must move are `ops.modeled_hbm_bytes`: sum(n) live blocks x
 // block_p x Dh x (2 + 2) bytes of K/V, plus q, out, the table and `valid` —
 // in shared-pool mode the same, plus the wrapper's gathered `valid` rows and
-// translated table.
+// translated table; in weights-out mode plus n x G x (block_p + 1) x 4 bytes
+// of w_blk and m_blk and 2 x G x 4 bytes of m_out and l_out per row.
 //
-// What the design does about it (the same in both modes; only the two
+// What the design does about it (the same in both layouts; only the two
 // addresses differ, so the same logical contents in the same table order
 // give the same bits):
 //   * the loop runs over `tbl[row, :n[row]]` only, so a block (or page)
@@ -41,11 +51,15 @@
 //   * each score is one thread's dot product over Dh from shared memory (K
 //     rows padded by 16 bytes, so the threads of a warp hit distinct banks);
 //     scores, the online softmax and the PV accumulator stay on chip in
-//     fp32, and only the bf16 output row goes back.
+//     fp32, and only the bf16 output row goes back;
+//   * weights-out mode stores the probabilities the block already holds in
+//     shared memory for its PV product (coalesced fp32 rows), so it reads no
+//     byte more than the plain mode.
 // Not done here (first performance items, see PERF.md and ROADMAP E2): a
 // split of the table across several thread blocks with an LSE combine
 // (Qwen-R1 has Hkv = 2, so B*Hkv blocks cannot fill 132 SMs), cp.async/TMA
-// pipelines, wgmma.
+// pipelines, wgmma; in weights-out mode, the wrapper's rescale, group sum
+// and scatter fused into the epilogue (ROADMAP E4).
 //
 // Plain C interface, loaded with ctypes; launches on the caller's stream and
 // returns cudaGetLastError().
@@ -107,6 +121,10 @@ dms_decode_kernel(const __nv_bfloat16* __restrict__ q,     // (BH, G, Dh)
                   const int32_t* __restrict__ tbl,         // (BH, NB_tbl)
                   const int32_t* __restrict__ n,           // (BH,)
                   __nv_bfloat16* __restrict__ out,         // (BH, G, Dh)
+                  float* __restrict__ w_blk,     // (BH, NB_tbl, G, bp) or null
+                  float* __restrict__ m_blk,     // (BH, NB_tbl, G)
+                  float* __restrict__ m_out,     // (BH, G)
+                  float* __restrict__ l_out,     // (BH, G)
                   int g, int dh, int p, int nb_tbl, int block_p,
                   float scale, int has_cap, float cap, int shared_kv) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -245,6 +263,15 @@ dms_decode_kernel(const __nv_bfloat16* __restrict__ q,     // (BH, G, Dh)
     }
     __syncthreads();
 
+    if (w_blk != nullptr) {
+      // weights-out: this entry's probabilities (dead slots already 0) and
+      // the running max they are relative to
+      const size_t entry = (size_t)row * nb_tbl + i;
+      float* w_row = w_blk + entry * g * block_p;
+      for (int e = tid; e < g * block_p; e += kThreads) w_row[e] = s_s[e];
+      if (tid < g) m_blk[entry * g + tid] = m_s[tid];
+    }
+
     // PV: each thread owns fixed (g, d) accumulator elements
 #pragma unroll
     for (int jj = 0; jj < kAccPerThread; ++jj) {
@@ -262,6 +289,10 @@ dms_decode_kernel(const __nv_bfloat16* __restrict__ q,     // (BH, G, Dh)
     __syncthreads();
   }
 
+  if (m_out != nullptr && tid < g) {
+    m_out[(size_t)row * g + tid] = m_s[tid];
+    l_out[(size_t)row * g + tid] = l_s[tid];
+  }
   __nv_bfloat16* o_row = out + (size_t)row * gd;
 #pragma unroll
   for (int jj = 0; jj < kAccPerThread; ++jj) {
@@ -277,14 +308,19 @@ dms_decode_kernel(const __nv_bfloat16* __restrict__ q,     // (BH, G, Dh)
 
 extern "C" int dms_decode_fwd(const void* q, const void* k, const void* v,
                               const void* valid, const void* tbl,
-                              const void* n, void* out, int bh, int g, int dh,
-                              int p, int nb_tbl, int block_p, float scale,
-                              int has_cap, float cap, int shared_kv,
-                              void* stream) {
+                              const void* n, void* out, void* w_blk,
+                              void* m_blk, void* m_out, void* l_out, int bh,
+                              int g, int dh, int p, int nb_tbl, int block_p,
+                              float scale, int has_cap, float cap,
+                              int shared_kv, void* stream) {
   if (bh < 0 || g < 1 || g > kMaxG || dh < 8 || dh > kMaxDh || dh % 8 != 0 ||
       block_p < 1 || block_p > kMaxBlockP || p < block_p || p % block_p != 0 ||
       nb_tbl < 0)
     return (int)cudaErrorInvalidValue;
+  // weights-out takes all four outputs or none
+  const int nw = (w_blk != nullptr) + (m_blk != nullptr) + (m_out != nullptr) +
+                 (l_out != nullptr);
+  if (nw != 0 && nw != 4) return (int)cudaErrorInvalidValue;
   if (bh == 0) return (int)cudaSuccess;
   const size_t smem = smem_bytes(g, dh, block_p);
   if (smem > 48u * 1024u) {
@@ -295,7 +331,7 @@ extern "C" int dms_decode_fwd(const void* q, const void* k, const void* v,
   dms_decode_kernel<<<bh, kThreads, smem, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
       (const uint8_t*)valid, (const int32_t*)tbl, (const int32_t*)n,
-      (__nv_bfloat16*)out, g, dh, p, nb_tbl, block_p, scale, has_cap, cap,
-      shared_kv);
+      (__nv_bfloat16*)out, (float*)w_blk, (float*)m_blk, (float*)m_out,
+      (float*)l_out, g, dh, p, nb_tbl, block_p, scale, has_cap, cap, shared_kv);
   return (int)cudaGetLastError();
 }

@@ -18,6 +18,13 @@ Two call modes, as in the reference ``repro.kernels.dms_decode.ops``:
   from ``valid`` and the arena is padded to a block multiple.  Traffic then
   scales with arena capacity.
 
+``need_weights=True`` (either mode, either layout) also returns the
+group-summed post-softmax weights (B, Hkv, P) fp32 that TOVA, H2O and
+Keyformer evict by.  As in the reference the kernel emits raw per-entry
+outputs in table order (weights-out mode) and this wrapper rescales them,
+sums the G heads and scatters them to logical arena rows
+(:func:`table_weights_to_arena`).
+
 CUDA tensors go to the hand-written kernel (``csrc/dms_decode.cu``) or the
 call raises; CPU tensors go to the plain version (:mod:`.ref`).  Nothing
 else picks the path.
@@ -32,16 +39,19 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.dms_decode.ref import (dms_decode_plain,
-                                                dms_decode_plain_shared)
+                                                dms_decode_plain_shared,
+                                                dms_decode_plain_weights)
 
 DEFAULT_BLOCK_P = 128
 MAX_G, MAX_DH, MAX_BLOCK_P = 16, 256, 128
 SOURCE = Path(__file__).resolve().parent / "csrc" / "dms_decode.cu"
 
 #: kernel launches since the last reset (the CPU path never counts), in
-#: fixed-arena mode and in shared-pool mode
+#: fixed-arena mode, in shared-pool mode, and in weights-out mode (either
+#: layout; counted here only)
 launches = 0
 shared_launches = 0
+weights_launches = 0
 
 
 def _round_up(x: int, m: int) -> int:
@@ -53,8 +63,8 @@ def _library() -> ctypes.CDLL:
     fn = lib.dms_decode_fwd
     if fn.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ptr] * 7 + [i32] * 6 + [ctypes.c_float, i32,
-                                               ctypes.c_float, i32, ptr]
+        fn.argtypes = [ptr] * 11 + [i32] * 6 + [ctypes.c_float, i32,
+                                                ctypes.c_float, i32, ptr]
         fn.restype = i32
     return lib
 
@@ -73,10 +83,12 @@ def modeled_hbm_bytes(block_n: torch.Tensor, block_p: int, head_dim: int,
     return int(block_n.sum().item()) * block_p * per_slot
 
 
-def _launch(qf, kf, vf, valf, tblf, nf, block_p, logit_cap, shared_kv):
+def _launch(qf, kf, vf, valf, tblf, nf, block_p, logit_cap, shared_kv,
+            need_weights=False):
     """The kernel on CUDA tensors of the flattened layout; raises on what it
-    does not take."""
-    global launches, shared_launches
+    does not take.  With ``need_weights`` returns the five outputs of the
+    weights-out mode."""
+    global launches, shared_launches, weights_launches
     bh, g, dh = qf.shape
     p = kf.shape[1]
     if not (1 <= g <= MAX_G and 8 <= dh <= MAX_DH and dh % 8 == 0):
@@ -103,20 +115,32 @@ def _launch(qf, kf, vf, valf, tblf, nf, block_p, logit_cap, shared_kv):
     if kf.data_ptr() % 16 or vf.data_ptr() % 16:
         raise ValueError("dms_decode kernel: k/v must be 16-byte aligned")
     out = torch.empty_like(qf)
+    nbt = tblf.shape[1]
+    extra = ()
+    if need_weights:
+        # entries >= n stay unwritten: the wrapper never trusts them
+        f32 = dict(dtype=torch.float32, device=qf.device)
+        extra = (torch.empty((bh, nbt, g, block_p), **f32),
+                 torch.empty((bh, nbt, g), **f32),
+                 torch.empty((bh, g), **f32), torch.empty((bh, g), **f32))
     if bh == 0:
-        return out
+        return (out,) + extra if need_weights else out
     lib = _library()
+    w_ptrs = [t.data_ptr() for t in extra] if need_weights else [None] * 4
     with torch.cuda.device(qf.device):
         stream = torch.cuda.current_stream(qf.device).cuda_stream
         err = lib.dms_decode_fwd(
             qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), valf.data_ptr(),
-            tblf.data_ptr(), nf.data_ptr(), out.data_ptr(),
-            bh, g, dh, p, tblf.shape[1], block_p, float(dh ** -0.5),
+            tblf.data_ptr(), nf.data_ptr(), out.data_ptr(), *w_ptrs,
+            bh, g, dh, p, nbt, block_p, float(dh ** -0.5),
             int(logit_cap is not None),
             float(logit_cap if logit_cap is not None else 0.0),
             int(shared_kv), stream)
     if err != 0:
         raise RuntimeError(f"dms_decode kernel launch failed: CUDA error {err}")
+    if need_weights:
+        weights_launches += 1
+        return (out,) + extra
     if shared_kv:
         shared_launches += 1
     else:
@@ -126,21 +150,58 @@ def _launch(qf, kf, vf, valf, tblf, nf, block_p, logit_cap, shared_kv):
 
 def decode_rows(qf, kf, vf, valf, tblf, nf, block_p: int,
                 logit_cap: Optional[float] = None,
-                shared_kv: bool = False) -> torch.Tensor:
+                shared_kv: bool = False, need_weights: bool = False):
     """The kernel's own interface: q (BH, G, Dh); block_tbl (BH, NB_tbl)
     int32; block_n (BH,) int32 -> (BH, G, Dh).  Fixed-arena mode: k, v (BH,
     P, Dh), valid (BH, P), table entries index the row's own arena.
     ``shared_kv``: k, v (1, NPOOL * block_p, Dh), one page arena for every
     row, valid (BH, NB_tbl * block_p) in table order, table entries are
-    page ids.  CUDA tensors launch the kernel; CPU tensors run the plain
-    version."""
+    page ids.  ``need_weights``: the weights-out mode, returning ``(out,
+    w_blk, m_blk, m_out, l_out)`` (see
+    :func:`~repro_torch.kernels.dms_decode.ref.dms_decode_plain_weights`;
+    the kernel leaves entries ``>= n`` of ``w_blk``/``m_blk`` unwritten).
+    CUDA tensors launch the kernel; CPU tensors run the plain version."""
     if qf.is_cuda:
         return _launch(qf, kf, vf, valf, tblf, nf, block_p, logit_cap,
-                       shared_kv)
+                       shared_kv, need_weights)
     if qf.device.type == "cpu":
+        if need_weights:
+            return dms_decode_plain_weights(qf, kf, vf, valf, tblf, nf,
+                                            block_p, logit_cap, shared_kv)
         plain = dms_decode_plain_shared if shared_kv else dms_decode_plain
         return plain(qf, kf, vf, valf, tblf, nf, block_p, logit_cap)
     raise ValueError(f"dms_decode: unsupported device {qf.device}")
+
+
+def table_weights_to_arena(w_blk: torch.Tensor, m_blk: torch.Tensor,
+                           m_out: torch.Tensor, l_out: torch.Tensor,
+                           block_n: torch.Tensor, ltbl: torch.Tensor,
+                           nb_arena: int) -> torch.Tensor:
+    """The weights-out mode's raw outputs -> group-summed softmax weights
+    per logical arena slot, (BH, nb_arena * block_p) fp32.
+
+    Each listed entry's ``exp(s - m_blk)`` is rescaled by ``exp(min(m_blk -
+    m_out, 0)) / l_out`` (per query head: the G heads of a group have their
+    own statistics) and summed over G, then scattered to its logical block
+    ``ltbl[row, i]``.  Entries ``>= n`` may hold anything, NaN included:
+    they are replaced with ``torch.where`` (never multiplied by 0) and
+    scattered to a dump row past the arena that is sliced off — CUDA has no
+    ``mode="drop"``.  A row with ``l_out == 0`` (n = 0, or every listed slot
+    hidden) gives zeros; the reference attention path gives a uniform row
+    there (docs/kernels.md, "edge case")."""
+    bh, nbt, g, bp = w_blk.shape
+    row_live = (torch.arange(nbt, device=ltbl.device)[None, :]
+                < block_n[:, None])                                # (BH, NBt)
+    l_safe = torch.where(l_out <= 0.0, 1.0, l_out)                  # (BH, G)
+    corr = (torch.exp(torch.clamp(m_blk - m_out[:, None, :], max=0.0))
+            / l_safe[:, None, :])                                   # (BH, NBt, G)
+    w_tbl = (w_blk * corr[..., None]).sum(dim=2)                    # (BH, NBt, bp)
+    w_tbl = torch.where(row_live[..., None], w_tbl, 0.0)
+    rows = torch.where(row_live, ltbl.long().clamp(0, nb_arena - 1), nb_arena)
+    w_arena = torch.zeros((bh, nb_arena + 1, bp), dtype=torch.float32,
+                          device=w_blk.device)
+    w_arena.scatter_(1, rows[..., None].expand(-1, -1, bp), w_tbl)
+    return w_arena[:, :nb_arena].reshape(bh, nb_arena * bp)
 
 
 def dms_decode_attention(
@@ -156,9 +217,13 @@ def dms_decode_attention(
     pool_k: Optional[torch.Tensor] = None,      # (NPOOL, block_p, Dh) pages
     pool_v: Optional[torch.Tensor] = None,
     phys: Optional[torch.Tensor] = None,        # (B, Hkv, NB) page map, -1 free
-) -> torch.Tensor:
+    need_weights: bool = False,
+):
     """One decode token's attention over a slot arena, or over the pages of
-    a shared pool -> (B, 1, Hq, Dh)."""
+    a shared pool -> (B, 1, Hq, Dh); with ``need_weights``, ``(out,
+    weights)`` where ``weights`` (B, Hkv, P) fp32 are the post-softmax
+    weights summed over each group's G query heads (exactly 0 on every slot
+    that is not visible)."""
     if q.dim() != 4 or q.shape[1] != 1:
         raise ValueError(f"q must be (B, 1, Hq, Dh), got {tuple(q.shape)}")
     b, _, hq, dh = q.shape
@@ -214,6 +279,8 @@ def dms_decode_attention(
             kf, vf = k.reshape(b * hkv, p, dh), v.reshape(b * hkv, p, dh)
             valf = valid.reshape(b * hkv, p)
             tblf = block_tbl.reshape(b * hkv, -1)
+        ltbl = block_tbl.reshape(b * hkv, -1)   # logical ids: weights' rows
+        p_arena = p
     elif shared:
         raise ValueError("a shared pool needs block_tbl/block_n/block_p")
     else:
@@ -228,8 +295,17 @@ def dms_decode_attention(
         tblf = torch.argsort((~blk_live).to(torch.int8), dim=-1,
                              stable=True).to(torch.int32)
         nf = blk_live.sum(dim=-1).to(torch.int32)
+        ltbl, p_arena = tblf, pp
 
     qf = q[:, 0].reshape(b * hkv, g, dh)
-    out = decode_rows(qf, kf, vf, valf, tblf, nf, bp, logit_cap,
-                      shared_kv=shared)
-    return out.reshape(b, 1, hq, dh)
+    if not need_weights:
+        out = decode_rows(qf, kf, vf, valf, tblf, nf, bp, logit_cap,
+                          shared_kv=shared)
+        return out.reshape(b, 1, hq, dh)
+    out, w_blk, m_blk, m_out, l_out = decode_rows(
+        qf, kf, vf, valf, tblf, nf, bp, logit_cap, shared_kv=shared,
+        need_weights=True)
+    weights = table_weights_to_arena(w_blk, m_blk, m_out, l_out, nf, ltbl,
+                                     p_arena // bp)
+    return (out.reshape(b, 1, hq, dh),
+            weights.reshape(b, hkv, p_arena)[:, :, :p])

@@ -14,6 +14,8 @@ row's own arena (fixed arenas); :func:`dms_decode_plain_shared` reads pages
 of one shared pool (the paged pool), with ``valid`` already in table order.
 Both gather the listed blocks in table order and share the arithmetic, so
 the same logical contents give the same bits in either layout.
+:func:`dms_decode_plain_weights` is the kernel's weights-out mode in either
+layout: the output and the four raw outputs the kernel writes.
 """
 from __future__ import annotations
 
@@ -51,13 +53,9 @@ def _listed(block_n: torch.Tensor, nbt: int, block_p: int) -> torch.Tensor:
     return entry.repeat_interleave(block_p, dim=1)
 
 
-def dms_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     valid: torch.Tensor, block_tbl: torch.Tensor,
-                     block_n: torch.Tensor, block_p: int,
-                     logit_cap: Optional[float] = None) -> torch.Tensor:
-    """q: (BH, G, Dh); k, v: (BH, P, Dh) with P a ``block_p`` multiple;
-    valid: (BH, P) (``!= 0`` is live); block_tbl: (BH, NB_tbl) int;
-    block_n: (BH,) int.  Returns (BH, G, Dh) in q's dtype."""
+def _listed_fixed(k, v, valid, block_tbl, block_n, block_p):
+    """Fixed arenas: (K, V, live) of the listed blocks' slots in table
+    order, (BH, NB_tbl * block_p, ...)."""
     bh, p, _ = k.shape
     nb, nbt = p // block_p, block_tbl.shape[1]
     idx = block_tbl.long().clamp(0, max(nb - 1, 0))              # (BH, NBt)
@@ -69,7 +67,32 @@ def dms_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return got.reshape((bh, nbt * block_p) + x.shape[2:])
 
     live = gather(valid != 0) & _listed(block_n, nbt, block_p)
-    return _attend_listed(q, gather(k), gather(v), live, logit_cap)
+    return gather(k), gather(v), live
+
+
+def _listed_shared(k, v, valid, block_tbl, block_n, block_p):
+    """The shared pool: the listed pages' slots in table order."""
+    bh, nbt = block_tbl.shape
+    dh = k.shape[-1]
+    npool = k.shape[1] // block_p
+    idx = block_tbl.long().clamp(0, max(npool - 1, 0)).reshape(-1)
+
+    def gather(x):
+        return x.reshape(npool, block_p, dh)[idx].reshape(bh, nbt * block_p, dh)
+
+    live = (valid != 0) & _listed(block_n, nbt, block_p)
+    return gather(k), gather(v), live
+
+
+def dms_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     valid: torch.Tensor, block_tbl: torch.Tensor,
+                     block_n: torch.Tensor, block_p: int,
+                     logit_cap: Optional[float] = None) -> torch.Tensor:
+    """q: (BH, G, Dh); k, v: (BH, P, Dh) with P a ``block_p`` multiple;
+    valid: (BH, P) (``!= 0`` is live); block_tbl: (BH, NB_tbl) int;
+    block_n: (BH,) int.  Returns (BH, G, Dh) in q's dtype."""
+    return _attend_listed(q, *_listed_fixed(k, v, valid, block_tbl, block_n,
+                                            block_p), logit_cap)
 
 
 def dms_decode_plain_shared(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -80,13 +103,46 @@ def dms_decode_plain_shared(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Dh), one page arena for every row; valid: (BH, NB_tbl * block_p) in
     table order; block_tbl: (BH, NB_tbl) pool page ids; block_n: (BH,).
     Only the listed pages are gathered."""
-    bh, nbt = block_tbl.shape
-    dh = k.shape[-1]
-    npool = k.shape[1] // block_p
-    idx = block_tbl.long().clamp(0, max(npool - 1, 0)).reshape(-1)
+    return _attend_listed(q, *_listed_shared(k, v, valid, block_tbl, block_n,
+                                             block_p), logit_cap)
 
-    def gather(x):
-        return x.reshape(npool, block_p, dh)[idx].reshape(bh, nbt * block_p, dh)
 
-    live = (valid != 0) & _listed(block_n, nbt, block_p)
-    return _attend_listed(q, gather(k), gather(v), live, logit_cap)
+def dms_decode_plain_weights(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, valid: torch.Tensor,
+                             block_tbl: torch.Tensor, block_n: torch.Tensor,
+                             block_p: int, logit_cap: Optional[float] = None,
+                             shared_kv: bool = False):
+    """The weights-out mode, in the layout ``shared_kv`` names (operands as
+    :func:`dms_decode_plain` or :func:`dms_decode_plain_shared`).  Returns
+    ``(out, w_blk, m_blk, m_out, l_out)``: ``w_blk`` (BH, NB_tbl, G,
+    block_p) fp32 holds each listed entry's ``exp(s - m_blk)`` (0 on dead
+    slots), ``m_blk`` (BH, NB_tbl, G) the running max after that entry (a
+    running max in table order: :func:`torch.cummax` of the entries'
+    maxima), ``m_out``/``l_out`` (BH, G) the final max and denominator.
+    The kernel leaves entries ``>= n`` unwritten; here they hold 0 and
+    ``NEG_INF``."""
+    listed = _listed_shared if shared_kv else _listed_fixed
+    kl, vl, live = listed(k, v, valid, block_tbl, block_n, block_p)
+    out = _attend_listed(q, kl, vl, live, logit_cap)
+    bh, g, dh = q.shape
+    nbt = block_tbl.shape[1]
+    s = torch.einsum("hgd,hpd->hgp", q.float(),
+                     torch.where(live[..., None], kl.float(), 0.0)) * dh ** -0.5
+    if logit_cap is not None:
+        s = logit_cap * torch.tanh(s / logit_cap)
+    live4 = live.reshape(bh, 1, nbt, block_p)
+    s4 = torch.where(live4, s.reshape(bh, g, nbt, block_p), NEG_INF)
+    if nbt:
+        m_blk = torch.cummax(s4.amax(dim=-1), dim=-1).values      # (BH, G, NBt)
+    else:
+        m_blk = s4.sum(dim=-1)
+    w = torch.where(live4, torch.exp(s4 - m_blk[..., None]), 0.0)
+    m_out = (m_blk[..., -1] if nbt
+             else torch.full((bh, g), NEG_INF, device=q.device))
+    l_out = torch.where(live4, torch.exp(s4 - m_out[..., None, None]),
+                        0.0).sum(dim=(-1, -2))
+    entry = (torch.arange(nbt, device=block_n.device)[None, :]
+             < block_n[:, None])[:, None, :]                      # (BH, 1, NBt)
+    m_blk = torch.where(entry, m_blk, NEG_INF)
+    return (out, w.permute(0, 2, 1, 3).contiguous(),
+            m_blk.permute(0, 2, 1).contiguous(), m_out, l_out)

@@ -10,6 +10,8 @@
   eviction decision from the borrowed query neuron, rotate q and k, let the
   policy absorb the token, and attend — through the block-table
   flash-decode kernel (``use_kernel=True``) or the reference einsum path.
+  A policy that evicts by attention weights (TOVA, H2O, Keyformer) gets
+  them back: the kernel in its weights-out mode, or the reference softmax.
 * :func:`attention_ref` — the O(T²) masked-softmax oracle.
 """
 from __future__ import annotations
@@ -152,11 +154,17 @@ def decode_attention(
     pos_t=None,                    # int or per-lane (B,) positions
     use_kernel: bool = False,
     active: Optional[torch.Tensor] = None,   # (B,) live-lane mask
+    layer_salt: Optional[torch.Tensor] = None,
+    step_aux: Optional[Dict[str, Any]] = None,
 ) -> Tuple[torch.Tensor, policy_lib.PolicyCache, Dict[str, Any]]:
     """One decode step.  Returns (output (B, 1, D), cache, aux) with
     ``aux["live_tokens"]``/``aux["reads_tokens"]`` (B,) and
     ``aux["attn_impl"]`` ("kernel" | "ref").  The cache is updated in
-    place."""
+    place.  ``layer_salt`` (a 0-d int64 tensor holding a uint32; None is
+    0) seeds the noise of stochastic policies (Keyformer): the bits of this
+    layer's fp32 ``wo[0, 0]``, as :func:`repro_torch.models.transformer.
+    layer_salts` gives them.  ``step_aux`` is this layer's entry of the
+    policy's ``prepare_step``."""
     dtype = torch_dtype(arch.dtype)
     b = x_t.shape[0]
     dms = arch.dms
@@ -179,21 +187,28 @@ def decode_attention(
 
     window = layer_window if layer_window is not None else cfg.window
     pol_aux = {"alpha_bin": alpha_bin, "pos_t": pos_lane, "attn_cfg": cfg,
-               "arch": arch, "dtype": dtype, "active": active}
+               "arch": arch, "dtype": dtype, "active": active,
+               "layer_salt": layer_salt, **(step_aux or {})}
     inner, spec, live = pol.decode_update(cache.cache, q, k_new_c, v_new_c,
                                           pol_aux)
-    out, impl = _masked_decode(q, spec, window if spec.positions is not None
-                               else None, cfg, use_kernel, pos_lane)
+    out, w_group, impl = _masked_decode(
+        q, spec, window if spec.positions is not None else None, cfg,
+        use_kernel, pos_lane, need_weights=spec.needs_weights)
+    if spec.needs_weights:
+        inner, live = pol.post_attend(inner, w_group, active=active,
+                                      aux=pol_aux)
     cache = dataclasses.replace(cache, cache=inner)
     y = out.reshape(b, 1, cfg.num_heads * cfg.head_dim) @ p["wo"].to(dtype)
     aux = {"live_tokens": live, "reads_tokens": live, "attn_impl": impl}
     return y.to(x_t.dtype), cache, aux
 
 
-def _masked_decode(q, spec, window, cfg, use_kernel, pos_t=None):
+def _masked_decode(q, spec, window, cfg, use_kernel, pos_t=None,
+                   need_weights=False):
     """q: (B, 1, Hq, Dh); ``spec``: an AttendSpec.  Local-window layers also
     hide slots with position <= t - window (a subset of ``spec.visible``, so
     the table stays a valid cover).  Returns (out (B, 1, Hq, Dh), the
+    group-summed post-softmax weights (B, Hkv, P) fp32 or None, the
     implementation used: "kernel" | "ref")."""
     vis, pos = spec.visible, spec.positions
     b, _, hq, dh = q.shape
@@ -203,12 +218,14 @@ def _masked_decode(q, spec, window, cfg, use_kernel, pos_t=None):
         ptl = torch.as_tensor(pos_t, dtype=torch.int32, device=q.device).expand(b)
         vis = vis & (pos > (ptl[:, None, None] - window))
     if use_kernel:
-        out = dkops.dms_decode_attention(
+        res = dkops.dms_decode_attention(
             q, spec.k, spec.v, vis, block_tbl=spec.block_tbl,
             block_n=spec.block_n, block_p=spec.block_p or None,
             logit_cap=cfg.logit_softcap, pool_k=spec.pool_k,
-            pool_v=spec.pool_v, phys=spec.phys)
-        return out, "kernel"
+            pool_v=spec.pool_v, phys=spec.phys, need_weights=need_weights)
+        if need_weights:
+            return res[0], res[1], "kernel"
+        return res, None, "kernel"
     k, v = spec.kv()              # a paged spec gathers its dense view here
     # bf16 operands, fp32 accumulation: the products of bf16 values are exact
     # in fp32, so fp32 matmuls of the upcast operands reproduce it
@@ -218,4 +235,5 @@ def _masked_decode(q, spec, window, cfg, use_kernel, pos_t=None):
     scores = torch.where(vis[:, :, None, :], scores, NEG_INF)
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgp,bhpd->bhgd", w.to(v.dtype).float(), v.float())
-    return out.reshape(b, 1, hq, dh).to(q.dtype), "ref"
+    return (out.reshape(b, 1, hq, dh).to(q.dtype),
+            w.sum(dim=2) if need_weights else None, "ref")

@@ -10,9 +10,10 @@ Params keep the reference's layout (``repro.models.transformer``)::
 For serving, matmul weights are stored in the compute dtype (cast once, at
 load or init); for training they are fp32 (``init_model(dtype=float32)``),
 as the reference keeps them, and cast at each matmul.  Norm scales stay
-fp32.  The decode state mirrors it: ``{"0":
-PolicyCache}`` with every cache leaf stacked over layers and the lane axis
-at position 1.  The reference scans superblocks with ``jax.lax.scan``; here
+fp32.  The tree comes as :class:`Params`, a dict that also carries each
+layer's noise salt (:func:`layer_salts`).  The decode state mirrors it:
+``{"0": PolicyCache}`` with every cache leaf stacked over layers and the
+lane axis at position 1.  The reference scans superblocks with ``jax.lax.scan``; here
 a Python loop walks the layers and each layer's cache is a view into the
 stacked state, updated in place by the step.
 """
@@ -25,6 +26,7 @@ import torch.utils.checkpoint
 
 from repro_torch.core import dms as dms_lib
 from repro_torch.core import policy as policy_lib
+from repro_torch.core import threefry
 from repro_torch.core.block_pool import BlockPool
 from repro_torch.core.config import ArchConfig, KVPolicyConfig
 from repro_torch.core.tree import tree_leaves, tree_map, tree_unflatten
@@ -44,6 +46,34 @@ def check_supported(arch: ArchConfig) -> None:
 
 
 # ---------------------------------------------------------------------------
+# params
+# ---------------------------------------------------------------------------
+
+
+class Params(dict):
+    """A params tree (the dict above) that also carries ``layer_salt``:
+    (L,) int64, the IEEE bits of each layer's fp32 ``attn.wo[0, 0]``.
+
+    The reference seeds stochastic policies (Keyformer) per layer with those
+    bits, taken from its fp32 master weights; a bf16 copy no longer holds
+    them (its upcast gives other bits, hence other noise and other tokens),
+    so :func:`init_model` and :func:`repro_torch.bridge.params_from_numpy`
+    record them before the cast.  It is an attribute, not a key: the tree
+    helpers, the optimizer and checkpoints never see it."""
+
+    layer_salt: Optional[torch.Tensor] = None
+
+
+def layer_salts(params: dict) -> torch.Tensor:
+    """(L,) int64 noise salts: the recorded ``layer_salt``, else the bits
+    of each stored ``wo[0, 0]`` (exact when the weights are fp32)."""
+    salt = getattr(params, "layer_salt", None)
+    if salt is None:
+        salt = threefry.float_bits(params["blocks"]["0"]["attn"]["wo"][:, 0, 0])
+    return salt
+
+
+# ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 
@@ -57,7 +87,8 @@ def init_model(arch: ArchConfig, *, seed: int = 0,
     :class:`torch.Generator` on ``device``.  The draws differ from the
     reference's threefry streams; tests copy reference weights in through
     :func:`repro_torch.bridge.params_from_numpy` instead.  Matmul weights
-    take ``dtype`` (default: the compute dtype ``arch.dtype``)."""
+    take ``dtype`` (default: the compute dtype ``arch.dtype``); the layer
+    salts come from the fp32 draws (:class:`Params`)."""
     check_supported(arch)
     dev = resolve_device(device)
     dtype = dtype or torch_dtype(arch.dtype)
@@ -66,39 +97,46 @@ def init_model(arch: ArchConfig, *, seed: int = 0,
     d, nl, vp = arch.d_model, arch.num_layers, arch.padded_vocab
     a, f = arch.attn, arch.mlp.d_ff
 
-    def normal(shape, scale):
+    def normal(shape, scale, first=None):
+        """N(0, 1) * scale in ``dtype``; ``first`` (shape[0],) fp32, if
+        given, receives each row's first fp32 draw."""
         out = torch.empty(shape, dtype=dtype, device=dev)
         row = out[0].numel()
         step = max(1, (1 << 26) // row)     # bounded fp32 temporaries
         for i in range(0, shape[0], step):
             n = min(step, shape[0] - i)
-            out[i:i + n] = torch.randn((n,) + tuple(shape[1:]), generator=gen,
-                                       device=dev) * scale
+            x = torch.randn((n,) + tuple(shape[1:]), generator=gen,
+                            device=dev) * scale
+            if first is not None:
+                first[i:i + n] = x.reshape(n, -1)[:, 0]
+            out[i:i + n] = x
         return out
 
-    def dense(d_in, d_out):
-        return normal((nl, d_in, d_out), d_in ** -0.5)
+    def dense(d_in, d_out, first=None):
+        return normal((nl, d_in, d_out), d_in ** -0.5, first)
 
     def ones():
         return torch.ones((nl, d), dtype=torch.float32, device=dev)
 
-    params: Dict[str, Any] = {
+    params = Params({
         "embed": normal((vp, d), 0.02),
         "final_norm": {"scale": torch.ones((d,), dtype=torch.float32,
                                            device=dev)},
-    }
+    })
     if not arch.tie_embeddings:
         params["lm_head"] = normal((d, vp), d ** -0.5)
+    wo00 = torch.empty((nl,), dtype=torch.float32, device=dev)
     params["blocks"] = {"0": {
         "attn_norm": {"scale": ones()},
         "attn": {"wq": dense(d, a.num_heads * a.head_dim),
                  "wk": dense(d, a.num_kv_heads * a.head_dim),
                  "wv": dense(d, a.num_kv_heads * a.head_dim),
-                 "wo": dense(a.num_heads * a.head_dim, d)},
+                 "wo": dense(a.num_heads * a.head_dim, d, wo00)},
         "mlp_norm": {"scale": ones()},
         "mlp": {"w_gate": dense(d, f), "w_up": dense(d, f),
                 "w_down": dense(f, d)},
     }}
+    params.layer_salt = threefry.float_bits(wo00)
     return params
 
 
@@ -325,6 +363,10 @@ def decode_step(
     reads = torch.zeros_like(live)
     blocks, stacked = params["blocks"]["0"], state["0"]
     dtype = torch_dtype(arch.dtype)
+    salt = layer_salts(params)
+    pol = policy_lib.get_policy(stacked.policy)
+    prepared = pol.prepare_step(stacked.cache, {"layer_salt": salt})
+    salts = salt.unbind(0)
     impls = set()
     for i in range(arch.num_layers):
         p = tree_map(lambda a: a[i], blocks)         # views of layer i
@@ -332,7 +374,8 @@ def decode_step(
         h = norm_apply(p["attn_norm"], x, arch.norm, arch.norm_eps)
         a_out, _, aux = attn_lib.decode_attention(
             p["attn"], h, cache, arch.attn, arch, pos_t=pos_t,
-            use_kernel=use_kernel, active=active)
+            use_kernel=use_kernel, active=active, layer_salt=salts[i],
+            step_aux=None if prepared is None else prepared[i])
         impls.add(aux["attn_impl"])
         x = x + a_out
         live = live + aux["live_tokens"]

@@ -119,6 +119,125 @@ def test_shared_pool_kernel_matches_plain_and_fixed(cuda_device, g, dh, nb, cap)
     torch.testing.assert_close(shared.cpu().float(), plain.float(), **BF16)
 
 
+# -- decode, weights-out mode ---------------------------------------------------
+
+# the raw outputs and the weights are fp32 on both sides: scores summed over
+# Dh in another order, then exponentiated
+F32 = dict(rtol=1e-4, atol=1e-5)
+
+
+def _weights_case(device, g, dh, nb, seed):
+    """Both layouts of the same logical contents: rows list their live
+    blocks in shuffled order, row 0 lists none, row 1's first listed block
+    is hidden entirely (as a local window hides old slots), the table tail
+    past n names other blocks; K/V of every unlisted block, and every
+    unlisted page of a pool twice the size needed, is NaN.  Returns
+    (fixed operands, shared operands) for ``ops.decode_rows``."""
+    gen = torch.Generator().manual_seed(seed)
+    bh = 8
+    valid = torch.rand((bh, nb * BP), generator=gen) < 0.6
+    live = valid.reshape(bh, nb, BP).any(-1)
+    live[0] = False
+    tbl = torch.zeros((bh, nb), dtype=torch.int64)
+    n = live.sum(-1).int()
+    for r in range(bh):
+        ids = torch.nonzero(live[r]).flatten()
+        ids = ids[torch.randperm(len(ids), generator=gen)]
+        rest = torch.nonzero(~live[r]).flatten()
+        tbl[r] = torch.cat([ids, rest])
+    assert n[1] >= 2
+    first = int(tbl[1, 0])
+    valid[1, first * BP:(first + 1) * BP] = False
+    q = torch.randn((bh, g, dh), generator=gen).bfloat16()
+    k = torch.randn((bh, nb * BP, dh), generator=gen).bfloat16()
+    v = torch.randn((bh, nb * BP, dh), generator=gen).bfloat16()
+    dead = ~live.repeat_interleave(BP, dim=1)
+    k[dead] = float("nan")
+    v[dead] = float("nan")
+    npool = 2 * bh * nb
+    pages = torch.randperm(npool, generator=gen)[:bh * nb].reshape(bh, nb)
+    pk = torch.full((npool, BP, dh), float("nan")).bfloat16()
+    pv = pk.clone()
+    pk[pages.flatten()] = k.reshape(bh * nb, BP, dh)
+    pv[pages.flatten()] = v.reshape(bh * nb, BP, dh)
+    ptbl = pages.gather(1, tbl)
+    valid_tbl = valid.reshape(bh, nb, BP).gather(
+        1, tbl[..., None].expand(-1, -1, BP)).reshape(bh, -1)
+
+    def dev(*xs):
+        return [x.to(device) for x in xs]
+
+    fixed = dev(q, k, v, valid, tbl.int(), n)
+    shared = dev(q, pk.reshape(1, -1, dh), pv.reshape(1, -1, dh), valid_tbl,
+                 ptbl.int(), n)
+    return fixed, shared
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,dh,nb,cap", [(6, 128, 5, None), (2, 16, 4, None),
+                                         (4, 64, 8, 30.0)])
+def test_weights_out_kernel_matches_plain(cuda_device, g, dh, nb, cap):
+    """The weights-out mode in both layouts against the plain version on
+    the same tensors: the output, every listed entry's ``w_blk`` and
+    ``m_blk``, ``m_out`` and ``l_out``; the hidden block and the n = 0 row
+    give zero weight; the shared-pool layout is bitwise equal to the fixed
+    one.  Then the wrapper's group-summed weights, zero off the visible
+    slots, each live row summing to G."""
+    from repro_torch.kernels.dms_decode.ref import dms_decode_plain_weights
+    fixed, shared = _weights_case(cuda_device, g, dh, nb, seed=g * dh + nb)
+    n = fixed[5]
+    before = (ops.launches, ops.shared_launches, ops.weights_launches)
+    got_f = ops.decode_rows(*fixed, BP, cap, need_weights=True)
+    got_s = ops.decode_rows(*shared, BP, cap, shared_kv=True,
+                            need_weights=True)
+    torch.cuda.synchronize()
+    assert (ops.launches, ops.shared_launches, ops.weights_launches) == \
+        (before[0], before[1], before[2] + 2)
+    want = dms_decode_plain_weights(*fixed, BP, cap)
+    # entries >= n of w_blk and m_blk are never written: compare the rest
+    listed = torch.arange(nb, device=cuda_device)[None, :] < n[:, None]
+    for i, (a, b) in enumerate(zip(got_f, got_s)):
+        assert torch.equal(a[listed], b[listed]) if i in (1, 2) \
+            else torch.equal(a, b)
+    out, w_blk, m_blk, m_out, l_out = got_f
+    assert torch.isfinite(out.float()).all() and not out[0].float().any()
+    torch.testing.assert_close(out.float(), want[0].float(), **BF16)
+    for r in range(len(n)):
+        k = int(n[r])
+        torch.testing.assert_close(w_blk[r, :k], want[1][r, :k], **F32)
+        torch.testing.assert_close(m_blk[r, :k], want[2][r, :k], **F32)
+    torch.testing.assert_close(m_out, want[3], **F32)
+    torch.testing.assert_close(l_out, want[4], **F32)
+    assert not w_blk[1, 0].any() and not l_out[0].any()
+    # through the wrapper: (B = 4, Hkv = 2) over the fixed arenas
+    q, k, v, valid, tbl, n = fixed
+    b, hkv, p = 4, 2, nb * BP
+    args = dict(block_tbl=tbl.reshape(b, hkv, nb), block_n=n.reshape(b, hkv),
+                block_p=BP, logit_cap=cap, need_weights=True)
+    qa = q.reshape(b, 1, hkv * g, dh)
+    ka, va = k.reshape(b, hkv, p, dh), v.reshape(b, hkv, p, dh)
+    va_mask = valid.reshape(b, hkv, p)
+    o_k, w_k = ops.dms_decode_attention(qa, ka, va, va_mask, **args)
+    o_p, w_p = ops.dms_decode_attention(*(x.cpu() for x in (qa, ka, va,
+                                                            va_mask)),
+                                        **{a: (x.cpu() if torch.is_tensor(x)
+                                               else x)
+                                           for a, x in args.items()})
+    torch.cuda.synchronize()
+    assert torch.isfinite(w_k).all()
+    torch.testing.assert_close(w_k.cpu(), w_p, **F32)
+    torch.testing.assert_close(o_k.cpu().float(), o_p.float(), **BF16)
+    listed = torch.zeros((b * hkv, nb), dtype=torch.bool, device=cuda_device)
+    for r in range(b * hkv):
+        listed[r, tbl[r, :n[r]].long()] = True
+    seen = va_mask & listed.repeat_interleave(BP, dim=1).reshape(b, hkv, p)
+    assert not w_k[~seen].any()
+    sums = w_k.sum(-1).flatten()
+    for r in range(b * hkv):
+        assert float(sums[r]) == pytest.approx(
+            g if seen.reshape(b * hkv, p)[r].any() else 0.0, rel=1e-4)
+
+
 # -- flash attention: fwd, dq, dkv -------------------------------------------
 
 

@@ -46,6 +46,14 @@ def test_no_jax_or_reference_imports(path):
     assert not bad, f"{path}: imports {bad}"
 
 
+def test_every_port_module_is_checked():
+    """The walk above reaches every module, the weight-driven policies' own
+    (Threefry, the baselines, Keyformer) included."""
+    names = {p.relative_to(PORT).as_posix() for p in FILES if PORT in p.parents}
+    assert {"core/threefry.py", "core/baselines.py", "core/keyformer.py",
+            "core/policy.py", "kernels/dms_decode/ops.py"} <= names
+
+
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, importlib\n"
             f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]\n"

@@ -73,3 +73,57 @@ def test_smoke_pool_cases_shared_equals_fixed(name):
     assert torch.isfinite(out.float()).all()
     assert torch.equal(out, dms_decode_plain(*case["fixed"], 16))
     assert case["npool"] >= 2 * case["n_blocks"]
+
+
+def test_smoke_weights_phase_on_the_cpu(capsys):
+    """Phase 5b on the smoke config (block_p 4): TOVA on fixed arenas and
+    on the pool with equal tokens, H2O and Keyformer, the teacher-forced
+    checks against the reference path and the plain version, and the
+    profile of each policy beside dms."""
+    setup = dict(_cpu_setup(), block_p=4)
+    fixed = chip_smoke.phase_serve(torch, setup, short=2)
+    out = chip_smoke.phase_weights_serve(torch, setup, fixed, short=10,
+                                         short_len=32)
+    assert out["fixed"] == out["shared"] == 0       # plain versions launch none
+    assert out["arena"] == 8 and set(out["ms_step"]) == {
+        "tova", "tova paged", "h2o", "keyformer"}
+    printed = capsys.readouterr().out
+    assert printed.count("all ok") >= 5
+    for kind in ("tova", "h2o", "keyformer"):
+        assert f"weights: {kind} kernel vs reference path" in printed
+        assert f"profile: {kind} / dms wall per step" in printed
+
+
+@pytest.mark.parametrize("name", sorted(chip_smoke.WEIGHTS_CASES))
+def test_smoke_weights_cases_on_the_cpu(name):
+    """Phase 3's weights-out cases on the CPU: the checks the card runs on
+    the kernel hold for the plain version in both layouts."""
+    shape = (8, 6, 128, 80, 16)
+    cases = chip_smoke.WEIGHTS_CASES
+    try:
+        chip_smoke.WEIGHTS_CASES = {name: cases[name]}
+        err = chip_smoke.phase_weights_kernels(torch, shape, device="cpu")
+        # the main case's error is returned (plain against itself: 0)
+        assert err == (0.0 if name == "main-path shape" else None)
+    finally:
+        chip_smoke.WEIGHTS_CASES = cases
+
+
+def test_cut_depth_serves_the_first_layers():
+    """Phases 4 and 5 serve the model cut to its first layers: views of the
+    same weights and salts, and the decode state follows the cut."""
+    from repro_torch.core.config import KVPolicyConfig
+    from repro_torch.models import transformer as tfm
+    setup = _cpu_setup()
+    cut = chip_smoke.cut_depth(setup, 1)
+    assert cut["arch"].num_layers == 1 and setup["arch"].num_layers == 2
+    wq = setup["params"]["blocks"]["0"]["attn"]["wq"]
+    assert cut["params"]["blocks"]["0"]["attn"]["wq"].data_ptr() == wq.data_ptr()
+    assert torch.equal(tfm.layer_salts(cut["params"]),
+                       tfm.layer_salts(setup["params"])[:1])
+    state = tfm.init_decode_state(cut["arch"], 2, 16,
+                                  KVPolicyConfig(kind="dms", cr=2.0),
+                                  device="cpu")
+    logits, _, _ = tfm.decode_step(cut["params"], torch.tensor([[5], [9]]),
+                                   state, cut["arch"], 0)
+    assert torch.isfinite(logits).all()
