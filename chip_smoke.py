@@ -22,7 +22,10 @@ Phases (any failure raises, so the exit code is non-zero):
               mode on the same logical contents.  Flash attention (fwd, dq,
               dkv): the retrofit shape, T = 1000 (padding), window 64 with
               softcap 30, vanilla, binarised α with block skipping, each in
-              bf16 and in fp32, and a tiny shape; then the autograd
+              bf16 (fwd and dkv on the tensor cores) and in fp32, a tiny
+              shape in fp32 and in bf16 (Dh 8 padded to 64), Dh 64 with
+              T = 300 and G = 4 in bf16, each bf16 fwd and dkv launched
+              twice for the same bits; then the autograd
               Function's gradients (q, k, v, log_surv, α) against autograd
               through the dense oracle.  Decode, weights-out mode (both
               layouts, at the weights phase's arena): the main-path shape,
@@ -70,8 +73,9 @@ Phases (any failure raises, so the exit code is non-zero):
               one call (a CUDA-graph replay after an L2 flush) beside its
               bound, its plain version's and one library call's.
 
-The last two lines are the ``kernels`` JSON line and the result line
-``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+The last three lines are the ``kernels`` JSON line, the card's name and
+power limit (again) and the result line ``{"ok": true, "device":
+{...}}``.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -503,8 +507,15 @@ def phase_flash_kernels(torch):
              for short, dtype in (("bf16", "bfloat16"), ("fp32", "float32"))}
     cases["tiny shape, fp32"] = dict(b=2, t=33, hq=6, hkv=3, dh=8,
                                      dtype="float32", delay=4)
+    # the edges of the bf16 tensor-core fwd and dkv: Dh padded to 64, Dh 64
+    # with a ragged last tile, another cluster size (G = 4)
+    cases["tiny shape, bf16 (Dh 8 padded to 64)"] = dict(
+        b=2, t=33, hq=6, hkv=3, dh=8, dtype="bfloat16", delay=4)
+    cases["Dh 64, T = 300, bf16"] = dict(MAIN_FLASH, t=300, dh=64)
+    cases["G = 4 (Hq 8, Hkv 2), bf16"] = dict(MAIN_FLASH, hq=8)
     before = dict(fops.launches)
     main_err = {}
+    repeats = 0
     for name, kw in cases.items():
         dtype = getattr(torch, kw.pop("dtype"))
         qf, kf, vf, ls, hr, cfg, do = flash_case(torch, dtype=dtype, **kw)
@@ -537,6 +548,17 @@ def phase_flash_kernels(torch):
             parts.append(f"{key} {err:.2e}/{scale:.2e}")
             if name == "retrofit shape, bf16":
                 main_err[key] = err
+        if dtype == torch.bfloat16:
+            # no atomics anywhere: a second launch gives the same bits
+            again = fops.flash_fwd(qf, kf, vf, ls, hr, cfg) + fops.flash_dkv(
+                qf, kf, vf, ls, do, lse_p, delta, hr, cfg)
+            torch.cuda.synchronize()
+            repeats += 1
+            if not all(torch.equal(a, b) for a, b in
+                       zip(again, (out, lse, dk, dv, dls))):
+                raise AssertionError(f"flash [{name}]: a second launch of "
+                                     "fwd or dkv gave other bits")
+            parts.append("fwd and dkv bit-equal on a second launch")
         if hr is not None:
             parts.append(f"{int((hr == 0).sum())} of {hr.numel()} key blocks "
                          "hold no retained key")
@@ -544,8 +566,10 @@ def phase_flash_kernels(torch):
             + ", ".join(parts) + f" (tolerance {tol} relative: {dtype})")
     n = len(cases)
     got = {k: fops.launches[k] - before[k] for k in fops.launches}
-    if got != {"flash_fwd": n, "flash_dq": n, "flash_dkv": n}:
-        raise AssertionError(f"flash launch counters moved {got}, expected {n}")
+    want = {"flash_fwd": n + repeats, "flash_dq": n, "flash_dkv": n + repeats}
+    if got != want:
+        raise AssertionError(f"flash launch counters moved {got}, expected "
+                             f"{want}")
     return {"flash_fwd": max(main_err["out"], main_err["lse"]),
             "flash_dq": main_err["dq"],
             "flash_dkv": max(main_err["dk"], main_err["dv"], main_err["dls"])}
@@ -1605,7 +1629,7 @@ def phase_flash_timing(torch, launches, errs):
 
 def main() -> int:
     import torch
-    phase_device(torch)
+    card = phase_device(torch)
     sys.path.insert(0, str(SRC))
     phase_build()
     from repro_torch.configs import get_arch
@@ -1646,6 +1670,7 @@ def main() -> int:
                                     errs["weights"])
     kernels += phase_flash_timing(torch, trained["launches"], flash_errs)
     log(json.dumps({"kernels": kernels}))
+    log(card)                   # again, beside the numbers at the output's end
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -21,31 +21,60 @@
 //
 // What bounds it: operations.  At the retrofit shape (B 2, T 1024, Hq 12,
 // Hkv 2, Dh 128) a forward call does ~6.4 GFLOP over ~12 MB of operands,
-// ~500 flop per byte, above the H100's ~295 flop/byte ridge.  This first
-// version runs those operations on the fp32 CUDA cores (67 TFLOP/s peak),
-// not the tensor cores (989 TFLOP/s bf16): each thread owns a 4 x 4 block of
-// a 64 x 64 score tile and a 4 x 8 block of the 64 x Dh accumulator, both
-// fed from fp32 tiles in shared memory whose rows are padded by one word so
-// that the threads of a warp hit distinct banks.  wgmma, TMA pipelines and a
-// split of dkv's short grid are later work (PERF.md, ROADMAP E3).
+// ~500 flop per byte, above the H100's ~295 flop/byte ridge for bf16; the
+// backward passes are further above it.
 //
-// What the design does about the TPU's sequential grid:
-//   * fwd and dq: one thread block per (q head, 64-row q tile) loops over
-//     the k tiles; the online-softmax state (fwd) or the dq sum (dq) stays in
-//     registers across the loop;
-//   * dkv: one thread block per (kv head, 64-key tile) loops over the G query
-//     heads of its group and every q tile, so dk, dv and dls are each
-//     written once, with no atomics;
-//   * the loops visit only live tiles: with `causal` a q tile's loop stops at
-//     the diagonal tile and dkv's loop starts there; a tile outside the local
-//     window, or (with `skip`) inside the eviction zone for every query of
-//     the tile with no retained key in the reference blocks it overlaps
-//     (`_block_live`), is neither loaded nor computed.  A skipped tile's
-//     scores are all -1e30 or carry log_surv = -1e30, so it adds exactly zero.
+// Two routes, picked by dtype alone:
+//
+// * bf16 `flash_fwd` and `flash_dkv` (the retrofit path; `tc::` below) run
+//   their products on the tensor cores: `wgmma.mma_async` m64n64k16, bf16 in,
+//   fp32 accumulate.  Q.K^T (fwd) and K.Q^T, V.dO^T (dkv) read both operands
+//   from shared memory in the 128-byte swizzle that TMA writes; P.V (fwd) and
+//   P^T.dO, dS^T.Q (dkv) take P or dS from the score accumulators, rounded to
+//   bf16 in registers, as the A operand, and the other tile as a transposed
+//   (MN-major) B operand.  A producer warp streams the tiles by TMA
+//   (`cp.async.bulk.tensor`) into a two-stage ring guarded by mbarriers, so
+//   tile k+1 loads while tile k computes; TMA zero-fills rows past Tp.  The
+//   kernels take Dh 64 or 128 (the wrapper zero-pads a smaller Dh to 64).
+//   - fwd: one block per (q head, q tile), q tiles launched longest-first
+//     (the last has the most key tiles under the causal mask).  A block is
+//     one consumer warpgroup of 64 rows, two on an SM (128-row blocks of
+//     two warpgroups measured slower at the retrofit shape, PERF.md).  The
+//     online softmax keeps each row's max and sum in the 4 threads that
+//     share the row.
+//   - dkv: one block per (kv head, 64-key tile, slice of the G query heads),
+//     key tile 0 (the longest under causal) first.  The c blocks of one
+//     (kv head, key tile) form a thread-block cluster, c the largest divisor
+//     of G up to 4 (3 at G = 6, 4 at G = 4: the fastest measured), each
+//     block summing G/c heads; at the end each writes its fp32 dk, dv and
+//     dls partials to its shared memory, and after a cluster barrier each
+//     sums a 1/c slice of the rows across the cluster's shared memory, in
+//     rank order: no atomics, the same bits on every launch.
+// * fp32 operands, and bf16 `flash_dq`, run the first design on the fp32
+//   CUDA cores (67 TFLOP/s peak): each thread owns a 4 x 4 block of a
+//   64 x 64 score tile and a 4 x 8 block of the 64 x Dh accumulator, fed from
+//   fp32 tiles in shared memory padded by one word per row.  fp32 products
+//   stay unrounded there (the tensor cores would round them to bf16), and
+//   their sums run in one FMA chain in the plain version's order.
+//   - fwd and dq: one thread block per (q head, 64-row q tile) loops over
+//     the k tiles; the online-softmax state (fwd) or the dq sum (dq) stays
+//     in registers across the loop;
+//   - dkv: one thread block per (kv head, 64-key tile) loops over the G
+//     query heads of its group and every q tile, so dk, dv and dls are each
+//     written once, with no atomics.
+//
+// Both routes visit only live tiles: with `causal` a q tile's loop stops at
+// the diagonal tile and dkv's loop starts there; a tile outside the local
+// window, or (with `skip`) inside the eviction zone for every query of the
+// tile with no retained key in the reference blocks it overlaps
+// (`_block_live`), is neither loaded nor computed.  A skipped tile's scores
+// are all -1e30 or carry log_surv = -1e30, so it adds exactly zero.
 //
 // Plain C interface, loaded with ctypes; each entry point launches on the
 // caller's stream and returns cudaGetLastError().
 
+#include <cooperative_groups.h>
+#include <cuda.h>            // CUtensorMap; the encoder comes from the driver
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -109,11 +138,11 @@ __device__ void load_vec(float* dst, const float* __restrict__ src, int n) {
     dst[e] = e < n ? src[e] : 0.f;
 }
 
-// `_block_live` for the tile of q rows [q0, q0 + 64) and keys [k0, k0 + 64)
-__device__ bool tile_live(const Params& p, int q0, int k0,
+// `_block_live` for the tile of q rows [q0, q0 + bq) and keys [k0, k0 + bk)
+__device__ bool tile_live(const Params& p, int q0, int k0, int bq, int bk,
                           const int32_t* __restrict__ hr_row) {
-  const int q_end = min(q0 + kTile, p.tp) - 1;
-  const int k_end = min(k0 + kTile, p.tp) - 1;
+  const int q_end = min(q0 + bq, p.tp) - 1;
+  const int k_end = min(k0 + bk, p.tp) - 1;
   if (p.causal && k0 > q_end) return false;
   if (p.window > 0 && k_end < q0 - p.window + 1) return false;
   if (p.skip && p.delay > 0 && q0 - k_end >= p.delay) {
@@ -124,20 +153,24 @@ __device__ bool tile_live(const Params& p, int q0, int k0,
   return true;
 }
 
-// the k tiles a q tile visits: from the window's first to the diagonal
-__device__ void k_range(const Params& p, int q0, int& lo, int& hi) {
-  const int nkt = (p.tp + kTile - 1) / kTile;
-  const int q_end = min(q0 + kTile, p.tp) - 1;
-  hi = p.causal ? min(nkt - 1, q_end / kTile) : nkt - 1;
-  lo = p.window > 0 ? max(0, q0 - p.window + 1) / kTile : 0;
+// the bk-key tiles a bq-row q tile visits: from the window's first to the
+// diagonal
+__device__ void k_range(const Params& p, int q0, int bq, int bk, int& lo,
+                        int& hi) {
+  const int nkt = (p.tp + bk - 1) / bk;
+  const int q_end = min(q0 + bq, p.tp) - 1;
+  hi = p.causal ? min(nkt - 1, q_end / bk) : nkt - 1;
+  lo = p.window > 0 ? max(0, q0 - p.window + 1) / bk : 0;
 }
 
-// the q tiles a k tile is visited by: from the diagonal to the window's last
-__device__ void q_range(const Params& p, int k0, int& lo, int& hi) {
-  const int nqt = (p.tp + kTile - 1) / kTile;
-  const int k_end = min(k0 + kTile, p.tp) - 1;
-  lo = p.causal ? k0 / kTile : 0;
-  hi = p.window > 0 ? min(nqt - 1, (k_end + p.window - 1) / kTile) : nqt - 1;
+// the bq-row q tiles a bk-key tile is visited by: from the diagonal to the
+// window's last
+__device__ void q_range(const Params& p, int k0, int bq, int bk, int& lo,
+                        int& hi) {
+  const int nqt = (p.tp + bq - 1) / bq;
+  const int k_end = min(k0 + bk, p.tp) - 1;
+  lo = p.causal ? k0 / bq : 0;
+  hi = p.window > 0 ? min(nqt - 1, (k_end + p.window - 1) / bq) : nqt - 1;
 }
 
 // One score of the tile: raw (already scaled) -> (masked score, capped score)
@@ -202,10 +235,11 @@ flash_fwd_kernel(Params p, const T* __restrict__ q, const T* __restrict__ k,
   }
 
   int lo, hi;
-  k_range(p, q0, lo, hi);
+  k_range(p, q0, kTile, kTile, lo, hi);
   for (int kt = lo; kt <= hi; ++kt) {
     const int k0 = kt * kTile;
-    if (!tile_live(p, q0, k0, hr_row)) continue;     // uniform over the block
+    // uniform over the block
+    if (!tile_live(p, q0, k0, kTile, kTile, hr_row)) continue;
     const int rows_k = min(kTile, p.tp - k0);
     __syncthreads();                                  // last tile's readers
     load_tile(k_s, k + ((size_t)row * p.tp + k0) * dh, rows_k, dh);
@@ -333,10 +367,10 @@ flash_dq_kernel(Params p, const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < kAccCols; ++c) acc[a][c] = 0.f;
 
   int lo, hi;
-  k_range(p, q0, lo, hi);
+  k_range(p, q0, kTile, kTile, lo, hi);
   for (int kt = lo; kt <= hi; ++kt) {
     const int k0 = kt * kTile;
-    if (!tile_live(p, q0, k0, hr_row)) continue;
+    if (!tile_live(p, q0, k0, kTile, kTile, hr_row)) continue;
     const int rows_k = min(kTile, p.tp - k0);
     __syncthreads();
     load_tile(k_s, k + ((size_t)row * p.tp + k0) * dh, rows_k, dh);
@@ -465,12 +499,12 @@ flash_dkv_kernel(Params p, const T* __restrict__ q, const T* __restrict__ k,
   }
 
   int lo, hi;
-  q_range(p, k0, lo, hi);
+  q_range(p, k0, kTile, kTile, lo, hi);
   for (int gi = 0; gi < g; ++gi) {
     const int h = qhead0 + gi;
     for (int qt = lo; qt <= hi; ++qt) {
       const int q0 = qt * kTile;
-      if (!tile_live(p, q0, k0, hr_row)) continue;
+      if (!tile_live(p, q0, k0, kTile, kTile, hr_row)) continue;
       const int rows_q = min(kTile, p.tp - q0);
       const size_t qbase = (size_t)h * p.tp + q0;
       __syncthreads();
@@ -583,14 +617,19 @@ bool bad_params(const Params& p, int rows) {
          p.block_k < 1 || p.nk_ref < 1 || (p.has_cap && p.cap <= 0.f);
 }
 
+// what the bf16 tensor-core kernels do not take
+bool bad_tc(const Params& p) {
+  return (p.dh != 64 && p.dh != 128) || p.tp % 8 != 0;
+}
+
 // Raise a kernel's dynamic shared-memory limit once, to what the largest
 // head_dim needs, so that a launch inside CUDA-graph capture sets nothing.
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
+template <auto Kernel>
+cudaError_t allow_smem(size_t bytes) {
   static size_t allowed = 48u * 1024u;
   if (bytes <= allowed) return cudaSuccess;
   cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e == cudaSuccess) allowed = bytes;
   return e;
 }
@@ -611,7 +650,7 @@ cudaError_t launch_fwd(const Params& p, int bhq, const void* q, const void* k,
                        const void* v, const void* ls, const void* hr, void* out,
                        void* lse, cudaStream_t stream) {
   const size_t smem = fwd_smem(p.dh);
-  cudaError_t e = allow_smem(flash_fwd_kernel<T>, fwd_smem(kMaxDh));
+  cudaError_t e = allow_smem<flash_fwd_kernel<T>>(fwd_smem(kMaxDh));
   if (e != cudaSuccess) return e;
   dim3 grid((p.tp + kTile - 1) / kTile, bhq);
   flash_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
@@ -626,7 +665,7 @@ cudaError_t launch_dq(const Params& p, int bhq, const void* q, const void* k,
                       const void* lse, const void* delta, const void* hr,
                       void* dq, cudaStream_t stream) {
   const size_t smem = dq_smem(p.dh);
-  cudaError_t e = allow_smem(flash_dq_kernel<T>, dq_smem(kMaxDh));
+  cudaError_t e = allow_smem<flash_dq_kernel<T>>(dq_smem(kMaxDh));
   if (e != cudaSuccess) return e;
   dim3 grid((p.tp + kTile - 1) / kTile, bhq);
   flash_dq_kernel<T><<<grid, kThreads, smem, stream>>>(
@@ -642,7 +681,7 @@ cudaError_t launch_dkv(const Params& p, int bhkv, const void* q, const void* k,
                        const void* lse, const void* delta, const void* hr,
                        void* dk, void* dv, void* dls, cudaStream_t stream) {
   const size_t smem = dkv_smem(p.dh);
-  cudaError_t e = allow_smem(flash_dkv_kernel<T>, dkv_smem(kMaxDh));
+  cudaError_t e = allow_smem<flash_dkv_kernel<T>>(dkv_smem(kMaxDh));
   if (e != cudaSuccess) return e;
   dim3 grid((p.tp + kTile - 1) / kTile, bhkv);
   flash_dkv_kernel<T><<<grid, kThreads, smem, stream>>>(
@@ -652,25 +691,762 @@ cudaError_t launch_dkv(const Params& p, int bhkv, const void* q, const void* k,
   return cudaGetLastError();
 }
 
+// ===========================================================================
+// bf16 route: tensor cores (wgmma), TMA ring, longest-first grids
+// ===========================================================================
+
+namespace tc {
+
+constexpr int kBK = 64;             // keys per tile
+constexpr int kFwdRows = 64;        // q rows of a forward block
+constexpr int kDkvRows = 64;        // q rows of one dkv step
+constexpr int kStages = 2;          // depth of the TMA ring
+constexpr int kPanel = 64;          // bf16 columns of one 128-byte swizzle panel
+constexpr int kWG = 128;            // threads of a warpgroup
+constexpr int kThreads = kWG + 32;  // one consumer warpgroup, a producer warp
+// clusters of at most this many dkv blocks: the fastest at G 4 and 6
+// (PERF.md); larger clusters leave SMs of a GPC idle
+constexpr int kMaxCluster = 4;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* ptr) {
+  const uint32_t a = smem_u32(ptr);
+  return ptr + ((1024u - (a & 1023u)) & 1023u);
+}
+
+// -- mbarriers ---------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// wait for the completion of the barrier's phase of this parity
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+  }
+}
+
+// -- TMA ---------------------------------------------------------------------
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// the `rows` x Dh bf16 tile at row r0 of head `head`: Dh / 64 panels of
+// rows x 128 bytes, one after the other, each loaded by one TMA box
+template <int DH>
+__device__ __forceinline__ void load_tile_tma(uint8_t* dst, const CUtensorMap* map,
+                                              uint64_t* bar, int rows, int r0,
+                                              int head) {
+#pragma unroll
+  for (int pn = 0; pn < DH / kPanel; ++pn)
+    tma_load_3d(dst + pn * rows * 128, map, bar, pn * kPanel, r0, head);
+}
+
+// -- wgmma -------------------------------------------------------------------
+
+// Shared-memory matrix descriptor of a tile in the 128-byte swizzle: start
+// address, leading byte offset 16 (unused: every operand here spans one
+// 64-column panel in its contiguous dimension), stride byte offset 1024 (8
+// rows of 128 bytes), layout 128B.  A K-major operand steps through k by
+// adding 32 bytes (16 bf16) to the start; an MN-major one by 16 rows.
+__device__ __forceinline__ uint64_t sw128_desc(const uint8_t* ptr) {
+  return (uint64_t)((smem_u32(ptr) & 0x3FFFFu) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// keep the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma issue and wait
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+#define TC_ACC8(i)                                                          \
+  "+f"(d[i + 0]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),           \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define TC_ACC32 TC_ACC8(0), TC_ACC8(8), TC_ACC8(16), TC_ACC8(24)
+#define TC_D32                                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+
+// d (64 x 64) (+)= A (64 x 16, K-major in smem) . B (64 x 16, K-major in
+// smem)^T; scale_d = 0 overwrites d
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " TC_D32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : TC_ACC32
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 64) += A (64 x 16, bf16 pairs in registers) . B (16 x 64, MN-major
+// in smem: the 64 columns contiguous)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " TC_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : TC_ACC32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef TC_ACC8
+#undef TC_ACC32
+#undef TC_D32
+
+// Accumulator register x of an m64n64 product, in thread `lane` of warp `w`
+// of its warpgroup, holds row acc_row(w, lane, x) and column acc_col(lane, x)
+__device__ __forceinline__ int acc_row(int w, int lane, int x) {
+  return 16 * w + lane / 4 + 8 * ((x >> 1) & 1);
+}
+__device__ __forceinline__ int acc_col(int lane, int x) {
+  return 8 * (x >> 2) + 2 * (lane & 3) + (x & 1);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);     // lo in the low half
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// a 64 x 64 accumulator, rounded to bf16, as the A operands of the four
+// k16 steps of a product over its columns: step kk takes columns
+// [16kk, 16kk + 16), which this thread holds in registers 8kk .. 8kk + 7
+__device__ __forceinline__ void acc_to_a(const float (&d)[32],
+                                         uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[kk][r] = pack_bf16(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// -- forward -----------------------------------------------------------------
+
+// Shared memory of a forward block, in bytes from a 1024-aligned base:
+// the Q tile, kStages K and V tiles, kStages ls vectors, the barriers.
+template <int DH>
+struct FwdSmem {
+  static constexpr int kQBytes = kFwdRows * DH * 2;
+  static constexpr int kKVBytes = kBK * DH * 2;
+  static constexpr int kK = kQBytes;
+  static constexpr int kV = kK + kStages * kKVBytes;
+  static constexpr int kLs = kV + kStages * kKVBytes;
+  static constexpr int kBar = kLs + kStages * kBK * 4;
+  static constexpr int kBytes = kBar + (2 * kStages + 1) * 8 + 1024;
+};
+
+// one warpgroup a block: two blocks on an SM
+template <int DH>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_fwd_tc(const __grid_constant__ CUtensorMap tm_q,
+             const __grid_constant__ CUtensorMap tm_k,
+             const __grid_constant__ CUtensorMap tm_v,
+             const __grid_constant__ CUtensorMap tm_ls, Params p,
+             const int32_t* __restrict__ hr, __nv_bfloat16* __restrict__ out,
+             float* __restrict__ lse) {
+  using L = FwdSmem<DH>;
+  constexpr int kPanels = DH / kPanel;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* empty = full + kStages;
+  uint64_t* q_full = empty + kStages;
+
+  const int tid = threadIdx.x;
+  const int h = blockIdx.x;
+  const int nqt = (p.tp + kFwdRows - 1) / kFwdRows;
+  const int q0 = (nqt - 1 - (int)blockIdx.y) * kFwdRows;   // longest first
+  const int g = p.hq / p.hkv;
+  const int row = (h / p.hq) * p.hkv + (h % p.hq) / g;
+  const int32_t* hr_row = p.skip ? hr + (size_t)row * p.nk_ref : nullptr;
+  int lo, hi;
+  k_range(p, q0, kFwdRows, kBK, lo, hi);
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kWG);
+    }
+    mbar_init(q_full, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= kWG) {                                   // the producer warp
+    if (tid == kWG) {
+      mbar_expect_tx(q_full, L::kQBytes);
+      load_tile_tma<DH>(smem, &tm_q, q_full, kFwdRows, q0, h);
+      int n = 0;
+      for (int kt = lo; kt <= hi; ++kt) {
+        const int k0 = kt * kBK;
+        if (!tile_live(p, q0, k0, kFwdRows, kBK, hr_row)) continue;
+        const int s = n % kStages;
+        if (n >= kStages) mbar_wait(&empty[s], (n / kStages - 1) & 1);
+        mbar_expect_tx(&full[s], 2 * L::kKVBytes + kBK * 4);
+        load_tile_tma<DH>(smem + L::kK + s * L::kKVBytes, &tm_k, &full[s], kBK,
+                          k0, row);
+        load_tile_tma<DH>(smem + L::kV + s * L::kKVBytes, &tm_v, &full[s], kBK,
+                          k0, row);
+        tma_load_2d(smem + L::kLs + s * kBK * 4, &tm_ls, &full[s], k0, row);
+        ++n;
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroup: this thread owns rows r_top and r_top + 8
+  const int w = tid / 32, lane = tid % 32;
+  const int r_top = acc_row(w, lane, 0);
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[kPanels][32];
+#pragma unroll
+  for (int pn = 0; pn < kPanels; ++pn)
+#pragma unroll
+    for (int x = 0; x < 32; ++x) acc[pn][x] = 0.f;
+  mbar_wait(q_full, 0);
+
+  int n = 0;
+  for (int kt = lo; kt <= hi; ++kt) {
+    const int k0 = kt * kBK;
+    if (!tile_live(p, q0, k0, kFwdRows, kBK, hr_row)) continue;
+    const int s = n % kStages;
+    mbar_wait(&full[s], (n / kStages) & 1);
+    const uint8_t* k_s = smem + L::kK + s * L::kKVBytes;
+    const uint8_t* v_s = smem + L::kV + s * L::kKVBytes;
+    const float* ls_s = reinterpret_cast<const float*>(smem + L::kLs + s * kBK * 4);
+
+    float sc[32];
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)
+      wgmma_ss(sc,
+               sw128_desc(smem + (kk / 4) * kFwdRows * 128 + (kk % 4) * 32),
+               sw128_desc(k_s + (kk / 4) * kBK * 128 + (kk % 4) * 32), kk > 0);
+    wg_commit();
+    wg_wait_all();
+    reg_fence(sc);
+
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int x = 0; x < 32; ++x) {
+      const int hh = (x >> 1) & 1, jl = acc_col(lane, x);
+      float capped;
+      bool zone;
+      sc[x] = mask_score(p, sc[x] * p.scale, q0 + r_top + 8 * hh, k0 + jl,
+                         ls_s[jl], &capped, &zone);
+      mx[hh] = fmaxf(mx[hh], sc[x]);
+    }
+    float corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      mx[hh] = quad_max(mx[hh]);
+      corr[hh] = __expf(m[hh] - mx[hh]);
+      m[hh] = mx[hh];
+    }
+#pragma unroll
+    for (int x = 0; x < 32; ++x) {
+      const int hh = (x >> 1) & 1;
+      sc[x] = __expf(sc[x] - m[hh]);
+      sum[hh] += sc[x];
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) l[hh] = corr[hh] * l[hh] + sum[hh];
+#pragma unroll
+    for (int pn = 0; pn < kPanels; ++pn)
+#pragma unroll
+      for (int x = 0; x < 32; ++x) acc[pn][x] *= corr[(x >> 1) & 1];
+
+    uint32_t pa[4][4];
+    acc_to_a(sc, pa);
+#pragma unroll
+    for (int pn = 0; pn < kPanels; ++pn) reg_fence(acc[pn]);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int pn = 0; pn < kPanels; ++pn)
+        wgmma_rs(acc[pn], pa[kk],
+                 sw128_desc(v_s + pn * kBK * 128 + kk * 16 * 128));
+    wg_commit();
+    wg_wait_all();
+#pragma unroll
+    for (int pn = 0; pn < kPanels; ++pn) reg_fence(acc[pn]);
+    mbar_arrive(&empty[s]);
+    ++n;
+  }
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const float lt = quad_sum(l[hh]);
+    const float l_safe = lt <= 0.f ? 1.f : lt;
+    const int r = q0 + r_top + 8 * hh;
+    if (r >= p.tp) continue;
+    const size_t base = ((size_t)h * p.tp + r) * DH;
+#pragma unroll
+    for (int pn = 0; pn < kPanels; ++pn)
+#pragma unroll
+      for (int x = 2 * hh; x < 32; x += 4) {
+        const int c = pn * kPanel + acc_col(lane, x);
+        *reinterpret_cast<__nv_bfloat162*>(out + base + c) =
+            __floats2bfloat162_rn(acc[pn][x] / l_safe, acc[pn][x + 1] / l_safe);
+      }
+    if ((lane & 3) == 0) lse[(size_t)h * p.tp + r] = m[hh] + logf(l_safe);
+  }
+}
+
+// -- dk, dv, d(log_surv) -----------------------------------------------------
+
+// Shared memory of a dkv block, in bytes from a 1024-aligned base: K, V,
+// kStages Q and dO tiles, ls, kStages lse and delta vectors, the fp32
+// partials the cluster sums (dk, dv: 64 rows of kRedStride floats; dls),
+// the barriers.
+template <int DH>
+struct DkvSmem {
+  static constexpr int kTile = kBK * DH * 2;
+  static constexpr int kK = 0;
+  static constexpr int kV = kTile;
+  static constexpr int kQ = 2 * kTile;
+  static constexpr int kDo = kQ + kStages * kTile;
+  static constexpr int kLs = kDo + kStages * kTile;
+  static constexpr int kLse = kLs + kBK * 4;
+  static constexpr int kDelta = kLse + kStages * kDkvRows * 4;
+  static constexpr int kRedStride = DH + 8;       // floats; staggers the banks
+  static constexpr int kRedDk = kDelta + kStages * kDkvRows * 4;
+  static constexpr int kRedDv = kRedDk + kBK * kRedStride * 4;
+  static constexpr int kRedDls = kRedDv + kBK * kRedStride * 4;
+  static constexpr int kBar = kRedDls + kBK * 4;
+  static constexpr int kBytes = kBar + (2 * kStages + 1) * 8 + 1024;
+};
+
+template <int DH>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_dkv_tc(const __grid_constant__ CUtensorMap tm_q,
+             const __grid_constant__ CUtensorMap tm_k,
+             const __grid_constant__ CUtensorMap tm_v,
+             const __grid_constant__ CUtensorMap tm_ls,
+             const __grid_constant__ CUtensorMap tm_do,
+             const __grid_constant__ CUtensorMap tm_lse,
+             const __grid_constant__ CUtensorMap tm_delta, Params p,
+             const int32_t* __restrict__ hr, __nv_bfloat16* __restrict__ dk,
+             __nv_bfloat16* __restrict__ dv, float* __restrict__ dls) {
+  namespace cg = cooperative_groups;
+  using L = DkvSmem<DH>;
+  constexpr int kPanels = DH / kPanel;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* empty = full + kStages;
+  uint64_t* kv_full = empty + kStages;
+  float* red = reinterpret_cast<float*>(smem + L::kRedDk);   // dk, dv, dls
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int c = gridDim.x, rank = blockIdx.x;       // the cluster spans x
+  const int tid = threadIdx.x;
+  const int row = blockIdx.y, k0 = blockIdx.z * kBK;  // key tile 0 first
+  const int g = p.hq / p.hkv, per = g / c;
+  const int qhead0 = (row / p.hkv) * p.hq + (row % p.hkv) * g + rank * per;
+  const int32_t* hr_row = p.skip ? hr + (size_t)row * p.nk_ref : nullptr;
+  int lo, hi;
+  q_range(p, k0, kDkvRows, kBK, lo, hi);
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kWG);
+    }
+    mbar_init(kv_full, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= kWG) {                                   // the producer warp
+    if (tid == kWG) {
+      mbar_expect_tx(kv_full, 2 * L::kTile + kBK * 4);
+      load_tile_tma<DH>(smem + L::kK, &tm_k, kv_full, kBK, k0, row);
+      load_tile_tma<DH>(smem + L::kV, &tm_v, kv_full, kBK, k0, row);
+      tma_load_2d(smem + L::kLs, &tm_ls, kv_full, k0, row);
+      int n = 0;
+      for (int gi = 0; gi < per; ++gi) {
+        for (int qt = lo; qt <= hi; ++qt) {
+          const int q0 = qt * kDkvRows;
+          if (!tile_live(p, q0, k0, kDkvRows, kBK, hr_row)) continue;
+          const int s = n % kStages;
+          if (n >= kStages) mbar_wait(&empty[s], (n / kStages - 1) & 1);
+          mbar_expect_tx(&full[s], 2 * L::kTile + 2 * kDkvRows * 4);
+          load_tile_tma<DH>(smem + L::kQ + s * L::kTile, &tm_q, &full[s],
+                            kDkvRows, q0, qhead0 + gi);
+          load_tile_tma<DH>(smem + L::kDo + s * L::kTile, &tm_do, &full[s],
+                            kDkvRows, q0, qhead0 + gi);
+          tma_load_2d(smem + L::kLse + s * kDkvRows * 4, &tm_lse, &full[s], q0,
+                      qhead0 + gi);
+          tma_load_2d(smem + L::kDelta + s * kDkvRows * 4, &tm_delta, &full[s],
+                      q0, qhead0 + gi);
+          ++n;
+        }
+      }
+    }
+    __syncwarp();
+  } else {
+    // the consumer warpgroup: S^T and dP^T have the tile's 64 keys as rows
+    // and the step's 64 q rows as columns; this thread keys j and j + 8
+    const int w = tid / 32, lane = tid % 32;
+    const int j_top = acc_row(w, lane, 0);
+    float dk_acc[kPanels][32], dv_acc[kPanels][32], dls_part[2] = {0.f, 0.f};
+#pragma unroll
+    for (int pn = 0; pn < kPanels; ++pn)
+#pragma unroll
+      for (int x = 0; x < 32; ++x) dk_acc[pn][x] = dv_acc[pn][x] = 0.f;
+    mbar_wait(kv_full, 0);
+    const uint8_t* k_s = smem + L::kK;
+    const uint8_t* v_s = smem + L::kV;
+    const float* ls_s = reinterpret_cast<const float*>(smem + L::kLs);
+    const float ls_j[2] = {ls_s[j_top], ls_s[j_top + 8]};
+
+    int n = 0;
+    for (int gi = 0; gi < per; ++gi) {
+      for (int qt = lo; qt <= hi; ++qt) {
+        const int q0 = qt * kDkvRows;
+        if (!tile_live(p, q0, k0, kDkvRows, kBK, hr_row)) continue;
+        const int s = n % kStages;
+        mbar_wait(&full[s], (n / kStages) & 1);
+        const uint8_t* q_s = smem + L::kQ + s * L::kTile;
+        const uint8_t* do_s = smem + L::kDo + s * L::kTile;
+        const float* lse_s =
+            reinterpret_cast<const float*>(smem + L::kLse + s * kDkvRows * 4);
+        const float* delta_s =
+            reinterpret_cast<const float*>(smem + L::kDelta + s * kDkvRows * 4);
+
+        float st[32], dpt[32];
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < DH / 16; ++kk) {
+          const int off = (kk / 4) * kBK * 128 + (kk % 4) * 32;
+          wgmma_ss(st, sw128_desc(k_s + off), sw128_desc(q_s + off), kk > 0);
+        }
+#pragma unroll
+        for (int kk = 0; kk < DH / 16; ++kk) {
+          const int off = (kk / 4) * kBK * 128 + (kk % 4) * 32;
+          wgmma_ss(dpt, sw128_desc(v_s + off), sw128_desc(do_s + off), kk > 0);
+        }
+        wg_commit();
+        wg_wait_all();
+        reg_fence(st);
+        reg_fence(dpt);
+
+#pragma unroll
+        for (int x = 0; x < 32; ++x) {
+          const int hh = (x >> 1) & 1, il = acc_col(lane, x), i = q0 + il;
+          float capped;
+          bool zone;
+          const float sm = mask_score(p, st[x] * p.scale, i, k0 + j_top + 8 * hh,
+                                      ls_j[hh], &capped, &zone);
+          const float pv = i < p.t ? __expf(sm - lse_s[il]) : 0.f;
+          float ds = pv * (dpt[x] - delta_s[il]);
+          if (zone) dls_part[hh] += ds;           // before the softcap derivative
+          if (p.has_cap) {
+            const float r = capped / p.cap;
+            ds *= 1.f - r * r;
+          }
+          st[x] = pv;
+          dpt[x] = ds;
+        }
+        uint32_t pa[4][4], da[4][4];
+        acc_to_a(st, pa);
+        acc_to_a(dpt, da);
+#pragma unroll
+        for (int pn = 0; pn < kPanels; ++pn) {
+          reg_fence(dk_acc[pn]);
+          reg_fence(dv_acc[pn]);
+        }
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int pn = 0; pn < kPanels; ++pn) {
+            const int off = pn * kDkvRows * 128 + kk * 16 * 128;
+            wgmma_rs(dv_acc[pn], pa[kk], sw128_desc(do_s + off));
+            wgmma_rs(dk_acc[pn], da[kk], sw128_desc(q_s + off));
+          }
+        wg_commit();
+        wg_wait_all();
+#pragma unroll
+        for (int pn = 0; pn < kPanels; ++pn) {
+          reg_fence(dk_acc[pn]);
+          reg_fence(dv_acc[pn]);
+        }
+        mbar_arrive(&empty[s]);
+        ++n;
+      }
+    }
+
+    // this block's partials into its shared memory
+    float* red_dk = red;
+    float* red_dv = red + kBK * L::kRedStride;
+    float* red_dls = red + 2 * kBK * L::kRedStride;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int j = j_top + 8 * hh;
+      const float d = quad_sum(dls_part[hh]);
+      if ((lane & 3) == 0) red_dls[j] = d;
+#pragma unroll
+      for (int pn = 0; pn < kPanels; ++pn)
+#pragma unroll
+        for (int x = 2 * hh; x < 32; x += 4) {
+          const int o = j * L::kRedStride + pn * kPanel + acc_col(lane, x);
+          *reinterpret_cast<float2*>(red_dk + o) =
+              make_float2(dk_acc[pn][x], dk_acc[pn][x + 1]);
+          *reinterpret_cast<float2*>(red_dv + o) =
+              make_float2(dv_acc[pn][x], dv_acc[pn][x + 1]);
+        }
+    }
+  }
+
+  // every block's partials are written; block `rank` sums rows [r0, r1) of
+  // the tile over the cluster, rank 0 first, and writes them
+  cluster.sync();
+  const int r0 = rank * kBK / c, r1 = (rank + 1) * kBK / c;
+  const int rows_k = min(kBK, p.tp - k0);
+  const size_t kbase = (size_t)row * p.tp + k0;
+  constexpr int kQuads = DH / 4;
+  for (int e = tid; e < (r1 - r0) * kQuads; e += kThreads) {
+    const int j = r0 + e / kQuads, c4 = 4 * (e % kQuads);
+    float4 sk = make_float4(0.f, 0.f, 0.f, 0.f), sv = sk;
+    for (int rk = 0; rk < c; ++rk) {
+      const float* src = cluster.map_shared_rank(red, rk);
+      const float4 a = *reinterpret_cast<const float4*>(src + j * L::kRedStride + c4);
+      const float4 b = *reinterpret_cast<const float4*>(
+          src + (kBK + j) * L::kRedStride + c4);
+      sk.x += a.x; sk.y += a.y; sk.z += a.z; sk.w += a.w;
+      sv.x += b.x; sv.y += b.y; sv.z += b.z; sv.w += b.w;
+    }
+    if (j < rows_k) {
+      __nv_bfloat162* pk = reinterpret_cast<__nv_bfloat162*>(dk + (kbase + j) * DH + c4);
+      __nv_bfloat162* pv = reinterpret_cast<__nv_bfloat162*>(dv + (kbase + j) * DH + c4);
+      pk[0] = __floats2bfloat162_rn(sk.x * p.scale, sk.y * p.scale);
+      pk[1] = __floats2bfloat162_rn(sk.z * p.scale, sk.w * p.scale);
+      pv[0] = __floats2bfloat162_rn(sv.x, sv.y);
+      pv[1] = __floats2bfloat162_rn(sv.z, sv.w);
+    }
+  }
+  for (int j = r0 + tid; j < r1; j += kThreads) {
+    float sum = 0.f;
+    for (int rk = 0; rk < c; ++rk)
+      sum += cluster.map_shared_rank(red, rk)[2 * kBK * L::kRedStride + j];
+    if (j < rows_k) dls[kbase + j] = sum;
+  }
+  cluster.sync();                 // no block leaves while others read it
+}
+
+// -- host side ---------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled, through the runtime (no -lcuda)
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// (heads, tp, dh) bf16, read in boxes of 64 columns x `rows` rows of one
+// head, 128-byte swizzle; rows past tp read as zeros
+bool tile_map(CUtensorMap* map, const void* base, int heads, int tp, int dh,
+              int rows) {
+  const EncodeTiled enc = encoder();
+  if (!enc) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)dh, (cuuint64_t)tp, (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)dh * 2, (cuuint64_t)tp * dh * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)kPanel, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// (heads, tp) fp32, read in boxes of 64 entries of one head
+bool vec_map(CUtensorMap* map, const void* base, int heads, int tp) {
+  const EncodeTiled enc = encoder();
+  if (!enc) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)tp, (cuuint64_t)heads};
+  const cuuint64_t strides[1] = {(cuuint64_t)tp * 4};
+  const cuuint32_t box[2] = {64, 1};
+  const cuuint32_t elem[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(base),
+             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DH>
+cudaError_t launch_fwd(const Params& p, int bhq, const void* q, const void* k,
+                       const void* v, const void* ls, const void* hr, void* out,
+                       void* lse, cudaStream_t stream) {
+  const int bhkv = bhq / p.hq * p.hkv;
+  CUtensorMap mq, mk, mv, mls;
+  if (!tile_map(&mq, q, bhq, p.tp, DH, kFwdRows) ||
+      !tile_map(&mk, k, bhkv, p.tp, DH, kBK) ||
+      !tile_map(&mv, v, bhkv, p.tp, DH, kBK) || !vec_map(&mls, ls, bhkv, p.tp))
+    return cudaErrorInvalidValue;
+  constexpr size_t smem = FwdSmem<DH>::kBytes;
+  cudaError_t e = allow_smem<flash_fwd_tc<DH>>(smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(bhq, (p.tp + kFwdRows - 1) / kFwdRows);
+  flash_fwd_tc<DH><<<grid, kThreads, smem, stream>>>(
+      mq, mk, mv, mls, p, (const int32_t*)hr, (__nv_bfloat16*)out, (float*)lse);
+  return cudaGetLastError();
+}
+
+// a cluster of c blocks per (kv head, key tile), c the largest divisor of G
+// of at most kMaxCluster
+template <int DH>
+cudaError_t launch_dkv(const Params& p, int bhkv, const void* q, const void* k,
+                       const void* v, const void* ls, const void* dout,
+                       const void* lse, const void* delta, const void* hr,
+                       void* dk, void* dv, void* dls, cudaStream_t stream) {
+  const int g = p.hq / p.hkv, bhq = bhkv / p.hkv * p.hq;
+  int c = 1;
+  for (int d = kMaxCluster; d > 1 && c == 1; --d)
+    if (g % d == 0) c = d;
+  CUtensorMap mq, mk, mv, mls, mdo, mlse, mdelta;
+  if (!tile_map(&mq, q, bhq, p.tp, DH, kDkvRows) ||
+      !tile_map(&mk, k, bhkv, p.tp, DH, kBK) ||
+      !tile_map(&mv, v, bhkv, p.tp, DH, kBK) || !vec_map(&mls, ls, bhkv, p.tp) ||
+      !tile_map(&mdo, dout, bhq, p.tp, DH, kDkvRows) ||
+      !vec_map(&mlse, lse, bhq, p.tp) || !vec_map(&mdelta, delta, bhq, p.tp))
+    return cudaErrorInvalidValue;
+  constexpr size_t smem = DkvSmem<DH>::kBytes;
+  cudaError_t e = allow_smem<flash_dkv_tc<DH>>(smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(c, bhkv, (p.tp + kBK - 1) / kBK);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = c;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, flash_dkv_tc<DH>, mq, mk, mv, mls, mdo, mlse,
+                         mdelta, p, (const int32_t*)hr, (__nv_bfloat16*)dk,
+                         (__nv_bfloat16*)dv, (float*)dls);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // `bf16`: 1 for bfloat16 q/k/v (and do, out, dq, dk, dv), 0 for float32.
-// `window` < 0 means no local window.
-
+// `window` < 0 means no local window.  The bf16 `dms_flash_fwd` and
+// `dms_flash_dkv` take dh 64 or 128 and tp a multiple of 8.
 extern "C" int dms_flash_fwd(const void* q, const void* k, const void* v,
                              const void* ls, const void* hr, void* out,
                              void* lse, int bf16, int bhq, int tp, int dh,
                              int hq, int hkv, int t, int nk_ref, int block_k,
                              int window, int delay, int causal, int skip,
-                             int has_cap, float cap, float scale, void* stream) {
+                             int has_cap, float cap, float scale,
+                             void* stream) {
   const Params p = make_params(tp, dh, hq, hkv, t, nk_ref, block_k, window,
                                delay, causal, skip, has_cap, cap, scale);
-  if (bad_params(p, bhq) || bhq % hq != 0 || (skip && !hr))
+  if (bad_params(p, bhq) || bhq % hq != 0 || (skip && !hr) ||
+      (bf16 && bad_tc(p)))
     return (int)cudaErrorInvalidValue;
   if (bhq == 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
-  return (int)(bf16 ? launch_fwd<__nv_bfloat16>(p, bhq, q, k, v, ls, hr, out, lse, s)
-                    : launch_fwd<float>(p, bhq, q, k, v, ls, hr, out, lse, s));
+  if (!bf16)
+    return (int)launch_fwd<float>(p, bhq, q, k, v, ls, hr, out, lse, s);
+  return (int)(dh == 64 ? tc::launch_fwd<64>(p, bhq, q, k, v, ls, hr, out,
+                                               lse, s)
+                        : tc::launch_fwd<128>(p, bhq, q, k, v, ls, hr, out,
+                                              lse, s));
 }
 
 extern "C" int dms_flash_dq(const void* q, const void* k, const void* v,
@@ -702,12 +1478,17 @@ extern "C" int dms_flash_dkv(const void* q, const void* k, const void* v,
                              void* stream) {
   const Params p = make_params(tp, dh, hq, hkv, t, nk_ref, block_k, window,
                                delay, causal, skip, has_cap, cap, scale);
-  if (bad_params(p, bhkv) || bhkv % hkv != 0 || (skip && !hr))
+  if (bad_params(p, bhkv) || bhkv % hkv != 0 || (skip && !hr) ||
+      (bf16 && bad_tc(p)))
     return (int)cudaErrorInvalidValue;
   if (bhkv == 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
-  return (int)(bf16 ? launch_dkv<__nv_bfloat16>(p, bhkv, q, k, v, ls, dout, lse,
-                                                delta, hr, dk, dv, dls, s)
-                    : launch_dkv<float>(p, bhkv, q, k, v, ls, dout, lse, delta,
-                                        hr, dk, dv, dls, s));
+  if (!bf16)
+    return (int)launch_dkv<float>(p, bhkv, q, k, v, ls, dout, lse, delta, hr,
+                                  dk, dv, dls, s);
+  return (int)(dh == 64
+                   ? tc::launch_dkv<64>(p, bhkv, q, k, v, ls, dout, lse, delta,
+                                        hr, dk, dv, dls, s)
+                   : tc::launch_dkv<128>(p, bhkv, q, k, v, ls, dout, lse, delta,
+                                         hr, dk, dv, dls, s));
 }

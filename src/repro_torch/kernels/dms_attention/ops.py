@@ -9,7 +9,12 @@ hand-written kernels: ``flash_fwd`` forward, ``flash_dq`` and ``flash_dkv``
 backward (``csrc/dms_attention.cu``).
 
 CUDA tensors go to the kernels or the call raises; CPU tensors go to the
-plain versions (:mod:`.ref`).  Nothing else picks the path.
+plain versions (:mod:`.ref`).  Nothing else picks the path.  On the card
+the dtype picks the kernel: bf16 ``flash_fwd`` and ``flash_dkv`` run on the
+tensor cores and take a head dim of 64 or 128, so their wrappers zero-pad a
+smaller one (:func:`pad_head_dim`) and slice the outputs back; fp32, and
+``flash_dq`` in either dtype, run on the CUDA cores at any head dim up to
+128.
 """
 from __future__ import annotations
 
@@ -100,9 +105,10 @@ def _check(name: str, cfg: FlashConfig, q, k, v, ls, hr, do=None, lse=None,
             raise ValueError(f"{name} kernel: {arg} on {t.device}, q on {q.device}")
 
 
-def _ints(cfg: FlashConfig, tp: int) -> list:
-    """The shared shape/mask ints of every entry point, after the row count."""
-    return [tp, cfg.orig_dh, cfg.hq, cfg.hkv, cfg.t, tp // cfg.block_k,
+def _ints(cfg: FlashConfig, tp: int, dh: int) -> list:
+    """The shared shape/mask ints of every entry point, after the row count:
+    ``dh`` is the operands' head dim, the scale is ``cfg.orig_dh ** -0.5``."""
+    return [tp, dh, cfg.hq, cfg.hkv, cfg.t, tp // cfg.block_k,
             cfg.block_k, cfg.window if cfg.window is not None else -1,
             cfg.dms_delay, int(cfg.causal), int(cfg.skip_blocks),
             int(cfg.logit_cap is not None),
@@ -112,6 +118,30 @@ def _ints(cfg: FlashConfig, tp: int) -> list:
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
+
+
+def tensor_core_dh(dh: int) -> int:
+    """The head dim at which the bf16 tensor-core kernels run a ``dh``."""
+    return 64 if dh <= 64 else 128
+
+
+def pad_head_dim(x: torch.Tensor, dh: int) -> torch.Tensor:
+    """``x`` (..., Dh) zero-padded to (..., dh).  Zero columns add nothing to
+    q.k or to do.v, and give out, dk and dv zero columns, which the
+    wrappers slice off; the scale stays ``cfg.orig_dh ** -0.5``."""
+    pad = dh - x.shape[-1]
+    return torch.nn.functional.pad(x, (0, pad)).contiguous() if pad else x
+
+
+def _check_tc(name: str, tp: int, *xs) -> None:
+    """What the bf16 tensor-core kernels add to :func:`_check`: TMA reads
+    rows of whole 16-byte units from 16-byte aligned bases."""
+    if tp % 8:
+        raise ValueError(f"{name} kernel (bf16): Tp must be a multiple of 8, "
+                         f"got {tp} (see padded_blocks)")
+    if any(x.data_ptr() % 16 for x in xs):
+        raise ValueError(f"{name} kernel (bf16): operands must start on a "
+                         "16-byte boundary")
 
 
 def _call(name: str, fn, q, *args) -> None:
@@ -125,20 +155,25 @@ def _call(name: str, fn, q, *args) -> None:
 
 def flash_fwd(q, k, v, ls, hr, cfg: FlashConfig):
     """q: (BHq, Tp, Dh); k/v: (BHkv, Tp, Dh); ls: (BHkv, Tp) fp32; hr:
-    (BHkv, nK) int32 with ``skip_blocks``, else None.  Returns (out (BHq, Tp, Dh), lse (BHq, Tp) fp32).
-    CUDA tensors launch the kernel; CPU tensors run the plain version."""
+    (BHkv, nK) int32 with ``skip_blocks``, else None.  Returns (out
+    (BHq, Tp, Dh), lse (BHq, Tp) fp32).  CUDA tensors launch the kernel;
+    CPU tensors run the plain version."""
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, ls, hr, cfg)
     if not q.is_cuda:
         raise ValueError(f"flash_fwd: unsupported device {q.device}")
     _check("flash_fwd", cfg, q, k, v, ls, hr)
-    bhq, tp, _ = q.shape
+    bhq, tp, dh = q.shape
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        q, k, v = (pad_head_dim(x, tensor_core_dh(dh)) for x in (q, k, v))
+        _check_tc("flash_fwd", tp, q, k, v, ls)
     out = torch.empty_like(q)
     lse = torch.empty((bhq, tp), dtype=torch.float32, device=q.device)
     _call("flash_fwd", _library().dms_flash_fwd, q, q.data_ptr(), k.data_ptr(),
           v.data_ptr(), ls.data_ptr(), _ptr(hr), out.data_ptr(),
-          lse.data_ptr(), int(q.dtype == torch.bfloat16), bhq, *_ints(cfg, tp))
-    return out, lse
+          lse.data_ptr(), int(bf16), bhq, *_ints(cfg, tp, q.shape[-1]))
+    return (out[..., :dh].contiguous() if out.shape[-1] != dh else out), lse
 
 
 def flash_dq(q, k, v, ls, do, lse, delta, hr, cfg: FlashConfig):
@@ -154,7 +189,7 @@ def flash_dq(q, k, v, ls, do, lse, delta, hr, cfg: FlashConfig):
     _call("flash_dq", _library().dms_flash_dq, q, q.data_ptr(), k.data_ptr(),
           v.data_ptr(), ls.data_ptr(), do.data_ptr(), lse.data_ptr(),
           delta.data_ptr(), _ptr(hr), dq.data_ptr(),
-          int(q.dtype == torch.bfloat16), bhq, *_ints(cfg, tp))
+          int(q.dtype == torch.bfloat16), bhq, *_ints(cfg, tp, q.shape[-1]))
     return dq
 
 
@@ -166,14 +201,20 @@ def flash_dkv(q, k, v, ls, do, lse, delta, hr, cfg: FlashConfig):
     if not q.is_cuda:
         raise ValueError(f"flash_dkv: unsupported device {q.device}")
     _check("flash_dkv", cfg, q, k, v, ls, hr, do, lse, delta)
-    bhkv, tp, _ = k.shape
+    bhkv, tp, dh = k.shape
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        q, k, v, do = (pad_head_dim(x, tensor_core_dh(dh))
+                       for x in (q, k, v, do))
+        _check_tc("flash_dkv", tp, q, k, v, ls, do, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     dls = torch.empty((bhkv, tp), dtype=torch.float32, device=k.device)
     _call("flash_dkv", _library().dms_flash_dkv, q, q.data_ptr(), k.data_ptr(),
           v.data_ptr(), ls.data_ptr(), do.data_ptr(), lse.data_ptr(),
           delta.data_ptr(), _ptr(hr), dk.data_ptr(), dv.data_ptr(),
-          dls.data_ptr(), int(q.dtype == torch.bfloat16), bhkv,
-          *_ints(cfg, tp))
+          dls.data_ptr(), int(bf16), bhkv, *_ints(cfg, tp, k.shape[-1]))
+    if dk.shape[-1] != dh:
+        dk, dv = dk[..., :dh].contiguous(), dv[..., :dh].contiguous()
     return dk, dv, dls
 
 

@@ -273,7 +273,15 @@ def _flash_operands(device, dtype, b=2, t=200, hq=6, hkv=2, dh=64, delay=32,
 @pytest.mark.parametrize("dtype,kw", [
     (torch.bfloat16, {}), (torch.float32, {}),
     (torch.float32, dict(window=48, cap=30.0)),
-    (torch.float32, dict(skip=True)), (torch.float32, dict(t=33, dh=8))])
+    (torch.float32, dict(skip=True)), (torch.float32, dict(t=33, dh=8)),
+    # bf16 runs fwd and dkv on the tensor cores: each case moves the
+    # accumulator fragments' (row, key) coordinates or a tile edge
+    (torch.bfloat16, dict(window=48, cap=30.0)),
+    (torch.bfloat16, dict(skip=True, t=300)),
+    (torch.bfloat16, dict(t=1000, dh=128, delay=256)),
+    (torch.bfloat16, dict(t=33, dh=8, delay=4)),       # Dh padded to 64
+    (torch.bfloat16, dict(hq=8, hkv=2, dh=128)),       # G = 4
+])
 def test_flash_kernels_match_plain(cuda_device, dtype, kw):
     """fwd, dq and dkv against their plain versions: each output within
     1e-2 (bf16: 8 significant bits) or 1e-5 (fp32: sums in another order)
@@ -327,6 +335,36 @@ def test_flash_autograd_matches_dense_oracle(cuda_device):
         grads.append([x.grad for x in xs])
     for got, want in zip(*grads):
         assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_flash_bf16_kernels_are_deterministic(cuda_device):
+    """The tensor-core fwd and dkv use no atomics (dkv sums its cluster's
+    partials in rank order): two launches give the same bits."""
+    from repro_torch.kernels.dms_attention import ops as fops
+    qf, kf, vf, ls, hr, cfg, do = _flash_operands(
+        cuda_device, torch.bfloat16, t=1000, dh=128, delay=256)
+    runs = []
+    for _ in range(2):
+        out, lse = fops.flash_fwd(qf, kf, vf, ls, hr, cfg)
+        delta = (do.float() * out.float()).sum(-1)
+        runs.append((out, lse) + fops.flash_dkv(qf, kf, vf, ls, do, lse,
+                                                delta, hr, cfg))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_flash_bf16_rejects_head_dim_above_128(cuda_device):
+    from repro_torch.kernels.dms_attention import ops as fops
+    qf, kf, vf, ls, hr, cfg, do = _flash_operands(cuda_device, torch.bfloat16,
+                                                  dh=256)
+    lse = delta = torch.zeros(qf.shape[:2], device=cuda_device)
+    with pytest.raises(ValueError, match="head_dim"):
+        fops.flash_fwd(qf, kf, vf, ls, hr, cfg)
+    with pytest.raises(ValueError, match="head_dim"):
+        fops.flash_dkv(qf, kf, vf, ls, do, lse, delta, hr, cfg)
 
 
 @pytest.mark.cuda

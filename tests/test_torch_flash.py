@@ -176,6 +176,59 @@ def test_plain_versions_match_reference_kernels(skip, window, cap, t):
                                    atol=1e-5, err_msg=name)
 
 
+@pytest.mark.parametrize("dh", [8, 40, 72])
+def test_head_dim_padding_matches_unpadded_and_reference(dh):
+    """The bf16 kernels run at Dh 64 or 128: the wrapper zero-pads q, k, v
+    and dO (``pad_head_dim``) and slices out, dk and dv back.  The plain
+    versions on padded operands, sliced back, equal the unpadded plain
+    versions and the reference's Pallas kernels (interpret mode) on the
+    unpadded operands; the padded columns come out zero."""
+    b, hq, hkv, t, bq = 1, 4, 2, 40, 16
+    kdh = ops.tensor_core_dh(dh)
+    assert kdh == (64 if dh <= 64 else 128)
+    q, k, v, a, do = _inputs((b, t, hq, hkv, dh), seed=6)
+    tp = -(-t // bq) * bq
+    kw = dict(t=t, orig_dh=dh, hq=hq, hkv=hkv, window=None, dms_delay=4,
+              causal=True, logit_cap=None, block_k=bq, skip_blocks=False)
+    jcfg = jkern.FlashConfig(interpret=True, block_q=bq, **kw)
+    tcfg = tref.FlashConfig(**kw)
+
+    def fold(x):
+        x = x.transpose(0, 2, 1, 3).reshape(-1, t, x.shape[-1])
+        return np.pad(x, ((0, 0), (0, tp - t), (0, 0)))
+
+    qf, kf, vf, dof = fold(q), fold(k), fold(v), fold(do)
+    ls = np.pad(np.log1p(-a).reshape(b * hkv, t), ((0, 0), (0, tp - t)),
+                constant_values=-1e30)
+    hr_j, remap_j = jops._prep_tables(jnp.asarray(ls), jcfg)
+    out_j, lse_j = jkern.flash_fwd(qf, kf, vf, ls, hr_j, remap_j, jcfg)
+    delta = np.sum(dof * np.asarray(out_j), axis=-1)
+    dk_j, dv_j, dls_j = jkern.flash_dkv(qf, kf, vf, ls, dof, lse_j, delta,
+                                        hr_j, remap_j, jcfg)
+
+    qt, kt, vt, dot = (torch.tensor(x) for x in (qf, kf, vf, dof))
+    lst, lset, deltat = (torch.tensor(np.asarray(x)) for x in (ls, lse_j, delta))
+    pq, pk, pv, pdo = (ops.pad_head_dim(x, kdh) for x in (qt, kt, vt, dot))
+    assert pq.shape[-1] == kdh and pq.is_contiguous()
+    out_p, lse_p = tref.flash_fwd_plain(pq, pk, pv, lst, None, tcfg)
+    dk_p, dv_p, dls_p = tref.flash_dkv_plain(pq, pk, pv, lst, pdo, lset,
+                                             deltat, None, tcfg)
+    for x in (out_p, dk_p, dv_p):
+        assert not x[..., dh:].any()
+    out_u, lse_u = tref.flash_fwd_plain(qt, kt, vt, lst, None, tcfg)
+    dk_u, dv_u, dls_u = tref.flash_dkv_plain(qt, kt, vt, lst, dot, lset,
+                                             deltat, None, tcfg)
+    for name, got, unpadded, want in (
+            ("out", out_p[:, :t, :dh], out_u[:, :t], np.asarray(out_j)[:, :t]),
+            ("lse", lse_p[:, :t], lse_u[:, :t], np.asarray(lse_j)[:, :t]),
+            ("dk", dk_p[..., :dh], dk_u, dk_j), ("dv", dv_p[..., :dh], dv_u, dv_j),
+            ("dls", dls_p, dls_u, dls_j)):
+        np.testing.assert_allclose(got.numpy(), unpadded.numpy(), **F32,
+                                   err_msg=name)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                                   atol=1e-5, err_msg=name)
+
+
 def test_dense_oracle_matches_reference_oracle():
     q, k, v, a, _ = _inputs((2, 20, 6, 2, 8), seed=2)
     ls = np.log1p(-a)
