@@ -12,30 +12,34 @@ Phases (any failure raises, so the exit code is non-zero):
               sm_90a) and prints the build seconds and ptxas report.
 3. kernels  — each kernel against its plain PyTorch version on the same CUDA
               tensors.  Decode, fixed arenas: the main-path shape, a
-              fragmented table, a partial table, empty rows (n = 0) and a
-              tiny shape; the K/V of blocks the table does not list is NaN,
-              so a finite, equal output shows that unlisted blocks are never
-              read.  Decode, shared pool (paged): the main-path shape with
-              pages scattered over a pool twice the size needed, NaN in every
-              unlisted page, a stale table tail with phys = -1 past n, and a
-              row with n = 0 — each also bitwise equal to the fixed-arena
-              mode on the same logical contents.  Flash attention (fwd, dq,
-              dkv): the retrofit shape, T = 1000 (padding), window 64 with
-              softcap 30, vanilla, binarised α with block skipping, each in
-              bf16 (fwd and dkv on the tensor cores) and in fp32, a tiny
-              shape in fp32 and in bf16 (Dh 8 padded to 64), Dh 64 with
-              T = 300 and G = 4 in bf16, each bf16 fwd and dkv launched
+              fragmented table, a partial table, empty rows (n = 0), a
+              160-entry table (several chunks in every split), a tiny shape
+              and a softcap; the K/V of blocks the table does not list is
+              NaN, so a finite, equal output shows that unlisted blocks are
+              never read; each also against the plain version of the
+              kernel's split of the table (``dms_decode_plain_split`` at the
+              kernel's split count) and bit-equal on a second launch.
+              Decode, shared pool (paged): the main-path shape with pages
+              scattered over a pool twice the size needed, NaN in every
+              unlisted page, a stale table tail with phys = -1 past n, a row
+              with n = 0 and a 160-entry table — each also bitwise equal to
+              the fixed-arena mode on the same logical contents.  Flash
+              attention (fwd, dq, dkv): the retrofit shape, T = 1000
+              (padding), window 64 with softcap 30, vanilla, binarised α
+              with block skipping, each in bf16 (on the tensor cores) and in
+              fp32, a tiny shape in fp32 and in bf16 (Dh 8 padded to 64),
+              Dh 64 with T = 300 and G = 4 in bf16, each bf16 case launched
               twice for the same bits; then the autograd
               Function's gradients (q, k, v, log_surv, α) against autograd
               through the dense oracle.  Decode, weights-out mode (both
               layouts, at the weights phase's arena): the main-path shape,
               a fragmented table, NaN in unlisted pages with a stale tail,
-              an n = 0 row and a listed block that a window hides — the
-              output and the raw outputs (per-entry weights and maxima,
-              final max and denominator) against the plain version, the
-              group-summed weights zero off the visible listed slots and
-              summing to G, the shared-pool layout bitwise equal to the
-              fixed one.
+              an n = 0 row, a listed block that a window hides and a
+              160-entry table — the output and the raw outputs (per-entry
+              weights and maxima, final max and denominator) against the
+              plain version and the plain split, the group-summed weights
+              zero off the visible listed slots and summing to G, the
+              shared-pool layout bitwise equal to the fixed one.
 4. serve    — qwen-r1-1.5b at full width (d_model 1536, 12/2 heads of 128,
               random weights from a seed, bf16) and half its depth (the
               first 14 of its 28 layers: the script's time limit) served
@@ -69,9 +73,12 @@ Phases (any failure raises, so the exit code is non-zero):
               finite metrics, 56/28/28 launches of fwd/dq/dkv per step, step
               time, tokens/s and peak memory; then one step's loss and
               gradient norm held against the reference attention path's.
-7. timing   — per kernel at the main-path shape: the median device time of
-              one call (a CUDA-graph replay after an L2 flush) beside its
-              bound, its plain version's and one library call's.
+7. timing   — the timing method's own floor (one tiny kernel), then per
+              kernel at the main-path shape: the median device time of one
+              call (a CUDA-graph replay after an L2 flush) beside its bound,
+              its plain version's and one library call's; for the decode
+              kernel also its split count and its floor (the same launch
+              with n = 0 on every row).
 
 The last three lines are the ``kernels`` JSON line, the card's name and
 power limit (again) and the result line ``{"ok": true, "device":
@@ -186,9 +193,17 @@ def make_case(torch, gen, *, bh, g, dh, p, bp, density, table="full",
     return q, k, v, valid, tbl.to(device), n.to(device)
 
 
+# a table of this many 16-slot entries: several chunks in every split
+LONG_TABLE = 160
+
+
 def phase_kernels(torch, main_shape):
+    """The fixed-arena mode against its plain version and against the plain
+    version of its split of the table (``dms_decode_plain_split``); each
+    case launched twice for the same bits."""
     from repro_torch.kernels.dms_decode import ops
-    from repro_torch.kernels.dms_decode.ref import dms_decode_plain
+    from repro_torch.kernels.dms_decode.ref import (dms_decode_plain,
+                                                    dms_decode_plain_split)
     gen = torch.Generator(device="cuda").manual_seed(1234)
     bh, g, dh, p, bp = main_shape
     cases = {
@@ -198,6 +213,8 @@ def phase_kernels(torch, main_shape):
                               table="partial"),
         "n = 0 rows": dict(bh=bh, g=g, dh=dh, p=p, bp=bp, density=0.5,
                            empty_rows=(0, 3)),
+        f"long table ({LONG_TABLE} entries)": dict(
+            bh=bh, g=g, dh=dh, p=LONG_TABLE * bp, bp=bp, density=0.85),
         "tiny shape": dict(bh=6, g=2, dh=16, p=64, bp=16, density=0.5),
         "softcap": dict(bh=4, g=4, dh=64, p=128, bp=16, density=0.6),
     }
@@ -207,22 +224,32 @@ def phase_kernels(torch, main_shape):
         q, k, v, valid, tbl, n = make_case(torch, gen, **kw)
         cap = 30.0 if name == "softcap" else None
         out = ops.decode_rows(q, k, v, valid, tbl, n, kw["bp"], cap)
+        again = ops.decode_rows(q, k, v, valid, tbl, n, kw["bp"], cap)
         torch.cuda.synchronize()
+        if not torch.equal(out, again):
+            raise AssertionError(f"kernel [{name}]: a second launch gave "
+                                 "other bits")
         ref = dms_decode_plain(q, k, v, valid, tbl, n, kw["bp"], cap)
+        splits = ops.splits(tbl.shape[1])
+        ref_split = dms_decode_plain_split(q, k, v, valid, tbl, n, kw["bp"],
+                                           cap, splits=splits)
         if not bool(torch.isfinite(out.float()).all()):
             raise AssertionError(f"kernel [{name}]: non-finite output")
         err = (out.float() - ref.float()).abs().max().item()
         torch.testing.assert_close(out.float(), ref.float(), **KERNEL_TOL)
+        torch.testing.assert_close(out.float(), ref_split.float(), **KERNEL_TOL)
         for r in kw.get("empty_rows", ()):
             if out[r].abs().max().item() != 0.0:
                 raise AssertionError(f"kernel [{name}]: row {r} with n = 0 "
                                      "is not zero")
         errs[name] = err
-        log(f"kernel vs plain [{name}]: max_abs_err {err:.3e} "
-            f"(tolerance atol {KERNEL_TOL['atol']}, rtol {KERNEL_TOL['rtol']})")
-    if ops.launches - before != len(cases):
+        log(f"kernel vs plain [{name}] ({int(n.sum())} listed blocks, "
+            f"{splits} splits a row): max_abs_err {err:.3e} (tolerance atol "
+            f"{KERNEL_TOL['atol']}, rtol {KERNEL_TOL['rtol']}); within it of "
+            "the plain split too; bit-equal on a second launch")
+    if ops.launches - before != 2 * len(cases):
         raise AssertionError(f"launch counter moved {ops.launches - before}, "
-                             f"expected {len(cases)}")
+                             f"expected {2 * len(cases)}")
     return errs["main-path shape"]
 
 
@@ -300,6 +327,8 @@ POOL_CASES = {
     "NaN in every unlisted page": dict(density=0.85, nan=True),
     "stale tail, phys -1 past n": dict(density=0.5, nan=True, stale=True),
     "n = 0 row": dict(density=0.5, nan=True, empty_rows=(2,)),
+    f"long table ({LONG_TABLE} entries)": dict(density=0.85, nan=True,
+                                              nb=LONG_TABLE),
 }
 
 
@@ -308,23 +337,29 @@ def phase_pool_kernels(torch, main_shape):
     the fixed-arena mode on the same logical contents in the same table
     order; returns the main case's max abs error."""
     from repro_torch.kernels.dms_decode import ops
-    from repro_torch.kernels.dms_decode.ref import dms_decode_plain_shared
+    from repro_torch.kernels.dms_decode.ref import (dms_decode_plain_shared,
+                                                    dms_decode_plain_split)
     gen = torch.Generator(device="cuda").manual_seed(4321)
     bh, g, dh, p, bp = main_shape
     before = (ops.launches, ops.shared_launches)
     errs = {}
     for name, kw in POOL_CASES.items():
-        case = make_pool_case(torch, gen, bh=bh, g=g, dh=dh, nb=p // bp, bp=bp,
-                              **kw)
+        kw = dict(kw)
+        case = make_pool_case(torch, gen, bh=bh, g=g, dh=dh,
+                              nb=kw.pop("nb", p // bp), bp=bp, **kw)
         shared = case["shared"]
         out = ops.decode_rows(*shared, bp, None, shared_kv=True)
         fixed = ops.decode_rows(*case["fixed"], bp, None)
         torch.cuda.synchronize()
         ref = dms_decode_plain_shared(*shared, bp, None)
+        ref_split = dms_decode_plain_split(
+            *shared, bp, None, shared_kv=True,
+            splits=ops.splits(shared[4].shape[1]))
         if not bool(torch.isfinite(out.float()).all()):
             raise AssertionError(f"shared-pool kernel [{name}]: non-finite")
         err = (out.float() - ref.float()).abs().max().item()
         torch.testing.assert_close(out.float(), ref.float(), **KERNEL_TOL)
+        torch.testing.assert_close(out.float(), ref_split.float(), **KERNEL_TOL)
         if not torch.equal(out, fixed):
             raise AssertionError(f"shared-pool kernel [{name}]: not bitwise "
                                  "equal to the fixed-arena kernel")
@@ -335,8 +370,8 @@ def phase_pool_kernels(torch, main_shape):
         errs[name] = err
         log(f"shared-pool kernel vs plain [{name}] (pool {case['npool']} pages,"
             f" {case['n_blocks']} listed): max_abs_err {err:.3e} (tolerance "
-            f"atol {KERNEL_TOL['atol']}, rtol {KERNEL_TOL['rtol']}); bitwise "
-            "equal to the fixed-arena kernel")
+            f"atol {KERNEL_TOL['atol']}, rtol {KERNEL_TOL['rtol']}; the plain "
+            "split too); bitwise equal to the fixed-arena kernel")
     moved = (ops.launches - before[0], ops.shared_launches - before[1])
     if moved != (len(POOL_CASES), len(POOL_CASES)):
         raise AssertionError(f"launch counters moved {moved}")
@@ -350,6 +385,8 @@ WEIGHTS_CASES = {
                                                          stale=True),
     "n = 0 row": dict(density=0.5, nan=True, empty_rows=(2,)),
     "window-hidden block": dict(density=0.85, nan=True, hidden_rows=(1, 5)),
+    f"long table ({LONG_TABLE} entries)": dict(density=0.85, nan=True,
+                                              nb=LONG_TABLE),
 }
 
 
@@ -388,13 +425,15 @@ def phase_weights_kernels(torch, main_shape, device="cuda"):
     row that sees a slot summing to G; returns the main case's max abs
     error over all outputs."""
     from repro_torch.kernels.dms_decode import ops
-    from repro_torch.kernels.dms_decode.ref import dms_decode_plain_weights
+    from repro_torch.kernels.dms_decode.ref import (dms_decode_plain_split,
+                                                    dms_decode_plain_weights)
     gen = torch.Generator(device=device).manual_seed(2468)
     bh, g, dh, p, bp = main_shape
-    nb = p // bp
     before = (ops.launches, ops.shared_launches, ops.weights_launches)
     main_err = None
     for name, kw in WEIGHTS_CASES.items():
+        kw = dict(kw)
+        nb = kw.pop("nb", p // bp)
         case = make_pool_case(torch, gen, bh=bh, g=g, dh=dh, nb=nb, bp=bp,
                               device=device, **kw)
         fixed, shared = case["fixed"], case["shared"]
@@ -404,6 +443,11 @@ def phase_weights_kernels(torch, main_shape, device="cuda"):
         if device == "cuda":
             torch.cuda.synchronize()
         want = dms_decode_plain_weights(*shared, bp, None, shared_kv=True)
+        # the CPU rehearsal has no kernel to ask its split count
+        splits = ops.splits(nb) if device == "cuda" else 1
+        weights_errors(torch, got, dms_decode_plain_split(
+            *shared, bp, None, shared_kv=True, splits=splits,
+            need_weights=True), fixed[5], fixed[4], nb)
         n, ltbl = fixed[5], fixed[4]
         listed = (torch.arange(nb, device=n.device)[None, :] < n[:, None])
         for a, b, what in zip(got, got_s, ("out", "w_blk", "m_blk", "m_out",
@@ -433,7 +477,8 @@ def phase_weights_kernels(torch, main_shape, device="cuda"):
         if name == "main-path shape":
             main_err = max(errs.values())
         log(f"weights-out kernel vs plain [{name}] (both layouts, "
-            f"{int(n.sum())} listed blocks): max abs err "
+            f"{int(n.sum())} listed blocks, {splits} splits a row; within "
+            "tolerance of the plain split too): max abs err "
             + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
             + f" (tolerance: out {KERNEL_TOL}, fp32 outputs {WEIGHTS_TOL}); "
             "shared-pool bitwise equal to fixed; rows sum to G")
@@ -550,15 +595,18 @@ def phase_flash_kernels(torch):
                 main_err[key] = err
         if dtype == torch.bfloat16:
             # no atomics anywhere: a second launch gives the same bits
-            again = fops.flash_fwd(qf, kf, vf, ls, hr, cfg) + fops.flash_dkv(
-                qf, kf, vf, ls, do, lse_p, delta, hr, cfg)
+            again = (fops.flash_fwd(qf, kf, vf, ls, hr, cfg)
+                     + (fops.flash_dq(qf, kf, vf, ls, do, lse_p, delta, hr,
+                                      cfg),)
+                     + fops.flash_dkv(qf, kf, vf, ls, do, lse_p, delta, hr,
+                                      cfg))
             torch.cuda.synchronize()
             repeats += 1
             if not all(torch.equal(a, b) for a, b in
-                       zip(again, (out, lse, dk, dv, dls))):
+                       zip(again, (out, lse, dq, dk, dv, dls))):
                 raise AssertionError(f"flash [{name}]: a second launch of "
-                                     "fwd or dkv gave other bits")
-            parts.append("fwd and dkv bit-equal on a second launch")
+                                     "fwd, dq or dkv gave other bits")
+            parts.append("fwd, dq and dkv bit-equal on a second launch")
         if hr is not None:
             parts.append(f"{int((hr == 0).sum())} of {hr.numel()} key blocks "
                          "hold no retained key")
@@ -566,7 +614,7 @@ def phase_flash_kernels(torch):
             + ", ".join(parts) + f" (tolerance {tol} relative: {dtype})")
     n = len(cases)
     got = {k: fops.launches[k] - before[k] for k in fops.launches}
-    want = {"flash_fwd": n + repeats, "flash_dq": n, "flash_dkv": n + repeats}
+    want = {k: n + repeats for k in fops.launches}
     if got != want:
         raise AssertionError(f"flash launch counters moved {got}, expected "
                              f"{want}")
@@ -1391,6 +1439,14 @@ def time_cuda(torch, fn, *, iters=50):
     return statistics.median(times)
 
 
+def log_method_floor(torch):
+    """Print what ``time_cuda`` reads for one tiny kernel (a 4-byte
+    ``zero_``): the floor under every time it reports."""
+    tiny = torch.zeros(1, device="cuda")
+    log(f"timing: the method's floor, one 4-byte zero_ kernel: "
+        f"{time_cuda(torch, tiny.zero_):.4f} ms")
+
+
 def decode_entry(torch, name, mode, operands, shape, launches, max_abs_err):
     """One decode-kernel row of the ``kernels`` line: the kernel (``mode``
     "fixed" or "shared") and its plain version timed on ``operands``, the
@@ -1407,6 +1463,10 @@ def decode_entry(torch, name, mode, operands, shape, launches, max_abs_err):
     saved = (ops.launches, ops.shared_launches)
     ms = time_cuda(torch, lambda: ops.decode_rows(q, k, v, valid, tbl, n, bp,
                                                   shared_kv=shared))
+    # the kernel's own floor: the same launch with no listed entry in any row
+    n0 = torch.zeros_like(n)
+    floor_ms = time_cuda(torch, lambda: ops.decode_rows(
+        q, k, v, valid, tbl, n0, bp, shared_kv=shared))
     ops.launches, ops.shared_launches = saved     # timing is not the path's
     plain_ms = time_cuda(torch, lambda: plain(q, k, v, valid, tbl, n, bp))
     # yardstick only: one SDPA call over the whole arena with the bool mask
@@ -1438,9 +1498,11 @@ def decode_entry(torch, name, mode, operands, shape, launches, max_abs_err):
     pool = f", pool {k.shape[1] // bp} pages" if shared else ""
     lib = " (over the dense view, gather not timed)" if shared else ""
     log(f"timing: {name} at (BH={bh}, G={g}, Dh={dh}, P={p}, block_p={bp}, "
-        f"{n_blocks} listed blocks{pool}): kernel {ms:.4f} ms, bound "
-        f"{entry['bound_ms']:.5f} ms ({kv_bytes + other} B), plain "
-        f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms{lib}")
+        f"{n_blocks} listed blocks{pool}): kernel {ms:.4f} ms in clusters of "
+        f"{ops.splits(tbl.shape[1])} splits a row (floor, n = 0 on every row:"
+        f" {floor_ms:.4f} ms), bound {entry['bound_ms']:.5f} ms "
+        f"({kv_bytes + other} B), plain {plain_ms:.4f} ms, SDPA "
+        f"{library_ms:.4f} ms{lib}")
     return entry
 
 
@@ -1459,6 +1521,9 @@ def weights_entry(torch, name, mode, operands, shape, launches, max_abs_err):
     saved = (ops.launches, ops.shared_launches, ops.weights_launches)
     ms = time_cuda(torch, lambda: ops.decode_rows(
         q, k, v, valid, tbl, n, bp, shared_kv=shared, need_weights=True))
+    n0 = torch.zeros_like(n)
+    floor_ms = time_cuda(torch, lambda: ops.decode_rows(
+        q, k, v, valid, tbl, n0, bp, shared_kv=shared, need_weights=True))
     ops.launches, ops.shared_launches, ops.weights_launches = saved
     plain_ms = time_cuda(torch, lambda: ref.dms_decode_plain_weights(
         q, k, v, valid, tbl, n, bp, shared_kv=shared))
@@ -1484,7 +1549,9 @@ def weights_entry(torch, name, mode, operands, shape, launches, max_abs_err):
     }
     pool = f", pool {k.shape[1] // bp} pages" if shared else ""
     log(f"timing: {name} at (BH={bh}, G={g}, Dh={dh}, P={p}, block_p={bp}, "
-        f"{n_blocks} listed blocks{pool}): kernel {ms:.4f} ms, bound "
+        f"{n_blocks} listed blocks{pool}): kernel {ms:.4f} ms in clusters of "
+        f"{ops.splits(tbl.shape[1])} splits a row (floor, n = 0 on every row:"
+        f" {floor_ms:.4f} ms), bound "
         f"{entry['bound_ms']:.5f} ms ({moved} B, of which {written} B "
         f"written weights and statistics), plain {plain_ms:.4f} ms; library: "
         "none (no single PyTorch call returns the group-summed softmax "
@@ -1505,7 +1572,9 @@ def phase_weights_timing(torch, shape, launches, err):
 
 
 def phase_timing(torch, main_shape, launches, errs):
-    """The decode kernel in both modes at the main-path shape."""
+    """The decode kernel in both modes at the main-path shape, after the
+    timing method's own floor."""
+    log_method_floor(torch)
     bh, g, dh, p, bp = main_shape
     gen = torch.Generator(device="cuda").manual_seed(99)
     q, k, v, valid, tbl, n = make_case(torch, gen, bh=bh, g=g, dh=dh, p=p,

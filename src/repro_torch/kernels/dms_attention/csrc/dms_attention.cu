@@ -26,22 +26,25 @@
 //
 // Two routes, picked by dtype alone:
 //
-// * bf16 `flash_fwd` and `flash_dkv` (the retrofit path; `tc::` below) run
-//   their products on the tensor cores: `wgmma.mma_async` m64n64k16, bf16 in,
-//   fp32 accumulate.  Q.K^T (fwd) and K.Q^T, V.dO^T (dkv) read both operands
-//   from shared memory in the 128-byte swizzle that TMA writes; P.V (fwd) and
-//   P^T.dO, dS^T.Q (dkv) take P or dS from the score accumulators, rounded to
-//   bf16 in registers, as the A operand, and the other tile as a transposed
-//   (MN-major) B operand.  A producer warp streams the tiles by TMA
-//   (`cp.async.bulk.tensor`) into a two-stage ring guarded by mbarriers, so
-//   tile k+1 loads while tile k computes; TMA zero-fills rows past Tp.  The
-//   kernels take Dh 64 or 128 (the wrapper zero-pads a smaller Dh to 64).
-//   - fwd: one block per (q head, q tile), q tiles launched longest-first
-//     (the last has the most key tiles under the causal mask).  A block is
-//     one consumer warpgroup of 64 rows, two on an SM (128-row blocks of
-//     two warpgroups measured slower at the retrofit shape, PERF.md).  The
-//     online softmax keeps each row's max and sum in the 4 threads that
-//     share the row.
+// * bf16 operands (the retrofit path; `tc::` below) run every product on the
+//   tensor cores: `wgmma.mma_async` m64n64k16, bf16 in, fp32 accumulate.
+//   Q.K^T (fwd, dq), dO.V^T (dq) and K.Q^T, V.dO^T (dkv) read both operands
+//   from shared memory in the 128-byte swizzle that TMA writes; P.V (fwd),
+//   dS.K (dq) and P^T.dO, dS^T.Q (dkv) take P or dS from the score
+//   accumulators, rounded to bf16 in registers, as the A operand, and the
+//   other tile as a transposed (MN-major) B operand.  A producer warp
+//   streams the tiles by TMA (`cp.async.bulk.tensor`) into a two-stage ring
+//   guarded by mbarriers, so tile k+1 loads while tile k computes; TMA
+//   zero-fills rows past Tp.  The kernels take Dh 64 or 128 (the wrapper
+//   zero-pads a smaller Dh to 64 or 128).
+//   - fwd and dq: one block per (q head, q tile), q tiles launched
+//     longest-first (the last has the most key tiles under the causal
+//     mask).  A block is one consumer warpgroup of 64 rows, two on an SM
+//     (128-row blocks of two warpgroups measured slower at the retrofit
+//     shape, PERF.md).  fwd keeps each row's online-softmax max and sum in
+//     the 4 threads that share the row; dq loads its Q and dO tiles once,
+//     reads each row's lse and delta once, and keeps dq in registers across
+//     the key tiles, so each row is written once by its own block.
 //   - dkv: one block per (kv head, 64-key tile, slice of the G query heads),
 //     key tile 0 (the longest under causal) first.  The c blocks of one
 //     (kv head, key tile) form a thread-block cluster, c the largest divisor
@@ -50,12 +53,12 @@
 //     dls partials to its shared memory, and after a cluster barrier each
 //     sums a 1/c slice of the rows across the cluster's shared memory, in
 //     rank order: no atomics, the same bits on every launch.
-// * fp32 operands, and bf16 `flash_dq`, run the first design on the fp32
-//   CUDA cores (67 TFLOP/s peak): each thread owns a 4 x 4 block of a
-//   64 x 64 score tile and a 4 x 8 block of the 64 x Dh accumulator, fed from
-//   fp32 tiles in shared memory padded by one word per row.  fp32 products
-//   stay unrounded there (the tensor cores would round them to bf16), and
-//   their sums run in one FMA chain in the plain version's order.
+// * fp32 operands run the first design on the fp32 CUDA cores (67 TFLOP/s
+//   peak), the check of the bf16 route: each thread owns a 4 x 4 block of a
+//   64 x 64 score tile and a 4 x 8 block of the 64 x Dh accumulator, fed
+//   from fp32 tiles in shared memory padded by one word per row.  fp32
+//   products stay unrounded there (the tensor cores would round them to
+//   bf16), and their sums run in one FMA chain in the plain version's order.
 //   - fwd and dq: one thread block per (q head, 64-row q tile) loops over
 //     the k tiles; the online-softmax state (fwd) or the dq sum (dq) stays
 //     in registers across the loop;
@@ -97,16 +100,6 @@ struct Params {
   float cap, scale;
 };
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
 __device__ __forceinline__ float half_warp_max(float x) {
 #pragma unroll
   for (int o = 8; o > 0; o >>= 1)
@@ -122,14 +115,13 @@ __device__ __forceinline__ float half_warp_sum(float x) {
 
 // rows [0, rows) of a (rows, dh) slab into a (kTile, dh + 1) fp32 tile;
 // rows beyond `rows` are zero
-template <typename T>
-__device__ void load_tile(float* dst, const T* __restrict__ src, int rows,
+__device__ void load_tile(float* dst, const float* __restrict__ src, int rows,
                           int dh) {
   const int st = dh + 1;
   for (int e = threadIdx.x; e < kTile * dh; e += kThreads) {
     const int r = e / dh;
     const int c = e - r * dh;
-    dst[r * st + c] = r < rows ? to_f(src[(size_t)r * dh + c]) : 0.f;
+    dst[r * st + c] = r < rows ? src[(size_t)r * dh + c] : 0.f;
   }
 }
 
@@ -203,11 +195,11 @@ size_t dkv_smem(int dh) {
 // forward: out, lse
 // ---------------------------------------------------------------------------
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(Params p, const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const float* __restrict__ ls,
-                 const int32_t* __restrict__ hr, T* __restrict__ out,
+flash_fwd_kernel(Params p, const float* __restrict__ q,
+                 const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ ls,
+                 const int32_t* __restrict__ hr, float* __restrict__ out,
                  float* __restrict__ lse) {
   extern __shared__ float smem[];
   const int dh = p.dh, st = dh + 1;
@@ -320,7 +312,7 @@ flash_fwd_kernel(Params p, const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < kAccCols; ++c) {
       const int d = tx + 16 * c;
-      if (d < dh) out[r * dh + d] = from_f<T>(acc[a][c] / l_safe);
+      if (d < dh) out[r * dh + d] = acc[a][c] / l_safe;
     }
     if (tx == 0) lse[r] = m[a] + logf(l_safe);
   }
@@ -330,13 +322,13 @@ flash_fwd_kernel(Params p, const T* __restrict__ q, const T* __restrict__ k,
 // backward: dq
 // ---------------------------------------------------------------------------
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_dq_kernel(Params p, const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const float* __restrict__ ls,
-                const T* __restrict__ dout, const float* __restrict__ lse,
+flash_dq_kernel(Params p, const float* __restrict__ q,
+                const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ ls,
+                const float* __restrict__ dout, const float* __restrict__ lse,
                 const float* __restrict__ delta,
-                const int32_t* __restrict__ hr, T* __restrict__ dq) {
+                const int32_t* __restrict__ hr, float* __restrict__ dq) {
   extern __shared__ float smem[];
   const int dh = p.dh, st = dh + 1;
   float* q_s = smem;
@@ -448,7 +440,7 @@ flash_dq_kernel(Params p, const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < kAccCols; ++c) {
       const int d = tx + 16 * c;
-      if (d < dh) dq[(qbase + il) * dh + d] = from_f<T>(acc[a][c] * p.scale);
+      if (d < dh) dq[(qbase + il) * dh + d] = acc[a][c] * p.scale;
     }
   }
 }
@@ -457,14 +449,14 @@ flash_dq_kernel(Params p, const T* __restrict__ q, const T* __restrict__ k,
 // backward: dk, dv, d(log_surv)
 // ---------------------------------------------------------------------------
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_dkv_kernel(Params p, const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const float* __restrict__ ls,
-                 const T* __restrict__ dout, const float* __restrict__ lse,
+flash_dkv_kernel(Params p, const float* __restrict__ q,
+                 const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ ls,
+                 const float* __restrict__ dout, const float* __restrict__ lse,
                  const float* __restrict__ delta,
-                 const int32_t* __restrict__ hr, T* __restrict__ dk,
-                 T* __restrict__ dv, float* __restrict__ dls) {
+                 const int32_t* __restrict__ hr, float* __restrict__ dk,
+                 float* __restrict__ dv, float* __restrict__ dls) {
   extern __shared__ float smem[];
   const int dh = p.dh, st = dh + 1;
   float* k_s = smem;
@@ -593,8 +585,8 @@ flash_dkv_kernel(Params p, const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < kAccCols; ++c) {
       const int d = tx + 16 * c;
       if (d < dh) {
-        dk[(kbase + jl) * dh + d] = from_f<T>(dk_acc[a][c] * p.scale);
-        dv[(kbase + jl) * dh + d] = from_f<T>(dv_acc[a][c]);
+        dk[(kbase + jl) * dh + d] = dk_acc[a][c] * p.scale;
+        dv[(kbase + jl) * dh + d] = dv_acc[a][c];
       }
     }
   }
@@ -645,49 +637,46 @@ Params make_params(int tp, int dh, int hq, int hkv, int t, int nk_ref,
   return p;
 }
 
-template <typename T>
 cudaError_t launch_fwd(const Params& p, int bhq, const void* q, const void* k,
                        const void* v, const void* ls, const void* hr, void* out,
                        void* lse, cudaStream_t stream) {
   const size_t smem = fwd_smem(p.dh);
-  cudaError_t e = allow_smem<flash_fwd_kernel<T>>(fwd_smem(kMaxDh));
+  cudaError_t e = allow_smem<flash_fwd_kernel>(fwd_smem(kMaxDh));
   if (e != cudaSuccess) return e;
   dim3 grid((p.tp + kTile - 1) / kTile, bhq);
-  flash_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
-      p, (const T*)q, (const T*)k, (const T*)v, (const float*)ls,
-      (const int32_t*)hr, (T*)out, (float*)lse);
+  flash_fwd_kernel<<<grid, kThreads, smem, stream>>>(
+      p, (const float*)q, (const float*)k, (const float*)v, (const float*)ls,
+      (const int32_t*)hr, (float*)out, (float*)lse);
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t launch_dq(const Params& p, int bhq, const void* q, const void* k,
                       const void* v, const void* ls, const void* dout,
                       const void* lse, const void* delta, const void* hr,
                       void* dq, cudaStream_t stream) {
   const size_t smem = dq_smem(p.dh);
-  cudaError_t e = allow_smem<flash_dq_kernel<T>>(dq_smem(kMaxDh));
+  cudaError_t e = allow_smem<flash_dq_kernel>(dq_smem(kMaxDh));
   if (e != cudaSuccess) return e;
   dim3 grid((p.tp + kTile - 1) / kTile, bhq);
-  flash_dq_kernel<T><<<grid, kThreads, smem, stream>>>(
-      p, (const T*)q, (const T*)k, (const T*)v, (const float*)ls,
-      (const T*)dout, (const float*)lse, (const float*)delta,
-      (const int32_t*)hr, (T*)dq);
+  flash_dq_kernel<<<grid, kThreads, smem, stream>>>(
+      p, (const float*)q, (const float*)k, (const float*)v, (const float*)ls,
+      (const float*)dout, (const float*)lse, (const float*)delta,
+      (const int32_t*)hr, (float*)dq);
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t launch_dkv(const Params& p, int bhkv, const void* q, const void* k,
                        const void* v, const void* ls, const void* dout,
                        const void* lse, const void* delta, const void* hr,
                        void* dk, void* dv, void* dls, cudaStream_t stream) {
   const size_t smem = dkv_smem(p.dh);
-  cudaError_t e = allow_smem<flash_dkv_kernel<T>>(dkv_smem(kMaxDh));
+  cudaError_t e = allow_smem<flash_dkv_kernel>(dkv_smem(kMaxDh));
   if (e != cudaSuccess) return e;
   dim3 grid((p.tp + kTile - 1) / kTile, bhkv);
-  flash_dkv_kernel<T><<<grid, kThreads, smem, stream>>>(
-      p, (const T*)q, (const T*)k, (const T*)v, (const float*)ls,
-      (const T*)dout, (const float*)lse, (const float*)delta,
-      (const int32_t*)hr, (T*)dk, (T*)dv, (float*)dls);
+  flash_dkv_kernel<<<grid, kThreads, smem, stream>>>(
+      p, (const float*)q, (const float*)k, (const float*)v, (const float*)ls,
+      (const float*)dout, (const float*)lse, (const float*)delta,
+      (const int32_t*)hr, (float*)dk, (float*)dv, (float*)dls);
   return cudaGetLastError();
 }
 
@@ -1061,6 +1050,186 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+// -- dq ----------------------------------------------------------------------
+
+// Shared memory of a dq block, in bytes from a 1024-aligned base: the Q and
+// dO tiles, kStages K and V tiles, kStages ls vectors, the barriers.
+template <int DH>
+struct DqSmem {
+  static constexpr int kQBytes = kFwdRows * DH * 2;
+  static constexpr int kKVBytes = kBK * DH * 2;
+  static constexpr int kDo = kQBytes;
+  static constexpr int kK = kDo + kQBytes;
+  static constexpr int kV = kK + kStages * kKVBytes;
+  static constexpr int kLs = kV + kStages * kKVBytes;
+  static constexpr int kBar = kLs + kStages * kBK * 4;
+  static constexpr int kBytes = kBar + (2 * kStages + 1) * 8 + 1024;
+};
+
+// one warpgroup a block, as fwd: two blocks on an SM
+template <int DH>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_dq_tc(const __grid_constant__ CUtensorMap tm_q,
+            const __grid_constant__ CUtensorMap tm_k,
+            const __grid_constant__ CUtensorMap tm_v,
+            const __grid_constant__ CUtensorMap tm_ls,
+            const __grid_constant__ CUtensorMap tm_do, Params p,
+            const int32_t* __restrict__ hr, const float* __restrict__ lse,
+            const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq) {
+  using L = DqSmem<DH>;
+  constexpr int kPanels = DH / kPanel;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* empty = full + kStages;
+  uint64_t* q_full = empty + kStages;
+
+  const int tid = threadIdx.x;
+  const int h = blockIdx.x;
+  const int nqt = (p.tp + kFwdRows - 1) / kFwdRows;
+  const int q0 = (nqt - 1 - (int)blockIdx.y) * kFwdRows;   // longest first
+  const int g = p.hq / p.hkv;
+  const int row = (h / p.hq) * p.hkv + (h % p.hq) / g;
+  const int32_t* hr_row = p.skip ? hr + (size_t)row * p.nk_ref : nullptr;
+  int lo, hi;
+  k_range(p, q0, kFwdRows, kBK, lo, hi);
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kWG);
+    }
+    mbar_init(q_full, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= kWG) {                                   // the producer warp
+    if (tid == kWG) {
+      mbar_expect_tx(q_full, 2 * L::kQBytes);
+      load_tile_tma<DH>(smem, &tm_q, q_full, kFwdRows, q0, h);
+      load_tile_tma<DH>(smem + L::kDo, &tm_do, q_full, kFwdRows, q0, h);
+      int n = 0;
+      for (int kt = lo; kt <= hi; ++kt) {
+        const int k0 = kt * kBK;
+        if (!tile_live(p, q0, k0, kFwdRows, kBK, hr_row)) continue;
+        const int s = n % kStages;
+        if (n >= kStages) mbar_wait(&empty[s], (n / kStages - 1) & 1);
+        mbar_expect_tx(&full[s], 2 * L::kKVBytes + kBK * 4);
+        load_tile_tma<DH>(smem + L::kK + s * L::kKVBytes, &tm_k, &full[s], kBK,
+                          k0, row);
+        load_tile_tma<DH>(smem + L::kV + s * L::kKVBytes, &tm_v, &full[s], kBK,
+                          k0, row);
+        tma_load_2d(smem + L::kLs + s * kBK * 4, &tm_ls, &full[s], k0, row);
+        ++n;
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroup: this thread owns rows r_top and r_top + 8
+  const int w = tid / 32, lane = tid % 32;
+  const int r_top = acc_row(w, lane, 0);
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = q0 + r_top + 8 * hh;
+    const bool in = r < p.tp;
+    lse_r[hh] = in ? lse[(size_t)h * p.tp + r] : 0.f;
+    delta_r[hh] = in ? delta[(size_t)h * p.tp + r] : 0.f;
+  }
+  float acc[kPanels][32];
+#pragma unroll
+  for (int pn = 0; pn < kPanels; ++pn)
+#pragma unroll
+    for (int x = 0; x < 32; ++x) acc[pn][x] = 0.f;
+  const uint8_t* do_s = smem + L::kDo;
+  mbar_wait(q_full, 0);
+
+  int n = 0;
+  for (int kt = lo; kt <= hi; ++kt) {
+    const int k0 = kt * kBK;
+    if (!tile_live(p, q0, k0, kFwdRows, kBK, hr_row)) continue;
+    const int s = n % kStages;
+    mbar_wait(&full[s], (n / kStages) & 1);
+    const uint8_t* k_s = smem + L::kK + s * L::kKVBytes;
+    const uint8_t* v_s = smem + L::kV + s * L::kKVBytes;
+    const float* ls_s = reinterpret_cast<const float*>(smem + L::kLs + s * kBK * 4);
+
+    // S = Q.K^T and dP = dO.V^T, both operands K-major
+    float sc[32], dp[32];
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      const int qo = (kk / 4) * kFwdRows * 128 + (kk % 4) * 32;
+      const int ko = (kk / 4) * kBK * 128 + (kk % 4) * 32;
+      wgmma_ss(sc, sw128_desc(smem + qo), sw128_desc(k_s + ko), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      const int qo = (kk / 4) * kFwdRows * 128 + (kk % 4) * 32;
+      const int ko = (kk / 4) * kBK * 128 + (kk % 4) * 32;
+      wgmma_ss(dp, sw128_desc(do_s + qo), sw128_desc(v_s + ko), kk > 0);
+    }
+    wg_commit();
+    wg_wait_all();
+    reg_fence(sc);
+    reg_fence(dp);
+
+    // dS = P o (dP - delta), P = exp(S - lse) (0 on padded rows), times the
+    // softcap's derivative
+#pragma unroll
+    for (int x = 0; x < 32; ++x) {
+      const int hh = (x >> 1) & 1, i = q0 + r_top + 8 * hh, jl = acc_col(lane, x);
+      float capped;
+      bool zone;
+      const float sm = mask_score(p, sc[x] * p.scale, i, k0 + jl, ls_s[jl],
+                                  &capped, &zone);
+      const float pv = i < p.t ? __expf(sm - lse_r[hh]) : 0.f;
+      float ds = pv * (dp[x] - delta_r[hh]);
+      if (p.has_cap) {
+        const float r = capped / p.cap;
+        ds *= 1.f - r * r;
+      }
+      sc[x] = ds;
+    }
+
+    // dq += dS.K: dS rounded to bf16 as the A operand, K the MN-major B
+    uint32_t da[4][4];
+    acc_to_a(sc, da);
+#pragma unroll
+    for (int pn = 0; pn < kPanels; ++pn) reg_fence(acc[pn]);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int pn = 0; pn < kPanels; ++pn)
+        wgmma_rs(acc[pn], da[kk],
+                 sw128_desc(k_s + pn * kBK * 128 + kk * 16 * 128));
+    wg_commit();
+    wg_wait_all();
+#pragma unroll
+    for (int pn = 0; pn < kPanels; ++pn) reg_fence(acc[pn]);
+    mbar_arrive(&empty[s]);
+    ++n;
+  }
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = q0 + r_top + 8 * hh;
+    if (r >= p.tp) continue;
+    const size_t base = ((size_t)h * p.tp + r) * DH;
+#pragma unroll
+    for (int pn = 0; pn < kPanels; ++pn)
+#pragma unroll
+      for (int x = 2 * hh; x < 32; x += 4) {
+        const int c = pn * kPanel + acc_col(lane, x);
+        *reinterpret_cast<__nv_bfloat162*>(dq + base + c) = __floats2bfloat162_rn(
+            acc[pn][x] * p.scale, acc[pn][x + 1] * p.scale);
+      }
+  }
+}
+
 // -- dk, dv, d(log_surv) -----------------------------------------------------
 
 // Shared memory of a dkv block, in bytes from a 1024-aligned base: K, V,
@@ -1381,6 +1550,28 @@ cudaError_t launch_fwd(const Params& p, int bhq, const void* q, const void* k,
   return cudaGetLastError();
 }
 
+template <int DH>
+cudaError_t launch_dq(const Params& p, int bhq, const void* q, const void* k,
+                      const void* v, const void* ls, const void* dout,
+                      const void* lse, const void* delta, const void* hr,
+                      void* dq, cudaStream_t stream) {
+  const int bhkv = bhq / p.hq * p.hkv;
+  CUtensorMap mq, mk, mv, mls, mdo;
+  if (!tile_map(&mq, q, bhq, p.tp, DH, kFwdRows) ||
+      !tile_map(&mk, k, bhkv, p.tp, DH, kBK) ||
+      !tile_map(&mv, v, bhkv, p.tp, DH, kBK) || !vec_map(&mls, ls, bhkv, p.tp) ||
+      !tile_map(&mdo, dout, bhq, p.tp, DH, kFwdRows))
+    return cudaErrorInvalidValue;
+  constexpr size_t smem = DqSmem<DH>::kBytes;
+  cudaError_t e = allow_smem<flash_dq_tc<DH>>(smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(bhq, (p.tp + kFwdRows - 1) / kFwdRows);
+  flash_dq_tc<DH><<<grid, kThreads, smem, stream>>>(
+      mq, mk, mv, mls, mdo, p, (const int32_t*)hr, (const float*)lse,
+      (const float*)delta, (__nv_bfloat16*)dq);
+  return cudaGetLastError();
+}
+
 // a cluster of c blocks per (kv head, key tile), c the largest divisor of G
 // of at most kMaxCluster
 template <int DH>
@@ -1425,8 +1616,8 @@ cudaError_t launch_dkv(const Params& p, int bhkv, const void* q, const void* k,
 }  // namespace
 
 // `bf16`: 1 for bfloat16 q/k/v (and do, out, dq, dk, dv), 0 for float32.
-// `window` < 0 means no local window.  The bf16 `dms_flash_fwd` and
-// `dms_flash_dkv` take dh 64 or 128 and tp a multiple of 8.
+// `window` < 0 means no local window.  In bf16 every entry point takes dh 64
+// or 128 and tp a multiple of 8.
 extern "C" int dms_flash_fwd(const void* q, const void* k, const void* v,
                              const void* ls, const void* hr, void* out,
                              void* lse, int bf16, int bhq, int tp, int dh,
@@ -1442,7 +1633,7 @@ extern "C" int dms_flash_fwd(const void* q, const void* k, const void* v,
   if (bhq == 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
   if (!bf16)
-    return (int)launch_fwd<float>(p, bhq, q, k, v, ls, hr, out, lse, s);
+    return (int)launch_fwd(p, bhq, q, k, v, ls, hr, out, lse, s);
   return (int)(dh == 64 ? tc::launch_fwd<64>(p, bhq, q, k, v, ls, hr, out,
                                                lse, s)
                         : tc::launch_fwd<128>(p, bhq, q, k, v, ls, hr, out,
@@ -1458,14 +1649,17 @@ extern "C" int dms_flash_dq(const void* q, const void* k, const void* v,
                             float cap, float scale, void* stream) {
   const Params p = make_params(tp, dh, hq, hkv, t, nk_ref, block_k, window,
                                delay, causal, skip, has_cap, cap, scale);
-  if (bad_params(p, bhq) || bhq % hq != 0 || (skip && !hr))
+  if (bad_params(p, bhq) || bhq % hq != 0 || (skip && !hr) ||
+      (bf16 && bad_tc(p)))
     return (int)cudaErrorInvalidValue;
   if (bhq == 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
-  return (int)(bf16 ? launch_dq<__nv_bfloat16>(p, bhq, q, k, v, ls, dout, lse,
-                                               delta, hr, dq, s)
-                    : launch_dq<float>(p, bhq, q, k, v, ls, dout, lse, delta,
-                                       hr, dq, s));
+  if (!bf16)
+    return (int)launch_dq(p, bhq, q, k, v, ls, dout, lse, delta, hr, dq, s);
+  return (int)(dh == 64 ? tc::launch_dq<64>(p, bhq, q, k, v, ls, dout, lse,
+                                              delta, hr, dq, s)
+                        : tc::launch_dq<128>(p, bhq, q, k, v, ls, dout, lse,
+                                             delta, hr, dq, s));
 }
 
 extern "C" int dms_flash_dkv(const void* q, const void* k, const void* v,
@@ -1484,8 +1678,8 @@ extern "C" int dms_flash_dkv(const void* q, const void* k, const void* v,
   if (bhkv == 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
   if (!bf16)
-    return (int)launch_dkv<float>(p, bhkv, q, k, v, ls, dout, lse, delta, hr,
-                                  dk, dv, dls, s);
+    return (int)launch_dkv(p, bhkv, q, k, v, ls, dout, lse, delta, hr, dk, dv,
+                           dls, s);
   return (int)(dh == 64
                    ? tc::launch_dkv<64>(p, bhkv, q, k, v, ls, dout, lse, delta,
                                         hr, dk, dv, dls, s)

@@ -10,11 +10,10 @@ backward (``csrc/dms_attention.cu``).
 
 CUDA tensors go to the kernels or the call raises; CPU tensors go to the
 plain versions (:mod:`.ref`).  Nothing else picks the path.  On the card
-the dtype picks the kernel: bf16 ``flash_fwd`` and ``flash_dkv`` run on the
-tensor cores and take a head dim of 64 or 128, so their wrappers zero-pad a
-smaller one (:func:`pad_head_dim`) and slice the outputs back; fp32, and
-``flash_dq`` in either dtype, run on the CUDA cores at any head dim up to
-128.
+the dtype picks the kernel: the bf16 kernels run on the tensor cores and
+take a head dim of 64 or 128, so their wrappers zero-pad a smaller one
+(:func:`pad_head_dim`) and slice the outputs back; fp32 runs on the CUDA
+cores at any head dim up to 128.
 """
 from __future__ import annotations
 
@@ -184,13 +183,18 @@ def flash_dq(q, k, v, ls, do, lse, delta, hr, cfg: FlashConfig):
     if not q.is_cuda:
         raise ValueError(f"flash_dq: unsupported device {q.device}")
     _check("flash_dq", cfg, q, k, v, ls, hr, do, lse, delta)
-    bhq, tp, _ = q.shape
+    bhq, tp, dh = q.shape
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        q, k, v, do = (pad_head_dim(x, tensor_core_dh(dh))
+                       for x in (q, k, v, do))
+        _check_tc("flash_dq", tp, q, k, v, ls, do)
     dq = torch.empty_like(q)
     _call("flash_dq", _library().dms_flash_dq, q, q.data_ptr(), k.data_ptr(),
           v.data_ptr(), ls.data_ptr(), do.data_ptr(), lse.data_ptr(),
-          delta.data_ptr(), _ptr(hr), dq.data_ptr(),
-          int(q.dtype == torch.bfloat16), bhq, *_ints(cfg, tp, q.shape[-1]))
-    return dq
+          delta.data_ptr(), _ptr(hr), dq.data_ptr(), int(bf16), bhq,
+          *_ints(cfg, tp, q.shape[-1]))
+    return dq[..., :dh].contiguous() if dq.shape[-1] != dh else dq
 
 
 def flash_dkv(q, k, v, ls, do, lse, delta, hr, cfg: FlashConfig):

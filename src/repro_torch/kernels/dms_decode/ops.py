@@ -66,12 +66,21 @@ def _library() -> ctypes.CDLL:
         fn.argtypes = [ptr] * 11 + [i32] * 6 + [ctypes.c_float, i32,
                                                 ctypes.c_float, i32, ptr]
         fn.restype = i32
+        lib.dms_decode_splits.argtypes = [i32]
+        lib.dms_decode_splits.restype = i32
     return lib
 
 
 def build() -> None:
     """Compile and load the kernel now (``chip_smoke.py`` times this)."""
     _library()
+
+
+def splits(nb_tbl: int) -> int:
+    """The thread blocks (one cluster) the kernel gives each row's table of
+    capacity ``nb_tbl``: the constant of the CUDA source, asked of the
+    built kernel (card only)."""
+    return int(_library().dms_decode_splits(nb_tbl))
 
 
 def modeled_hbm_bytes(block_n: torch.Tensor, block_p: int, head_dim: int,
@@ -112,8 +121,8 @@ def _launch(qf, kf, vf, valf, tblf, nf, block_p, logit_cap, shared_kv,
         if t.device != qf.device:
             raise ValueError(f"dms_decode kernel: {name} on {t.device}, "
                              f"q on {qf.device}")
-    if kf.data_ptr() % 16 or vf.data_ptr() % 16:
-        raise ValueError("dms_decode kernel: k/v must be 16-byte aligned")
+    if qf.data_ptr() % 16 or kf.data_ptr() % 16 or vf.data_ptr() % 16:
+        raise ValueError("dms_decode kernel: q/k/v must be 16-byte aligned")
     out = torch.empty_like(qf)
     nbt = tblf.shape[1]
     extra = ()

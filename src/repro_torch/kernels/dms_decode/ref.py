@@ -16,6 +16,9 @@ Both gather the listed blocks in table order and share the arithmetic, so
 the same logical contents give the same bits in either layout.
 :func:`dms_decode_plain_weights` is the kernel's weights-out mode in either
 layout: the output and the four raw outputs the kernel writes.
+:func:`dms_decode_plain_split` does the same arithmetic the way the kernel
+orders it: each row's listed entries cut into contiguous splits, each split
+attended on its own, the splits combined by their log-sum-exp statistics.
 """
 from __future__ import annotations
 
@@ -146,3 +149,74 @@ def dms_decode_plain_weights(q: torch.Tensor, k: torch.Tensor,
     m_blk = torch.where(entry, m_blk, NEG_INF)
     return (out, w.permute(0, 2, 1, 3).contiguous(),
             m_blk.permute(0, 2, 1).contiguous(), m_out, l_out)
+
+
+def dms_decode_plain_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           valid: torch.Tensor, block_tbl: torch.Tensor,
+                           block_n: torch.Tensor, block_p: int,
+                           logit_cap: Optional[float] = None,
+                           shared_kv: bool = False, splits: int = 1,
+                           need_weights: bool = False):
+    """The kernel's split of the table, in plain PyTorch (operands as
+    :func:`dms_decode_plain_weights`).  Row r's listed entries ``[0, n)``
+    are cut into ``splits`` contiguous ranges, ``[s n // S, (s + 1) n //
+    S)`` for split s (empty where n < S).  Each split attends over its range
+    with its own max ``m_s`` and denominator ``l_s`` (-1e30 and 0 when it
+    sees no slot); the output is ``sum_s acc_s e^(m_s - m) / sum_s l_s
+    e^(m_s - m)`` with ``m = max_s m_s``, summed in split order.
+
+    With ``need_weights`` returns ``(out, w_blk, m_blk, m_out, l_out)`` as
+    the weights-out mode does: each split first weighs its entries against
+    its own running max m~_i, then an entry with m~_i below ``M_<s``, the
+    largest max of the splits before it, takes ``m_blk = M_<s`` and ``w_blk
+    *= exp(m~_i - M_<s)`` — the running max in table order, as unsplit."""
+    listed = _listed_shared if shared_kv else _listed_fixed
+    kl, vl, live = listed(k, v, valid, block_tbl, block_n, block_p)
+    bh, g, dh = q.shape
+    nbt = block_tbl.shape[1]
+    kl = torch.where(live[..., None], kl.float(), 0.0)
+    vl = torch.where(live[..., None], vl.float(), 0.0)
+    s = torch.einsum("hgd,hpd->hgp", q.float(), kl) * dh ** -0.5
+    if logit_cap is not None:
+        s = logit_cap * torch.tanh(s / logit_cap)
+    s = torch.where(live[:, None, :], s, NEG_INF)
+    count = block_n.long().clamp(0, nbt)[:, None]                    # (BH, 1)
+    entry = torch.arange(nbt, device=q.device)[None, :]
+    stats, w_blk, m_blk = [], None, None
+    if need_weights:
+        w_blk = torch.zeros((bh, g, nbt, block_p), device=q.device)
+        m_blk = torch.full((bh, g, nbt), NEG_INF, device=q.device)
+    m_before = torch.full((bh, g), NEG_INF, device=q.device)       # M_<s
+    for sp in range(splits):
+        mine = (entry >= sp * count // splits) & (entry < (sp + 1) * count // splits)
+        slot = live & mine.repeat_interleave(block_p, dim=1)         # (BH, L)
+        ss = torch.where(slot[:, None, :], s, NEG_INF)
+        m_s = ss.amax(-1) if nbt else torch.full((bh, g), NEG_INF, device=q.device)
+        p_ = torch.where(slot[:, None, :], torch.exp(ss - m_s[..., None]), 0.0)
+        stats.append((m_s, p_.sum(-1), torch.einsum("hgp,hpd->hgd", p_, vl)))
+        if need_weights and nbt:
+            s4 = ss.reshape(bh, g, nbt, block_p)
+            m_loc = torch.cummax(s4.amax(-1), dim=-1).values          # m~_i
+            w = torch.where(slot.reshape(bh, 1, nbt, block_p),
+                            torch.exp(s4 - m_loc[..., None]), 0.0)
+            low = m_loc < m_before[..., None]
+            m_run = torch.where(low, m_before[..., None], m_loc)
+            w = torch.where(low[..., None],
+                            w * torch.exp(m_loc - m_run)[..., None], w)
+            w_blk = torch.where(mine[:, None, :, None], w, w_blk)
+            m_blk = torch.where(mine[:, None, :], m_run, m_blk)
+        m_before = torch.maximum(m_before, m_s)
+    m = stats[0][0]
+    for m_s, _, _ in stats[1:]:
+        m = torch.maximum(m, m_s)
+    l_sum = torch.zeros_like(m)
+    acc = torch.zeros((bh, g, dh), device=q.device)
+    for m_s, l_s, acc_s in stats:
+        f = torch.exp(m_s - m)
+        l_sum = l_sum + l_s * f
+        acc = acc + acc_s * f[..., None]
+    out = (acc / torch.where(l_sum > 0, l_sum, 1.0)[..., None]).to(q.dtype)
+    if not need_weights:
+        return out
+    return (out, w_blk.permute(0, 2, 1, 3).contiguous(),
+            m_blk.permute(0, 2, 1).contiguous(), m, l_sum)

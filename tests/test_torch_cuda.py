@@ -54,6 +54,31 @@ def test_decode_kernel_matches_plain(cuda_device, g, dh, p, cap):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("g,dh,p,block_p", [(4, 256, 512, None), (3, 64, 60, 6)],
+                         ids=["one ring stage", "valid read by bytes"])
+def test_decode_dense_mode_edges(cuda_device, g, dh, p, block_p):
+    """The legacy dense mode on the card against the same wrapper on the
+    CPU: 128-slot blocks at Dh 256 leave room for one ring stage only, and
+    6-slot blocks put entries' ``valid`` flags off 4-byte boundaries, so
+    the kernel stages them byte by byte."""
+    gen = torch.Generator().manual_seed(p)
+    b, hkv = 2, 2
+    q = torch.randn((b, 1, hkv * g, dh), generator=gen).bfloat16()
+    k = torch.randn((b, hkv, p, dh), generator=gen).bfloat16()
+    v = torch.randn((b, hkv, p, dh), generator=gen).bfloat16()
+    valid = torch.rand((b, hkv, p), generator=gen) < 0.5
+    valid[0, 1] = False                               # a row with n = 0
+    want = ops.dms_decode_attention(q, k, v, valid, block_p=block_p)
+    before = ops.launches
+    got = ops.dms_decode_attention(*(x.to(cuda_device) for x in (q, k, v, valid)),
+                                   block_p=block_p)
+    torch.cuda.synchronize()
+    assert ops.launches == before + 1
+    assert torch.isfinite(got.float()).all() and not got[0, 0, g:2 * g].any()
+    torch.testing.assert_close(got.cpu().float(), want.float(), **BF16)
+
+
+@pytest.mark.cuda
 def test_decode_wrapper_rejects_what_the_kernel_cannot_take(cuda_device):
     q = torch.zeros((1, 1, 2, 12), dtype=torch.bfloat16, device=cuda_device)
     k = torch.zeros((1, 1, 16, 12), dtype=torch.bfloat16, device=cuda_device)
@@ -238,6 +263,103 @@ def test_weights_out_kernel_matches_plain(cuda_device, g, dh, nb, cap):
             g if seen.reshape(b * hkv, p)[r].any() else 0.0, rel=1e-4)
 
 
+# -- decode, the table split across a cluster ---------------------------------
+
+
+def _split_case(device, g, dh, nb, seed, front_only):
+    """Both layouts of the same logical contents, with rows of n = 0, n = 1
+    and n = nb (every block listed) and random n elsewhere; blocks listed in
+    shuffled order, table tails past n naming other blocks, NaN in every
+    unlisted block and unlisted page.  ``front_only``: every slot of a
+    listed entry past the first split's range (``[0, n // S)``, at least one
+    entry) is hidden, so the later splits see no slot.  Returns (fixed,
+    shared) operands for ``ops.decode_rows``."""
+    gen = torch.Generator().manual_seed(seed)
+    bh, splits = 8, ops.splits(nb)
+    counts = [0, 1, nb] + torch.randint(2, nb, (bh - 3,), generator=gen).tolist()
+    valid = torch.rand((bh, nb * BP), generator=gen) < 0.6
+    valid.reshape(bh, nb, BP)[..., 0] = True           # every block holds a slot
+    tbl = torch.stack([torch.randperm(nb, generator=gen) for _ in range(bh)])
+    n = torch.tensor(counts, dtype=torch.int32)
+    listed = torch.zeros((bh, nb), dtype=torch.bool)
+    for r in range(bh):
+        listed[r, tbl[r, :counts[r]]] = True
+        if front_only:
+            for blk in tbl[r, max(counts[r] // splits, 1):counts[r]].tolist():
+                valid[r, blk * BP:(blk + 1) * BP] = False
+    q = torch.randn((bh, g, dh), generator=gen).bfloat16()
+    k = torch.randn((bh, nb * BP, dh), generator=gen).bfloat16()
+    v = torch.randn((bh, nb * BP, dh), generator=gen).bfloat16()
+    dead = ~listed.repeat_interleave(BP, dim=1)
+    k[dead] = float("nan")
+    v[dead] = float("nan")
+    npool = 2 * bh * nb
+    pages = torch.randperm(npool, generator=gen)[:bh * nb].reshape(bh, nb)
+    pk = torch.full((npool, BP, dh), float("nan")).bfloat16()
+    pv = pk.clone()
+    pk[pages.flatten()] = k.reshape(bh * nb, BP, dh)
+    pv[pages.flatten()] = v.reshape(bh * nb, BP, dh)
+    valid_tbl = valid.reshape(bh, nb, BP).gather(
+        1, tbl[..., None].expand(-1, -1, BP)).reshape(bh, -1)
+
+    def dev(*xs):
+        return [x.to(device) for x in xs]
+
+    return (dev(q, k, v, valid, tbl.int(), n),
+            dev(q, pk.reshape(1, -1, dh), pv.reshape(1, -1, dh), valid_tbl,
+                pages.gather(1, tbl).int(), n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb,front_only", [(160, False), (22, True)],
+                         ids=["long table", "live entries in the first split"])
+def test_decode_splits_match_plain(cuda_device, nb, front_only):
+    """The table split over a cluster, in both layouts and in weights-out
+    mode: a table of 160 entries (several chunks in every split), or live
+    slots only in each row's first split; rows with n = 0, 1 and NB_tbl.
+    Against the unsplit plain version and against the plain version of the
+    split (``dms_decode_plain_split`` at the kernel's split count); the
+    shared pool bitwise equal to the fixed arenas; a second launch bitwise
+    equal to the first."""
+    from repro_torch.kernels.dms_decode.ref import (dms_decode_plain_split,
+                                                    dms_decode_plain_weights)
+    g, dh = 6, 128
+    fixed, shared = _split_case(cuda_device, g, dh, nb, seed=nb, front_only=front_only)
+    splits = ops.splits(nb)
+    assert splits > 1
+    n = fixed[5]
+    listed = torch.arange(nb, device=cuda_device)[None, :] < n[:, None]
+    before = (ops.launches, ops.shared_launches, ops.weights_launches)
+    runs = []
+    for _ in range(2):
+        runs.append([ops.decode_rows(*fixed, BP), ops.decode_rows(
+            *shared, BP, shared_kv=True)]
+            + [ops.decode_rows(*xs, BP, shared_kv=sk, need_weights=True)
+               for xs, sk in ((fixed, False), (shared, True))])
+    torch.cuda.synchronize()
+    assert (ops.launches, ops.shared_launches, ops.weights_launches) == (
+        before[0] + 2, before[1] + 2, before[2] + 4)
+    out_f, out_s, got_f, got_s = runs[0]
+
+    def raw(got):            # entries >= n of w_blk and m_blk are unwritten
+        return [got[0], got[1][listed], got[2][listed], got[3], got[4]]
+
+    for a, b in zip([out_f, out_s] + raw(got_f) + raw(got_s),
+                    [runs[1][0], runs[1][1]] + raw(runs[1][2]) + raw(runs[1][3])):
+        assert torch.equal(a, b)                          # a second launch
+    assert torch.equal(out_f, out_s) and torch.equal(out_f, got_f[0])
+    for a, b in zip(raw(got_f), raw(got_s)):
+        assert torch.equal(a, b)                          # both layouts
+    assert torch.isfinite(out_f.float()).all() and not out_f[0].float().any()
+    want = dms_decode_plain_weights(*fixed, BP)
+    want_split = dms_decode_plain_split(*fixed, BP, splits=splits,
+                                        need_weights=True)
+    for ref in (want, want_split):
+        torch.testing.assert_close(out_f.float(), ref[0].float(), **BF16)
+        for a, b in zip(raw(got_f)[1:], raw(ref)[1:]):
+            torch.testing.assert_close(a, b, **F32)
+
+
 # -- flash attention: fwd, dq, dkv -------------------------------------------
 
 
@@ -274,13 +396,15 @@ def _flash_operands(device, dtype, b=2, t=200, hq=6, hkv=2, dh=64, delay=32,
     (torch.bfloat16, {}), (torch.float32, {}),
     (torch.float32, dict(window=48, cap=30.0)),
     (torch.float32, dict(skip=True)), (torch.float32, dict(t=33, dh=8)),
-    # bf16 runs fwd and dkv on the tensor cores: each case moves the
+    # bf16 runs fwd, dq and dkv on the tensor cores: each case moves the
     # accumulator fragments' (row, key) coordinates or a tile edge
     (torch.bfloat16, dict(window=48, cap=30.0)),
     (torch.bfloat16, dict(skip=True, t=300)),
     (torch.bfloat16, dict(t=1000, dh=128, delay=256)),
     (torch.bfloat16, dict(t=33, dh=8, delay=4)),       # Dh padded to 64
     (torch.bfloat16, dict(hq=8, hkv=2, dh=128)),       # G = 4
+    # phi3-mini's shape: Dh 96 padded to 128, G = 1 (dkv in clusters of 1)
+    (torch.bfloat16, dict(hq=4, hkv=4, dh=96)),
 ])
 def test_flash_kernels_match_plain(cuda_device, dtype, kw):
     """fwd, dq and dkv against their plain versions: each output within
@@ -339,8 +463,9 @@ def test_flash_autograd_matches_dense_oracle(cuda_device):
 
 @pytest.mark.cuda
 def test_flash_bf16_kernels_are_deterministic(cuda_device):
-    """The tensor-core fwd and dkv use no atomics (dkv sums its cluster's
-    partials in rank order): two launches give the same bits."""
+    """The tensor-core fwd, dq and dkv use no atomics (dq writes each row
+    from its own block, dkv sums its cluster's partials in rank order): two
+    launches give the same bits."""
     from repro_torch.kernels.dms_attention import ops as fops
     qf, kf, vf, ls, hr, cfg, do = _flash_operands(
         cuda_device, torch.bfloat16, t=1000, dh=128, delay=256)
@@ -348,8 +473,9 @@ def test_flash_bf16_kernels_are_deterministic(cuda_device):
     for _ in range(2):
         out, lse = fops.flash_fwd(qf, kf, vf, ls, hr, cfg)
         delta = (do.float() * out.float()).sum(-1)
-        runs.append((out, lse) + fops.flash_dkv(qf, kf, vf, ls, do, lse,
-                                                delta, hr, cfg))
+        runs.append((out, lse, fops.flash_dq(qf, kf, vf, ls, do, lse, delta,
+                                             hr, cfg))
+                    + fops.flash_dkv(qf, kf, vf, ls, do, lse, delta, hr, cfg))
     torch.cuda.synchronize()
     for a, b in zip(*runs):
         assert torch.equal(a, b)
@@ -363,6 +489,8 @@ def test_flash_bf16_rejects_head_dim_above_128(cuda_device):
     lse = delta = torch.zeros(qf.shape[:2], device=cuda_device)
     with pytest.raises(ValueError, match="head_dim"):
         fops.flash_fwd(qf, kf, vf, ls, hr, cfg)
+    with pytest.raises(ValueError, match="head_dim"):
+        fops.flash_dq(qf, kf, vf, ls, do, lse, delta, hr, cfg)
     with pytest.raises(ValueError, match="head_dim"):
         fops.flash_dkv(qf, kf, vf, ls, do, lse, delta, hr, cfg)
 

@@ -66,9 +66,10 @@ def test_smoke_pool_cases_shared_equals_fixed(name):
     from repro_torch.kernels.dms_decode.ref import (dms_decode_plain,
                                                     dms_decode_plain_shared)
     gen = torch.Generator().manual_seed(1)
-    case = chip_smoke.make_pool_case(torch, gen, bh=8, g=6, dh=128, nb=26,
-                                     bp=16, device="cpu",
-                                     **chip_smoke.POOL_CASES[name])
+    kw = dict(chip_smoke.POOL_CASES[name])
+    case = chip_smoke.make_pool_case(torch, gen, bh=8, g=6, dh=128,
+                                     nb=kw.pop("nb", 26), bp=16, device="cpu",
+                                     **kw)
     out = dms_decode_plain_shared(*case["shared"], 16)
     assert torch.isfinite(out.float()).all()
     assert torch.equal(out, dms_decode_plain(*case["fixed"], 16))

@@ -13,6 +13,9 @@
     built over a random trace — fp32 and bf16, fixed and paged.
 (c) Window layers: slots older than the window get exactly zero weight.
 (d) The wrapper never trusts what the kernel leaves unwritten.
+(e) The kernel's split of a row's table over a cluster, in its plain
+    version (``ref.dms_decode_plain_split``), against the unsplit Pallas
+    kernel in interpret mode.
 
 Tolerances are the reference suite's (``tests/test_block_tables.py``):
 2e-5 in fp32 and 2e-2 in bf16; weights on invisible slots are exactly 0.
@@ -20,6 +23,9 @@ The CUDA kernel itself is held against the plain version in
 ``tests/test_torch_cuda.py`` (card only).
 """
 import dataclasses
+import functools
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -36,6 +42,9 @@ from repro_torch.core import block_pool as tbp
 from repro_torch.core.policy import AttendSpec
 from repro_torch.kernels.dms_decode import ops as tops
 from repro_torch.models.attention import _masked_decode
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from chip_smoke import WEIGHTS_TOL  # noqa: E402  the kernel checks' tolerance
 
 torch.set_num_threads(1)
 
@@ -149,6 +158,47 @@ def test_raw_outputs_match_pallas_interpret(shared, dtype, cap):
     # m_blk is a running max in table order
     for row in range(bh):
         assert (np.diff(mb_t[row, :n[row]], axis=0) >= 0).all()
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas_raw(shared):
+    """Operands with several table entries a row, row 0 with n = 0, and the
+    Pallas kernel's weights-out outputs on them (interpret mode, fp32)."""
+    ops_np = _raw_operands(11 + shared, shared)
+    q, k, v, valid, tbl, n = ops_np
+    cfg = DecodeConfig(orig_dh=q.shape[2], g=q.shape[1], block_p=BP,
+                       logit_cap=None, interpret=True, shared_kv=shared,
+                       weights_out=True)
+    got = decode_fwd(*(jnp.asarray(x) for x in ops_np), cfg)
+    return ops_np, tuple(np.asarray(x, np.float32) for x in got)
+
+
+@pytest.mark.parametrize("shared", [False, True], ids=["fixed", "shared"])
+@pytest.mark.parametrize("splits", [1, 2, 3, 8])
+def test_split_arithmetic_matches_pallas_interpret(shared, splits):
+    """``dms_decode_plain_split``, the kernel's arithmetic when it splits a
+    row's table over a cluster (contiguous ranges of the n listed entries,
+    a log-sum-exp combine, the weights-out entries rewritten to the row's
+    running max in table order), against the unsplit Pallas
+    ``decode_fwd(weights_out=True)`` in interpret mode: the output and
+    every raw output within chip_smoke.py's WEIGHTS_TOL.  At 3 and 8 splits
+    some ranges are empty (rows list at most 6 entries; row 0 none)."""
+    from repro_torch.kernels.dms_decode.ref import dms_decode_plain_split
+    (q, k, v, valid, tbl, n), want = _pallas_raw(shared)
+    args = [_t(x) for x in (q, k, v, valid, tbl, n)]
+    got = [_f(x) for x in dms_decode_plain_split(
+        *args, BP, shared_kv=shared, splits=splits, need_weights=True)]
+    out = _f(dms_decode_plain_split(*args, BP, shared_kv=shared,
+                                    splits=splits))
+    np.testing.assert_array_equal(out, got[0])
+    np.testing.assert_allclose(got[0], want[0], **WEIGHTS_TOL)
+    for row in range(q.shape[0]):
+        for i in (1, 2):
+            np.testing.assert_allclose(got[i][row, :n[row]],
+                                       want[i][row, :n[row]], **WEIGHTS_TOL)
+    np.testing.assert_allclose(got[3], want[3], **WEIGHTS_TOL)
+    np.testing.assert_allclose(got[4], want[4], **WEIGHTS_TOL)
+    assert n[0] == 0 and not got[1][0].any() and (got[3][0] == -1e30).all()
 
 
 def test_raw_outputs_same_in_both_layouts():
