@@ -57,16 +57,28 @@ Phases (any failure raises, so the exit code is non-zero):
               oversubscribe a pool of 1.5x one lane's worst case
               (``oversub`` 2, preemption): all ``ok``, preemptions equal
               resumes and are > 0, the pool never exhausted, tokens equal.
-5b. weights — the same model at its full depth of 28 layers serving
+5b. weights — the same model at the same depth serving
               requests 2 and 3 of the trace with the weight-driven
               policies at CR 8 (budget 72, 80-slot arenas):
               TOVA on fixed arenas and on the pool, H2O and Keyformer on
-              fixed arenas, through the weights-out kernel (28 launches per
+              fixed arenas, through the weights-out kernel (14 launches per
               decode step): all ok, live tokens within the budget, the
               pool's tokens equal to the fixed arenas'.  A teacher-forced
               trace per policy holds the kernel path's logits against the
               reference path's and every weights-out call against the
               plain version; then a profiled step of each beside dms.
+5c. hyperscale — the same model at the same depth: (a) the paper's
+              comparison through ``evaluate_hyperscale`` at temperature 0.7
+              on one 288-token needle problem: ``vanilla`` at L-W-CR
+              320-1-1, ``dms`` at 320-4-8, ``dms_masked`` at 320-4, each
+              beside ``analytic_budget``, with the modeled K/V bytes a
+              decode step; (b) request 3 greedy on ``vanilla`` fixed, paged
+              and at ``block_p`` 0, ``window`` (a recycling ring) and
+              ``dms_masked`` paged, the pool's vanilla tokens equal to the
+              fixed arenas'; (c) the kernel path's logits against the
+              reference path's, teacher-forced, for ``vanilla``, ``window``
+              and ``dms_masked`` (delay 16: holed tables); (d)
+              ``threefry.categorical`` on the card against the CPU.
 6. train    — qwen-r1-1.5b at full width, fp32 weights from seed 0, DMS
               retrofit (one phase-1 step, three distillation steps) on the
               synthetic stream at (B 2, T 1024) through the flash kernels:
@@ -78,11 +90,15 @@ Phases (any failure raises, so the exit code is non-zero):
               call (a CUDA-graph replay after an L2 flush) beside its bound,
               its plain version's and one library call's; for the decode
               kernel also its split count and its floor (the same launch
-              with n = 0 on every row).
+              with n = 0 on every row); for the vanilla cache's prefix
+              table (every block of a P 384 arena listed) the same.
 
-The last three lines are the ``kernels`` JSON line, the card's name and
-power limit (again) and the result line ``{"ok": true, "device":
-{...}}``.  Imports nothing of JAX.
+Phase 3 also holds the fixed-arena mode on the vanilla cache's operands
+(prefix tables at the main-path shape and at the decode shapes of
+llama32-1b, minitron-4b and phi3-mini, and ``block_p`` 0) against the plain
+version.  The last four lines are the script's total seconds, the
+``kernels`` JSON line, the card's name and power limit (again) and the
+result line ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -490,6 +506,87 @@ def phase_weights_kernels(torch, main_shape, device="cuda"):
     return main_err
 
 
+# (G, Dh) of the decode shapes the vanilla cache's prefix tables are checked
+# at: the main path's, then those of the other registered dense decoders
+PREFIX_SHAPES = {"main-path shape": (6, 128), "llama32-1b": (4, 64),
+                 "minitron-4b": (3, 128), "phi3-mini-3.8b": (1, 96)}
+PREFIX_P = 384
+
+
+def prefix_case(torch, gen, *, b, hkv, g, dh, p, block_p, device="cuda"):
+    """The vanilla cache's decode operands: a length prefix per lane (0, 1,
+    a block edge, the full arena), its mask materialised, and its table
+    from ``prefix_block_spec`` (``block_p`` 0: no table, the wrapper's
+    legacy dense mode, whose derived blocks are 128 slots).  K/V past the
+    last listed block are NaN."""
+    from repro_torch.core.kv_cache import prefix_block_spec
+    from repro_torch.kernels.dms_decode import ops
+    q = torch.randn((b, 1, hkv * g, dh), generator=gen, device=device)
+    k = torch.randn((b, hkv, p, dh), generator=gen, device=device)
+    v = torch.randn((b, hkv, p, dh), generator=gen, device=device)
+    length = torch.tensor([0, 1, 160, p] * (b // 4), dtype=torch.int32,
+                          device=device)
+    valid = (torch.arange(p, device=device)
+             < length[:, None, None]).expand(b, hkv, p).contiguous()
+    blk = block_p or min(ops.DEFAULT_BLOCK_P, p)
+    listed = -(-length // blk) * blk
+    dead = torch.arange(p, device=device) >= listed[:, None]
+    k[dead[:, None].expand(b, hkv, p)] = float("nan")
+    v[dead[:, None].expand(b, hkv, p)] = float("nan")
+    tbl, n = prefix_block_spec(length, p, block_p, hkv)
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    return (q, k, v, valid), dict(block_tbl=tbl, block_n=n,
+                                  block_p=block_p or None)
+
+
+def phase_prefix_kernels(torch, main_shape):
+    """The fixed-arena mode on the vanilla cache's operands: prefix tables
+    at the main-path shape and at the three new configs' decode shapes,
+    and the legacy dense mode (``block_p`` 0) at the main-path shape; the
+    kernel through the wrapper against the same wrapper on the CPU (the
+    plain version), finite, zero where the length is 0, bit-equal on a
+    second launch.  Returns the main prefix case's max abs error."""
+    from repro_torch.kernels.dms_decode import ops
+    gen = torch.Generator(device="cuda").manual_seed(1357)
+    bh, _, _, _, bp = main_shape
+    before = ops.launches
+    errs, launched = {}, 0
+    for name, (g, dh) in PREFIX_SHAPES.items():
+        for block_p in ((bp, 0) if name == "main-path shape" else (bp,)):
+            ops_in, kw = prefix_case(torch, gen, b=bh // 2, hkv=2, g=g, dh=dh,
+                                     p=PREFIX_P, block_p=block_p)
+            out = ops.dms_decode_attention(*ops_in, **kw)
+            again = ops.dms_decode_attention(*ops_in, **kw)
+            launched += 2
+            torch.cuda.synchronize()
+            what = f"{name} (G={g}, Dh={dh}), " + (
+                f"prefix table, block_p {block_p}" if block_p
+                else "block_p 0 (dense mode)")
+            if not torch.equal(out, again):
+                raise AssertionError(f"kernel [{what}]: a second launch gave "
+                                     "other bits")
+            want = ops.dms_decode_attention(
+                *(x.cpu() for x in ops_in),
+                **{key: x.cpu() if torch.is_tensor(x) else x
+                   for key, x in kw.items()})
+            if not bool(torch.isfinite(out.float()).all()) \
+                    or out[0].float().abs().max().item() != 0.0:
+                raise AssertionError(f"kernel [{what}]: non-finite output, or "
+                                     "a row of length 0 is not zero")
+            err = (out.float().cpu() - want.float()).abs().max().item()
+            torch.testing.assert_close(out.float().cpu(), want.float(),
+                                       **KERNEL_TOL)
+            errs[(name, block_p)] = err
+            log(f"kernel vs plain [{what}, P={PREFIX_P}, lengths 0/1/160/"
+                f"{PREFIX_P}]: max_abs_err {err:.3e} (tolerance atol "
+                f"{KERNEL_TOL['atol']}, rtol {KERNEL_TOL['rtol']}); bit-equal "
+                "on a second launch")
+    if ops.launches - before != launched:
+        raise AssertionError(f"launch counter moved {ops.launches - before}, "
+                             f"expected {launched}")
+    return errs[("main-path shape", bp)]
+
+
 def flash_case(torch, *, b, t, hq, hkv, dh, dtype, alpha="relaxed",
                delay=256, window=None, cap=None, skip=False, seed=0,
                device="cuda"):
@@ -714,9 +811,9 @@ def serving_setup(torch, device="cuda", arch_name="qwen-r1-1.5b",
             "max_len": max(len(p) + m for p, m in zip(prompts, news))}
 
 
-# phases 4 and 5 serve the first SERVE_LAYERS layers of the model: the
-# script's time limit (the eager decode step costs ~3.5 ms of host time a
-# layer); phase 5b serves all of them
+# phases 4, 5, 5b and 5c serve the first SERVE_LAYERS layers of the model:
+# the script's time limit (the eager decode step costs ~3.5 ms of host time
+# a layer)
 SERVE_LAYERS = 14
 
 
@@ -1186,6 +1283,310 @@ def phase_weights_serve(torch, setup, fixed, reqs=(2, 3), short=24,
                         for (k, p), r in runs.items()}}
 
 
+def listed_blocks_counter(torch, device):
+    """``ops.decode_rows`` that also adds each call's listed blocks
+    (``sum(n)``) to a device counter, with no host read; returns (the
+    wrapper, the counter, the real function)."""
+    from repro_torch.kernels.dms_decode import ops
+    real = ops.decode_rows
+    listed = torch.zeros((), dtype=torch.int64, device=device)
+
+    def decode_rows(qf, kf, vf, valf, tblf, nf, *args, **kw):
+        listed.add_(nf.sum())
+        return real(qf, kf, vf, valf, tblf, nf, *args, **kw)
+    return decode_rows, listed, real
+
+
+def phase_hyperscale_eval(torch, setup, *, prompt_len=288, max_len=320):
+    """(a) The paper's comparison through ``evaluate_hyperscale`` at
+    temperature 0.7: one needle problem (``make_eval_set``), ``vanilla`` at
+    L-W-CR 320-1-1, ``dms`` at 320-4-8 and ``dms_masked`` at 320-4, seed 0.
+    Every request ends ok, the fixed-arena kernel launches once per layer
+    per decode step (no other mode), the W = 4 chains are not all equal
+    (sampling happened) and ``dms`` holds fewer peak tokens a chain than
+    ``vanilla``.  Accuracy, meters, ``analytic_budget`` and the modeled
+    K/V bytes a decode step are printed."""
+    from repro_torch.core.config import KVPolicyConfig
+    from repro_torch.core.hyperscale import ScalingConfig, analytic_budget
+    from repro_torch.data import tasks
+    from repro_torch.kernels.dms_decode import ops
+    from repro_torch.serving.engine import Engine, evaluate_hyperscale
+    arch, params, device = setup["arch"], setup["params"], setup["device"]
+    bp = setup.get("block_p", 16)
+    cuda = device == "cuda"
+    task = tasks.TaskConfig(kind="needle", vocab_size=64,
+                            prompt_len=prompt_len, seed=0)
+    prompts, answers = tasks.make_eval_set(task, 1)
+    runs = {"vanilla": (dict(kind="vanilla"), 1, 1.0, 0),
+            "dms": (dict(kind="dms", cr=8.0), 4, 8.0, arch.dms.window),
+            "dms_masked": (dict(kind="dms_masked"), 4, 8.0, arch.dms.window)}
+    counting, listed, real = listed_blocks_counter(torch, device)
+    out = {}
+    ops.decode_rows = counting
+    try:
+        for name, (kw, width, cr, window) in runs.items():
+            engine = Engine(arch, params, KVPolicyConfig(block_p=bp, **kw),
+                            use_kernel=True, temperature=0.7, device=device)
+            seen = []
+
+            def record(prompt, cfg, seed=0, _real=engine.hyperscale_generate):
+                seen.append(_real(prompt, cfg, seed=seed))
+                return seen[-1]
+            engine.hyperscale_generate = record
+            cfg = ScalingConfig(max_len, width, cr)
+            engine.chunk_fn.steps = 0
+            listed.zero_()
+            ops.launches = ops.shared_launches = ops.weights_launches = 0
+            t0 = time.perf_counter()
+            res = evaluate_hyperscale(engine, prompts, answers, cfg, seed=0)
+            del engine.hyperscale_generate     # the hook holds the engine
+            if cuda:
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            steps, launches = engine.chunk_fn.steps, ops.launches
+            if ops.shared_launches or ops.weights_launches \
+                    or launches != (arch.num_layers * steps if cuda else 0):
+                raise AssertionError(
+                    f"{name}: fixed-arena launches {launches}, shared "
+                    f"{ops.shared_launches}, weights-out "
+                    f"{ops.weights_launches}, for {steps} decode steps")
+            new = max_len - prompt_len
+            for r in seen:
+                req = r.requests[0]
+                if req.status != "ok" or not (req.lengths == new).all():
+                    raise AssertionError(f"{name}: status {req.status}, "
+                                         f"lengths {req.lengths}")
+                if width > 1 and len({tuple(c) for c in r.tokens.tolist()}) < 2:
+                    raise AssertionError(f"{name}: the {width} chains are "
+                                         "identical: no sampling")
+            reads, peak = analytic_budget(max_len, width, cr, arch.num_layers,
+                                          window)
+            kv_bytes = ops.modeled_hbm_bytes(listed, bp, arch.attn.head_dim,
+                                             torch.bfloat16, torch.bfloat16)
+            out[name] = dict(res=res, width=width, steps=steps,
+                             launches=launches,
+                             bytes_step=kv_bytes / max(steps, 1),
+                             tokens=seen[0].tokens)
+            log(f"hyperscale (a): {name} at {max_len}-{width}-{cr:g} on one "
+                f"needle problem (prompt {prompt_len}), temperature 0.7, seed "
+                f"0: all ok; accuracy {res['accuracy']} (random weights: "
+                f"reported, not judged); kv_reads {res['kv_reads']:.1f} "
+                f"(analytic {reads:.1f}), peak_tokens {res['peak_tokens']:.1f}"
+                f" (analytic {peak:.1f}), peak_bytes {res['peak_bytes']:.0f};"
+                f" {steps} decode steps in {wall:.2f} s = "
+                f"{1e3 * wall / max(steps, 1):.2f} ms/step; fixed-arena "
+                f"launches {launches} = {arch.num_layers} x {steps}; modeled "
+                f"K/V bytes a decode step {kv_bytes / max(steps, 1):.0f} "
+                f"(listed blocks {int(listed.item())})")
+    finally:
+        ops.decode_rows = real
+    per_chain = {k: v["res"]["peak_tokens"] / v["width"] for k, v in out.items()}
+    if not per_chain["dms"] < per_chain["vanilla"]:
+        raise AssertionError(f"dms peak tokens a chain {per_chain['dms']} not "
+                             f"below vanilla's {per_chain['vanilla']}")
+    same = float((out["dms"]["tokens"] == out["dms_masked"]["tokens"]).mean())
+    b_dms, b_mask, b_van = (out[k]["bytes_step"]
+                            for k in ("dms", "dms_masked", "vanilla"))
+    log(f"hyperscale (a): peak tokens a chain: vanilla {per_chain['vanilla']:.1f},"
+        f" dms {per_chain['dms']:.1f}, dms_masked "
+        f"{per_chain['dms_masked']:.1f}; modeled K/V bytes a decode step: dms "
+        f"{b_dms:.0f}, dms_masked {b_mask:.0f} ({b_mask / max(b_dms, 1):.4f}x"
+        f" dms; both four chains after one prefill), vanilla {b_van:.0f} (one "
+        f"chain); dms and dms_masked tokens equal at {same:.4f} of positions "
+        "(reported only: their bf16 sums run in another slot order)")
+    return out
+
+
+def phase_layouts(torch, setup, *, uid=3, window_budget=128):
+    """(b) Request ``uid`` of phase 4's trace, greedy, on five layouts:
+    ``vanilla`` on fixed arenas, on the pool and with ``block_p`` 0 (the
+    kernel's legacy dense mode), ``window`` with a ring of ``window_budget
+    + 1`` slots (it recycles past it) and ``dms_masked`` on the pool.  Each
+    ok with its full token count; fixed layouts launch the fixed-arena
+    kernel and paged ones the shared-pool kernel, once per layer per
+    decode step; the pool's vanilla tokens equal the fixed arenas'."""
+    from repro_torch.core.config import KVPolicyConfig
+    from repro_torch.kernels.dms_decode import ops
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.scheduler import Request
+    arch, params, device = setup["arch"], setup["params"], setup["device"]
+    bp = setup.get("block_p", 16)
+    cuda = device == "cuda"
+    prompt, new = setup["prompts"][uid], setup["news"][uid]
+    layouts = {
+        "vanilla fixed": dict(kind="vanilla", block_p=bp),
+        "vanilla paged": dict(kind="vanilla", block_p=bp, paged=True),
+        "vanilla block_p 0": dict(kind="vanilla", block_p=0),
+        f"window budget {window_budget}": dict(kind="window",
+                                               budget=window_budget,
+                                               block_p=bp),
+        "dms_masked paged": dict(kind="dms_masked", block_p=bp, paged=True),
+    }
+    tokens, launched = {}, {}
+    for name, kw in layouts.items():
+        engine = Engine(arch, params, KVPolicyConfig(**kw), use_kernel=True,
+                        device=device)
+        engine.chunk_fn.steps = 0
+        ops.launches = ops.shared_launches = ops.weights_launches = 0
+        t0 = time.perf_counter()
+        sched = engine.scheduler(num_lanes=1, max_len=len(prompt) + new)
+        sched.submit(Request(uid=uid, prompt=prompt, max_new=new))
+        res = sched.run()[0]
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps = engine.chunk_fn.steps
+        want = arch.num_layers * steps if cuda else 0
+        paged = kw.get("paged", False)
+        got = (ops.launches, ops.shared_launches, ops.weights_launches)
+        if got != ((0, want, 0) if paged else (want, 0, 0)):
+            raise AssertionError(f"layout {name}: launches (fixed, shared, "
+                                 f"weights-out) {got} for {steps} steps")
+        if res.status != "ok" or int(res.lengths[0]) != new:
+            raise AssertionError(f"layout {name}: status {res.status}, "
+                                 f"lengths {res.lengths}")
+        tokens[name] = res.tokens
+        launched[name] = got
+        log(f"layouts (b): {name}, request {uid} (prompt {len(prompt)}, {new} "
+            f"new), greedy: ok; {steps} decode steps in {wall:.2f} s = "
+            f"{1e3 * wall / steps:.2f} ms/step; launches (fixed, shared, "
+            f"weights-out) {got}; peak_tokens {res.meter.peak_tokens:.1f}, "
+            f"kv_reads {res.meter.kv_reads:.1f}")
+    if not (tokens["vanilla paged"] == tokens["vanilla fixed"]).all():
+        raise AssertionError("vanilla: the pool's tokens differ from the "
+                             "fixed arenas'")
+    same = float((tokens["vanilla block_p 0"] == tokens["vanilla fixed"]).mean())
+    log(f"layouts (b): vanilla paged tokens equal to fixed; block_p 0 tokens "
+        f"equal to fixed at {same:.4f} of positions (reported only: the "
+        "dense mode's 128-slot blocks sum in another order)")
+    return launched
+
+
+def phase_policy_paths(torch, setup, *, steps=48, window_budget=32):
+    """(c) Kernel path against reference path, teacher-forced: each step
+    runs both paths from the same cache (a copy), so the logits differ only
+    by this step's attention, for ``vanilla`` fixed and paged, ``window``
+    (a ring of ``window_budget + 1`` slots, so that it recycles) and
+    ``dms_masked`` fixed and paged with the DMS delay window cut to 16 (so
+    that it evicts within the trace and the kernel reads holed tables).
+    Launches here are not the main path's."""
+    from repro_torch.core.config import KVPolicyConfig
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models import transformer as tfm
+    arch, params, device = setup["arch"], setup["params"], setup["device"]
+    bp = setup.get("block_p", 16)
+    arch16 = dataclasses.replace(arch, dms=dataclasses.replace(arch.dms,
+                                                               window=16))
+    traces = {
+        "vanilla fixed": (arch, dict(kind="vanilla", block_p=bp)),
+        "vanilla paged": (arch, dict(kind="vanilla", block_p=bp, paged=True)),
+        "window": (arch, dict(kind="window", budget=window_budget,
+                              block_p=bp)),
+        "dms_masked fixed (delay 16)": (arch16, dict(kind="dms_masked",
+                                                     block_p=bp)),
+        "dms_masked paged (delay 16)": (arch16, dict(kind="dms_masked",
+                                                     block_p=bp, paged=True)),
+    }
+    rng = torch.Generator().manual_seed(10)
+    tokens = torch.randint(3, arch.vocab_size, (2, steps), generator=rng)
+    live = torch.arange(arch.padded_vocab, device=device) < arch.vocab_size
+    for name, (a, kw) in traces.items():
+        state = tfm.init_decode_state(a, 2, steps + 16, KVPolicyConfig(**kw),
+                                      device=device)
+        gap = scale = 0.0
+        agree = 0
+        for t in range(steps):
+            tok = tokens[:, t:t + 1].to(device)
+            ref_state = tree_map(torch.clone, state)
+            lk, _, _ = tfm.decode_step(params, tok, state, a, t,
+                                       use_kernel=True)
+            lr, _, _ = tfm.decode_step(params, tok, ref_state, a, t,
+                                       use_kernel=False)
+            if not bool(torch.isfinite(lk[:, live]).all()):
+                raise AssertionError(f"{name}: non-finite kernel-path logits "
+                                     f"at step {t}")
+            gap = max(gap, (lk - lr)[:, live].abs().max().item())
+            scale = max(scale, lr[:, live].abs().max().item())
+            agree += int((lk[:, live].argmax(-1) == lr[:, live].argmax(-1)).sum())
+        cache = state["0"].cache
+        what = ""
+        if kw["kind"] == "window":
+            if not bool(cache.overflowed.all()):
+                raise AssertionError(f"{name}: the ring never recycled")
+            what = "; the ring recycled in every layer and lane"
+        if kw["kind"] == "dms_masked":
+            # a holed block: listed (a retained slot) but missing an evicted one
+            nb = cache.blocks.count.shape[-1]
+            written = torch.clamp(steps - bp * torch.arange(nb, device=device),
+                                  0, bp)
+            count = cache.blocks.count
+            holed = int(((count > 0) & (count < written)).sum())
+            if not holed:
+                raise AssertionError(f"{name}: no listed block has a hole")
+            what = (f"; {holed} listed blocks hold evicted slots (summed over "
+                    "layers, lanes and heads)")
+        log(f"paths (c): {name} kernel vs reference path over {steps} "
+            f"teacher-forced steps from the same cache: max abs logit diff "
+            f"{gap:.4e}, max |logit| {scale:.4e} (tolerance 0.05 x max "
+            f"|logit|); greedy tokens agree at {agree} of {2 * steps}{what}")
+        if not gap <= 0.05 * scale:
+            raise AssertionError(f"{name}: kernel-path logits disagree with "
+                                 "the reference path")
+
+
+def phase_sampling(torch, setup, seeds=8):
+    """(d) ``threefry.categorical`` over a (4, padded vocab) fp32 logits
+    tensor on the device against the CPU, for ``seeds`` seeds: the
+    Threefry bits equal, the drawn indices equal; every Gumbel value that
+    differs by more than 1 ulp is counted and printed (each log may round
+    an ulp apart, and the outer log amplifies the inner one's)."""
+    import numpy as np
+    from repro_torch.core import threefry
+    from repro_torch.serving.scheduler import sample
+    arch, device = setup["arch"], setup["device"]
+    gen = torch.Generator().manual_seed(11)
+    logits = torch.randn((4, arch.padded_vocab), generator=gen) * 4.0
+    logits[:, arch.vocab_size:] = -1e30
+    off, n_off = [], 0
+    for seed in range(seeds):
+        _, sub_c = threefry.split(threefry.prng_key(seed))
+        _, sub_d = threefry.split(threefry.prng_key(seed, device=device))
+        if not torch.equal(threefry.random_bits(sub_d, logits.shape).cpu(),
+                           threefry.random_bits(sub_c, logits.shape)):
+            raise AssertionError(f"seed {seed}: Threefry bits differ")
+        g_c = threefry.gumbel(sub_c, logits.shape)
+        g_d = threefry.gumbel(sub_d, logits.shape).cpu()
+        ulp = torch.from_numpy(np.spacing(g_c.abs().numpy()))
+        beyond = torch.nonzero((g_d - g_c).abs() > ulp)
+        n_off += len(beyond)
+        off += [(seed, *map(int, ix), float(g_c[tuple(ix)]),
+                 float(g_d[tuple(ix)])) for ix in beyond[:2]]
+        got = sample(sub_d, logits.to(device), 0.7).cpu()
+        want = sample(sub_c, logits, 0.7)
+        if not torch.equal(got, want):
+            raise AssertionError(f"seed {seed}: drawn indices {got.tolist()} "
+                                 f"on {device}, {want.tolist()} on the CPU")
+    log(f"sampling (d): categorical over (4, {arch.padded_vocab}) fp32 logits "
+        f"at temperature 0.7 on {device} against the CPU, {seeds} seeds: "
+        f"Threefry bits equal, drawn indices equal; Gumbel values more than "
+        f"1 ulp apart: {n_off} of {seeds * logits.numel()} (seed, row, col, "
+        f"cpu, device; the first 2 a seed): {off}")
+
+
+def phase_hyperscale_serve(torch, setup, **kw):
+    """Phase 5c: (a) the hyper-scaling evaluation, (b) the layouts, (c) the
+    kernel path against the reference path, (d) sampling on the device.
+    Returns the prefix-table launches of the main path's runs: the
+    fixed-arena launches of ``vanilla`` in (a) and on fixed arenas in
+    (b)."""
+    evals = phase_hyperscale_eval(torch, setup, **kw.get("eval", {}))
+    layouts = phase_layouts(torch, setup, **kw.get("layouts", {}))
+    phase_policy_paths(torch, setup, **kw.get("paths", {}))
+    phase_sampling(torch, setup)
+    return {"prefix": evals["vanilla"]["launches"]
+            + layouts["vanilla fixed"][0]}
+
+
 def device_events(torch, prof):
     """The profiler's device-side entries (kernels, copies, memsets).  A
     host op's own entry carries the device time of the kernels it launched
@@ -1573,7 +1974,8 @@ def phase_weights_timing(torch, shape, launches, err):
 
 def phase_timing(torch, main_shape, launches, errs):
     """The decode kernel in both modes at the main-path shape, after the
-    timing method's own floor."""
+    timing method's own floor, then on the vanilla cache's prefix table
+    (every block of a P 384 arena listed)."""
     log_method_floor(torch)
     bh, g, dh, p, bp = main_shape
     gen = torch.Generator(device="cuda").manual_seed(99)
@@ -1589,7 +1991,18 @@ def phase_timing(torch, main_shape, launches, errs):
     shared = decode_entry(torch, "dms_decode_shared_kv", "shared",
                           {"kernel": case["shared"], "dense": (kd, vd, vald)},
                           main_shape, launches["shared"], errs["shared"])
-    return [fixed, shared]
+    nb = PREFIX_P // bp
+    pk, pv = (torch.randn((bh, PREFIX_P, dh), generator=gen, device="cuda")
+              .to(torch.bfloat16) for _ in range(2))
+    full = torch.ones((bh, PREFIX_P), dtype=torch.bool, device="cuda")
+    tbl = torch.arange(nb, dtype=torch.int32, device="cuda").expand(bh, nb)
+    n = torch.full((bh,), nb, dtype=torch.int32, device="cuda")
+    prefix = decode_entry(torch, "dms_decode_prefix_table", "fixed",
+                          {"kernel": (q, pk, pv, full, tbl.contiguous(), n),
+                           "dense": (pk, pv, full)},
+                          (bh, g, dh, PREFIX_P, bp), launches["prefix"],
+                          errs["prefix"])
+    return [fixed, shared, prefix]
 
 
 def sdpa_times(torch, qf, kf, vf, ls, do, cfg, *, b):
@@ -1697,6 +2110,7 @@ def phase_flash_timing(torch, launches, errs):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     card = phase_device(torch)
     sys.path.insert(0, str(SRC))
@@ -1715,7 +2129,8 @@ def main() -> int:
     weights_shape = main_shape[:3] + ((int(max_len / 8.0) + bp) // bp * bp, bp)
     errs = {"fixed": phase_kernels(torch, main_shape),
             "shared": phase_pool_kernels(torch, main_shape),
-            "weights": phase_weights_kernels(torch, weights_shape)}
+            "weights": phase_weights_kernels(torch, weights_shape),
+            "prefix": phase_prefix_kernels(torch, main_shape)}
     flash_errs = phase_flash_kernels(torch)
     phase_flash_grads(torch)
     served = phase_serve(torch, shallow)
@@ -1725,19 +2140,21 @@ def main() -> int:
         raise AssertionError(f"main-path arena {served['arena']} is not the "
                              f"checked shape {want}")
     paged = phase_paged_serve(torch, shallow, served)
-    del shallow
-    weighted = phase_weights_serve(torch, setup, served)
+    weighted = phase_weights_serve(torch, shallow, served)
     if weighted["arena"] != weights_shape[3]:
         raise AssertionError(f"weights-phase arena {weighted['arena']} is not "
                              f"the checked {weights_shape[3]} slots")
-    del setup["params"]
+    scaled = phase_hyperscale_serve(torch, shallow)
+    del shallow, setup["params"]
     trained = phase_train(torch)
     kernels = phase_timing(torch, main_shape, {"fixed": served["launches"],
-                                               "shared": paged["launches"]},
+                                               "shared": paged["launches"],
+                                               "prefix": scaled["prefix"]},
                            errs)
     kernels += phase_weights_timing(torch, weights_shape, weighted,
                                     errs["weights"])
     kernels += phase_flash_timing(torch, trained["launches"], flash_errs)
+    log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)                   # again, beside the numbers at the output's end
     print(json.dumps({"ok": True, "device": {

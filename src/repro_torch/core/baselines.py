@@ -34,7 +34,7 @@ import torch
 from repro_torch.core import block_pool
 from repro_torch.core.block_pool import BlockPool
 from repro_torch.core.kv_cache import (INVALID_POS, BlockTable, _round_up,
-                                       commit, event_mask, init_paged,
+                                       commit, event_mask, init_arena,
                                        write_rows)
 
 _I32 = torch.int32
@@ -46,15 +46,8 @@ def _arena(batch, kv_heads, slots, head_dim, dtype, block_p, paged,
     length, blocks, pool, phys) for ``slots`` logical slots padded to a
     ``block_p`` multiple."""
     p = _round_up(slots, block_p)
-    pool = phys = None
-    if paged:
-        pool, phys, z = init_paged(batch, kv_heads, p, head_dim, block_p,
-                                   dtype, pool_blocks, device=device)
-        k, v = z, z
-    else:
-        k = torch.zeros((batch, kv_heads, p, head_dim), dtype=dtype,
-                        device=device)
-        v = torch.zeros_like(k)
+    k, v, pool, phys = init_arena(batch, kv_heads, p, head_dim, dtype,
+                                  block_p, paged, pool_blocks, device)
     return dict(
         k=k, v=v,
         pos=torch.full((batch, kv_heads, p), INVALID_POS, dtype=_I32,

@@ -1,8 +1,20 @@
-"""KV caches of the port: the slot-compacted DMS cache and its block table.
+"""KV caches of the port: vanilla, masked DMS and slot-compacted DMS, and
+the block table.
 
-:class:`SlotDMSCache` is the paper's production cache (§3.3): ``P << S``
-slots per (lane, kv head), a free-list ring allocator, and a pending ring
-that executes each eviction decision ``w`` steps late (delayed eviction).
+* :class:`VanillaCache` — dense append-only arena of the full length; its
+  live slots are a length prefix, so its block table is derived
+  (:func:`prefix_block_spec`), not stored.
+* :class:`MaskedDMSCache` — the full-length arena with a ``retained``
+  bitmap: the reference's correctness oracle for DMS.  An evicted slot
+  stays in its block, which leaves the table only when its last retained
+  slot goes.
+* :class:`SlotDMSCache` — the paper's production cache (§3.3): ``P << S``
+  slots per (lane, kv head), a free-list ring allocator, and a pending
+  ring that executes each eviction decision ``w`` steps late (delayed
+  eviction).  With ``dms_active=False`` it is a plain ring buffer whose
+  overflow recycling does the windowing (``window``, vanilla's local
+  layers).
+
 Keys are stored post-RoPE.  :class:`BlockTable` is the compacted list of
 live ``block_p``-sized blocks the flash-decode kernel loops over.
 
@@ -10,13 +22,15 @@ Layout as in the reference ``repro.core.kv_cache``: ``k, v``: (B, Hkv, P,
 Dh); per-slot metadata (B, Hkv, P); ``length`` per lane (B,).  Decode
 states stack these over layers (lane axis at position 1).
 
-Unlike the reference's pure functions, :meth:`SlotDMSCache.step` updates
-the cache **in place** (it may be a per-layer view of a stacked state):
-the new token's K/V row is written by index, one row per (lane, head), and
+Unlike the reference's pure functions, every cache's step updates the
+cache **in place** (it may be a per-layer view of a stacked state): the
+new token's K/V row is written by index, one row per (lane, head), and
 only for active lanes, so a step never reads or rewrites the whole arena.
 The metadata of every lane is advanced first, as the reference does before
 its ``lane_select``, then committed only for active lanes — the resulting
-state equals the reference's leaf for leaf.
+state equals the reference's leaf for leaf.  Each step returns the
+retained-token count every lane would hold, inactive ones included: the
+count the reference reports before it freezes them.
 
 A **paged** cache (``KVPolicyConfig(paged=True)``) keeps its K/V bytes in a
 shared :class:`~repro_torch.core.block_pool.BlockPool` addressed through a
@@ -203,6 +217,24 @@ class BlockTable:
             n=self.n - dead.to(_I32)), dead
 
 
+def prefix_block_spec(length: torch.Tensor, num_slots: int, block_p: int,
+                      kv_heads: int):
+    """The block table of prefix-shaped occupancy (vanilla): the live slots
+    of a lane are ``[0, length)``, so its table is the first ``ceil(length
+    / block_p)`` block ids.  ``length``: (..., B) with any leading axes.
+    Returns ``(tbl (..., B, H, NB) int32, n (..., B, H) int32)``, both
+    contiguous (the kernel takes no stride-0 operand), or ``(None, None)``
+    when tables are off."""
+    if not block_p:
+        return None, None
+    nb = num_slots // block_p
+    lead = tuple(length.shape) + (kv_heads,)
+    n = -(-torch.clamp(length, max=num_slots) // block_p)
+    n = n[..., None].expand(lead).to(_I32).contiguous()
+    tbl = torch.arange(nb, dtype=_I32, device=length.device)
+    return tbl.expand(lead + (nb,)).contiguous(), n
+
+
 # ---------------------------------------------------------------------------
 # Paged-pool plumbing
 # ---------------------------------------------------------------------------
@@ -222,6 +254,21 @@ def init_paged(batch: int, kv_heads: int, padded_slots: int, head_dim: int,
     zero = torch.zeros((batch, kv_heads, padded_slots, 0), dtype=dtype,
                        device=device)
     return pool, phys, zero
+
+
+def init_arena(batch: int, kv_heads: int, slots: int, head_dim: int, dtype,
+               block_p: int, paged: bool, pool_blocks: Optional[int],
+               device=None):
+    """(k, v, pool, phys) of a cache's (B, H, slots, Dh) K/V arena: zeroed
+    tensors, or with ``paged`` zero-width placeholders over a fresh pool
+    (:func:`init_paged`; pool and phys are None otherwise)."""
+    if paged:
+        pool, phys, z = init_paged(batch, kv_heads, slots, head_dim, block_p,
+                                   dtype, pool_blocks, device=device)
+        return z, z, pool, phys
+    k = torch.zeros((batch, kv_heads, slots, head_dim), dtype=dtype,
+                    device=device)
+    return k, torch.zeros_like(k), None, None
 
 
 def event_mask(active: Optional[torch.Tensor], shape,
@@ -265,6 +312,178 @@ def pack_dense(cache, pool_blocks: Optional[int] = None):
 
 
 # ---------------------------------------------------------------------------
+# Vanilla (dense, append-only) cache
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class VanillaCache:
+    """Dense append-only arena, (B, H, S, Dh) with S padded to a
+    ``block_p`` multiple.  Occupancy is the prefix ``[0, length)``, so no
+    table is stored: :meth:`block_spec` derives it.  ``block_p == 0`` is
+    the exact legacy arena (the kernel's dense mode)."""
+
+    k: torch.Tensor              # (B, H, S, Dh); zero-width when paged
+    v: torch.Tensor
+    length: torch.Tensor         # (B,) int32 — tokens written, per lane
+    block_p: int = field(default=0, metadata={"static": True})
+    pool: Optional[BlockPool] = None
+    phys: Optional[torch.Tensor] = None  # paged: (B, H, NB) int32, -1 = unmapped
+
+    @staticmethod
+    def init(batch: int, kv_heads: int, max_len: int, head_dim: int,
+             dtype=torch.bfloat16, block_p: int = 0, paged: bool = False,
+             pool_blocks: Optional[int] = None, device=None) -> "VanillaCache":
+        k, v, pool, phys = init_arena(batch, kv_heads,
+                                      _round_up(max_len, block_p), head_dim,
+                                      dtype, block_p, paged, pool_blocks,
+                                      device)
+        return VanillaCache(k=k, v=v,
+                            length=torch.zeros((batch,), dtype=_I32,
+                                               device=device),
+                            block_p=block_p, pool=pool, phys=phys)
+
+    def block_spec(self):
+        tbl, n = prefix_block_spec(self.length, self.k.shape[-2],
+                                   self.block_p, self.k.shape[-3])
+        return tbl, n, self.block_p
+
+    def append(self, k_new: torch.Tensor, v_new: torch.Tensor,
+               active: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Write ``k_new``/``v_new`` (B, H, T, Dh) at ``[length, length +
+        T)`` of each lane, in place, for active lanes only; returns the
+        (B, H) count every lane would hold after it (``length + T``).  As
+        in the reference the write start is clamped so that the T rows fit
+        the arena."""
+        b, h, t = k_new.shape[:3]
+        s = self.k.shape[2]
+        start = torch.clamp(self.length, 0, max(s - t, 0))
+        slot = start[:, None, None] + torch.arange(t, device=start.device)
+        slot = slot.expand(b, h, t)
+        if self.pool is None:
+            for i in range(t):
+                write_rows(self.k, self.v, slot[..., i], k_new[:, :, i:i + 1],
+                           v_new[:, :, i:i + 1], active)
+        else:
+            block_pool.token_write(self.pool, self.phys, slot, k_new, v_new,
+                                   event_mask(active, (b, h, t),
+                                              device=slot.device))
+        new_len = self.length + t
+        self.length.copy_(_lane_where(active, new_len, self.length))
+        return new_len[:, None].expand(b, h)
+
+    # -- views ----------------------------------------------------------------
+
+    def valid_mask(self) -> torch.Tensor:
+        """Lazy (..., B, 1, S): the consumer broadcasts it over heads."""
+        s = self.k.shape[-2]
+        return (torch.arange(s, device=self.length.device)
+                < self.length[..., None, None])
+
+    def positions(self) -> torch.Tensor:
+        s = self.k.shape[-2]
+        return torch.arange(s, dtype=_I32, device=self.length.device)[None, None]
+
+    def retained_tokens(self) -> torch.Tensor:
+        return self.length[..., None].expand(self.k.shape[:-2])
+
+
+# ---------------------------------------------------------------------------
+# Masked DMS cache (the reference's correctness oracle)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class MaskedDMSCache:
+    """Full-length arena with a ``retained`` bitmap: token ``t`` lives at
+    slot ``t``; the decision recorded with it executes at step ``t + w``,
+    clearing its bit.  The incremental :class:`BlockTable` drops a block
+    when its last retained slot goes."""
+
+    k: torch.Tensor              # (B, H, S, Dh); zero-width when paged
+    v: torch.Tensor
+    retained: torch.Tensor       # (B, H, S) bool — False once evicted
+    alpha: torch.Tensor          # (B, H, S) bool — recorded decisions
+    length: torch.Tensor         # (B,) int32
+    blocks: BlockTable
+    window: int = field(metadata={"static": True})
+    pool: Optional[BlockPool] = None
+    phys: Optional[torch.Tensor] = None  # paged: (B, H, NB) int32, -1 = unmapped
+
+    @staticmethod
+    def init(batch: int, kv_heads: int, max_len: int, head_dim: int,
+             window: int, dtype=torch.bfloat16, block_p: int = 0,
+             paged: bool = False, pool_blocks: Optional[int] = None,
+             device=None) -> "MaskedDMSCache":
+        s = _round_up(max_len, block_p)
+        k, v, pool, phys = init_arena(batch, kv_heads, s, head_dim, dtype,
+                                      block_p, paged, pool_blocks, device)
+        f = torch.zeros((batch, kv_heads, s), dtype=torch.bool, device=device)
+        return MaskedDMSCache(
+            k=k, v=v, retained=f, alpha=f.clone(),
+            length=torch.zeros((batch,), dtype=_I32, device=device),
+            blocks=BlockTable.init(batch, kv_heads, s, block_p, device=device),
+            window=window, pool=pool, phys=phys)
+
+    def step(self, k_new: torch.Tensor, v_new: torch.Tensor,
+             alpha_new: torch.Tensor,
+             active: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Append one token per (lane, head) at slot ``length`` and execute
+        the eviction of token ``length - w``, in place, for active lanes
+        only.  Returns the (B, H) retained count every lane would hold."""
+        t = self.length.clone()              # the commit advances the leaf
+        b, h, s = self.retained.shape
+        idx = torch.arange(s, device=t.device)
+        at_t = idx == t[:, None, None]                       # (B, 1, S)
+        retained = self.retained | at_t
+        alpha = torch.where(at_t, alpha_new[..., None], self.alpha)
+        j = t - self.window
+        evict_now = ((idx == j[:, None, None]) & alpha
+                     & (j >= 0)[:, None, None])
+        retained = retained & ~evict_now
+        ins = (t < s)[:, None].expand(b, h)
+        blocks = self.blocks.insert(t[:, None].expand(b, h), ins)
+        blocks, dead = blocks.evict_ex(j[:, None].expand(b, h),
+                                       evict_now.any(dim=2))
+        count = (retained & (idx < (t + 1)[:, None, None])).sum(dim=-1)
+        commit(self, dict(retained=retained, alpha=alpha, length=t + 1),
+               blocks, active)
+        if self.pool is None:
+            write = ins[:, 0] if active is None else ins[:, 0] & active
+            write_rows(self.k, self.v,
+                       torch.clamp(t, max=s - 1)[:, None].expand(b, h),
+                       k_new, v_new, write)
+            return count
+        act = event_mask(active, (b, h), device=t.device)
+        block_pool.token_write(self.pool, self.phys,
+                               t[:, None, None].expand(b, h, 1), k_new, v_new,
+                               (ins & act)[..., None])
+        block_pool.free_block(self.pool, self.phys,
+                              torch.clamp(j, 0, s - 1)[:, None].expand(b, h),
+                              dead & act)
+        return count
+
+    # -- views ----------------------------------------------------------------
+
+    def block_spec(self):
+        return self.blocks.spec()
+
+    def valid_mask(self) -> torch.Tensor:
+        s = self.retained.shape[-1]
+        written = (torch.arange(s, device=self.length.device)
+                   < self.length[..., None, None])
+        return self.retained & written
+
+    def positions(self) -> torch.Tensor:
+        s = self.retained.shape[-1]
+        pos = torch.arange(s, dtype=_I32, device=self.length.device)
+        return pos.expand(self.retained.shape)
+
+    def retained_tokens(self) -> torch.Tensor:
+        return self.valid_mask().sum(dim=-1)
+
+
+# ---------------------------------------------------------------------------
 # Slot-compacted DMS cache
 # ---------------------------------------------------------------------------
 
@@ -275,7 +494,8 @@ class SlotDMSCache:
     If the arena overflows (the model under-evicts against the provisioned
     CR) the allocator recycles the oldest live slot (the lowest position;
     ties go to the lowest slot, as the reference's ``argmin``) and flags
-    ``overflowed``."""
+    ``overflowed``.  ``dms_active=False`` marks a cache whose α is never
+    predicted: a plain ring buffer, windowed by that recycling."""
 
     k: torch.Tensor             # (B, H, P, Dh) post-RoPE; P padded to block_p
     v: torch.Tensor             # (B, H, P, Dh)
@@ -292,25 +512,21 @@ class SlotDMSCache:
     window: int = field(metadata={"static": True})
     #: logical arena capacity (the physical extent of ``k`` may be padded)
     slots: int = field(metadata={"static": True})
+    dms_active: bool = field(default=True, metadata={"static": True})
     pool: Optional[BlockPool] = None     # paged: the shared page arena
     phys: Optional[torch.Tensor] = None  # paged: (B, H, NB) int32, -1 = unmapped
 
     @staticmethod
     def init(batch: int, kv_heads: int, num_slots: int, head_dim: int,
-             window: int, dtype=torch.bfloat16, block_p: int = 0,
-             paged: bool = False, pool_blocks: Optional[int] = None,
+             window: int, dtype=torch.bfloat16, dms_active: bool = True,
+             block_p: int = 0, paged: bool = False,
+             pool_blocks: Optional[int] = None,
              device=None) -> "SlotDMSCache":
         p = _round_up(num_slots, block_p)
         bh = (batch, kv_heads)
         ring = torch.arange(p, dtype=_I32, device=device) % num_slots
-        pool = phys = None
-        if paged:
-            pool, phys, k = init_paged(batch, kv_heads, p, head_dim, block_p,
-                                       dtype, pool_blocks, device=device)
-            v = k
-        else:
-            k = torch.zeros(bh + (p, head_dim), dtype=dtype, device=device)
-            v = torch.zeros(bh + (p, head_dim), dtype=dtype, device=device)
+        k, v, pool, phys = init_arena(batch, kv_heads, p, head_dim, dtype,
+                                      block_p, paged, pool_blocks, device)
         return SlotDMSCache(
             k=k, v=v,
             pos=torch.full(bh + (p,), INVALID_POS, dtype=_I32, device=device),
@@ -325,7 +541,8 @@ class SlotDMSCache:
             length=torch.zeros((batch,), dtype=_I32, device=device),
             overflowed=torch.zeros(bh, dtype=torch.bool, device=device),
             blocks=BlockTable.init(batch, kv_heads, p, block_p, device=device),
-            window=window, slots=num_slots, pool=pool, phys=phys)
+            window=window, slots=num_slots, dms_active=dms_active,
+            pool=pool, phys=phys)
 
     @staticmethod
     def provision_slots(seq_len: int, cr: float, window: int) -> int:

@@ -5,8 +5,11 @@ its cache's lifecycle (``init_cache``, ``decode_update``, ``fork_cache``,
 ``gather_cache``, ``reclaim_cache``, ``export_prefix``, ``import_prefix``,
 ``metrics``, ``peak_bytes``) and the model dispatches only through the
 registry, keyed by the name a :class:`PolicyCache` carries.  This port
-registers ``dms``, ``tova``, ``h2o`` and ``keyformer``; the other
-reference policies are queued in ROADMAP.md.  The last three evict by the
+registers ``vanilla`` (the uncompressed baseline; local layers get a ring
+buffer), ``window`` (StreamingLLM's sliding window), ``dms``,
+``dms_masked`` (DMS on a full-length arena: the correctness oracle),
+``tova``, ``h2o`` and ``keyformer``; ``quest`` and ``dmc`` are queued in
+ROADMAP.md, and so is ``prefill_import``.  The last three evict by the
 step's attention weights: their :class:`AttendSpec` asks for them
 (``needs_weights``) and :meth:`KVPolicy.post_attend` takes them.
 
@@ -29,7 +32,8 @@ import torch
 from repro_torch.core import block_pool
 from repro_torch.core.baselines import H2OCache, TOVACache
 from repro_torch.core.config import ArchConfig, KVPolicyConfig
-from repro_torch.core.kv_cache import SlotDMSCache
+from repro_torch.core.kv_cache import (MaskedDMSCache, SlotDMSCache,
+                                       VanillaCache, prefix_block_spec)
 from repro_torch.core.tree import tree_map
 from repro_torch.device import torch_dtype
 
@@ -126,6 +130,10 @@ def get_policy(name: str) -> "KVPolicy":
                        f"{sorted(_REGISTRY)}") from None
 
 
+def available_policies() -> Tuple[str, ...]:
+    return tuple(sorted(_REGISTRY))
+
+
 def init_policy_cache(arch: ArchConfig, batch: int, max_len: int,
                       cfg: KVPolicyConfig, *, layer_kind: str = "attn",
                       layer_window: Optional[int] = None, dtype=None,
@@ -179,16 +187,19 @@ def state_peak_bytes(state: Any) -> int:
 def state_pool_stats(state: Any) -> Optional[Dict[str, Any]]:
     """Paged-pool counters summed over every pooled cache of a decode state
     (reads the device), or None when nothing is paged.  ``live_tokens``
-    comes from each cache's block table counts, so ``fragmentation`` is the
-    share of mapped page capacity that holds no live token."""
+    comes from each cache's block table counts (a vanilla cache keeps no
+    table: its retained tokens), so ``fragmentation`` is the share of
+    mapped page capacity that holds no live token."""
     out: Optional[Dict[str, Any]] = None
     mapped_cap = 0
     for pc in iter_policy_caches(state):
         pool = getattr(pc.cache, "pool", None)
         if pool is None:
             continue
-        s = block_pool.stats(pool, pc.cache.phys,
-                             live_tokens=pc.cache.blocks.count)
+        blocks = getattr(pc.cache, "blocks", None)
+        live = (pc.cache.retained_tokens() if blocks is None
+                else blocks.count)
+        s = block_pool.stats(pool, pc.cache.phys, live_tokens=live)
         mapped_cap += s["mapped_entries"] * pool.block_p
         if out is None:
             out = dict(s)
@@ -266,7 +277,8 @@ class KVPolicy:
         """Once per decode step, before the layer loop: per-layer entries
         for the aux of :meth:`decode_update` and :meth:`post_attend`,
         computed for every layer at once from the stacked cache (leaves
-        (L, B, ...)); ``aux`` carries ``layer_salt`` (L,).  One batched
+        (L, B, ...)); ``aux`` carries ``layer_salt`` (L,) and the step's
+        ``active`` lane mask (B,) or None.  One batched
         computation in place of one per layer: the step is host-bound, so
         what counts is the number of ops dispatched.  None (the default):
         nothing to prepare."""
@@ -413,7 +425,8 @@ def _attend_spec(cache, **kw) -> AttendSpec:
 
 
 class _SlotRingMixin:
-    """Shared decode path for slot-arena caches."""
+    """Shared decode path for caches that step one token with an α
+    (``dms``, ``dms_masked``, ``window``, vanilla's local layers)."""
 
     @staticmethod
     def _slot_update(cache, k_new, v_new, aux):
@@ -424,6 +437,87 @@ class _SlotRingMixin:
                                 dtype=torch.bool, device=k_new.device)
         retained = cache.step(k_new, v_new, alpha, active=aux.get("active"))
         return cache, _attend_spec(cache), retained.float().mean(dim=-1)
+
+
+@register_policy("vanilla")
+class VanillaPolicy(_SlotRingMixin, KVPolicy):
+    """Dense append-only cache; a local-attention layer gets a ring buffer
+    (overflow recycling is its sliding window), so its memory stays
+    O(window)."""
+
+    def init_cache(self, arch, batch, max_len, cfg, *, layer_window, dtype,
+                   device):
+        a = arch.attn
+        if layer_window is not None:
+            eff_len = min(max_len, layer_window + 1)
+            return SlotDMSCache.init(batch, a.num_kv_heads, eff_len,
+                                     a.head_dim, max(arch.dms.window, 1),
+                                     dtype, dms_active=False,
+                                     block_p=cfg.block_p, paged=cfg.paged,
+                                     pool_blocks=cfg.pool_blocks,
+                                     device=device)
+        return VanillaCache.init(batch, a.num_kv_heads, max_len, a.head_dim,
+                                 dtype, block_p=cfg.block_p, paged=cfg.paged,
+                                 pool_blocks=cfg.pool_blocks, device=device)
+
+    def prepare_step(self, stacked, aux):
+        """The attention operands of every layer at once: the prefix table
+        (B, H, NB) int32, its ``n`` (B, H) and its (B, H, S) mask, all
+        contiguous, for the lengths the step leaves —
+        ``length + 1`` on active lanes.  The reference's mask is a lazy
+        (B, 1, S) broadcast and its table a stride-0 one; the kernel takes
+        neither, and materialising them here costs a handful of ops a step
+        in place of some a layer."""
+        if not isinstance(stacked, VanillaCache):
+            return None
+        length = stacked.length                               # (L, B)
+        act = aux.get("active")
+        step = 1 if act is None else act.to(length.dtype)
+        new_len = length + step
+        h, s = stacked.k.shape[-3], stacked.k.shape[-2]
+        vis = (torch.arange(s, device=length.device)
+               < new_len[..., None, None]).expand(length.shape + (h, s))
+        vis = vis.contiguous().unbind(0)
+        tbl, n = prefix_block_spec(new_len, s, stacked.block_p, h)
+        if n is None:
+            return [{"prefix": (v, None, None)} for v in vis]
+        return [{"prefix": x} for x in zip(vis, tbl.unbind(0), n.unbind(0))]
+
+    def decode_update(self, cache, q, k_new, v_new, aux):
+        if not isinstance(cache, VanillaCache):
+            return self._slot_update(cache, k_new, v_new, aux)
+        retained = cache.append(k_new, v_new, active=aux.get("active"))
+        if "prefix" in aux:
+            vis, tbl, n = aux["prefix"]
+        else:
+            vis = cache.valid_mask().expand(cache.k.shape[:3]).contiguous()
+            tbl, n, _ = cache.block_spec()
+        kw = dict(block_tbl=tbl, block_n=n, block_p=cache.block_p)
+        if cache.pool is None:
+            spec = AttendSpec(cache.k, cache.v, vis, cache.positions(), **kw)
+        else:
+            spec = AttendSpec(None, None, vis, cache.positions(),
+                              pool=cache.pool, phys=cache.phys, **kw)
+        return cache, spec, retained.float().mean(dim=-1)
+
+
+@register_policy("window")
+class WindowPolicy(_SlotRingMixin, KVPolicy):
+    """StreamingLLM-style sliding window: a ring of ``budget + 1`` slots
+    whose overflow recycling drops the oldest token."""
+
+    def init_cache(self, arch, batch, max_len, cfg, *, layer_window, dtype,
+                   device):
+        a = arch.attn
+        budget = _budget_tokens(cfg, max_len)
+        return SlotDMSCache.init(batch, a.num_kv_heads, budget + 1,
+                                 a.head_dim, max(arch.dms.window, 1), dtype,
+                                 dms_active=False, block_p=cfg.block_p,
+                                 paged=cfg.paged, pool_blocks=cfg.pool_blocks,
+                                 device=device)
+
+    def decode_update(self, cache, q, k_new, v_new, aux):
+        return self._slot_update(cache, k_new, v_new, aux)
 
 
 @register_policy("dms")
@@ -442,6 +536,25 @@ class DMSPolicy(_SlotRingMixin, KVPolicy):
                                  a.head_dim, arch.dms.window, dtype,
                                  block_p=cfg.block_p, paged=cfg.paged,
                                  pool_blocks=cfg.pool_blocks, device=device)
+
+    def decode_update(self, cache, q, k_new, v_new, aux):
+        return self._slot_update(cache, k_new, v_new, aux)
+
+
+@register_policy("dms_masked")
+class MaskedDMSPolicy(_SlotRingMixin, KVPolicy):
+    """DMS on a full-length arena with a retained bitmap: the correctness
+    oracle of the slot-compacted ``dms``."""
+
+    alpha_mode = "dms"
+
+    def init_cache(self, arch, batch, max_len, cfg, *, layer_window, dtype,
+                   device):
+        a = arch.attn
+        return MaskedDMSCache.init(batch, a.num_kv_heads, max_len, a.head_dim,
+                                   arch.dms.window, dtype,
+                                   block_p=cfg.block_p, paged=cfg.paged,
+                                   pool_blocks=cfg.pool_blocks, device=device)
 
     def decode_update(self, cache, q, k_new, v_new, aux):
         return self._slot_update(cache, k_new, v_new, aux)

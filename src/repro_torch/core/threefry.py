@@ -1,14 +1,18 @@
 """Threefry-2x32 random bits, bit for bit as ``jax.random`` draws them.
 
 The port's own copy of the part of ``jax.random`` that Keyformer's noise
-needs (:mod:`repro_torch.core.keyformer`): :func:`prng_key` (``PRNGKey``),
-:func:`fold_in` and :func:`random_bits` (``bits(key, shape, uint32)``), as
-JAX 0.9 computes them with ``jax_threefry_partitionable=True`` (its
-default): the key of a seed is ``(seed >> 32, seed & 0xFFFFFFFF)``;
-``fold_in(key, d)`` hashes the pair ``(0, d)``; ``bits(key, shape)`` hashes
-the 64-bit iota of ``shape`` as ``(hi, lo)`` word pairs and XORs the two
-output words.  The hash is Threefry-2x32 with 20 rounds (Salmon et al.,
-SC 2011).
+(:mod:`repro_torch.core.keyformer`) and temperature sampling
+(:mod:`repro_torch.serving.scheduler`) need: :func:`prng_key`
+(``PRNGKey``), :func:`fold_in`, :func:`split`, :func:`random_bits`
+(``bits(key, shape, uint32)``), :func:`uniform`, :func:`gumbel` and
+:func:`categorical`, as JAX 0.9 computes them with
+``jax_threefry_partitionable=True`` (its default): the key of a seed is
+``(seed >> 32, seed & 0xFFFFFFFF)``; ``fold_in(key, d)`` hashes the pair
+``(0, d)``, and so does subkey ``d`` of ``split``; ``bits(key, shape)``
+hashes the 64-bit iota of ``shape`` as ``(hi, lo)`` word pairs and XORs
+the two output words.  The hash is Threefry-2x32 with 20 rounds (Salmon et
+al., SC 2011).  The floats are fp32, and exact but for the two logs of the
+Gumbel transform, which may differ from XLA's by an ulp.
 
 A key is a pair of tensors ``(k1, k2)`` of any broadcastable shape, so one
 call draws for a batch of keys.  Values are uint32 held in ``int64`` tensors
@@ -95,3 +99,41 @@ def float_bits(x: torch.Tensor) -> torch.Tensor:
     ``bitcast_convert_type(x.astype(float32), uint32)``."""
     return (x.float().contiguous().view(torch.int32).to(torch.int64)
             & MASK32)
+
+
+def split(key: Key, num: int = 2) -> Tuple[Key, ...]:
+    """``jax.random.split(key, num)`` as ``num`` keys: subkey ``i`` is the
+    hash of ``(0, i)``, which is ``fold_in(key, i)``."""
+    idx = torch.arange(num, dtype=torch.int64, device=key[0].device)
+    k1, k2 = threefry2x32(key[0][..., None], key[1][..., None],
+                          torch.zeros_like(idx), idx)
+    return tuple((k1[..., i], k2[..., i]) for i in range(num))
+
+
+def uniform(key: Key, shape: Sequence[int], minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)``: the
+    mantissa fill of :func:`bits_to_unit`, then ``* (maxval - minval) +
+    minval`` and ``max(minval, .)``.  XLA fuses the product and the sum
+    into one fused multiply-add; here the fp32 product is exact in fp64,
+    so the sum is taken there and rounded to fp32 once."""
+    unit = bits_to_unit(random_bits(key, shape))
+    lo = torch.full((), minval, dtype=torch.float32, device=unit.device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=unit.device)
+    fma = unit.double() * (hi - lo).double() + lo.double()
+    return torch.maximum(lo, fma.float())
+
+
+def gumbel(key: Key, shape: Sequence[int]) -> torch.Tensor:
+    """``jax.random.gumbel(key, shape, float32)`` in its default "low"
+    mode: ``-log(-log(u))`` of ``u`` uniform on ``[tiny, 1)``."""
+    tiny = torch.finfo(torch.float32).tiny
+    return -torch.log(-torch.log(uniform(key, shape, minval=tiny)))
+
+
+def categorical(key: Key, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logits, axis=-1)``: the first index of
+    the largest ``logits + gumbel`` on the last axis.  The noise is drawn
+    over ``logits``' whole shape (its shape is part of the bits), so a
+    caller samples over the padded vocabulary, as the reference does."""
+    return torch.argmax(logits + gumbel(key, logits.shape), dim=-1)

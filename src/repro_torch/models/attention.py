@@ -207,16 +207,20 @@ def _masked_decode(q, spec, window, cfg, use_kernel, pos_t=None,
                    need_weights=False):
     """q: (B, 1, Hq, Dh); ``spec``: an AttendSpec.  Local-window layers also
     hide slots with position <= t - window (a subset of ``spec.visible``, so
-    the table stays a valid cover).  Returns (out (B, 1, Hq, Dh), the
-    group-summed post-softmax weights (B, Hkv, P) fp32 or None, the
-    implementation used: "kernel" | "ref")."""
+    the table stays a valid cover).  Hkv comes from the K arena (the page
+    map when paged), never from the mask: a lazy (B, 1, P) mask is
+    materialised to (B, Hkv, P), as the reference's ``AttendSpec`` does.
+    Returns (out (B, 1, Hq, Dh), the group-summed post-softmax weights (B,
+    Hkv, P) fp32 or None, the implementation used: "kernel" | "ref")."""
     vis, pos = spec.visible, spec.positions
     b, _, hq, dh = q.shape
-    hkv = vis.shape[1]
+    hkv = (spec.phys if spec.pool is not None else spec.k).shape[1]
     g = hq // hkv
     if window is not None and pos is not None and pos_t is not None:
         ptl = torch.as_tensor(pos_t, dtype=torch.int32, device=q.device).expand(b)
         vis = vis & (pos > (ptl[:, None, None] - window))
+    if vis.shape[1] != hkv:
+        vis = vis.expand(b, hkv, vis.shape[2]).contiguous()
     if use_kernel:
         res = dkops.dms_decode_attention(
             q, spec.k, spec.v, vis, block_tbl=spec.block_tbl,

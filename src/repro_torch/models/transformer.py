@@ -365,7 +365,8 @@ def decode_step(
     dtype = torch_dtype(arch.dtype)
     salt = layer_salts(params)
     pol = policy_lib.get_policy(stacked.policy)
-    prepared = pol.prepare_step(stacked.cache, {"layer_salt": salt})
+    prepared = pol.prepare_step(stacked.cache, {"layer_salt": salt,
+                                                "active": active})
     salts = salt.unbind(0)
     impls = set()
     for i in range(arch.num_layers):

@@ -34,12 +34,19 @@ arena of batch *lanes* — the core lifecycle of the reference
   (``preempt_count`` says how often it was preempted), ``failed`` or
   ``timeout``.
 
+* **Sampling.**  Greedy at temperature 0; above it, the reference's
+  Threefry stream exactly (:mod:`repro_torch.core.threefry`): the chunk
+  step splits its key once per step and draws ``categorical(sub, logits /
+  temperature)`` over the padded vocabulary; the first token of each chain
+  comes from a second key, split once per request.  Both keys live on the
+  device.
+
 The host reads the device once per chunk (the reference's "tick-boundary"
 sync); inside a chunk every per-lane decision stays on the device.  The
 pool's pages are read back only when pressure is possible (``oversub > 1``
-or faults), so sound admission adds no sync.  Greedy sampling only; the
-prefix cache and the SLO ladder are not ported yet, so the scheduler takes
-no ``slo`` and admits at full width.
+or faults), so sound admission adds no sync.  The prefix cache and the SLO
+ladder are not ported yet, so the scheduler takes no ``slo`` and admits at
+full width.
 """
 from __future__ import annotations
 
@@ -52,6 +59,7 @@ import torch
 
 from repro_torch.core import block_pool
 from repro_torch.core import policy as policy_lib
+from repro_torch.core import threefry
 from repro_torch.core.hyperscale import BudgetMeter
 from repro_torch.core.tree import tree_map
 from repro_torch.device import DeviceLike, resolve_device
@@ -136,22 +144,36 @@ class _ReqState:
             latency_ticks=max(0, finished_tick - self.req.arrival))
 
 
+def sample(key: Optional[threefry.Key], logits: torch.Tensor,
+           temperature: float) -> torch.Tensor:
+    """The next token of each row of ``logits`` (B, V_pad) fp32: the
+    argmax at temperature 0, else ``categorical(key, logits /
+    temperature)``.  The division is by a device tensor: CUDA divides by a
+    host scalar as a product with its reciprocal, which may round another
+    way than the reference's division."""
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1)
+    temp = torch.full((), temperature, dtype=logits.dtype,
+                      device=logits.device)
+    return threefry.categorical(key, logits / temp)
+
+
 def make_chunk_fn(arch, *, use_kernel: bool = False,
                   temperature: float = 0.0) -> Callable:
     """The mixed prefill/decode chunk step: one call advances every active
     lane ``chunk`` steps — prefill lanes teacher-force ``feed`` tokens,
-    decode lanes sample greedily, finished and idle lanes stay frozen.
-    The returned function counts the decode steps it ran in ``.steps``."""
-    if temperature > 0.0:
-        raise NotImplementedError(
-            "sampling with temperature > 0 is not ported yet (the reference "
-            "draws from jax.random threefry)")
+    decode lanes sample (see :func:`sample`), finished and idle lanes stay
+    frozen.  The returned function counts the decode steps it ran in
+    ``.steps``."""
 
     def chunk_fn(params, state, feed, feed_valid, cur_tok, pos, decoding,
-                 finished, lane_eos, budget_left, poison=None):
-        # feed/feed_valid: (B, C); every other lane tensor: (B,).  ``poison``
-        # (B,) bool NaNs those lanes' logits for the whole chunk (the fault
-        # injector's tripwire test); None leaves the logits alone
+                 finished, lane_eos, budget_left, rng, poison=None):
+        # feed/feed_valid: (B, C); every other lane tensor: (B,).  ``rng``
+        # is the sampling key, split once per step (prefill-only steps
+        # too) and returned advanced; at temperature 0 it is passed
+        # through.  ``poison`` (B,) bool NaNs those lanes' logits for the
+        # whole chunk (the fault injector's tripwire test); None leaves the
+        # logits alone
         b, c = feed.shape
         emit_cnt = torch.zeros_like(cur_tok)
         last_logits = torch.zeros((b, arch.padded_vocab), dtype=torch.float32,
@@ -163,13 +185,16 @@ def make_chunk_fn(arch, *, use_kernel: bool = False,
             decode_now = decoding & ~finished & (emit_cnt < budget_left)
             active = prefill_now | decode_now
             token = torch.where(prefill_now, feed[:, t], cur_tok)[:, None]
+            sub = None
+            if temperature > 0.0:
+                rng, sub = threefry.split(rng)
             logits, state, aux = tfm.decode_step(
                 params, token, state, arch, pos, use_kernel=use_kernel,
                 active=active)
             if poison is not None:
                 logits = torch.where(poison[:, None], float("nan"), logits)
             bad = bad | (active & ~torch.isfinite(logits).all(dim=-1))
-            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            nxt = sample(sub, logits, temperature).to(torch.int32)
             emitted = torch.where(decode_now, nxt, -1)
             cur_tok = torch.where(decode_now, nxt, cur_tok)
             finished = finished | (decode_now & (lane_eos >= 0)
@@ -180,10 +205,11 @@ def make_chunk_fn(arch, *, use_kernel: bool = False,
             ys.append((emitted, aux["live_tokens"], aux["reads_tokens"], active))
         emitted, live, reads, act = (torch.stack(col) for col in zip(*ys))
         chunk_fn.steps += c
-        return (state, cur_tok, pos, finished, emit_cnt, last_logits,
+        return (state, cur_tok, pos, finished, emit_cnt, rng, last_logits,
                 emitted, live, reads, act, bad)     # stacked ys: (C, B)
 
     chunk_fn.steps = 0
+    chunk_fn.temperature = temperature
     return chunk_fn
 
 
@@ -197,12 +223,15 @@ class Scheduler:
     only to show that failure mode).  ``oversub`` >= 1 admits against
     1/oversub of worst-case pool demand; preemption absorbs what then
     materialises.  ``faults`` attaches a
-    :class:`~repro_torch.serving.faults.FaultPlan`."""
+    :class:`~repro_torch.serving.faults.FaultPlan`.  ``seed`` seeds the
+    sampling keys, as the reference's: the chunk step's ``PRNGKey(seed)``
+    and the first tokens' ``PRNGKey(seed ^ 0x5EED0)``."""
 
     def __init__(self, arch, params, policy, chunk_fn: Callable, *,
                  num_lanes: int, max_len: int, chunk: int = 8,
                  device: DeviceLike = None, faults=None,
-                 on_pressure: str = "preempt", oversub: float = 1.0):
+                 on_pressure: str = "preempt", oversub: float = 1.0,
+                 seed: int = 0):
         if on_pressure not in ("preempt", "ignore"):
             raise ValueError(f"on_pressure must be 'preempt' or 'ignore', "
                              f"got {on_pressure!r}")
@@ -213,6 +242,9 @@ class Scheduler:
         self.num_lanes, self.max_len, self.chunk = num_lanes, max_len, chunk
         self.device = resolve_device(device)
         self._chunk_fn = chunk_fn
+        self.temperature = chunk_fn.temperature
+        self.rng = threefry.prng_key(seed, device=self.device)
+        self._host_rng = threefry.prng_key(seed ^ 0x5EED0, device=self.device)
         self.faults = faults
         self.on_pressure = on_pressure
         self.oversub = float(oversub)
@@ -571,17 +603,26 @@ class Scheduler:
                 self._start_decode(r)
 
     def _start_decode(self, r: _ReqState) -> None:
-        """Sample each chain's first token from the shared prefill logits
-        (greedy: every chain takes the argmax, first index on ties)."""
+        """Sample each chain's first token from the shared prefill logits:
+        greedy, every chain takes the argmax (first index on ties); above
+        temperature 0, one draw of W rows from a key split off once per
+        request (one host read per request, not per step)."""
         w = len(r.lanes)
-        first = int(np.argmax(r.hold_logits))
+        if self.temperature > 0.0:
+            self._host_rng, sub = threefry.split(self._host_rng)
+            logits = torch.from_numpy(r.hold_logits).to(self.device)
+            first = sample(sub, logits[None].expand(w, -1), self.temperature)
+            first = first.cpu().numpy().astype(np.int32)
+        else:
+            first = np.full((w,), np.argmax(r.hold_logits), np.int32)
         r.decode_meter.observe_step([0.0], new_tokens=w,
                                     reads_tokens_per_layer=[0.0])
         for c, lane in enumerate(r.lanes):
-            r.chains[c].append(first)
-            self.cur_tok[lane] = first
+            tok = int(first[c])
+            r.chains[c].append(tok)
+            self.cur_tok[lane] = tok
             self.decoding[lane] = True
-            if (r.req.eos_id is not None and first == r.req.eos_id) \
+            if (r.req.eos_id is not None and tok == r.req.eos_id) \
                     or len(r.chains[c]) >= r.req.max_new:
                 self.finished[lane] = True
         r.hold_logits = None
@@ -625,9 +666,9 @@ class Scheduler:
             torch.from_numpy(self.decoding).to(dev),
             torch.from_numpy(self.finished).to(dev),
             torch.from_numpy(self.lane_eos).to(dev),
-            torch.from_numpy(budget_left).to(dev),
+            torch.from_numpy(budget_left).to(dev), self.rng,
             None if poison is None else torch.from_numpy(poison).to(dev))
-        (self.state, cur_tok, pos, finished, _, last_logits,
+        (self.state, cur_tok, pos, finished, _, self.rng, last_logits,
          emitted, live, reads, act, bad) = out
         # the one host sync of the chunk; the pool's exhausted latch is read
         # with it

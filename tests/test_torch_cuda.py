@@ -78,6 +78,65 @@ def test_decode_dense_mode_edges(cuda_device, g, dh, p, block_p):
     torch.testing.assert_close(got.cpu().float(), want.float(), **BF16)
 
 
+# (G, Dh): the main path's, then llama32-1b's, minitron-4b's, phi3-mini's
+VANILLA_SHAPES = [(6, 128), (4, 64), (3, 128), (1, 96)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_p", [16, 0], ids=["prefix table", "dense"])
+@pytest.mark.parametrize("g,dh", VANILLA_SHAPES,
+                         ids=[f"G{g}-Dh{d}" for g, d in VANILLA_SHAPES])
+def test_decode_prefix_table_matches_plain(cuda_device, g, dh, block_p):
+    """The vanilla cache's operands: a length prefix per lane, its table
+    (every block from 0 to ceil(length / 16), from ``prefix_block_spec``)
+    or no table at all (``block_p`` 0, the wrapper's legacy dense mode),
+    and the lazy mask materialised.  Lengths 0, 1, a block edge and the
+    full arena; on the card against the same call on the CPU."""
+    from repro_torch.core.kv_cache import prefix_block_spec
+    gen = torch.Generator().manual_seed(g * dh + block_p)
+    b, hkv, p = 4, 2, 384
+    q = torch.randn((b, 1, hkv * g, dh), generator=gen).bfloat16()
+    k = torch.randn((b, hkv, p, dh), generator=gen).bfloat16()
+    v = torch.randn((b, hkv, p, dh), generator=gen).bfloat16()
+    length = torch.tensor([0, 1, 160, p], dtype=torch.int32)
+    valid = (torch.arange(p) < length[:, None, None]).expand(b, hkv, p)
+    valid = valid.contiguous()
+    tbl, n = prefix_block_spec(length, p, block_p, hkv)
+    kw = dict(block_tbl=tbl, block_n=n, block_p=block_p or None)
+    want = ops.dms_decode_attention(q, k, v, valid, **kw)
+    dev = {key: None if x is None else x.to(cuda_device)
+           for key, x in kw.items() if key != "block_p"}
+    before = ops.launches
+    got = ops.dms_decode_attention(
+        *(x.to(cuda_device) for x in (q, k, v, valid)),
+        block_p=kw["block_p"], **dev)
+    torch.cuda.synchronize()
+    assert ops.launches == before + 1
+    assert torch.isfinite(got.float()).all() and not got[0].float().any()
+    torch.testing.assert_close(got.cpu().float(), want.float(), **BF16)
+
+
+@pytest.mark.cuda
+def test_categorical_on_card_equals_cpu(cuda_device):
+    """Temperature sampling over the served model's padded vocabulary: the
+    Threefry bits on the card equal the CPU's, and so do the drawn
+    indices, for 8 seeds."""
+    from repro_torch.core import threefry
+    from repro_torch.serving.scheduler import sample
+    gen = torch.Generator().manual_seed(0)
+    logits = torch.randn((4, 152064), generator=gen) * 4.0
+    logits[:, 151936:] = -1e30
+    for seed in range(8):
+        kc, kg = threefry.prng_key(seed), threefry.prng_key(seed, cuda_device)
+        _, sub_c = threefry.split(kc)
+        _, sub_g = threefry.split(kg)
+        assert torch.equal(threefry.random_bits(sub_g, logits.shape).cpu(),
+                           threefry.random_bits(sub_c, logits.shape))
+        want = sample(sub_c, logits, 0.7)
+        got = sample(sub_g, logits.to(cuda_device), 0.7)
+        assert torch.equal(got.cpu(), want)
+
+
 @pytest.mark.cuda
 def test_decode_wrapper_rejects_what_the_kernel_cannot_take(cuda_device):
     q = torch.zeros((1, 1, 2, 12), dtype=torch.bfloat16, device=cuda_device)

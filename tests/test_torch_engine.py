@@ -13,7 +13,8 @@ interpret mode) on traces the reference suite already pins:
 Greedy tokens must be equal, and so must the budget meters (``kv_reads``,
 ``peak_tokens``): they count integer tokens in the same order.  A fourth
 trace runs (b) in fp32 with the DMS bias at 0, so that tokens are evicted
-mid-prompt and the whole eviction path is exercised end to end.
+mid-prompt and the whole eviction path is exercised end to end; a fifth
+runs (b) sampled at temperature 0.7 from seeded keys.
 """
 import dataclasses
 
@@ -40,7 +41,8 @@ def _prompt(n, seed=0, vocab=512):
     return np.random.default_rng(seed).integers(3, vocab, size=(n,)).astype(np.int32)
 
 
-def _engines(tiny_arch, tiny_params, cr=2.0, dtype=None, bias=None):
+def _engines(tiny_arch, tiny_params, cr=2.0, dtype=None, bias=None,
+             temperature=0.0):
     jarch = tiny_arch
     if dtype is not None:
         jarch = dataclasses.replace(jarch, dtype=dtype, dms=dataclasses.replace(
@@ -49,9 +51,10 @@ def _engines(tiny_arch, tiny_params, cr=2.0, dtype=None, bias=None):
     params = bridge.params_from_numpy(
         jax.tree_util.tree_map(np.asarray, tiny_params), tarch, device="cpu")
     kw = dict(kind="dms", cr=cr, window=jarch.dms.window)
-    return (JEngine(jarch, tiny_params, JKV(**kw), use_kernel=True),
+    return (JEngine(jarch, tiny_params, JKV(**kw), use_kernel=True,
+                    temperature=temperature),
             Engine(tarch, params, KVPolicyConfig(**kw), use_kernel=True,
-                   device="cpu"))
+                   temperature=temperature, device="cpu"))
 
 
 def assert_meters_equal(mt, mj, what):
@@ -123,8 +126,23 @@ def test_trace_c_hyperscale_fork(tiny_arch, tiny_params):
     np.testing.assert_array_equal(rt.tokens, tiled.tokens)
 
 
-def test_temperature_sampling_is_not_ported(tiny_arch, tiny_params):
-    _, teng = _engines(tiny_arch, tiny_params)
-    with pytest.raises(NotImplementedError, match="temperature"):
-        Engine(teng.arch, teng.params, teng.policy, temperature=0.7,
-               device="cpu")
+def test_temperature_sampling_matches_reference(tiny_arch, tiny_params):
+    """Trace (b) at temperature 0.7: every request's first token comes from
+    the scheduler's per-request key and every later one from the chunk
+    step's, so seeded tokens and meters equal the reference's across
+    staggered admissions and reused lanes (pinned seeds: no near tie)."""
+    jeng, teng = _engines(tiny_arch, tiny_params, temperature=0.7)
+    prompts = [_prompt(n, seed=10 + n, vocab=tiny_arch.vocab_size)
+               for n in (9, 14, 6, 11)]
+    for seed in (0, 7):
+        runs = []
+        for eng, req_cls in ((jeng, JRequest), (teng, Request)):
+            sched = eng.scheduler(num_lanes=2, max_len=32, seed=seed)
+            for i, p in enumerate(prompts):
+                sched.submit(req_cls(uid=i, prompt=p, max_new=5, arrival=i))
+            runs.append({r.uid: r for r in sched.run()})
+        rj, rt = runs
+        for i in range(4):
+            np.testing.assert_array_equal(rt[i].tokens, rj[i].tokens,
+                                          err_msg=f"seed {seed} request {i}")
+            assert_meters_equal(rt[i].meter, rj[i].meter, f"request {i}")
