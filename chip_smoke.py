@@ -91,14 +91,18 @@ Phases (any failure raises, so the exit code is non-zero):
               its plain version's and one library call's; for the decode
               kernel also its split count and its floor (the same launch
               with n = 0 on every row); for the vanilla cache's prefix
-              table (every block of a P 384 arena listed) the same.
+              table (every block of a P 384 arena listed) the same, and
+              logged beside it at the arena phase 5c (a) serves vanilla on
+              (one lane, P 320).
 
 Phase 3 also holds the fixed-arena mode on the vanilla cache's operands
-(prefix tables at the main-path shape and at the decode shapes of
-llama32-1b, minitron-4b and phi3-mini, and ``block_p`` 0) against the plain
-version.  The last four lines are the script's total seconds, the
-``kernels`` JSON line, the card's name and power limit (again) and the
-result line ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+(prefix tables at the main-path shape, at the decode shapes of llama32-1b,
+minitron-4b and phi3-mini and at the arenas phase 5c serves vanilla on, and
+``block_p`` 0) against the plain version; every shape at which 5c then
+launches the kernel for vanilla must be one of those checked.  The last
+four lines are the script's total seconds, the ``kernels`` JSON line, the
+card's name and power limit (again) and the result line ``{"ok": true,
+"device": {...}}``.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -511,21 +515,26 @@ def phase_weights_kernels(torch, main_shape, device="cuda"):
 PREFIX_SHAPES = {"main-path shape": (6, 128), "llama32-1b": (4, 64),
                  "minitron-4b": (3, 128), "phi3-mini-3.8b": (1, 96)}
 PREFIX_P = 384
+# (P, block_p) of the vanilla arenas phase 5c serves, one lane of Hkv 2
+# (B·Hkv 2): (a)'s L 320, and (b)'s request of 128 + 64 tokens with prefix
+# tables and with block_p 0.  ``main`` holds the shapes 5c launched to the
+# ones checked here.
+PREFIX_SERVED = ((320, 16), (192, 16), (192, 0))
 
 
-def prefix_case(torch, gen, *, b, hkv, g, dh, p, block_p, device="cuda"):
-    """The vanilla cache's decode operands: a length prefix per lane (0, 1,
-    a block edge, the full arena), its mask materialised, and its table
-    from ``prefix_block_spec`` (``block_p`` 0: no table, the wrapper's
-    legacy dense mode, whose derived blocks are 128 slots).  K/V past the
-    last listed block are NaN."""
+def prefix_case(torch, gen, *, b, hkv, g, dh, p, block_p, lengths,
+                device="cuda"):
+    """The vanilla cache's decode operands: the length prefix ``lengths[i]``
+    of lane i, its mask materialised, and its table from
+    ``prefix_block_spec`` (``block_p`` 0: no table, the wrapper's legacy
+    dense mode, whose derived blocks are 128 slots).  K/V past the last
+    listed block are NaN."""
     from repro_torch.core.kv_cache import prefix_block_spec
     from repro_torch.kernels.dms_decode import ops
     q = torch.randn((b, 1, hkv * g, dh), generator=gen, device=device)
     k = torch.randn((b, hkv, p, dh), generator=gen, device=device)
     v = torch.randn((b, hkv, p, dh), generator=gen, device=device)
-    length = torch.tensor([0, 1, 160, p] * (b // 4), dtype=torch.int32,
-                          device=device)
+    length = torch.tensor(lengths, dtype=torch.int32, device=device)
     valid = (torch.arange(p, device=device)
              < length[:, None, None]).expand(b, hkv, p).contiguous()
     blk = block_p or min(ops.DEFAULT_BLOCK_P, p)
@@ -539,52 +548,95 @@ def prefix_case(torch, gen, *, b, hkv, g, dh, p, block_p, device="cuda"):
                                   block_p=block_p or None)
 
 
+def recording_decode_rows(torch, device):
+    """``ops.decode_rows`` that also adds each call's listed blocks
+    (``sum(n)``) to a device counter, with no host read, and keeps the
+    shape of each fixed-arena call as (rows, G, Dh, arena P, block_p);
+    returns (the wrapper, the counter, the
+    set of shapes, the real function)."""
+    from repro_torch.kernels.dms_decode import ops
+    real = ops.decode_rows
+    listed = torch.zeros((), dtype=torch.int64, device=device)
+    shapes = set()
+
+    def decode_rows(qf, kf, vf, valf, tblf, nf, block_p, *args, **kw):
+        listed.add_(nf.sum())
+        if not kw.get("shared_kv"):
+            shapes.add((*qf.shape, kf.shape[1], block_p))
+        return real(qf, kf, vf, valf, tblf, nf, block_p, *args, **kw)
+    return decode_rows, listed, shapes, real
+
+
 def phase_prefix_kernels(torch, main_shape):
     """The fixed-arena mode on the vanilla cache's operands: prefix tables
-    at the main-path shape and at the three new configs' decode shapes,
-    and the legacy dense mode (``block_p`` 0) at the main-path shape; the
-    kernel through the wrapper against the same wrapper on the CPU (the
-    plain version), finite, zero where the length is 0, bit-equal on a
-    second launch.  Returns the main prefix case's max abs error."""
+    at the main-path shape, at the three new configs' decode shapes and at
+    the arenas phase 5c serves (``PREFIX_SERVED``, one lane a launch, its
+    length from 1 to the full arena), and the legacy dense mode
+    (``block_p`` 0) at the main-path shape and at 5c's; the kernel through
+    the wrapper against the same wrapper on the CPU (the plain version),
+    finite, zero where the length is 0, bit-equal on a second launch.
+    Returns (the largest max abs error of the prefix tables at the
+    main-path shape and at 5c's, the set of launch shapes checked)."""
     from repro_torch.kernels.dms_decode import ops
     gen = torch.Generator(device="cuda").manual_seed(1357)
-    bh, _, _, _, bp = main_shape
-    before = ops.launches
-    errs, launched = {}, 0
+    bh, g_main, dh_main, _, bp = main_shape
+    cases = []             # (name, G, Dh, lanes, P, block_p, lengths a launch)
     for name, (g, dh) in PREFIX_SHAPES.items():
         for block_p in ((bp, 0) if name == "main-path shape" else (bp,)):
-            ops_in, kw = prefix_case(torch, gen, b=bh // 2, hkv=2, g=g, dh=dh,
-                                     p=PREFIX_P, block_p=block_p)
-            out = ops.dms_decode_attention(*ops_in, **kw)
-            again = ops.dms_decode_attention(*ops_in, **kw)
-            launched += 2
-            torch.cuda.synchronize()
-            what = f"{name} (G={g}, Dh={dh}), " + (
+            cases.append((name, g, dh, bh // 2, PREFIX_P, block_p,
+                          [[0, 1, 160, PREFIX_P] * (bh // 8)]))
+    for p, block_p in PREFIX_SERVED:
+        cases.append(("phase 5c's vanilla arena", g_main, dh_main, 1, p,
+                      block_p, [[1], [bp + 1], [p - bp + 1], [p]]))
+    before = ops.launches
+    recording, _, checked, real = recording_decode_rows(torch, "cuda")
+    errs, launched = {}, 0
+    ops.decode_rows = recording
+    try:
+        for name, g, dh, b, p, block_p, runs in cases:
+            what = f"{name} (G={g}, Dh={dh}, B·Hkv={2 * b}), " + (
                 f"prefix table, block_p {block_p}" if block_p
                 else "block_p 0 (dense mode)")
-            if not torch.equal(out, again):
-                raise AssertionError(f"kernel [{what}]: a second launch gave "
-                                     "other bits")
-            want = ops.dms_decode_attention(
-                *(x.cpu() for x in ops_in),
-                **{key: x.cpu() if torch.is_tensor(x) else x
-                   for key, x in kw.items()})
-            if not bool(torch.isfinite(out.float()).all()) \
-                    or out[0].float().abs().max().item() != 0.0:
-                raise AssertionError(f"kernel [{what}]: non-finite output, or "
-                                     "a row of length 0 is not zero")
-            err = (out.float().cpu() - want.float()).abs().max().item()
-            torch.testing.assert_close(out.float().cpu(), want.float(),
-                                       **KERNEL_TOL)
-            errs[(name, block_p)] = err
-            log(f"kernel vs plain [{what}, P={PREFIX_P}, lengths 0/1/160/"
-                f"{PREFIX_P}]: max_abs_err {err:.3e} (tolerance atol "
+            err = 0.0
+            for lengths in runs:
+                ops_in, kw = prefix_case(torch, gen, b=b, hkv=2, g=g, dh=dh,
+                                         p=p, block_p=block_p, lengths=lengths)
+                out = ops.dms_decode_attention(*ops_in, **kw)
+                again = ops.dms_decode_attention(*ops_in, **kw)
+                launched += 2
+                torch.cuda.synchronize()
+                if not torch.equal(out, again):
+                    raise AssertionError(f"kernel [{what}]: a second launch "
+                                         "gave other bits")
+                want = ops.dms_decode_attention(
+                    *(x.cpu() for x in ops_in),
+                    **{key: x.cpu() if torch.is_tensor(x) else x
+                       for key, x in kw.items()})
+                empty = ~ops_in[3][:, 0].any(dim=-1)             # length 0
+                if not bool(torch.isfinite(out.float()).all()) \
+                        or out[empty].float().abs().sum().item() != 0.0:
+                    raise AssertionError(f"kernel [{what}]: non-finite "
+                                         "output, or a row of length 0 is "
+                                         "not zero")
+                torch.testing.assert_close(out.float().cpu(), want.float(),
+                                           **KERNEL_TOL)
+                err = max(err, (out.float().cpu() - want.float())
+                          .abs().max().item())
+            errs[(name, p, block_p)] = err
+            lens = ", ".join("/".join(map(str, x)) for x in runs)
+            each = " (one launch each)" if len(runs) > 1 else ""
+            log(f"kernel vs plain [{what}, P={p}, lengths {lens}{each}]: "
+                f"max_abs_err {err:.3e} (tolerance atol "
                 f"{KERNEL_TOL['atol']}, rtol {KERNEL_TOL['rtol']}); bit-equal "
                 "on a second launch")
+    finally:
+        ops.decode_rows = real
     if ops.launches - before != launched:
         raise AssertionError(f"launch counter moved {ops.launches - before}, "
                              f"expected {launched}")
-    return errs[("main-path shape", bp)]
+    row = [e for (name, _, block_p), e in errs.items() if block_p
+           and name in ("main-path shape", "phase 5c's vanilla arena")]
+    return max(row), checked
 
 
 def flash_case(torch, *, b, t, hq, hkv, dh, dtype, alpha="relaxed",
@@ -1283,20 +1335,6 @@ def phase_weights_serve(torch, setup, fixed, reqs=(2, 3), short=24,
                         for (k, p), r in runs.items()}}
 
 
-def listed_blocks_counter(torch, device):
-    """``ops.decode_rows`` that also adds each call's listed blocks
-    (``sum(n)``) to a device counter, with no host read; returns (the
-    wrapper, the counter, the real function)."""
-    from repro_torch.kernels.dms_decode import ops
-    real = ops.decode_rows
-    listed = torch.zeros((), dtype=torch.int64, device=device)
-
-    def decode_rows(qf, kf, vf, valf, tblf, nf, *args, **kw):
-        listed.add_(nf.sum())
-        return real(qf, kf, vf, valf, tblf, nf, *args, **kw)
-    return decode_rows, listed, real
-
-
 def phase_hyperscale_eval(torch, setup, *, prompt_len=288, max_len=320):
     """(a) The paper's comparison through ``evaluate_hyperscale`` at
     temperature 0.7: one needle problem (``make_eval_set``), ``vanilla`` at
@@ -1320,9 +1358,9 @@ def phase_hyperscale_eval(torch, setup, *, prompt_len=288, max_len=320):
     runs = {"vanilla": (dict(kind="vanilla"), 1, 1.0, 0),
             "dms": (dict(kind="dms", cr=8.0), 4, 8.0, arch.dms.window),
             "dms_masked": (dict(kind="dms_masked"), 4, 8.0, arch.dms.window)}
-    counting, listed, real = listed_blocks_counter(torch, device)
+    recording, listed, shapes, real = recording_decode_rows(torch, device)
     out = {}
-    ops.decode_rows = counting
+    ops.decode_rows = recording
     try:
         for name, (kw, width, cr, window) in runs.items():
             engine = Engine(arch, params, KVPolicyConfig(block_p=bp, **kw),
@@ -1336,6 +1374,7 @@ def phase_hyperscale_eval(torch, setup, *, prompt_len=288, max_len=320):
             cfg = ScalingConfig(max_len, width, cr)
             engine.chunk_fn.steps = 0
             listed.zero_()
+            shapes.clear()
             ops.launches = ops.shared_launches = ops.weights_launches = 0
             t0 = time.perf_counter()
             res = evaluate_hyperscale(engine, prompts, answers, cfg, seed=0)
@@ -1366,7 +1405,7 @@ def phase_hyperscale_eval(torch, setup, *, prompt_len=288, max_len=320):
             out[name] = dict(res=res, width=width, steps=steps,
                              launches=launches,
                              bytes_step=kv_bytes / max(steps, 1),
-                             tokens=seen[0].tokens)
+                             tokens=seen[0].tokens, shapes=set(shapes))
             log(f"hyperscale (a): {name} at {max_len}-{width}-{cr:g} on one "
                 f"needle problem (prompt {prompt_len}), temperature 0.7, seed "
                 f"0: all ok; accuracy {res['accuracy']} (random weights: "
@@ -1404,7 +1443,9 @@ def phase_layouts(torch, setup, *, uid=3, window_budget=128):
     + 1`` slots (it recycles past it) and ``dms_masked`` on the pool.  Each
     ok with its full token count; fixed layouts launch the fixed-arena
     kernel and paged ones the shared-pool kernel, once per layer per
-    decode step; the pool's vanilla tokens equal the fixed arenas'."""
+    decode step; the pool's vanilla tokens equal the fixed arenas'.
+    Returns each layout's launches (fixed, shared, weights-out) and the
+    fixed-arena launch shapes of its runs."""
     from repro_torch.core.config import KVPolicyConfig
     from repro_torch.kernels.dms_decode import ops
     from repro_torch.serving.engine import Engine
@@ -1422,19 +1463,26 @@ def phase_layouts(torch, setup, *, uid=3, window_budget=128):
                                                block_p=bp),
         "dms_masked paged": dict(kind="dms_masked", block_p=bp, paged=True),
     }
-    tokens, launched = {}, {}
+    tokens, launched, shaped = {}, {}, {}
+    recording, _, shapes, real = recording_decode_rows(torch, device)
     for name, kw in layouts.items():
         engine = Engine(arch, params, KVPolicyConfig(**kw), use_kernel=True,
                         device=device)
         engine.chunk_fn.steps = 0
         ops.launches = ops.shared_launches = ops.weights_launches = 0
+        shapes.clear()
         t0 = time.perf_counter()
         sched = engine.scheduler(num_lanes=1, max_len=len(prompt) + new)
         sched.submit(Request(uid=uid, prompt=prompt, max_new=new))
-        res = sched.run()[0]
+        ops.decode_rows = recording
+        try:
+            res = sched.run()[0]
+        finally:
+            ops.decode_rows = real
         if cuda:
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        shaped[name] = set(shapes)
         steps = engine.chunk_fn.steps
         want = arch.num_layers * steps if cuda else 0
         paged = kw.get("paged", False)
@@ -1459,7 +1507,7 @@ def phase_layouts(torch, setup, *, uid=3, window_budget=128):
     log(f"layouts (b): vanilla paged tokens equal to fixed; block_p 0 tokens "
         f"equal to fixed at {same:.4f} of positions (reported only: the "
         "dense mode's 128-slot blocks sum in another order)")
-    return launched
+    return launched, shaped
 
 
 def phase_policy_paths(torch, setup, *, steps=48, window_budget=32):
@@ -1576,15 +1624,18 @@ def phase_sampling(torch, setup, seeds=8):
 def phase_hyperscale_serve(torch, setup, **kw):
     """Phase 5c: (a) the hyper-scaling evaluation, (b) the layouts, (c) the
     kernel path against the reference path, (d) sampling on the device.
-    Returns the prefix-table launches of the main path's runs: the
-    fixed-arena launches of ``vanilla`` in (a) and on fixed arenas in
-    (b)."""
+    Returns the prefix-table launches of the main path's runs (the
+    fixed-arena launches of ``vanilla`` in (a) and on fixed arenas in (b))
+    and the shapes of every fixed-arena launch of ``vanilla`` in (a) and
+    (b), ``block_p`` 0 included."""
     evals = phase_hyperscale_eval(torch, setup, **kw.get("eval", {}))
-    layouts = phase_layouts(torch, setup, **kw.get("layouts", {}))
+    layouts, shaped = phase_layouts(torch, setup, **kw.get("layouts", {}))
     phase_policy_paths(torch, setup, **kw.get("paths", {}))
     phase_sampling(torch, setup)
     return {"prefix": evals["vanilla"]["launches"]
-            + layouts["vanilla fixed"][0]}
+            + layouts["vanilla fixed"][0],
+            "vanilla_shapes": evals["vanilla"]["shapes"].union(
+                *(v for k, v in shaped.items() if k.startswith("vanilla")))}
 
 
 def device_events(torch, prof):
@@ -2002,6 +2053,15 @@ def phase_timing(torch, main_shape, launches, errs):
                            "dense": (pk, pv, full)},
                           (bh, g, dh, PREFIX_P, bp), launches["prefix"],
                           errs["prefix"])
+    # logged, not a row: the arena phase 5c (a) serves vanilla on, one lane
+    sp = PREFIX_SERVED[0][0]
+    cut = [x[:2, :sp].contiguous() for x in (pk, pv, full)]
+    decode_entry(torch, "dms_decode_prefix_table at phase 5c (a)'s arena",
+                 "fixed", {"kernel": (q[:2].contiguous(), *cut,
+                                      tbl[:2, :sp // bp].contiguous(),
+                                      n[:2] * sp // PREFIX_P),
+                           "dense": cut},
+                 (2, g, dh, sp, bp), launches["prefix"], errs["prefix"])
     return [fixed, shared, prefix]
 
 
@@ -2129,8 +2189,8 @@ def main() -> int:
     weights_shape = main_shape[:3] + ((int(max_len / 8.0) + bp) // bp * bp, bp)
     errs = {"fixed": phase_kernels(torch, main_shape),
             "shared": phase_pool_kernels(torch, main_shape),
-            "weights": phase_weights_kernels(torch, weights_shape),
-            "prefix": phase_prefix_kernels(torch, main_shape)}
+            "weights": phase_weights_kernels(torch, weights_shape)}
+    errs["prefix"], prefix_checked = phase_prefix_kernels(torch, main_shape)
     flash_errs = phase_flash_kernels(torch)
     phase_flash_grads(torch)
     served = phase_serve(torch, shallow)
@@ -2145,6 +2205,13 @@ def main() -> int:
         raise AssertionError(f"weights-phase arena {weighted['arena']} is not "
                              f"the checked {weights_shape[3]} slots")
     scaled = phase_hyperscale_serve(torch, shallow)
+    if not scaled["vanilla_shapes"] <= prefix_checked:
+        raise AssertionError(
+            f"phase 5c launched vanilla at (rows, G, Dh, P, block_p) "
+            f"{sorted(scaled['vanilla_shapes'] - prefix_checked)}, not among "
+            f"phase 3's checked {sorted(prefix_checked)}")
+    log(f"phase 5c's vanilla launch shapes (rows, G, Dh, P, block_p) "
+        f"{sorted(scaled['vanilla_shapes'])}: each checked in phase 3")
     del shallow, setup["params"]
     trained = phase_train(torch)
     kernels = phase_timing(torch, main_shape, {"fixed": served["launches"],

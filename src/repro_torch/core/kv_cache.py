@@ -320,7 +320,8 @@ def pack_dense(cache, pool_blocks: Optional[int] = None):
 class VanillaCache:
     """Dense append-only arena, (B, H, S, Dh) with S padded to a
     ``block_p`` multiple.  Occupancy is the prefix ``[0, length)``, so no
-    table is stored: :meth:`block_spec` derives it.  ``block_p == 0`` is
+    table is stored: :func:`prefix_block_spec` derives it (once a step, in
+    ``VanillaPolicy.prepare_step``).  ``block_p == 0`` is
     the exact legacy arena (the kernel's dense mode)."""
 
     k: torch.Tensor              # (B, H, S, Dh); zero-width when paged
@@ -342,11 +343,6 @@ class VanillaCache:
                             length=torch.zeros((batch,), dtype=_I32,
                                                device=device),
                             block_p=block_p, pool=pool, phys=phys)
-
-    def block_spec(self):
-        tbl, n = prefix_block_spec(self.length, self.k.shape[-2],
-                                   self.block_p, self.k.shape[-3])
-        return tbl, n, self.block_p
 
     def append(self, k_new: torch.Tensor, v_new: torch.Tensor,
                active: Optional[torch.Tensor] = None) -> torch.Tensor:

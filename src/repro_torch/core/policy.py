@@ -461,37 +461,30 @@ class VanillaPolicy(_SlotRingMixin, KVPolicy):
                                  pool_blocks=cfg.pool_blocks, device=device)
 
     def prepare_step(self, stacked, aux):
-        """The attention operands of every layer at once: the prefix table
-        (B, H, NB) int32, its ``n`` (B, H) and its (B, H, S) mask, all
-        contiguous, for the lengths the step leaves —
-        ``length + 1`` on active lanes.  The reference's mask is a lazy
-        (B, 1, S) broadcast and its table a stride-0 one; the kernel takes
-        neither, and materialising them here costs a handful of ops a step
-        in place of some a layer."""
+        """The attention operands of the step, built once and given to
+        every layer: the prefix table (B, H, NB) int32, its ``n`` (B, H) and
+        its (B, H, S) mask, all contiguous, for the lengths the step leaves
+        (``length + 1`` on active lanes).  Every layer advances with the
+        same ``active``, so layer 0's length is every layer's.  The
+        reference's mask is a lazy (B, 1, S) broadcast and its table a
+        stride-0 one; the kernel takes neither."""
         if not isinstance(stacked, VanillaCache):
             return None
-        length = stacked.length                               # (L, B)
+        length = stacked.length[0]                            # (B,)
         act = aux.get("active")
-        step = 1 if act is None else act.to(length.dtype)
-        new_len = length + step
+        new_len = length + (1 if act is None else act.to(length.dtype))
         h, s = stacked.k.shape[-3], stacked.k.shape[-2]
         vis = (torch.arange(s, device=length.device)
-               < new_len[..., None, None]).expand(length.shape + (h, s))
-        vis = vis.contiguous().unbind(0)
+               < new_len[:, None, None]).expand(length.shape[0], h, s)
         tbl, n = prefix_block_spec(new_len, s, stacked.block_p, h)
-        if n is None:
-            return [{"prefix": (v, None, None)} for v in vis]
-        return [{"prefix": x} for x in zip(vis, tbl.unbind(0), n.unbind(0))]
+        return [{"prefix": (vis.contiguous(), tbl, n)}] * stacked.length.shape[0]
 
     def decode_update(self, cache, q, k_new, v_new, aux):
+        """``aux["prefix"]``: this layer's entry of :meth:`prepare_step`."""
         if not isinstance(cache, VanillaCache):
             return self._slot_update(cache, k_new, v_new, aux)
         retained = cache.append(k_new, v_new, active=aux.get("active"))
-        if "prefix" in aux:
-            vis, tbl, n = aux["prefix"]
-        else:
-            vis = cache.valid_mask().expand(cache.k.shape[:3]).contiguous()
-            tbl, n, _ = cache.block_spec()
+        vis, tbl, n = aux["prefix"]
         kw = dict(block_tbl=tbl, block_n=n, block_p=cache.block_p)
         if cache.pool is None:
             spec = AttendSpec(cache.k, cache.v, vis, cache.positions(), **kw)

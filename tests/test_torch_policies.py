@@ -10,7 +10,8 @@ reference.
     arenas and on the paged pool (``block_p`` 4), with partial ``active``
     masks: a frozen lane equals the reference's after its ``lane_select``
     rollback, and ``live_tokens`` equals the reference's ``metrics``
-    before it.  The attention operands (mask, table, ``n``) equal the
+    before it.  The attention operands (mask, table, ``n``; vanilla's
+    from ``prepare_step``, as ``decode_step`` builds them) equal the
     reference's on active lanes.  Then the lifecycle hooks: gather fork,
     reclaim, export/import, width-2 fork.
 (c) Repairs: a bare ``KVPolicyConfig()`` (``vanilla``) builds a decode
@@ -59,6 +60,15 @@ def _lane_sel(act, new, old):
         return jnp.where(m, x, y)
     return jax.tree_util.tree_map(sel, new, old,
                                   is_leaf=lambda x: isinstance(x, jbp.BlockPool))
+
+
+def _step_aux(pol, cache, active):
+    """The layer's entry of ``prepare_step`` for one layer's cache, built as
+    ``decode_step`` builds it for the stacked cache ({} when the policy
+    prepares nothing)."""
+    prepared = pol.prepare_step(tree_map(lambda a: a[None], cache),
+                                {"active": active})
+    return {} if prepared is None else prepared[0]
 
 
 def assert_cache_same(tc, jc, where=""):
@@ -158,6 +168,7 @@ def test_cache_matches_reference_every_step(arches, kind, extra, paged):
         taux = {"attn_cfg": tarch.attn, "arch": tarch, "dtype": torch.float32,
                 "alpha_bin": torch.from_numpy(alpha),
                 "active": None if act is None else torch.from_numpy(act)}
+        taux.update(_step_aux(pol_t, tc, taux["active"]))
         new, jspec = pol_j.decode_update(jc, None, jnp.asarray(k),
                                          jnp.asarray(v), jaux)
         live_j = np.asarray(pol_j.metrics(new)["live_tokens"])
@@ -218,16 +229,15 @@ def test_stacked_export_import_round_trip(tiny_arch, kind, paged):
     r = np.random.default_rng(4)
     for _ in range(7):
         pc = state["0"]
-        cache = tree_map(lambda a: a[0], pc.cache)
+        prepared = pol.prepare_step(pc.cache, {"active": None})
         k = torch.from_numpy(r.normal(size=(2, 2, 1, 16)).astype(np.float32))
-        pol.decode_update(cache, None, k, k + 1, {
-            "attn_cfg": tarch.attn, "active": None,
-            "alpha_bin": torch.from_numpy(r.random((2, 2)) < 0.5)})
-        for layer in range(1, tarch.num_layers):     # keep the layers level
+        alpha = torch.from_numpy(r.random((2, 2)) < 0.5)
+        for layer in range(tarch.num_layers):        # keep the layers level
             lc = tree_map(lambda a, i=layer: a[i], pc.cache)
             pol.decode_update(lc, None, k, k + 1, {
                 "attn_cfg": tarch.attn, "active": None,
-                "alpha_bin": torch.zeros((2, 2), dtype=torch.bool)})
+                "alpha_bin": alpha if layer == 0 else torch.zeros_like(alpha),
+                **({} if prepared is None else prepared[layer])})
     if paged:
         live = tpolicy.state_pool_stats(state)["live_tokens"]
         assert live == int(state["0"].cache.retained_tokens().sum()) > 0
