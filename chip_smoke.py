@@ -43,8 +43,9 @@ Phases (any failure raises, so the exit code is non-zero):
 4. serve    — qwen-r1-1.5b at full width (d_model 1536, 12/2 heads of 128,
               random weights from a seed, bf16) and half its depth (the
               first 14 of its 28 layers: the script's time limit) served
-              by ``Engine`` with the ``dms`` policy at CR 8 on fixed arenas: four staggered requests
-              (prompts 512/384/256/128, new 64/48/32/64), then one width-4
+              by ``Engine`` with the ``dms`` policy at CR 8 on fixed
+              arenas: four staggered requests (prompts 512/384/256/128,
+              new 64/48/32/64), then one width-4
               hyperscale request (prompt 256, 64 new).  Every request must
               end ``ok`` with its full token count, and the decode kernel
               must have launched once per layer per decode step.  A short
@@ -57,17 +58,17 @@ Phases (any failure raises, so the exit code is non-zero):
               oversubscribe a pool of 1.5x one lane's worst case
               (``oversub`` 2, preemption): all ``ok``, preemptions equal
               resumes and are > 0, the pool never exhausted, tokens equal.
-5b. weights — the same model at the same depth serving
+5b. weights — the same model at 7 layers (``WEIGHTS_LAYERS``) serving
               requests 2 and 3 of the trace with the weight-driven
               policies at CR 8 (budget 72, 80-slot arenas):
               TOVA on fixed arenas and on the pool, H2O and Keyformer on
-              fixed arenas, through the weights-out kernel (14 launches per
+              fixed arenas, through the weights-out kernel (7 launches per
               decode step): all ok, live tokens within the budget, the
               pool's tokens equal to the fixed arenas'.  A teacher-forced
               trace per policy holds the kernel path's logits against the
               reference path's and every weights-out call against the
               plain version; then a profiled step of each beside dms.
-5c. hyperscale — the same model at the same depth: (a) the paper's
+5c. hyperscale — the same model at phase 4's depth: (a) the paper's
               comparison through ``evaluate_hyperscale`` at temperature 0.7
               on one 288-token needle problem: ``vanilla`` at L-W-CR
               320-1-1, ``dms`` at 320-4-8, ``dms_masked`` at 320-4, each
@@ -79,6 +80,18 @@ Phases (any failure raises, so the exit code is non-zero):
               reference path's, teacher-forced, for ``vanilla``, ``window``
               and ``dms_masked`` (delay 16: holed tables); (d)
               ``threefry.categorical`` on the card against the CPU.
+5d. quest/dmc — the same model at phase 4's depth: (a) ``quest`` and
+              ``dmc`` at 320-4-8 through ``evaluate_hyperscale`` at
+              temperature 0.7 on 5c's problem, beside 5c's vanilla and dms:
+              Quest's ``kv_reads`` equal to the count by hand and below
+              vanilla's, its peak tokens a chain equal to vanilla's, DMC's
+              below, the modeled K/V bytes a decode step; (b) request 3
+              greedy on Quest and DMC, fixed and paged: the pool's tokens
+              equal the fixed arenas', every page back at the end; (c)
+              their kernel path against the reference path, teacher-forced
+              (Quest with 8- and 4-slot pages, DMC with 16- and 8-slot
+              blocks); a profiled step of each beside dms, with the device
+              time of Quest's page scoring and of DMC's cast a layer.
 6. train    — qwen-r1-1.5b at full width, fp32 weights from seed 0, DMS
               retrofit (one phase-1 step, three distillation steps) on the
               synthetic stream at (B 2, T 1024) through the flash kernels:
@@ -93,13 +106,22 @@ Phases (any failure raises, so the exit code is non-zero):
               with n = 0 on every row); for the vanilla cache's prefix
               table (every block of a P 384 arena listed) the same, and
               logged beside it at the arena phase 5c (a) serves vanilla on
-              (one lane, P 320).
+              (one lane, P 320); for Quest's page tables (fixed, at 5d
+              (a)'s arena; shared, at (b)'s pool) and DMC's prefix table
+              over its cast accumulators (at (a)'s arena) the same, on
+              phase 3's operands.
 
 Phase 3 also holds the fixed-arena mode on the vanilla cache's operands
 (prefix tables at the main-path shape, at the decode shapes of llama32-1b,
 minitron-4b and phi3-mini and at the arenas phase 5c serves vanilla on, and
 ``block_p`` 0) against the plain version; every shape at which 5c then
-launches the kernel for vanilla must be one of those checked.  The last
+launches the kernel for vanilla must be one of those checked.  It holds
+the fixed and shared modes on Quest's and DMC's operands too, on caches
+built from the configs phase 5d serves and filled by their own steps:
+Quest's top-k page tables (NaN in every unselected page, a tied row that
+lists more than ``top_pages`` pages, pages of 16, 8 and 4 slots) and DMC's
+prefix table over the bf16 cast of its fp32 accumulators; every shape at
+which 5d launches the kernel must be one of those checked.  The last
 four lines are the script's total seconds, the ``kernels`` JSON line, the
 card's name and power limit (again) and the result line ``{"ok": true,
 "device": {...}}``.  Imports nothing of JAX.
@@ -548,12 +570,20 @@ def prefix_case(torch, gen, *, b, hkv, g, dh, p, block_p, lengths,
                                   block_p=block_p or None)
 
 
-def recording_decode_rows(torch, device):
+def launch_key(qf, kf, tblf, block_p, shared_kv):
+    """A decode launch's shape: (rows, G, Dh, arena P, block_p) in fixed-
+    arena mode; (rows, G, Dh, pool slots, block_p, table width, "shared")
+    in shared-pool mode."""
+    key = (*qf.shape, kf.shape[1], block_p)
+    return key + (tblf.shape[1], "shared") if shared_kv else key
+
+
+def recording_decode_rows(torch, device, shared=None):
     """``ops.decode_rows`` that also adds each call's listed blocks
     (``sum(n)``) to a device counter, with no host read, and keeps the
-    shape of each fixed-arena call as (rows, G, Dh, arena P, block_p);
-    returns (the wrapper, the counter, the
-    set of shapes, the real function)."""
+    ``launch_key`` of each fixed-arena call (and, into the set ``shared``
+    if one is given, of each shared-pool call); returns (the wrapper, the
+    counter, the set of fixed-arena shapes, the real function)."""
     from repro_torch.kernels.dms_decode import ops
     real = ops.decode_rows
     listed = torch.zeros((), dtype=torch.int64, device=device)
@@ -561,8 +591,11 @@ def recording_decode_rows(torch, device):
 
     def decode_rows(qf, kf, vf, valf, tblf, nf, block_p, *args, **kw):
         listed.add_(nf.sum())
+        key = launch_key(qf, kf, tblf, block_p, kw.get("shared_kv"))
         if not kw.get("shared_kv"):
-            shapes.add((*qf.shape, kf.shape[1], block_p))
+            shapes.add(key)
+        elif shared is not None:
+            shared.add(key)
         return real(qf, kf, vf, valf, tblf, nf, block_p, *args, **kw)
     return decode_rows, listed, shapes, real
 
@@ -637,6 +670,223 @@ def phase_prefix_kernels(torch, main_shape):
     row = [e for (name, _, block_p), e in errs.items() if block_p
            and name in ("main-path shape", "phase 5c's vanilla arena")]
     return max(row), checked
+
+
+def qd_layouts(*, eval_len=320, req_len=192, trace_len=64):
+    """Phase 5d's layouts, name -> (policy config, lanes, max_len): (a)'s
+    W = 4 chains at L ``eval_len``, (b)'s request 3 on one lane
+    (``req_len``, its prompt plus new tokens), (c)'s two-lane traces
+    (arenas of ``trace_len``).  Quest's pages are 16 slots (the config's
+    default) at CR 8 (``top_pages`` = L / 8 / 16) in (a) and (b), 8 and 4
+    slots with ``top_pages`` 2 in (c).  Phase 3 checks the decode kernel on
+    caches built from these same configs."""
+    return {
+        "(a) quest": (dict(kind="quest", cr=8.0), 4, eval_len),
+        "(a) dmc": (dict(kind="dmc", cr=8.0, block_p=16), 4, eval_len),
+        "(b) quest fixed": (dict(kind="quest", cr=8.0), 1, req_len),
+        "(b) quest paged": (dict(kind="quest", cr=8.0, paged=True), 1,
+                            req_len),
+        "(b) dmc fixed": (dict(kind="dmc", cr=8.0, block_p=16), 1, req_len),
+        "(b) dmc paged": (dict(kind="dmc", cr=8.0, block_p=16, paged=True),
+                          1, req_len),
+        "(c) quest fixed, 8-slot pages": (
+            dict(kind="quest", quest_page_size=8, quest_top_pages=2), 2,
+            trace_len),
+        "(c) quest paged, 4-slot pages": (
+            dict(kind="quest", quest_page_size=4, quest_top_pages=2,
+                 paged=True), 2, trace_len),
+        "(c) dmc fixed": (dict(kind="dmc", cr=8.0, block_p=16), 2, trace_len),
+        "(c) dmc paged, 8-slot blocks": (
+            dict(kind="dmc", cr=8.0, block_p=8, paged=True), 2, trace_len),
+    }
+
+
+def filled_cache(torch, arch, kw, lanes, max_len, gen, device):
+    """One layer's Quest or DMC cache of a ``qd_layouts`` entry, filled
+    through its own step with random bf16 tokens: lane i takes a few tokens
+    fewer than lane i - 1 (an ``active`` mask freezes it).  Quest's lane 0
+    stops one short of its arena (a partial last page); DMC merges at the
+    rate that leaves its lane 0 at about 0.8 of its arena.  Returns (cache,
+    policy)."""
+    from repro_torch.core import policy as policy_lib
+    from repro_torch.core.config import KVPolicyConfig
+    cfg = KVPolicyConfig(**kw)
+    pol = policy_lib.get_policy(cfg.kind)
+    cache = policy_lib.init_policy_cache(arch, lanes, max_len, cfg,
+                                         device=device).cache
+    a = arch.attn
+    quest = cfg.kind == "quest"
+    if quest:
+        steps = cache.kmin.shape[2] * cache.page_size - 1
+        merge = 0.0
+    else:
+        steps = max_len
+        merge = min(max(1.0 - 0.8 * cache.z.shape[-1] / steps, 0.0), 0.9)
+    lengths = torch.tensor([steps - 5 * i for i in range(lanes)],
+                           device=device)
+    shape = (lanes, a.num_kv_heads, 1, a.head_dim)
+    for t in range(steps):
+        act = t < lengths
+        k, v = (torch.randn(shape, generator=gen, device=device)
+                .to(torch.bfloat16) for _ in range(2))
+        if quest:
+            cache.append(k, v, act)
+        else:
+            alpha = torch.rand(shape[:2], generator=gen, device=device) < merge
+            cache.step(k, v, alpha, active=act)
+    return cache, pol
+
+
+def qd_case(torch, arch, kw, lanes, max_len, gen, device):
+    """Decode operands of one ``qd_layouts`` entry from a ``filled_cache``,
+    as the policy's ``attend_spec`` builds them.  Quest: in lane 0, head 0
+    ``top_pages + 1`` pages tie at the best score, so the row lists more
+    than ``top_pages`` pages; every unselected page is NaN (in the arena,
+    or every pool page the table does not list).  DMC: the prefix table
+    over the bf16 cast of the fp32 accumulators, NaN past the listed
+    blocks.  Returns (q, k, v, visible, the wrapper's keywords, the dense
+    (k, v, visible) the spec reads, a note)."""
+    from repro_torch.core import block_pool
+    cache, pol = filled_cache(torch, arch, kw, lanes, max_len, gen, device)
+    a = arch.attn
+    q = torch.randn((lanes, 1, a.num_heads, a.head_dim), generator=gen,
+                    device=device).to(torch.bfloat16)
+    if kw["kind"] == "quest":
+        top = cache.top_pages
+        q_pool = q[:, 0].reshape(lanes, a.num_kv_heads, a.q_per_kv,
+                                 a.head_dim).mean(dim=2)
+        tie = 100.0 * torch.sign(q_pool[0, 0].float())
+        cache.kmin[0, 0, :top + 1] = tie
+        cache.kmax[0, 0, :top + 1] = tie
+        spec = pol.attend_spec(cache, q, a)
+        n, tbl = spec.block_n, spec.block_tbl
+        if int(n[0, 0]) != top + 1 or int(n.max()) > top + 1:
+            raise AssertionError(f"quest {kw}: table counts {n.tolist()}, "
+                                 f"want {top + 1} in the tied row")
+        npg = tbl.shape[-1]
+        listed = torch.zeros_like(tbl, dtype=torch.bool).scatter_(
+            2, tbl.long(), torch.arange(npg, device=device) < n[..., None])
+        if spec.pool is None:
+            dead = ~listed.repeat_interleave(spec.block_p, dim=-1)
+            k, v = spec.k.clone(), spec.v.clone()
+            k[dead] = float("nan")
+            v[dead] = float("nan")
+        else:
+            k = v = None
+            keep = torch.zeros(spec.pool.k_buf.shape[0], dtype=torch.bool,
+                               device=device)
+            keep[spec.phys[listed].long()] = True
+            spec.pool.k_buf[~keep] = float("nan")
+            spec.pool.v_buf[~keep] = float("nan")
+        note = (f"top_pages {top}, page {spec.block_p}, n per row "
+                f"{sorted(set(n.flatten().tolist()))} (a tie lists "
+                f"{top + 1}), unselected pages NaN")
+    else:
+        spec = pol.attend_spec(cache, torch.bfloat16)
+        n = spec.block_n
+        p = spec.k.shape[2]
+        dead = (torch.arange(p, device=device)
+                >= (n * spec.block_p)[..., None])
+        k, v = spec.k.clone(), spec.v.clone()
+        k[dead] = float("nan")
+        v[dead] = float("nan")
+        note = (f"block_p {spec.block_p}, count per row "
+                f"{sorted(set(cache.count.flatten().tolist()))} of {p} slots, "
+                "bf16 cast of fp32 accumulators, NaN past the listed blocks")
+    kw_ops = dict(block_tbl=spec.block_tbl, block_n=spec.block_n,
+                  block_p=spec.block_p, pool_k=spec.pool_k,
+                  pool_v=spec.pool_v, phys=spec.phys)
+    if spec.pool is None:
+        dense = (k, v, spec.visible)
+    else:
+        kd, vd = block_pool.dense_kv(spec.pool, spec.phys)
+        dense = (kd, vd, spec.visible)
+    return q, k, v, spec.visible, kw_ops, dense, note
+
+
+def phase_quest_dmc_kernels(torch, arch, layouts, device="cuda"):
+    """The decode kernel on Quest's and DMC's operands at every launch
+    shape phase 5d serves (``qd_layouts``, caches built and filled by the
+    policies' own code, ``qd_case``): Quest's top-k page tables in the
+    fixed and shared modes (a new ascending subset of pages, a tied row
+    over ``top_pages``, pages of 16, 8 and 4 slots, NaN in every unselected
+    page) and DMC's prefix table over the bf16 cast of its fp32
+    accumulators.  Each through the wrapper against the same wrapper on the
+    CPU (the plain version) and against the plain version of the kernel's
+    split of the table, finite, bit-equal on a second launch.  Returns
+    (the largest max abs error per table kind, the checked launch shapes
+    per kind, the flattened operands of (a)'s Quest and DMC and (b)'s
+    paged Quest, for the timing phase)."""
+    from repro_torch.kernels.dms_decode import ops
+    from repro_torch.kernels.dms_decode.ref import dms_decode_plain_split
+    gen = torch.Generator(device=device).manual_seed(2468)
+    real = ops.decode_rows
+    calls = []
+
+    def capture(*args, **kw):
+        calls.append((args, kw))
+        return real(*args, **kw)
+
+    before = (ops.launches, ops.shared_launches)
+    errs = {"quest": 0.0, "dmc": 0.0}
+    checked = {"quest": set(), "dmc": set()}
+    timed = {}
+    for name, (kw, lanes, max_len) in layouts.items():
+        q, k, v, vis, kw_ops, dense, note = qd_case(
+            torch, arch, kw, lanes, max_len, gen, device)
+        calls.clear()
+        ops.decode_rows = capture
+        try:
+            out = ops.dms_decode_attention(q, k, v, vis, **kw_ops)
+            again = ops.dms_decode_attention(q, k, v, vis, **kw_ops)
+        finally:
+            ops.decode_rows = real
+        if device == "cuda":
+            torch.cuda.synchronize()
+        if not torch.equal(out, again):
+            raise AssertionError(f"{name}: a second launch gave other bits")
+        want = ops.dms_decode_attention(
+            *(None if x is None else x.cpu() for x in (q, k, v, vis)),
+            **{key: x.cpu() if torch.is_tensor(x) else x
+               for key, x in kw_ops.items()})
+        args, ckw = calls[0]
+        shared = bool(ckw.get("shared_kv"))
+        split = dms_decode_plain_split(
+            *args[:7], None, shared_kv=shared,
+            splits=ops.splits(args[4].shape[1]) if device == "cuda" else 1)
+        if not bool(torch.isfinite(out.float()).all()):
+            raise AssertionError(f"{name}: non-finite output")
+        torch.testing.assert_close(out.float().cpu(), want.float(),
+                                   **KERNEL_TOL)
+        torch.testing.assert_close(out.float().reshape(split.shape),
+                                   split.float(), **KERNEL_TOL)
+        err = (out.float().cpu() - want.float()).abs().max().item()
+        kind = kw["kind"]
+        errs[kind] = max(errs[kind], err)
+        checked[kind].add(launch_key(args[0], args[1], args[4], args[6],
+                                     shared))
+        if name in ("(a) quest", "(b) quest paged", "(a) dmc"):
+            kd, vd, vald = dense
+            bh, p = args[0].shape[0], kd.shape[2]
+            timed[name] = {"kernel": args[:6],
+                           "dense": tuple(x.reshape(bh, p, *x.shape[3:])
+                                          for x in (kd, vd, vald)),
+                           "shape": (*args[0].shape, p, args[6]),
+                           "mode": "shared" if shared else "fixed"}
+        log(f"kernel vs plain [phase 5d {name}, "
+            f"{'shared-pool' if shared else 'fixed-arena'} mode, launch "
+            f"{launch_key(args[0], args[1], args[4], args[6], shared)}; "
+            f"{note}]: max_abs_err {err:.3e} (tolerance atol "
+            f"{KERNEL_TOL['atol']}, rtol {KERNEL_TOL['rtol']}; the plain "
+            "split too); bit-equal on a second launch")
+    moved = (ops.launches - before[0], ops.shared_launches - before[1])
+    n_shared = sum(2 for kw, _, _ in layouts.values()
+                   if kw.get("paged") and kw["kind"] == "quest")
+    want = ((2 * len(layouts) - n_shared, n_shared) if device == "cuda"
+            else (0, 0))
+    if moved != want:
+        raise AssertionError(f"launch counters moved {moved}, want {want}")
+    return errs, checked, timed
 
 
 def flash_case(torch, *, b, t, hq, hkv, dh, dtype, alpha="relaxed",
@@ -867,6 +1117,9 @@ def serving_setup(torch, device="cuda", arch_name="qwen-r1-1.5b",
 # the script's time limit (the eager decode step costs ~3.5 ms of host time
 # a layer)
 SERVE_LAYERS = 14
+# phase 5b serves half of those: the time phase 5d takes (its checks are per
+# layer and per step, and 7 layers keep a layer below the top one)
+WEIGHTS_LAYERS = 7
 
 
 def cut_depth(setup, layers):
@@ -1335,35 +1588,34 @@ def phase_weights_serve(torch, setup, fixed, reqs=(2, 3), short=24,
                         for (k, p), r in runs.items()}}
 
 
-def phase_hyperscale_eval(torch, setup, *, prompt_len=288, max_len=320):
-    """(a) The paper's comparison through ``evaluate_hyperscale`` at
-    temperature 0.7: one needle problem (``make_eval_set``), ``vanilla`` at
-    L-W-CR 320-1-1, ``dms`` at 320-4-8 and ``dms_masked`` at 320-4, seed 0.
-    Every request ends ok, the fixed-arena kernel launches once per layer
-    per decode step (no other mode), the W = 4 chains are not all equal
-    (sampling happened) and ``dms`` holds fewer peak tokens a chain than
-    ``vanilla``.  Accuracy, meters, ``analytic_budget`` and the modeled
-    K/V bytes a decode step are printed."""
+def eval_runs(torch, setup, runs, *, prompt_len, max_len, shared=False):
+    """``evaluate_hyperscale(..., seed=0)`` at temperature 0.7 on one
+    needle problem (``make_eval_set``) for each of ``runs``: name ->
+    (policy config, W, CR, DMS delay for ``analytic_budget``).  Every
+    request ends ok with its full length, the decode kernel launches once
+    per layer per decode step in one mode (the shared-pool mode where
+    ``shared`` names the run, else the fixed-arena mode) and the W > 1
+    chains are not all equal (sampling happened).  Returns per run the
+    result, W, steps, launches, modeled K/V bytes a decode step, chain 0's
+    tokens and the launch shapes."""
     from repro_torch.core.config import KVPolicyConfig
     from repro_torch.core.hyperscale import ScalingConfig, analytic_budget
     from repro_torch.data import tasks
     from repro_torch.kernels.dms_decode import ops
     from repro_torch.serving.engine import Engine, evaluate_hyperscale
     arch, params, device = setup["arch"], setup["params"], setup["device"]
-    bp = setup.get("block_p", 16)
     cuda = device == "cuda"
     task = tasks.TaskConfig(kind="needle", vocab_size=64,
                             prompt_len=prompt_len, seed=0)
     prompts, answers = tasks.make_eval_set(task, 1)
-    runs = {"vanilla": (dict(kind="vanilla"), 1, 1.0, 0),
-            "dms": (dict(kind="dms", cr=8.0), 4, 8.0, arch.dms.window),
-            "dms_masked": (dict(kind="dms_masked"), 4, 8.0, arch.dms.window)}
-    recording, listed, shapes, real = recording_decode_rows(torch, device)
+    pooled = set()
+    recording, listed, shapes, real = recording_decode_rows(torch, device,
+                                                            pooled)
     out = {}
     ops.decode_rows = recording
     try:
         for name, (kw, width, cr, window) in runs.items():
-            engine = Engine(arch, params, KVPolicyConfig(block_p=bp, **kw),
+            engine = Engine(arch, params, KVPolicyConfig(**kw),
                             use_kernel=True, temperature=0.7, device=device)
             seen = []
 
@@ -1375,6 +1627,7 @@ def phase_hyperscale_eval(torch, setup, *, prompt_len=288, max_len=320):
             engine.chunk_fn.steps = 0
             listed.zero_()
             shapes.clear()
+            pooled.clear()
             ops.launches = ops.shared_launches = ops.weights_launches = 0
             t0 = time.perf_counter()
             res = evaluate_hyperscale(engine, prompts, answers, cfg, seed=0)
@@ -1382,13 +1635,15 @@ def phase_hyperscale_eval(torch, setup, *, prompt_len=288, max_len=320):
             if cuda:
                 torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            steps, launches = engine.chunk_fn.steps, ops.launches
-            if ops.shared_launches or ops.weights_launches \
-                    or launches != (arch.num_layers * steps if cuda else 0):
+            steps = engine.chunk_fn.steps
+            want = arch.num_layers * steps if cuda else 0
+            got = (ops.launches, ops.shared_launches, ops.weights_launches)
+            mode = "shared-pool" if name == shared else "fixed-arena"
+            if got != ((0, want, 0) if name == shared else (want, 0, 0)):
                 raise AssertionError(
-                    f"{name}: fixed-arena launches {launches}, shared "
-                    f"{ops.shared_launches}, weights-out "
-                    f"{ops.weights_launches}, for {steps} decode steps")
+                    f"{name}: launches (fixed, shared, weights-out) {got} for "
+                    f"{steps} decode steps")
+            launches = max(got)
             new = max_len - prompt_len
             for r in seen:
                 req = r.requests[0]
@@ -1400,12 +1655,17 @@ def phase_hyperscale_eval(torch, setup, *, prompt_len=288, max_len=320):
                                          "identical: no sampling")
             reads, peak = analytic_budget(max_len, width, cr, arch.num_layers,
                                           window)
-            kv_bytes = ops.modeled_hbm_bytes(listed, bp, arch.attn.head_dim,
+            # the table's blocks: Quest's are its pages
+            tbl_bp = kw.get("quest_page_size", 16) if kw["kind"] == "quest" \
+                else kw.get("block_p", 16)
+            kv_bytes = ops.modeled_hbm_bytes(listed, tbl_bp,
+                                             arch.attn.head_dim,
                                              torch.bfloat16, torch.bfloat16)
             out[name] = dict(res=res, width=width, steps=steps,
                              launches=launches,
                              bytes_step=kv_bytes / max(steps, 1),
-                             tokens=seen[0].tokens, shapes=set(shapes))
+                             tokens=seen[0].tokens,
+                             shapes=set(shapes) | set(pooled))
             log(f"hyperscale (a): {name} at {max_len}-{width}-{cr:g} on one "
                 f"needle problem (prompt {prompt_len}), temperature 0.7, seed "
                 f"0: all ok; accuracy {res['accuracy']} (random weights: "
@@ -1413,12 +1673,30 @@ def phase_hyperscale_eval(torch, setup, *, prompt_len=288, max_len=320):
                 f"(analytic {reads:.1f}), peak_tokens {res['peak_tokens']:.1f}"
                 f" (analytic {peak:.1f}), peak_bytes {res['peak_bytes']:.0f};"
                 f" {steps} decode steps in {wall:.2f} s = "
-                f"{1e3 * wall / max(steps, 1):.2f} ms/step; fixed-arena "
+                f"{1e3 * wall / max(steps, 1):.2f} ms/step; {mode} "
                 f"launches {launches} = {arch.num_layers} x {steps}; modeled "
                 f"K/V bytes a decode step {kv_bytes / max(steps, 1):.0f} "
                 f"(listed blocks {int(listed.item())})")
     finally:
         ops.decode_rows = real
+    return out
+
+
+def phase_hyperscale_eval(torch, setup, *, prompt_len=288, max_len=320):
+    """(a) The paper's comparison through ``evaluate_hyperscale`` at
+    temperature 0.7 (``eval_runs``): ``vanilla`` at L-W-CR 320-1-1, ``dms``
+    at 320-4-8 and ``dms_masked`` at 320-4; ``dms`` holds fewer peak tokens
+    a chain than ``vanilla``.  Accuracy, meters, ``analytic_budget`` and
+    the modeled K/V bytes a decode step are printed."""
+    arch = setup["arch"]
+    bp = setup.get("block_p", 16)
+    runs = {"vanilla": (dict(kind="vanilla", block_p=bp), 1, 1.0, 0),
+            "dms": (dict(kind="dms", cr=8.0, block_p=bp), 4, 8.0,
+                    arch.dms.window),
+            "dms_masked": (dict(kind="dms_masked", block_p=bp), 4, 8.0,
+                           arch.dms.window)}
+    out = eval_runs(torch, setup, runs, prompt_len=prompt_len,
+                    max_len=max_len)
     per_chain = {k: v["res"]["peak_tokens"] / v["width"] for k, v in out.items()}
     if not per_chain["dms"] < per_chain["vanilla"]:
         raise AssertionError(f"dms peak tokens a chain {per_chain['dms']} not "
@@ -1436,41 +1714,33 @@ def phase_hyperscale_eval(torch, setup, *, prompt_len=288, max_len=320):
     return out
 
 
-def phase_layouts(torch, setup, *, uid=3, window_budget=128):
-    """(b) Request ``uid`` of phase 4's trace, greedy, on five layouts:
-    ``vanilla`` on fixed arenas, on the pool and with ``block_p`` 0 (the
-    kernel's legacy dense mode), ``window`` with a ring of ``window_budget
-    + 1`` slots (it recycles past it) and ``dms_masked`` on the pool.  Each
-    ok with its full token count; fixed layouts launch the fixed-arena
-    kernel and paged ones the shared-pool kernel, once per layer per
-    decode step; the pool's vanilla tokens equal the fixed arenas'.
-    Returns each layout's launches (fixed, shared, weights-out) and the
-    fixed-arena launch shapes of its runs."""
+def serve_layouts(torch, setup, layouts, *, uid=3, what="layouts (b)"):
+    """Request ``uid`` of phase 4's trace, greedy, on each of ``layouts``
+    (name -> policy config) on one lane.  Each ok with its full token
+    count; the decode kernel launches once per layer per decode step, in
+    the shared-pool mode where the layout streams pool pages (paged, but
+    not ``dmc``, whose pool holds fp32 accumulators: its kernel reads a
+    dense cast), else the fixed-arena mode; a paged layout has every page
+    back in the pool at the end.  Returns each layout's tokens, launches
+    (fixed, shared, weights-out) and launch shapes (``launch_key``)."""
+    from repro_torch.core import policy as policy_lib
     from repro_torch.core.config import KVPolicyConfig
     from repro_torch.kernels.dms_decode import ops
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.scheduler import Request
     arch, params, device = setup["arch"], setup["params"], setup["device"]
-    bp = setup.get("block_p", 16)
     cuda = device == "cuda"
     prompt, new = setup["prompts"][uid], setup["news"][uid]
-    layouts = {
-        "vanilla fixed": dict(kind="vanilla", block_p=bp),
-        "vanilla paged": dict(kind="vanilla", block_p=bp, paged=True),
-        "vanilla block_p 0": dict(kind="vanilla", block_p=0),
-        f"window budget {window_budget}": dict(kind="window",
-                                               budget=window_budget,
-                                               block_p=bp),
-        "dms_masked paged": dict(kind="dms_masked", block_p=bp, paged=True),
-    }
     tokens, launched, shaped = {}, {}, {}
-    recording, _, shapes, real = recording_decode_rows(torch, device)
+    pooled = set()
+    recording, _, shapes, real = recording_decode_rows(torch, device, pooled)
     for name, kw in layouts.items():
         engine = Engine(arch, params, KVPolicyConfig(**kw), use_kernel=True,
                         device=device)
         engine.chunk_fn.steps = 0
         ops.launches = ops.shared_launches = ops.weights_launches = 0
         shapes.clear()
+        pooled.clear()
         t0 = time.perf_counter()
         sched = engine.scheduler(num_lanes=1, max_len=len(prompt) + new)
         sched.submit(Request(uid=uid, prompt=prompt, max_new=new))
@@ -1482,24 +1752,56 @@ def phase_layouts(torch, setup, *, uid=3, window_budget=128):
         if cuda:
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        shaped[name] = set(shapes)
+        shaped[name] = set(shapes) | set(pooled)
         steps = engine.chunk_fn.steps
         want = arch.num_layers * steps if cuda else 0
         paged = kw.get("paged", False)
+        streams = paged and kw["kind"] != "dmc"
         got = (ops.launches, ops.shared_launches, ops.weights_launches)
-        if got != ((0, want, 0) if paged else (want, 0, 0)):
-            raise AssertionError(f"layout {name}: launches (fixed, shared, "
+        if got != ((0, want, 0) if streams else (want, 0, 0)):
+            raise AssertionError(f"{what}: {name}: launches (fixed, shared, "
                                  f"weights-out) {got} for {steps} steps")
         if res.status != "ok" or int(res.lengths[0]) != new:
-            raise AssertionError(f"layout {name}: status {res.status}, "
+            raise AssertionError(f"{what}: {name}: status {res.status}, "
                                  f"lengths {res.lengths}")
+        pool = ""
+        if paged:
+            stats = policy_lib.state_pool_stats(sched.state)
+            if stats["allocated_blocks"] or stats["exhausted"]:
+                raise AssertionError(f"{what}: {name}: pages left allocated "
+                                     f"at the end: {stats}")
+            pool = (f"; pool high water {stats['high_water_blocks']} of "
+                    f"{stats['pool_blocks']} pages, every page back at the "
+                    "end")
         tokens[name] = res.tokens
         launched[name] = got
-        log(f"layouts (b): {name}, request {uid} (prompt {len(prompt)}, {new} "
+        log(f"{what}: {name}, request {uid} (prompt {len(prompt)}, {new} "
             f"new), greedy: ok; {steps} decode steps in {wall:.2f} s = "
             f"{1e3 * wall / steps:.2f} ms/step; launches (fixed, shared, "
             f"weights-out) {got}; peak_tokens {res.meter.peak_tokens:.1f}, "
-            f"kv_reads {res.meter.kv_reads:.1f}")
+            f"kv_reads {res.meter.kv_reads:.1f}{pool}")
+    return tokens, launched, shaped
+
+
+def phase_layouts(torch, setup, *, uid=3, window_budget=128):
+    """(b) Request ``uid`` of phase 4's trace, greedy, on five layouts
+    (``serve_layouts``): ``vanilla`` on fixed arenas, on the pool and with
+    ``block_p`` 0 (the kernel's legacy dense mode), ``window`` with a ring
+    of ``window_budget + 1`` slots (it recycles past it) and ``dms_masked``
+    on the pool; the pool's vanilla tokens equal the fixed arenas'.
+    Returns each layout's launches (fixed, shared, weights-out) and the
+    launch shapes of its runs."""
+    bp = setup.get("block_p", 16)
+    layouts = {
+        "vanilla fixed": dict(kind="vanilla", block_p=bp),
+        "vanilla paged": dict(kind="vanilla", block_p=bp, paged=True),
+        "vanilla block_p 0": dict(kind="vanilla", block_p=0),
+        f"window budget {window_budget}": dict(kind="window",
+                                               budget=window_budget,
+                                               block_p=bp),
+        "dms_masked paged": dict(kind="dms_masked", block_p=bp, paged=True),
+    }
+    tokens, launched, shaped = serve_layouts(torch, setup, layouts, uid=uid)
     if not (tokens["vanilla paged"] == tokens["vanilla fixed"]).all():
         raise AssertionError("vanilla: the pool's tokens differ from the "
                              "fixed arenas'")
@@ -1510,18 +1812,151 @@ def phase_layouts(torch, setup, *, uid=3, window_budget=128):
     return launched, shaped
 
 
-def phase_policy_paths(torch, setup, *, steps=48, window_budget=32):
-    """(c) Kernel path against reference path, teacher-forced: each step
-    runs both paths from the same cache (a copy), so the logits differ only
-    by this step's attention, for ``vanilla`` fixed and paged, ``window``
-    (a ring of ``window_budget + 1`` slots, so that it recycles) and
-    ``dms_masked`` fixed and paged with the DMS delay window cut to 16 (so
-    that it evicts within the trace and the kernel reads holed tables).
-    Launches here are not the main path's."""
+def quest_spy(torch, attn_lib, tables, worst):
+    """``attn_lib._masked_decode`` that keeps each call's (table, n) in
+    ``tables``, and on the kernel path also runs the reference attention on
+    the same operands, holds the output within ``KERNEL_TOL`` and keeps the
+    largest difference in ``worst[0]``.  Returns (the wrapper, the real
+    function)."""
+    real = attn_lib._masked_decode
+
+    def masked_decode(q, spec, window, cfg, use_kernel, pos_t=None,
+                      need_weights=False):
+        tables.append((spec.block_tbl.clone(), spec.block_n.clone()))
+        out = real(q, spec, window, cfg, use_kernel, pos_t, need_weights)
+        if use_kernel:
+            ref = real(q, spec, window, cfg, False, pos_t, need_weights)[0]
+            torch.testing.assert_close(out[0].float(), ref.float(),
+                                       **KERNEL_TOL)
+            worst[0] = max(worst[0],
+                           (out[0].float() - ref.float()).abs().max().item())
+        return out
+    return masked_decode, real
+
+
+def policy_paths(torch, setup, traces, *, steps=48, what="paths (c)"):
+    """Kernel path against reference path, teacher-forced: each step runs
+    both paths from the same cache (a copy), so the logits differ only by
+    this step's attention, for each of ``traces`` (name -> (arch, policy
+    config)), two lanes of arenas of ``steps + 16``; the logits
+    within 0.05 x max |logit|.  Quest selects pages by scores that the
+    layers below feed: where an ulp of theirs flips a near tie of page
+    scores, the two paths attend over other pages.  So for Quest every
+    layer's kernel output is also held against the reference attention on
+    the same operands (``KERNEL_TOL``), a step whose page tables differ
+    between the paths in any layer is counted and its logits not held,
+    and at least half of the steps must be held.  Returns the launch
+    shapes of the kernel path (``launch_key``) by trace.  Launches here are
+    not the main path's."""
     from repro_torch.core.config import KVPolicyConfig
     from repro_torch.core.tree import tree_map
+    from repro_torch.kernels.dms_decode import ops
+    from repro_torch.models import attention as attn_lib
     from repro_torch.models import transformer as tfm
     arch, params, device = setup["arch"], setup["params"], setup["device"]
+    bp = setup.get("block_p", 16)
+    rng = torch.Generator().manual_seed(10)
+    tokens = torch.randint(3, arch.vocab_size, (2, steps), generator=rng)
+    live = torch.arange(arch.padded_vocab, device=device) < arch.vocab_size
+    pooled = set()
+    recording, _, shapes, real = recording_decode_rows(torch, device, pooled)
+    shaped = {}
+    for name, (a, kw) in traces.items():
+        state = tfm.init_decode_state(a, 2, steps + 16, KVPolicyConfig(**kw),
+                                      device=device)
+        shapes.clear()
+        pooled.clear()
+        gap = scale = 0.0
+        agree = flips = 0
+        tables, worst = [], [0.0]
+        quest = kw["kind"] == "quest"
+        spy, real_attn = quest_spy(torch, attn_lib, tables, worst)
+        for t in range(steps):
+            tok = tokens[:, t:t + 1].to(device)
+            ref_state = tree_map(torch.clone, state)
+            tables.clear()
+            ops.decode_rows = recording
+            if quest:
+                attn_lib._masked_decode = spy
+            try:
+                lk, _, aux = tfm.decode_step(params, tok, state, a, t,
+                                             use_kernel=True)
+                lr, _, _ = tfm.decode_step(params, tok, ref_state, a, t,
+                                           use_kernel=False)
+            finally:
+                ops.decode_rows = real
+                attn_lib._masked_decode = real_attn
+            if not bool(torch.isfinite(lk[:, live]).all()):
+                raise AssertionError(f"{name}: non-finite kernel-path logits "
+                                     f"at step {t}")
+            half = len(tables) // 2
+            if any(not (torch.equal(x[0], y[0]) and torch.equal(x[1], y[1]))
+                   for x, y in zip(tables[:half], tables[half:])):
+                flips += 1
+                continue
+            gap = max(gap, (lk - lr)[:, live].abs().max().item())
+            scale = max(scale, lr[:, live].abs().max().item())
+            agree += int((lk[:, live].argmax(-1) == lr[:, live].argmax(-1)).sum())
+        cache = state["0"].cache
+        note = ""
+        if kw["kind"] == "window":
+            if not bool(cache.overflowed.all()):
+                raise AssertionError(f"{name}: the ring never recycled")
+            note = "; the ring recycled in every layer and lane"
+        if kw["kind"] == "dms_masked":
+            # a holed block: listed (a retained slot) but missing an evicted one
+            nb = cache.blocks.count.shape[-1]
+            written = torch.clamp(steps - bp * torch.arange(nb, device=device),
+                                  0, bp)
+            count = cache.blocks.count
+            holed = int(((count > 0) & (count < written)).sum())
+            if not holed:
+                raise AssertionError(f"{name}: no listed block has a hole")
+            note = (f"; {holed} listed blocks hold evicted slots (summed over "
+                    "layers, lanes and heads)")
+        if quest:
+            reads, held = (float(aux[k].sum()) for k in ("reads_tokens",
+                                                         "live_tokens"))
+            if not reads < held:
+                raise AssertionError(f"{name}: reads {reads} not below the "
+                                     f"{held} tokens held")
+            if 2 * flips > steps:
+                raise AssertionError(f"{name}: {flips} of {steps} steps chose "
+                                     "other pages on the two paths")
+            note = (f"; last step reads {reads:.0f} of {held:.0f} tokens "
+                    f"held; every layer's kernel output within "
+                    f"{worst[0]:.3e} of the reference attention on the same "
+                    f"pages; {flips} of {steps} steps chose other pages on "
+                    "the two paths (a near tie of page scores after the "
+                    "layers below rounded apart): their logits not held")
+        if kw["kind"] == "dmc":
+            count = cache.count
+            full = int((count > cache.z.shape[-1]).sum())
+            note = (f"; {int(count.sum())} entries hold the {steps} tokens of "
+                    f"each of {count.numel()} (layer, lane, head) rows (at "
+                    f"most {int(count.max())}; {full} rows outgrew their "
+                    f"{cache.z.shape[-1]}-slot arena, whose writes drop, as "
+                    "the reference's do)")
+            if not int(count.sum()) < count.numel() * steps:
+                raise AssertionError(f"{name}: no token merged")
+        log(f"{what}: {name} kernel vs reference path over {steps} "
+            f"teacher-forced steps from the same cache: max abs logit diff "
+            f"{gap:.4e}, max |logit| {scale:.4e} (tolerance 0.05 x max "
+            f"|logit|); greedy tokens agree at {agree} of "
+            f"{2 * (steps - flips)}{note}")
+        if not gap <= 0.05 * scale:
+            raise AssertionError(f"{name}: kernel-path logits disagree with "
+                                 "the reference path")
+        shaped[name] = set(shapes) | set(pooled)
+    return shaped
+
+
+def phase_policy_paths(torch, setup, *, steps=48, window_budget=32):
+    """(c) ``policy_paths`` for ``vanilla`` fixed and paged, ``window`` (a
+    ring of ``window_budget + 1`` slots, so that it recycles) and
+    ``dms_masked`` fixed and paged with the DMS delay window cut to 16 (so
+    that it evicts within the trace and the kernel reads holed tables)."""
+    arch = setup["arch"]
     bp = setup.get("block_p", 16)
     arch16 = dataclasses.replace(arch, dms=dataclasses.replace(arch.dms,
                                                                window=16))
@@ -1535,51 +1970,7 @@ def phase_policy_paths(torch, setup, *, steps=48, window_budget=32):
         "dms_masked paged (delay 16)": (arch16, dict(kind="dms_masked",
                                                      block_p=bp, paged=True)),
     }
-    rng = torch.Generator().manual_seed(10)
-    tokens = torch.randint(3, arch.vocab_size, (2, steps), generator=rng)
-    live = torch.arange(arch.padded_vocab, device=device) < arch.vocab_size
-    for name, (a, kw) in traces.items():
-        state = tfm.init_decode_state(a, 2, steps + 16, KVPolicyConfig(**kw),
-                                      device=device)
-        gap = scale = 0.0
-        agree = 0
-        for t in range(steps):
-            tok = tokens[:, t:t + 1].to(device)
-            ref_state = tree_map(torch.clone, state)
-            lk, _, _ = tfm.decode_step(params, tok, state, a, t,
-                                       use_kernel=True)
-            lr, _, _ = tfm.decode_step(params, tok, ref_state, a, t,
-                                       use_kernel=False)
-            if not bool(torch.isfinite(lk[:, live]).all()):
-                raise AssertionError(f"{name}: non-finite kernel-path logits "
-                                     f"at step {t}")
-            gap = max(gap, (lk - lr)[:, live].abs().max().item())
-            scale = max(scale, lr[:, live].abs().max().item())
-            agree += int((lk[:, live].argmax(-1) == lr[:, live].argmax(-1)).sum())
-        cache = state["0"].cache
-        what = ""
-        if kw["kind"] == "window":
-            if not bool(cache.overflowed.all()):
-                raise AssertionError(f"{name}: the ring never recycled")
-            what = "; the ring recycled in every layer and lane"
-        if kw["kind"] == "dms_masked":
-            # a holed block: listed (a retained slot) but missing an evicted one
-            nb = cache.blocks.count.shape[-1]
-            written = torch.clamp(steps - bp * torch.arange(nb, device=device),
-                                  0, bp)
-            count = cache.blocks.count
-            holed = int(((count > 0) & (count < written)).sum())
-            if not holed:
-                raise AssertionError(f"{name}: no listed block has a hole")
-            what = (f"; {holed} listed blocks hold evicted slots (summed over "
-                    "layers, lanes and heads)")
-        log(f"paths (c): {name} kernel vs reference path over {steps} "
-            f"teacher-forced steps from the same cache: max abs logit diff "
-            f"{gap:.4e}, max |logit| {scale:.4e} (tolerance 0.05 x max "
-            f"|logit|); greedy tokens agree at {agree} of {2 * steps}{what}")
-        if not gap <= 0.05 * scale:
-            raise AssertionError(f"{name}: kernel-path logits disagree with "
-                                 "the reference path")
+    policy_paths(torch, setup, traces, steps=steps)
 
 
 def phase_sampling(torch, setup, seeds=8):
@@ -1625,17 +2016,152 @@ def phase_hyperscale_serve(torch, setup, **kw):
     """Phase 5c: (a) the hyper-scaling evaluation, (b) the layouts, (c) the
     kernel path against the reference path, (d) sampling on the device.
     Returns the prefix-table launches of the main path's runs (the
-    fixed-arena launches of ``vanilla`` in (a) and on fixed arenas in (b))
-    and the shapes of every fixed-arena launch of ``vanilla`` in (a) and
-    (b), ``block_p`` 0 included."""
+    fixed-arena launches of ``vanilla`` in (a) and on fixed arenas in (b)),
+    the shapes of every fixed-arena launch of ``vanilla`` in (a) and (b),
+    ``block_p`` 0 included, and (a)'s results."""
     evals = phase_hyperscale_eval(torch, setup, **kw.get("eval", {}))
     layouts, shaped = phase_layouts(torch, setup, **kw.get("layouts", {}))
     phase_policy_paths(torch, setup, **kw.get("paths", {}))
     phase_sampling(torch, setup)
+    fixed = [shape for k, v in shaped.items() if k.startswith("vanilla")
+             for shape in v if "shared" not in shape]
     return {"prefix": evals["vanilla"]["launches"]
             + layouts["vanilla fixed"][0],
-            "vanilla_shapes": evals["vanilla"]["shapes"].union(
-                *(v for k, v in shaped.items() if k.startswith("vanilla")))}
+            "vanilla_shapes": evals["vanilla"]["shapes"].union(fixed),
+            "evals": evals}
+
+
+def quest_reads_by_hand(prompt_len, max_len, width, layers, page, top):
+    """Quest's ``kv_reads`` on one hyperscale problem, counted by hand: a
+    step reads ``min(ceil(length / page), top)`` whole pages a layer, its
+    own token counted in ``length``; the prompt's steps on one lane
+    (lengths 1 .. prompt_len), then W chains at lengths prompt_len + 1 ..
+    max_len - 1 (the first new token is drawn from the prefill's logits
+    and the last one is never fed back)."""
+    def reads(length):
+        return min(-(-length // page), top) * page
+    prefill = sum(reads(t) for t in range(1, prompt_len + 1))
+    decode = sum(reads(t) for t in range(prompt_len + 1, max_len))
+    return layers * (prefill + width * decode)
+
+
+def phase_quest_dmc_serve(torch, setup, base, layouts, *, prompt_len=288,
+                          uid=3, steps=48):
+    """Phase 5d, Quest and DMC on the same model (``layouts`` from
+    ``qd_layouts``): (a) ``evaluate_hyperscale`` at temperature 0.7 on 5c's
+    needle problem (``eval_runs``), ``quest`` and ``dmc`` at 320-4-8 beside
+    ``base``, 5c (a)'s results: Quest's ``kv_reads`` equal to
+    ``quest_reads_by_hand`` and below vanilla's, its peak tokens a chain
+    equal to vanilla's, DMC's below; (b) request ``uid`` greedy on Quest
+    and DMC, fixed and paged (``serve_layouts``): the pool's tokens equal
+    the fixed arenas'; (c) the kernel path against the reference path
+    (``policy_paths``); then a profiled step of each beside dms, and the
+    device time of Quest's page scoring and of DMC's cast a layer.
+    Returns the main path's launches by table kind and mode, and the
+    launch shapes of (a)-(c) by policy."""
+    from repro_torch.core import policy as policy_lib
+    from repro_torch.core.config import KVPolicyConfig
+    arch, device = setup["arch"], setup["device"]
+    layers = arch.num_layers
+    (qkw, width, max_len), (dkw, _, _) = (layouts["(a) quest"],
+                                          layouts["(a) dmc"])
+    runs = {"quest": (qkw, width, 8.0, 0), "dmc": (dkw, width, 8.0, 0)}
+    out = eval_runs(torch, setup, runs, prompt_len=prompt_len,
+                    max_len=max_len)
+    quest = policy_lib.init_policy_cache(arch, width, max_len,
+                                         KVPolicyConfig(**qkw),
+                                         device=device).cache
+    hand = quest_reads_by_hand(prompt_len, max_len, width, layers,
+                               quest.page_size, quest.top_pages)
+    van = base["vanilla"]
+    chain = {k: v["res"]["peak_tokens"] / v["width"]
+             for k, v in dict(out, vanilla=van, dms=base["dms"]).items()}
+    reads = out["quest"]["res"]["kv_reads"]
+    log(f"quest/dmc (a): quest kv_reads {reads:.1f}, by hand "
+        f"({layers} layers x (prefill + {width} chains) x min(pages, "
+        f"{quest.top_pages}) pages of {quest.page_size}) {hand}; vanilla "
+        f"{van['res']['kv_reads']:.1f}, dms {base['dms']['res']['kv_reads']:.1f}"
+        f"; peak tokens a chain: quest {chain['quest']:.1f}, vanilla "
+        f"{chain['vanilla']:.1f}, dmc {chain['dmc']:.1f}, dms "
+        f"{chain['dms']:.1f}; modeled K/V bytes a decode step: quest "
+        f"{out['quest']['bytes_step']:.0f}, dmc {out['dmc']['bytes_step']:.0f}"
+        f", dms {base['dms']['bytes_step']:.0f} (four chains each; dmc's "
+        "kernel reads the bf16 cast, its fp32 arena is read whole by the "
+        "cast)")
+    if reads != hand or not reads < van["res"]["kv_reads"]:
+        raise AssertionError(f"quest kv_reads {reads}: not the hand count "
+                             f"{hand}, or not below vanilla's")
+    if chain["quest"] != chain["vanilla"] or not chain["dmc"] < chain["vanilla"]:
+        raise AssertionError(f"peak tokens a chain {chain}: quest must equal "
+                             "vanilla's and dmc lie below it")
+
+    tokens, launched, shaped = serve_layouts(
+        torch, setup, {k[4:]: v[0] for k, v in layouts.items()
+                       if k.startswith("(b)")}, uid=uid, what="quest/dmc (b)")
+    for kind in ("quest", "dmc"):
+        if not (tokens[f"{kind} paged"] == tokens[f"{kind} fixed"]).all():
+            raise AssertionError(f"{kind}: the pool's tokens differ from the "
+                                 "fixed arenas'")
+    log("quest/dmc (b): quest's and dmc's pool tokens equal their fixed "
+        "arenas'")
+    traced = policy_paths(torch, setup, {k[4:]: (arch, v[0]) for k, v in
+                                         layouts.items()
+                                         if k.startswith("(c)")},
+                          steps=steps, what="quest/dmc (c)")
+    shapes = {kind: out[kind]["shapes"].union(
+        *(v for k, v in list(shaped.items()) + list(traced.items())
+          if k.startswith(kind))) for kind in ("quest", "dmc")}
+    qd_profile(torch, setup, layouts, width=width, max_len=max_len)
+    return {"quest": out["quest"]["launches"] + launched["quest fixed"][0],
+            "quest_shared": launched["quest paged"][1],
+            "dmc": out["dmc"]["launches"] + launched["dmc fixed"][0]
+            + launched["dmc paged"][0],
+            "shapes": shapes}
+
+
+def qd_profile(torch, setup, layouts, *, width, max_len):
+    """A profiled decode step of Quest and DMC beside dms at (a)'s arenas,
+    then the device time of one layer's Quest page scoring (select, table,
+    token mask: ``QuestPolicy.attend_spec``) and of one layer's DMC cast of
+    its fp32 arena to bf16, each times the layers, against the profiled
+    step's device time."""
+    from repro_torch.core.config import KVPolicyConfig
+    from repro_torch.core.policy import DMCPolicy, QuestPolicy
+    arch, params, device = setup["arch"], setup["params"], setup["device"]
+    policies = {"dms": KVPolicyConfig(kind="dms", cr=8.0, block_p=16),
+                "quest": KVPolicyConfig(**layouts["(a) quest"][0]),
+                "dmc": KVPolicyConfig(**layouts["(a) dmc"][0])}
+    prof = phase_profile(torch, params, arch, policies, lanes=width,
+                         max_len=max_len, device=device, pairs=2)
+    if device != "cuda":
+        return
+    gen = torch.Generator(device=device).manual_seed(13)
+    a = arch.attn
+    qcache, _ = filled_cache(torch, arch, layouts["(a) quest"][0], width,
+                             max_len, gen, device)
+    q = torch.randn((width, 1, a.num_heads, a.head_dim), generator=gen,
+                    device=device).to(torch.bfloat16)
+    dcache, _ = filled_cache(torch, arch, layouts["(a) dmc"][0], width,
+                             max_len, gen, device)
+    parts = {
+        "quest page scoring (select_pages, table, token mask)":
+            ("quest", lambda: QuestPolicy.attend_spec(qcache, q, a)),
+        "dmc cast of the fp32 arena to bf16":
+            ("dmc", lambda: (dcache.k.to(torch.bfloat16),
+                             dcache.v.to(torch.bfloat16))),
+        "dmc operands (prefix table, cast, mask)":
+            ("dmc", lambda: DMCPolicy.attend_spec(dcache, torch.bfloat16)),
+    }
+    for what, (name, fn) in parts.items():
+        ms = time_cuda(torch, fn)
+        dev_ms = prof[name]["device_ms"]
+        share = (f"{arch.num_layers * ms / dev_ms:.4f} of its profiled "
+                 f"step's {dev_ms:.3f} ms device time" if dev_ms else
+                 "device time of the step not measured")
+        log(f"profile: {what}, one layer at (a)'s arena ({width} lanes, "
+            f"{max_len} tokens): {ms:.4f} ms device time (graph replay); x "
+            f"{arch.num_layers} layers = {arch.num_layers * ms:.4f} ms a "
+            f"step, {share}")
 
 
 def device_events(torch, prof):
@@ -1654,7 +2180,8 @@ def phase_profile(torch, params, arch, policies, *, lanes, max_len, device,
     side entries, summed).  With several policies the wall times are taken
     in ``pairs`` alternating turns (A B ..., ... B A), since the host's
     speed drifts between runs; a line gives each pair's ratio to the
-    first policy."""
+    first policy.  Returns per policy the median wall ms, the ATen ops and
+    the device ms of a step (0 where not measured)."""
     from torch.utils._python_dispatch import TorchDispatchMode
     from repro_torch.models import transformer as tfm
     tok = torch.full((lanes, 1), 7, dtype=torch.int32, device=device)
@@ -1692,9 +2219,11 @@ def phase_profile(torch, params, arch, policies, *, lanes, max_len, device,
             t0 = time.perf_counter()
             run(name, steps)
             walls[name].append((time.perf_counter() - t0) * 1e3 / steps)
+    result = {}
     for name in names:
         wall_ms = statistics.median(walls[name])
         busy = "not measured"
+        result[name] = {"wall_ms": wall_ms, "ops": ops[name], "device_ms": 0.0}
         if device == "cuda":
             # a step that syncs the host could not be captured in a CUDA
             # graph (ROADMAP E1); the debug mode raises on the syncs it sees
@@ -1714,6 +2243,7 @@ def phase_profile(torch, params, arch, policies, *, lanes, max_len, device,
             launched = sum(e.count for e in prof.key_averages()
                            if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
                                         "cuLaunchKernelEx"))
+            result[name]["device_ms"] = dev_us / 1e3 / steps
             if dev_us > 0:
                 busy = (f"{dev_us / 1e3 / steps:.3f} ms device time per step,"
                         f" busy share {dev_us / 1e3 / steps / wall_ms:.4f}, "
@@ -1729,6 +2259,7 @@ def phase_profile(torch, params, arch, policies, *, lanes, max_len, device,
         log(f"profile: {b} / {a} wall per step in alternating pairs: {ratios}"
             f" (median {statistics.median(ratios):.3f}); ATen ops "
             f"{ops[b] / ops[a]:.3f}x")
+    return result
 
 
 # -- phase 5 ---------------------------------------------------------------
@@ -2065,6 +2596,21 @@ def phase_timing(torch, main_shape, launches, errs):
     return [fixed, shared, prefix]
 
 
+def phase_quest_dmc_timing(torch, timed, launches, errs):
+    """The decode kernel on Quest's page tables (fixed arenas at (a)'s W =
+    4 arena, the shared pool at (b)'s) and on DMC's prefix table over the
+    cast accumulators at (a)'s arena, on phase 3's operands: time, floor,
+    bound, plain and SDPA over the same arena with the token mask."""
+    rows = (("dms_decode_quest_page_table", "(a) quest", "quest"),
+            ("dms_decode_quest_page_table_shared_kv", "(b) quest paged",
+             "quest_shared"),
+            ("dms_decode_dmc_prefix_table", "(a) dmc", "dmc"))
+    return [decode_entry(torch, name, timed[case]["mode"], timed[case],
+                         timed[case]["shape"], launches[key],
+                         errs["dmc" if key == "dmc" else "quest"])
+            for name, case, key in rows]
+
+
 def sdpa_times(torch, qf, kf, vf, ls, do, cfg, *, b):
     """Yardsticks only: SDPA with the DMS mask materialised as a (B, Hq, T,
     T) additive tensor and K/V expanded to the query heads.  The forward is
@@ -2171,6 +2717,13 @@ def phase_flash_timing(torch, launches, errs):
 
 def main() -> int:
     t_start = time.perf_counter()
+    t_lap = [t_start]
+
+    def lap(what):
+        now = time.perf_counter()
+        log(f"seconds: {what} {now - t_lap[0]:.1f}")
+        t_lap[0] = now
+
     import torch
     card = phase_device(torch)
     sys.path.insert(0, str(SRC))
@@ -2191,19 +2744,29 @@ def main() -> int:
             "shared": phase_pool_kernels(torch, main_shape),
             "weights": phase_weights_kernels(torch, weights_shape)}
     errs["prefix"], prefix_checked = phase_prefix_kernels(torch, main_shape)
+    layouts = qd_layouts(eval_len=320, req_len=(len(setup["prompts"][3])
+                                                + setup["news"][3]),
+                         trace_len=48 + 16)
+    qd_errs, qd_checked, qd_timed = phase_quest_dmc_kernels(
+        torch, shallow["arch"], layouts)
     flash_errs = phase_flash_kernels(torch)
     phase_flash_grads(torch)
+    lap("phases 1-3")
     served = phase_serve(torch, shallow)
+    lap("phase 4")
     want = (SERVE_LAYERS, lanes, arch.attn.num_kv_heads, main_shape[3],
             arch.attn.head_dim)
     if served["arena"] != want:
         raise AssertionError(f"main-path arena {served['arena']} is not the "
                              f"checked shape {want}")
     paged = phase_paged_serve(torch, shallow, served)
-    weighted = phase_weights_serve(torch, shallow, served)
+    lap("phase 5")
+    weighted = phase_weights_serve(torch, cut_depth(setup, WEIGHTS_LAYERS),
+                                   served)
     if weighted["arena"] != weights_shape[3]:
         raise AssertionError(f"weights-phase arena {weighted['arena']} is not "
                              f"the checked {weights_shape[3]} slots")
+    lap("phase 5b")
     scaled = phase_hyperscale_serve(torch, shallow)
     if not scaled["vanilla_shapes"] <= prefix_checked:
         raise AssertionError(
@@ -2212,15 +2775,28 @@ def main() -> int:
             f"phase 3's checked {sorted(prefix_checked)}")
     log(f"phase 5c's vanilla launch shapes (rows, G, Dh, P, block_p) "
         f"{sorted(scaled['vanilla_shapes'])}: each checked in phase 3")
+    lap("phase 5c")
+    qd = phase_quest_dmc_serve(torch, shallow, scaled["evals"], layouts)
+    for kind, got in qd["shapes"].items():
+        if not got <= qd_checked[kind]:
+            raise AssertionError(
+                f"phase 5d launched {kind} at {sorted(got - qd_checked[kind])}"
+                f", not among phase 3's checked {sorted(qd_checked[kind])}")
+        log(f"phase 5d's {kind} launch shapes {sorted(got)}: each checked in "
+            "phase 3")
+    lap("phase 5d")
     del shallow, setup["params"]
     trained = phase_train(torch)
+    lap("phase 6")
     kernels = phase_timing(torch, main_shape, {"fixed": served["launches"],
                                                "shared": paged["launches"],
                                                "prefix": scaled["prefix"]},
                            errs)
     kernels += phase_weights_timing(torch, weights_shape, weighted,
                                     errs["weights"])
+    kernels += phase_quest_dmc_timing(torch, qd_timed, qd, qd_errs)
     kernels += phase_flash_timing(torch, trained["launches"], flash_errs)
+    lap("phase 7")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)                   # again, beside the numbers at the output's end

@@ -261,6 +261,21 @@ def dense_kv(pool: BlockPool, phys: torch.Tensor
     return _page_gather(pool.k, phys), _page_gather(pool.v, phys)
 
 
+def gather_rows(pages: torch.Tensor, phys: torch.Tensor, slot: torch.Tensor,
+                block_p: int) -> torch.Tensor:
+    """One token row per (lane, head) through the page map: ``pages``
+    (NPOOL, block_p, Dh), ``slot`` (B, H) -> (B, H, Dh).  Unmapped slots
+    read as zero (DMC's merge target before its first write)."""
+    nb = phys.shape[-1]
+    npool = pages.shape[0]
+    blk = torch.clamp(slot // block_p, 0, nb - 1)
+    off = torch.clamp(slot - blk * block_p, 0, block_p - 1)
+    page = phys.gather(2, blk.long()[..., None])[..., 0]
+    rows = pages[page.clamp(0, npool - 1).long(), off.long()]
+    return torch.where((page >= 0)[..., None], rows,
+                       torch.zeros((), dtype=rows.dtype, device=rows.device))
+
+
 def translate_table(phys: torch.Tensor, tbl: torch.Tensor) -> torch.Tensor:
     """A logical block table (B, H, NB_tbl) mapped to pool page ids through
     ``phys``.  Stale entries past a row's ``n`` may come out -1; the kernel

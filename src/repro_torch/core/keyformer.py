@@ -35,7 +35,7 @@ from repro_torch.core.baselines import WeightEvictCache, _arena
 from repro_torch.core.block_pool import BlockPool
 from repro_torch.core.kv_cache import BlockTable
 from repro_torch.core.policy import (_WeightEvictPolicy, _budget_tokens,
-                                     register_policy)
+                                     register_policy, step_meters)
 
 _SCORE_EPS = 1e-9
 _NOISE_SEED = 0x5EED  # fixed: decode must be reproducible per (seed, step)
@@ -127,8 +127,8 @@ class KeyformerPolicy(_WeightEvictPolicy):
                      salt=aux.get("layer_salt"))
 
     def post_attend(self, cache, weights, active=None, aux=None):
-        return cache, cache.evict(weights, active=active,
-                                  gumbel=(aux or {}).get("gumbel"))
+        return cache, step_meters(cache.evict(
+            weights, active=active, gumbel=(aux or {}).get("gumbel")))
 
     def prepare_step(self, stacked, aux):
         """Every layer's noise of this step in one draw: each lane's

@@ -67,14 +67,16 @@ def _lane_where(active: Optional[torch.Tensor], new: torch.Tensor,
     return torch.where(active.reshape((-1,) + (1,) * (old.dim() - 1)), new, old)
 
 
-def commit(cache, meta: Dict[str, torch.Tensor], blocks: "BlockTable",
+def commit(cache, meta: Dict[str, torch.Tensor],
+           blocks: Optional["BlockTable"],
            active: Optional[torch.Tensor]) -> None:
     """Write a step's new per-lane leaves (``meta`` by field name) and block
-    table into ``cache`` in place, for active lanes only (None = all)."""
+    table (None: the cache keeps none) into ``cache`` in place, for active
+    lanes only (None = all)."""
     for name, val in meta.items():
         cur = getattr(cache, name)
         cur.copy_(_lane_where(active, val, cur))
-    if not cache.blocks._off():
+    if blocks is not None and not cache.blocks._off():
         for name in ("count", "tbl", "pos", "n"):
             cur = getattr(cache.blocks, name)
             cur.copy_(_lane_where(active, getattr(blocks, name), cur))
@@ -84,16 +86,18 @@ def write_rows(k_arena: torch.Tensor, v_arena: torch.Tensor,
                slot: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
                active: Optional[torch.Tensor]) -> None:
     """Scatter one K/V row per (lane, head) into its slot of a fixed arena
-    (B, H, P, Dh), in place; an inactive lane rewrites the row it already
-    holds."""
+    (B, H, P, Dh), in place; where ``active`` ((B,) lanes or (B, H) rows;
+    None = all) is False the row it already holds is rewritten."""
     b, h = slot.shape
     bi = torch.arange(b, device=slot.device)[:, None].expand(b, h)
     hi = torch.arange(h, device=slot.device)[None, :].expand(b, h)
     si = slot.long()
+    if active is not None:
+        active = (active if active.dim() == 2 else active[:, None])[..., None]
     for arena, new in ((k_arena, k_new), (v_arena, v_new)):
         rows = new[:, :, 0].to(arena.dtype)
         if active is not None:
-            rows = torch.where(active[:, None, None], rows, arena[bi, hi, si])
+            rows = torch.where(active, rows, arena[bi, hi, si])
         arena[bi, hi, si] = rows
 
 

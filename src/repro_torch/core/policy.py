@@ -5,13 +5,15 @@ its cache's lifecycle (``init_cache``, ``decode_update``, ``fork_cache``,
 ``gather_cache``, ``reclaim_cache``, ``export_prefix``, ``import_prefix``,
 ``metrics``, ``peak_bytes``) and the model dispatches only through the
 registry, keyed by the name a :class:`PolicyCache` carries.  This port
-registers ``vanilla`` (the uncompressed baseline; local layers get a ring
-buffer), ``window`` (StreamingLLM's sliding window), ``dms``,
-``dms_masked`` (DMS on a full-length arena: the correctness oracle),
-``tova``, ``h2o`` and ``keyformer``; ``quest`` and ``dmc`` are queued in
-ROADMAP.md, and so is ``prefill_import``.  The last three evict by the
-step's attention weights: their :class:`AttendSpec` asks for them
-(``needs_weights``) and :meth:`KVPolicy.post_attend` takes them.
+registers the reference's nine: ``vanilla`` (the uncompressed baseline;
+local layers get a ring buffer), ``window`` (StreamingLLM's sliding
+window), ``dms``, ``dms_masked`` (DMS on a full-length arena: the
+correctness oracle), ``tova``, ``h2o``, ``keyformer``, ``quest`` (page-
+sparse reads over a full cache) and ``dmc`` (append-or-merge);
+``prefill_import`` is queued in ROADMAP.md.  ``tova``, ``h2o`` and
+``keyformer`` evict by the step's attention weights: their
+:class:`AttendSpec` asks for them (``needs_weights``) and
+:meth:`KVPolicy.post_attend` takes them.
 
 Lane lifecycle operations are functional and return new tensors, so lanes
 forked or gathered from one source never share storage; ``decode_update``
@@ -30,10 +32,12 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 import torch
 
 from repro_torch.core import block_pool
-from repro_torch.core.baselines import H2OCache, TOVACache
+from repro_torch.core.baselines import (DMCCache, H2OCache, QuestCache,
+                                       TOVACache)
 from repro_torch.core.config import ArchConfig, KVPolicyConfig
 from repro_torch.core.kv_cache import (MaskedDMSCache, SlotDMSCache,
-                                       VanillaCache, prefix_block_spec)
+                                       VanillaCache, _round_up,
+                                       prefix_block_spec)
 from repro_torch.core.tree import tree_map
 from repro_torch.device import torch_dtype
 
@@ -226,6 +230,14 @@ def _budget_tokens(cfg: KVPolicyConfig, max_len: int) -> int:
     return cfg.budget or max(int(max_len / cfg.cr), 1)
 
 
+def step_meters(live: torch.Tensor,
+                reads: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """A step's budget meters, (B,) fp32 each: ``live_tokens`` and
+    ``reads_tokens`` (``live`` where the policy reads every live token)."""
+    return {"live_tokens": live,
+            "reads_tokens": live if reads is None else reads}
+
+
 # ---------------------------------------------------------------------------
 # the protocol
 # ---------------------------------------------------------------------------
@@ -237,7 +249,8 @@ class KVPolicy:
 
     name: str = ""
     #: "none" — never sees eviction decisions; "dms" — binarised DMS α
-    #: when ``arch.dms.enabled``
+    #: when ``arch.dms.enabled``; "always" — the binarised α of the borrowed
+    #: neuron whether or not DMS is enabled (DMC's merge decision)
     alpha_mode: str = "none"
 
     def init_cache(self, arch: ArchConfig, batch: int, max_len: int,
@@ -247,30 +260,32 @@ class KVPolicy:
 
     def decode_update(self, cache: Any, q: torch.Tensor, k_new: torch.Tensor,
                       v_new: torch.Tensor, aux: Dict[str, Any]
-                      ) -> Tuple[Any, AttendSpec, torch.Tensor]:
+                      ) -> Tuple[Any, AttendSpec,
+                                 Optional[Dict[str, torch.Tensor]]]:
         """Absorb one token (in place) and describe what attention reads.
 
         q: (B, 1, Hq, Dh) post-RoPE; k_new/v_new: (B, Hkv, 1, Dh) post-RoPE;
         aux carries ``alpha_bin`` ((B, Hkv) bool or None), ``pos_t``,
         ``attn_cfg``, ``arch``, ``dtype`` and ``active``.  Returns (cache,
-        spec, live): ``live`` (B,) is the step's ``live_tokens`` metric as
-        the reference reports it — counted for every lane, inactive ones
-        included, before they are frozen.  A policy whose spec
-        ``needs_weights`` returns None there: its count exists only after
-        :meth:`post_attend`."""
+        spec, meters): ``meters`` is :func:`step_meters` of the step, the
+        ``live_tokens`` and ``reads_tokens`` the reference's metrics
+        report — counted for every lane, inactive ones included, before
+        they are frozen.  A policy whose spec ``needs_weights`` returns
+        None there: its counts exist only after :meth:`post_attend`."""
         raise NotImplementedError
 
     def post_attend(self, cache: Any, weights: torch.Tensor,
                     active: Optional[torch.Tensor] = None,
                     aux: Optional[Dict[str, Any]] = None
-                    ) -> Tuple[Any, torch.Tensor]:
+                    ) -> Tuple[Any, Dict[str, torch.Tensor]]:
         """Second phase when ``AttendSpec.needs_weights``: ``weights`` (B,
         Hkv, P) fp32 is the post-softmax distribution summed over each
         group's query heads.  Updates the cache in place for the lanes of
-        ``active`` (None = all) and returns (cache, live) with ``live`` as
-        :meth:`decode_update` describes it.  ``aux`` is the step's aux, as
-        :meth:`decode_update` got it."""
-        return cache, self.metrics(cache)["live_tokens"]
+        ``active`` (None = all) and returns (cache, meters) with ``meters``
+        as :meth:`decode_update` describes them.  ``aux`` is the step's
+        aux, as :meth:`decode_update` got it."""
+        m = self.metrics(cache)
+        return cache, step_meters(m["live_tokens"], m["reads_tokens"])
 
     def prepare_step(self, stacked: Any, aux: Dict[str, Any]
                      ) -> Optional[List[Dict[str, Any]]]:
@@ -436,7 +451,8 @@ class _SlotRingMixin:
             alpha = torch.zeros((k_new.shape[0], cfg.num_kv_heads),
                                 dtype=torch.bool, device=k_new.device)
         retained = cache.step(k_new, v_new, alpha, active=aux.get("active"))
-        return cache, _attend_spec(cache), retained.float().mean(dim=-1)
+        return cache, _attend_spec(cache), step_meters(
+            retained.float().mean(dim=-1))
 
 
 @register_policy("vanilla")
@@ -491,7 +507,7 @@ class VanillaPolicy(_SlotRingMixin, KVPolicy):
         else:
             spec = AttendSpec(None, None, vis, cache.positions(),
                               pool=cache.pool, phys=cache.phys, **kw)
-        return cache, spec, retained.float().mean(dim=-1)
+        return cache, spec, step_meters(retained.float().mean(dim=-1))
 
 
 @register_policy("window")
@@ -564,7 +580,7 @@ class _WeightEvictPolicy(KVPolicy):
         cache.insert(k_new, v_new, active=aux.get("active"))
 
     def post_attend(self, cache, weights, active=None, aux=None):
-        return cache, cache.evict(weights, active=active)
+        return cache, step_meters(cache.evict(weights, active=active))
 
 
 @register_policy("tova")
@@ -588,6 +604,98 @@ class H2OPolicy(_WeightEvictPolicy):
                              max(budget // 2, 1), dtype, block_p=cfg.block_p,
                              paged=cfg.paged, pool_blocks=cfg.pool_blocks,
                              device=device)
+
+
+@register_policy("quest")
+class QuestPolicy(KVPolicy):
+    """Page-sparse reads over a full cache: the policy whose two budget axes
+    diverge — ``reads_tokens`` shrinks, ``live_tokens`` does not.  The
+    top-k page selection is the decode kernel's block table, so the kernel
+    reads only the selected pages (paged: straight from the pool, whose
+    page is Quest's page)."""
+
+    def init_cache(self, arch, batch, max_len, cfg, *, layer_window, dtype,
+                   device):
+        a = arch.attn
+        ps = cfg.quest_page_size
+        ml = _round_up(max_len, ps)
+        top = cfg.quest_top_pages or max(int(ml / cfg.cr) // ps, 1)
+        return QuestCache.init(batch, a.num_kv_heads, ml, a.head_dim, ps, top,
+                               dtype, paged=cfg.paged,
+                               pool_blocks=cfg.pool_blocks, device=device)
+
+    def decode_update(self, cache, q, k_new, v_new, aux):
+        new_len = cache.append(k_new, v_new, active=aux.get("active"))
+        return (cache, self.attend_spec(cache, q, aux["attn_cfg"]),
+                self._meters(cache, new_len))
+
+    @staticmethod
+    def attend_spec(cache, q, cfg) -> AttendSpec:
+        """The step's operands: the pages selected for the group-pooled
+        query ``q`` (B, 1, Hq, Dh) as the token mask and the block table
+        (``block_p`` = the page size); paged, the pool's pages."""
+        b = q.shape[0]
+        q_pool = q[:, 0].reshape(b, cfg.num_kv_heads, cfg.q_per_kv,
+                                 cfg.head_dim).mean(dim=2)
+        pages = cache.select_pages(q_pool)
+        tbl, n = cache.block_table_from_pages(pages)
+        kw = dict(block_tbl=tbl, block_n=n, block_p=cache.page_size)
+        vis = cache.token_mask_from_pages(pages)
+        if cache.pool is None:
+            return AttendSpec(cache.k, cache.v, vis, cache.positions(), **kw)
+        return AttendSpec(None, None, vis, cache.positions(), pool=cache.pool,
+                          phys=cache.phys, **kw)
+
+    @staticmethod
+    def _meters(cache, length=None):
+        live = cache.retained_tokens(length).float().mean(dim=-1)
+        return step_meters(live, cache.reads_per_step(length).float())
+
+    def metrics(self, cache):
+        return dict(self._meters(cache), peak_bytes=self.peak_bytes(cache))
+
+    def peak_bytes(self, cache):
+        return super().peak_bytes(cache) + _nbytes(cache.kmin) + _nbytes(
+            cache.kmax)
+
+
+@register_policy("dmc")
+class DMCPolicy(KVPolicy):
+    """Dynamic Memory Compression: α = 1 merges into the newest entry.  The
+    kernel reads the fp32 accumulators cast to the model dtype, a dense cast
+    of the whole arena a layer a step, as in the reference; paged, the
+    dense view is gathered first and the kernel runs in fixed-arena mode."""
+
+    alpha_mode = "always"
+
+    def init_cache(self, arch, batch, max_len, cfg, *, layer_window, dtype,
+                   device):
+        a = arch.attn
+        return DMCCache.init(batch, a.num_kv_heads, int(max_len / cfg.cr) + 16,
+                             a.head_dim, block_p=cfg.block_p, paged=cfg.paged,
+                             pool_blocks=cfg.pool_blocks, device=device)
+
+    def decode_update(self, cache, q, k_new, v_new, aux):
+        alpha = aux.get("alpha_bin")
+        if alpha is None:
+            alpha = torch.zeros(cache.count.shape, dtype=torch.bool,
+                                device=cache.count.device)
+        count = cache.step(k_new, v_new, alpha, active=aux.get("active"))
+        return (cache, self.attend_spec(cache, aux["dtype"]),
+                step_meters(count.float().mean(dim=-1)))
+
+    @staticmethod
+    def attend_spec(cache, dtype) -> AttendSpec:
+        """The step's operands: the prefix table over ``count`` and the
+        accumulators cast to ``dtype`` (paged: the dense view first)."""
+        tbl, n, bp = cache.block_spec()
+        if cache.pool is None:
+            k, v = cache.k, cache.v
+        else:
+            k, v = block_pool.dense_kv(cache.pool, cache.phys)
+        return AttendSpec(k.to(dtype), v.to(dtype), cache.valid_mask(),
+                          cache.positions(), block_tbl=tbl, block_n=n,
+                          block_p=bp)
 
 
 # policies that live in their own modules register themselves on import

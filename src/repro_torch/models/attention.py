@@ -7,8 +7,8 @@
   (``impl="kernel"``) or the masked-softmax reference.
 * :func:`decode_attention` runs one decode token against a
   :class:`~repro_torch.core.policy.PolicyCache`: project q/k/v, take the DMS
-  eviction decision from the borrowed query neuron, rotate q and k, let the
-  policy absorb the token, and attend — through the block-table
+  eviction (or DMC merge) decision from the borrowed query neuron, rotate q
+  and k, let the policy absorb the token, and attend — through the block-table
   flash-decode kernel (``use_kernel=True``) or the reference einsum path.
   A policy that evicts by attention weights (TOVA, H2O, Keyformer) gets
   them back: the kernel in its weights-out mode, or the reference softmax.
@@ -179,6 +179,11 @@ def decode_attention(
     if pol.alpha_mode == "dms" and dms.enabled:
         alpha_bin, q_raw = dms_lib.infer_alphas(q_raw, cfg.num_kv_heads, dms)
         alpha_bin = alpha_bin[..., 0]                         # (B, Hkv)
+    elif pol.alpha_mode == "always":
+        logits = dms_lib.alpha_logits_from_q(q_raw, cfg.num_kv_heads,
+                                             dms.logit_bias)
+        alpha_bin = dms_lib.binary_alpha(logits)[..., 0]
+        q_raw = dms_lib.zero_borrowed_neuron(q_raw, cfg.num_kv_heads)
 
     q = apply_rope(q_raw, pos_lane[:, None], cfg.rope_theta, cfg.rope)
     k_new = apply_rope(k_new, pos_lane[:, None], cfg.rope_theta, cfg.rope)
@@ -189,17 +194,17 @@ def decode_attention(
     pol_aux = {"alpha_bin": alpha_bin, "pos_t": pos_lane, "attn_cfg": cfg,
                "arch": arch, "dtype": dtype, "active": active,
                "layer_salt": layer_salt, **(step_aux or {})}
-    inner, spec, live = pol.decode_update(cache.cache, q, k_new_c, v_new_c,
-                                          pol_aux)
+    inner, spec, meters = pol.decode_update(cache.cache, q, k_new_c, v_new_c,
+                                            pol_aux)
     out, w_group, impl = _masked_decode(
         q, spec, window if spec.positions is not None else None, cfg,
         use_kernel, pos_lane, need_weights=spec.needs_weights)
     if spec.needs_weights:
-        inner, live = pol.post_attend(inner, w_group, active=active,
-                                      aux=pol_aux)
+        inner, meters = pol.post_attend(inner, w_group, active=active,
+                                        aux=pol_aux)
     cache = dataclasses.replace(cache, cache=inner)
     y = out.reshape(b, 1, cfg.num_heads * cfg.head_dim) @ p["wo"].to(dtype)
-    aux = {"live_tokens": live, "reads_tokens": live, "attn_impl": impl}
+    aux = dict(meters, attn_impl=impl)
     return y.to(x_t.dtype), cache, aux
 
 

@@ -116,6 +116,116 @@ def test_decode_prefix_table_matches_plain(cuda_device, g, dh, block_p):
     torch.testing.assert_close(got.cpu().float(), want.float(), **BF16)
 
 
+def _quest_operands(device, page, paged, g=6, dh=128, top=2):
+    """Quest's decode operands built on ``device`` by the port's own
+    ``QuestCache`` (keys folded into page minima and maxima, top-k pages
+    selected, the stable argsort of the mask as the table): two lanes of
+    other lengths, a row where ``top + 1`` pages tie at the best score (so
+    it lists more than ``top``), NaN in every page no row selected."""
+    from repro_torch.core.baselines import QuestCache
+    from repro_torch.core.config import AttentionConfig
+    from repro_torch.core.policy import QuestPolicy
+    gen = torch.Generator(device=device).manual_seed(page * 10 + paged)
+    b, hkv, s = 2, 2, 96
+    cache = QuestCache.init(b, hkv, s, dh, page, top, paged=paged,
+                            device=device)
+    lengths = torch.tensor([s - 1, s // 2 + 3], device=device)
+    for t in range(s - 1):
+        k, v = (torch.randn((b, hkv, 1, dh), generator=gen, device=device)
+                .bfloat16() for _ in range(2))
+        cache.append(k, v, t < lengths)
+    q = torch.randn((b, 1, hkv * g, dh), generator=gen, device=device)
+    q = q.bfloat16()
+    tie = 100.0 * torch.sign(q[0, 0, :g].float().mean(0))
+    cache.kmin[0, 0, :top + 1] = tie
+    cache.kmax[0, 0, :top + 1] = tie
+    spec = QuestPolicy.attend_spec(cache, q, AttentionConfig(hkv * g, hkv, dh))
+    n, tbl = spec.block_n, spec.block_tbl
+    listed = torch.zeros_like(tbl, dtype=torch.bool).scatter_(
+        2, tbl.long(), torch.arange(tbl.shape[-1], device=device) < n[..., None])
+    if paged:
+        keep = torch.zeros(spec.pool.k_buf.shape[0], dtype=torch.bool,
+                           device=device)
+        keep[spec.phys[listed].long()] = True
+        spec.pool.k_buf[~keep] = float("nan")
+        spec.pool.v_buf[~keep] = float("nan")
+        k = v = None
+    else:
+        dead = ~listed.repeat_interleave(page, dim=-1)
+        k, v = spec.k.clone(), spec.v.clone()
+        k[dead] = float("nan")
+        v[dead] = float("nan")
+    kw = dict(block_tbl=tbl, block_n=n, block_p=page, pool_k=spec.pool_k,
+              pool_v=spec.pool_v, phys=spec.phys)
+    return (q, k, v, spec.visible), kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True], ids=["fixed", "shared"])
+@pytest.mark.parametrize("page", [16, 8, 4])
+def test_decode_quest_page_tables_match_plain(cuda_device, page, paged):
+    """Quest's top-k page tables, made on the card, in the fixed-arena and
+    shared-pool modes at pages of 16, 8 and 4 slots (the vectorised
+    ``valid`` path takes multiples of 4): a tied row lists ``top + 1``
+    pages, NaN in the unselected pages is never read, and the kernel
+    equals the same wrapper on the CPU (the plain version)."""
+    args, kw = _quest_operands(cuda_device, page, paged)
+    assert int(kw["block_n"][0, 0]) == 3 and int(kw["block_n"].min()) >= 1
+    want = ops.dms_decode_attention(
+        *(None if x is None else x.cpu() for x in args),
+        **{key: x.cpu() if torch.is_tensor(x) else x for key, x in kw.items()})
+    before = (ops.launches, ops.shared_launches)
+    got = ops.dms_decode_attention(*args, **kw)
+    again = ops.dms_decode_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert (ops.launches - before[0], ops.shared_launches - before[1]) == \
+        ((0, 2) if paged else (2, 0))
+    assert torch.equal(got, again) and torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.cpu().float(), want.float(), **BF16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_p,paged", [(16, False), (16, True), (8, True)])
+def test_decode_dmc_cast_prefix_table_matches_plain(cuda_device, block_p,
+                                                    paged):
+    """DMC's operands on the card: fp32 accumulators merged by the port's
+    ``DMCCache`` (paged: in an fp32 pool, gathered densely), cast to bf16,
+    the prefix table over ``count``; NaN past the listed blocks; the
+    kernel in fixed-arena mode equals the same wrapper on the CPU."""
+    from repro_torch.core.baselines import DMCCache
+    from repro_torch.core.policy import DMCPolicy
+    gen = torch.Generator(device=cuda_device).manual_seed(block_p + paged)
+    b, hkv, g, dh, steps = 2, 2, 6, 128, 160
+    cache = DMCCache.init(b, hkv, 56, dh, block_p=block_p, paged=paged,
+                          device=cuda_device)
+    lengths = torch.tensor([steps, steps - 40], device=cuda_device)
+    for t in range(steps):
+        k, v = (torch.randn((b, hkv, 1, dh), generator=gen,
+                            device=cuda_device).bfloat16() for _ in range(2))
+        alpha = torch.rand((b, hkv), generator=gen, device=cuda_device) < 0.75
+        cache.step(k, v, alpha, active=t < lengths)
+    assert int(cache.count.min()) > 0 and int(cache.count.max()) <= 64
+    spec = DMCPolicy.attend_spec(cache, torch.bfloat16)
+    assert spec.k.dtype == torch.bfloat16 and spec.pool is None
+    k, v = spec.k.clone(), spec.v.clone()
+    dead = torch.arange(k.shape[2], device=cuda_device) >= (
+        spec.block_n * block_p)[..., None]
+    k[dead] = float("nan")
+    v[dead] = float("nan")
+    q = torch.randn((b, 1, hkv * g, dh), generator=gen,
+                    device=cuda_device).bfloat16()
+    kw = dict(block_tbl=spec.block_tbl, block_n=spec.block_n, block_p=block_p)
+    want = ops.dms_decode_attention(
+        *(x.cpu() for x in (q, k, v, spec.visible)),
+        **{key: x.cpu() if torch.is_tensor(x) else x for key, x in kw.items()})
+    before = ops.launches
+    got = ops.dms_decode_attention(q, k, v, spec.visible, **kw)
+    torch.cuda.synchronize()
+    assert ops.launches == before + 1
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.cpu().float(), want.float(), **BF16)
+
+
 @pytest.mark.cuda
 def test_categorical_on_card_equals_cpu(cuda_device):
     """Temperature sampling over the served model's padded vocabulary: the

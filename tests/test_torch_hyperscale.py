@@ -5,7 +5,8 @@
     (``use_kernel=True``, Pallas interpret mode), seeded — tokens and the
     five meters equal on ``test_torch_engine.py``'s traces (a) (two
     11-token prompts, 5 new) and (c) (a width-4 ``hyperscale_generate``)
-    for ``dms``, and on trace (a) for ``vanilla`` and ``window``.  The
+    for ``dms``, and on trace (a) for ``vanilla``, ``window``, ``quest``
+    (8-token pages) and ``dmc``.  The
     seeds are pinned: none of their draws has a near tie that an ulp of
     Gumbel noise could flip.
 (b) ``data/tasks.py`` draws the reference's problems, and the
@@ -70,7 +71,10 @@ def assert_meters_equal(mt, mj, what):
 
 POLICIES = [("dms", dict(kind="dms", cr=2.0)),
             ("vanilla", dict(kind="vanilla")),
-            ("window", dict(kind="window", budget=6))]
+            ("window", dict(kind="window", budget=6)),
+            ("quest", dict(kind="quest", cr=2.0, quest_page_size=8,
+                           block_p=8)),
+            ("dmc", dict(kind="dmc", cr=2.0))]
 
 
 @pytest.mark.parametrize("name,kw", POLICIES, ids=[p[0] for p in POLICIES])

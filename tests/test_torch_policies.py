@@ -2,15 +2,14 @@
 reference.
 
 (a) ``prefix_block_spec`` equals the reference's (``block_p`` 0 gives no
-    table), and the port registers every reference policy but ``quest`` and
-    ``dmc``.
+    table), and the port registers every reference policy.
 (b) The caches behind the three policies — ``VanillaCache``,
     ``MaskedDMSCache`` and ``SlotDMSCache(dms_active=False)`` — leaf for
     leaf after every ``decode_update`` of a random K/V/α stream, on fixed
     arenas and on the paged pool (``block_p`` 4), with partial ``active``
     masks: a frozen lane equals the reference's after its ``lane_select``
-    rollback, and ``live_tokens`` equals the reference's ``metrics``
-    before it.  The attention operands (mask, table, ``n``; vanilla's
+    rollback, and the step's ``live_tokens`` and ``reads_tokens`` equal
+    the reference's ``metrics`` before it.  The attention operands (mask, table, ``n``; vanilla's
     from ``prepare_step``, as ``decode_step`` builds them) equal the
     reference's on active lanes.  Then the lifecycle hooks: gather fork,
     reclaim, export/import, width-2 fork.
@@ -122,8 +121,10 @@ def test_prefix_block_spec_matches_reference(block_p):
 
 
 def test_available_policies_are_the_reference_less_quest_and_dmc():
-    assert tpolicy.available_policies() == tuple(
-        p for p in jpolicy.available_policies() if p not in ("quest", "dmc"))
+    """The name is kept from the slice that lacked the two: the port now
+    registers exactly the reference's nine."""
+    assert tpolicy.available_policies() == jpolicy.available_policies()
+    assert len(tpolicy.available_policies()) == 9
 
 
 # -- (b) -----------------------------------------------------------------------
@@ -171,11 +172,13 @@ def test_cache_matches_reference_every_step(arches, kind, extra, paged):
         taux.update(_step_aux(pol_t, tc, taux["active"]))
         new, jspec = pol_j.decode_update(jc, None, jnp.asarray(k),
                                          jnp.asarray(v), jaux)
-        live_j = np.asarray(pol_j.metrics(new)["live_tokens"])
-        tc, tspec, live_t = pol_t.decode_update(
+        want = pol_j.metrics(new)
+        tc, tspec, meters = pol_t.decode_update(
             tc, None, torch.from_numpy(k), torch.from_numpy(v), taux)
-        np.testing.assert_array_equal(live_t.numpy(), live_j,
-                                      err_msg=f"live_tokens step {i}")
+        for key in ("live_tokens", "reads_tokens"):
+            np.testing.assert_array_equal(meters[key].numpy(),
+                                          np.asarray(want[key]),
+                                          err_msg=f"{key} step {i}")
         on = np.ones(b, bool) if act is None else act
         vis = tspec.visible.expand(jspec.visible.shape).numpy()
         np.testing.assert_array_equal(vis[on], np.asarray(jspec.visible)[on])

@@ -6,8 +6,8 @@
     attention weights, on fixed arenas and on the paged pool (a roomy pool
     and one tight enough to exhaust): lanes frozen by an ``active`` mask
     equal the reference's after its ``lane_select`` rollback, and
-    ``live_tokens`` equals the reference's ``metrics`` after
-    ``post_attend``.  Then the generic lifecycle hooks (gather fork, reclaim,
+    ``live_tokens`` and ``reads_tokens`` equal the reference's ``metrics``
+    after ``post_attend``.  Then the generic lifecycle hooks (gather fork, reclaim,
     export/import, width-2 fork) on the new caches.
 (b) The slice as a whole: the port's ``Engine`` against the JAX ``Engine``,
     both with ``use_kernel=True`` (the reference's Pallas kernel in
@@ -136,17 +136,19 @@ def test_cache_matches_reference_every_step(arches, kind, pool):
                 "layer_salt": torch.tensor(salt)}
         new, jspec = pol_j.decode_update(jc, None, jnp.asarray(k),
                                          jnp.asarray(v), jaux)
-        tc, tspec, live = pol_t.decode_update(tc, None, torch.from_numpy(k),
-                                              torch.from_numpy(v), taux)
-        assert jspec.needs_weights and tspec.needs_weights and live is None
+        tc, tspec, meters = pol_t.decode_update(tc, None, torch.from_numpy(k),
+                                                torch.from_numpy(v), taux)
+        assert jspec.needs_weights and tspec.needs_weights and meters is None
         w = np.where(np.asarray(jspec.visible),
                      r.random(jspec.visible.shape), 0.0).astype(np.float32)
         new = pol_j.post_attend(new, jnp.asarray(w), active=jaux["active"])
-        live_j = np.asarray(pol_j.metrics(new)["live_tokens"])
-        tc, live_t = pol_t.post_attend(tc, torch.from_numpy(w),
+        want = pol_j.metrics(new)
+        tc, meters = pol_t.post_attend(tc, torch.from_numpy(w),
                                        active=taux["active"])
-        np.testing.assert_array_equal(live_t.numpy(), live_j,
-                                      err_msg=f"live_tokens step {i}")
+        for key in ("live_tokens", "reads_tokens"):
+            np.testing.assert_array_equal(meters[key].numpy(),
+                                          np.asarray(want[key]),
+                                          err_msg=f"{key} step {i}")
         jc = new if act is None else _lane_sel(act, new, jc)
         assert_cache_same(tc, jc, f"step {i}")
         return jc, tc
