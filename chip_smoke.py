@@ -68,7 +68,8 @@ Phases (any failure raises, so the exit code is non-zero):
               trace per policy holds the kernel path's logits against the
               reference path's and every weights-out call against the
               plain version; then a profiled step of each beside dms.
-5c. hyperscale — the same model at phase 4's depth: (a) the paper's
+5c. hyperscale — the same model at 7 layers (``WEIGHTS_LAYERS``; phase 4's
+              14 before phase 5e): (a) the paper's
               comparison through ``evaluate_hyperscale`` at temperature 0.7
               on one 288-token needle problem: ``vanilla`` at L-W-CR
               320-1-1, ``dms`` at 320-4-8, ``dms_masked`` at 320-4, each
@@ -80,7 +81,7 @@ Phases (any failure raises, so the exit code is non-zero):
               reference path's, teacher-forced, for ``vanilla``, ``window``
               and ``dms_masked`` (delay 16: holed tables); (d)
               ``threefry.categorical`` on the card against the CPU.
-5d. quest/dmc — the same model at phase 4's depth: (a) ``quest`` and
+5d. quest/dmc — the same model at 7 layers, as 5c: (a) ``quest`` and
               ``dmc`` at 320-4-8 through ``evaluate_hyperscale`` at
               temperature 0.7 on 5c's problem, beside 5c's vanilla and dms:
               Quest's ``kv_reads`` equal to the count by hand and below
@@ -92,6 +93,31 @@ Phases (any failure raises, so the exit code is non-zero):
               (Quest with 8- and 4-slot pages, DMC with 16- and 8-slot
               blocks); a profiled step of each beside dms, with the device
               time of Quest's page scoring and of DMC's cast a layer.
+5e. prefix/slo — the same model at 7 layers: (a) ``make_prefill_step``
+              through ``flash_fwd`` on 4 prompts of 512 tokens, ``dms`` (CR
+              8, delay 256) and ``vanilla``: one flash launch per layer,
+              last logits within 0.05 x max |logit| of the reference
+              path's, α flips counted; ``prefill_import`` into fixed arenas
+              and the pool, 31 greedy decode steps from each through
+              ``decode_fwd`` (the pool's tokens equal the fixed ones), dms
+              importing fewer live tokens than vanilla; (b) a 256-token
+              system prompt shared by 6 staggered requests (suffixes 8-64,
+              16 new each) and a multi-turn trace (2 sessions x 3 turns) on
+              2 lanes, served warm through one prefix cache (a 64 MB device
+              slab over a 256 MB host tier) by ``dms`` fixed and paged and
+              ``vanilla`` fixed, and cold: warm tokens and first-token
+              logits equal to the cold ones, paid + saved prefill reads
+              equal to the cold reads, reads saved, the shared prefix
+              served from the slab with no host<->device snapshot byte and
+              no host sync in a chunk, an import, an export or the slab,
+              every page back at the end; (c) benchmarks/slo_harness.py's
+              overload shape (12 requests of widths 1-2 in a 2x burst on 2
+              lanes, TTFT 6 ticks, max_queue 4, 16 new tokens) without
+              control and with the SLO ladder: the ladder's goodput above,
+              every status definite, rejected requests read nothing, ok
+              tokens equal a solo run at the served width; (d)
+              ``python -m repro_torch.launch.serve`` on the card at the
+              smoke config with the prefix cache: every request ok.
 6. train    — qwen-r1-1.5b at full width, fp32 weights from seed 0, DMS
               retrofit (one phase-1 step, three distillation steps) on the
               synthetic stream at (B 2, T 1024) through the flash kernels:
@@ -121,7 +147,12 @@ built from the configs phase 5d serves and filled by their own steps:
 Quest's top-k page tables (NaN in every unselected page, a tied row that
 lists more than ``top_pages`` pages, pages of 16, 8 and 4 slots) and DMC's
 prefix table over the bf16 cast of its fp32 accumulators; every shape at
-which 5d launches the kernel must be one of those checked.  The last
+which 5d launches the kernel must be one of those checked.  It holds the
+fixed-arena mode at every shape phase 5e launches it at, and ``flash_fwd``
+at the prefill export's shapes (B 4, T 512, binarised α and vanilla; T
+288, padded to 384) against its plain version, bit-equal on a second
+launch; every fixed-arena shape 5e launches must be one of those.  Phase 7
+also times ``flash_fwd`` at the prefill export's shape.  The last
 four lines are the script's total seconds, the ``kernels`` JSON line, the
 card's name and power limit (again) and the result line ``{"ok": true,
 "device": {...}}``.  Imports nothing of JAX.
@@ -1113,12 +1144,13 @@ def serving_setup(torch, device="cuda", arch_name="qwen-r1-1.5b",
             "max_len": max(len(p) + m for p, m in zip(prompts, news))}
 
 
-# phases 4, 5, 5b and 5c serve the first SERVE_LAYERS layers of the model:
-# the script's time limit (the eager decode step costs ~3.5 ms of host time
-# a layer)
+# phases 4 and 5 serve the first SERVE_LAYERS layers of the model: the
+# script's time limit (the eager decode step costs ~3.5 ms of host time a
+# layer)
 SERVE_LAYERS = 14
-# phase 5b serves half of those: the time phase 5d takes (its checks are per
-# layer and per step, and 7 layers keep a layer below the top one)
+# phases 5b-5e serve half of those: the time 5d and then 5e take (their
+# checks are per layer and per step, and 7 layers keep a layer below the
+# top one)
 WEIGHTS_LAYERS = 7
 
 
@@ -2262,7 +2294,674 @@ def phase_profile(torch, params, arch, policies, *, lanes, max_len, device,
     return result
 
 
-# -- phase 5 ---------------------------------------------------------------
+# -- phase 5e: the prefix cache, the SLO ladder, the prefill export ----------
+
+# (a) the prefill export: EXPORT_LANES prompts of EXPORT_PROMPT tokens, then
+# EXPORT_DECODE greedy steps from the imported caches
+EXPORT_LANES, EXPORT_PROMPT, EXPORT_DECODE = 4, 512, 32
+# (b) a PREFIX_LEN-token system prompt shared by requests with suffixes of
+# PREFIX_SUFFIXES tokens (PREFIX_NEW new each, one every PREFIX_GAP ticks),
+# and a multi-turn trace; both on two lanes of PREFIX_MAX_LEN, one signature
+PREFIX_LEN, PREFIX_SUFFIXES, PREFIX_NEW, PREFIX_GAP = 256, (8, 24, 40, 64,
+                                                            16, 32), 16, 6
+PREFIX_MAX_LEN, PREFIX_CHUNK, PREFIX_STRIDE = 512, 16, 4
+PREFIX_MB, PREFIX_DEVICE_MB = 256, 64
+# (c) benchmarks/slo_harness.py's overload shape, its tokens and chunk x4:
+# 12 requests of widths 1-2 in a 2x burst on two lanes
+OVERLOAD = dict(lanes=2, n=12, chunk=16, prompt_len=(24, 40), new=16,
+                widths=(1, 2), deadline=12, rate=2.0, on_ticks=4, off_ticks=4)
+OVERLOAD_SLO = dict(ttft_ticks=6, max_queue=4, min_width=1, cooldown_ticks=4)
+# (d) the serving entry point, at the smoke config
+SERVE_ARGV = ["--use-kernel", "--prefix-cache-mb", "64",
+              "--prefix-cache-device-mb", "16", "--shared-prefix", "32",
+              "--stagger"]
+SERVE_SMOKE = dict(lanes=4, max_len=32 + 32 + 32, cr=4.0)   # serve's defaults
+
+
+def decode_key(arch, kw, lanes, max_len):
+    """The fixed-arena ``launch_key`` a layout's decode makes: (B·Hkv, G,
+    Dh, P, block_p), P read off a one-layer state built on the CPU."""
+    from repro_torch.core.config import KVPolicyConfig
+    from repro_torch.models import transformer as tfm
+    cfg = KVPolicyConfig(**kw)
+    state = tfm.init_decode_state(dataclasses.replace(arch, num_layers=1),
+                                  lanes, max_len, cfg, device="cpu")
+    a = arch.attn
+    return (lanes * a.num_kv_heads, a.q_per_kv, a.head_dim,
+            state["0"].cache.k.shape[-2], cfg.block_p)
+
+
+def export_decode_keys(arch):
+    """Every fixed-arena decode launch shape phase 5e makes: (a) dms and
+    vanilla on EXPORT_LANES lanes, (b) on two lanes of PREFIX_MAX_LEN, (c)
+    dms on the overload trace's arena, (d) the smoke config's dms."""
+    from repro_torch.configs import get_smoke
+    keys = set()
+    for kind in ("dms", "vanilla"):
+        kw = dict(kind=kind, cr=8.0)
+        keys.add(decode_key(arch, kw, EXPORT_LANES,
+                            EXPORT_PROMPT + EXPORT_DECODE))
+        keys.add(decode_key(arch, kw, 2, PREFIX_MAX_LEN))
+    keys.add(decode_key(arch, dict(kind="dms", cr=8.0), OVERLOAD["lanes"],
+                        OVERLOAD["prompt_len"][1] + OVERLOAD["new"]))
+    smoke = get_smoke("qwen-r1-1.5b")
+    keys.add(decode_key(smoke, dict(kind="dms", cr=SERVE_SMOKE["cr"],
+                                    window=smoke.dms.window),
+                        SERVE_SMOKE["lanes"], SERVE_SMOKE["max_len"]))
+    return keys
+
+
+def prefill_flash_case(torch, *, b, t, binary, seed, device="cuda"):
+    """The prefill export's folded flash operands (bf16, Hq 12, Hkv 2, Dh
+    128): binarised α (1 with probability 7/8, the served model's rate) as
+    a log-survival of -1e30 for evicted keys, delay 256, no block skipping
+    (the reference's default); or vanilla (zero log-survival, delay 0)."""
+    from repro_torch.kernels.dms_attention import ops as fops
+    from repro_torch.kernels.dms_attention.ref import FlashConfig
+    hq, hkv, dh = 12, 2, 128
+    gen = torch.Generator(device=device).manual_seed(seed)
+    bk, tp = fops.padded_blocks(t)
+    qf, kf, vf = (fops.fold_heads(torch.randn(
+        (b, t, h, dh), generator=gen, device=device).to(torch.bfloat16), tp)
+        for h in (hq, hkv, hkv))
+    if binary:
+        alpha = (torch.rand((b, hkv, t), generator=gen, device=device)
+                 < 7 / 8).float()
+        ls, delay = fops.kernel_log_survival(alpha, tp), 256
+    else:
+        ls, delay = torch.zeros((b * hkv, tp), device=device), 0
+    cfg = FlashConfig(t=t, orig_dh=dh, hq=hq, hkv=hkv, window=None,
+                      dms_delay=delay, causal=True, logit_cap=None,
+                      block_k=bk, skip_blocks=False)
+    return qf, kf, vf, ls, cfg
+
+
+PREFILL_FLASH = {
+    "prefill export, binarised alpha": dict(t=EXPORT_PROMPT, binary=True),
+    "prefill export, vanilla": dict(t=EXPORT_PROMPT, binary=False),
+    "prefill export, T = 288 (padded to 384)": dict(t=288, binary=True),
+}
+
+
+def phase_export_kernels(torch, keys):
+    """Phase 3's checks at phase 5e's launch shapes: the decode kernel in
+    fixed-arena mode at every shape ``keys`` lists (random fragmented
+    tables, NaN in unlisted blocks) against the plain version and the plain
+    split; ``flash_fwd`` at the prefill export's shapes (``PREFILL_FLASH``,
+    B = EXPORT_LANES) against its plain version within FLASH_REL_TOL.  Each
+    bit-equal on a second launch.  Returns (the decode kernel's largest max
+    abs error, the checked decode shapes, flash_fwd's max abs error at the
+    main prefill case)."""
+    from repro_torch.kernels.dms_attention import ops as fops
+    from repro_torch.kernels.dms_attention import ref as fref
+    from repro_torch.kernels.dms_decode import ops
+    from repro_torch.kernels.dms_decode.ref import (dms_decode_plain,
+                                                    dms_decode_plain_split)
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    before = (ops.launches, fops.launches["flash_fwd"])
+    worst, checked = 0.0, set()
+    for key in sorted(keys):
+        bh, g, dh, p, bp = key
+        q, k, v, valid, tbl, n = make_case(torch, gen, bh=bh, g=g, dh=dh, p=p,
+                                           bp=bp, density=0.5)
+        out = ops.decode_rows(q, k, v, valid, tbl, n, bp, None)
+        again = ops.decode_rows(q, k, v, valid, tbl, n, bp, None)
+        torch.cuda.synchronize()
+        if not torch.equal(out, again):
+            raise AssertionError(f"kernel [5e shape {key}]: a second launch "
+                                 "gave other bits")
+        ref = dms_decode_plain(q, k, v, valid, tbl, n, bp, None)
+        split = dms_decode_plain_split(q, k, v, valid, tbl, n, bp, None,
+                                       splits=ops.splits(tbl.shape[1]))
+        if not bool(torch.isfinite(out.float()).all()):
+            raise AssertionError(f"kernel [5e shape {key}]: non-finite output")
+        torch.testing.assert_close(out.float(), ref.float(), **KERNEL_TOL)
+        torch.testing.assert_close(out.float(), split.float(), **KERNEL_TOL)
+        err = (out.float() - ref.float()).abs().max().item()
+        worst = max(worst, err)
+        checked.add(key)
+        log(f"kernel vs plain [phase 5e's fixed-arena launch (B·Hkv, G, Dh, "
+            f"P, block_p) {key}, {int(n.sum())} listed blocks]: max_abs_err "
+            f"{err:.3e} (tolerance atol {KERNEL_TOL['atol']}, rtol "
+            f"{KERNEL_TOL['rtol']}; the plain split too); bit-equal on a "
+            "second launch")
+    tol = FLASH_REL_TOL["bfloat16"]
+    flash_err = None
+    for name, kw in PREFILL_FLASH.items():
+        qf, kf, vf, ls, cfg = prefill_flash_case(
+            torch, b=EXPORT_LANES, seed=kw["t"] + kw["binary"], **kw)
+        t = cfg.t
+        out, lse = fops.flash_fwd(qf, kf, vf, ls, None, cfg)
+        again = fops.flash_fwd(qf, kf, vf, ls, None, cfg)
+        torch.cuda.synchronize()
+        if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
+            raise AssertionError(f"flash_fwd [{name}]: a second launch gave "
+                                 "other bits")
+        out_p, lse_p = fref.flash_fwd_plain(qf, kf, vf, ls, None, cfg)
+        parts, errs = [], []
+        for key, got, want in (("out", out, out_p), ("lse", lse, lse_p)):
+            got, want = got[:, :t].float(), want[:, :t].float()
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"flash_fwd [{name}]: non-finite {key}")
+            err = (got - want).abs().max().item()
+            scale = want.abs().max().item()
+            if err > tol * max(scale, 1.0 if key == "lse" else 0.0):
+                raise AssertionError(f"flash_fwd [{name}] {key}: max abs err "
+                                     f"{err:.3e} > {tol} x {scale:.3e}")
+            parts.append(f"{key} {err:.2e}/{scale:.2e}")
+            errs.append(err)
+        if flash_err is None:
+            flash_err = max(errs)
+        log(f"flash_fwd vs plain [{name}, B={EXPORT_LANES} T={t} Hq=12 Hkv=2 "
+            f"Dh=128 bf16, Tp={qf.shape[1]}, delay {cfg.dms_delay}, no block "
+            f"skipping]: max abs err / max |plain|: {', '.join(parts)} "
+            f"(tolerance {tol} relative); bit-equal on a second launch")
+    moved = (ops.launches - before[0], fops.launches["flash_fwd"] - before[1])
+    if moved != (2 * len(keys), 2 * len(PREFILL_FLASH)):
+        raise AssertionError(f"launch counters moved {moved}")
+    return worst, checked, flash_err
+
+
+class NoSync:
+    """While active (on the card), a synchronising CUDA call raises
+    (``torch.cuda.set_sync_debug_mode("error")``)."""
+
+    def __init__(self, torch, on):
+        self.torch, self.on = torch, on
+
+    def __enter__(self):
+        if self.on:
+            self.torch.cuda.set_sync_debug_mode("error")
+
+    def __exit__(self, *exc):
+        if self.on:
+            self.torch.cuda.set_sync_debug_mode(0)
+
+
+def unsynced(torch, fn, on):
+    """``fn`` run under :class:`NoSync`."""
+    def wrapped(*args, **kw):
+        with NoSync(torch, on):
+            return fn(*args, **kw)
+    for attr in ("steps", "temperature"):
+        if hasattr(fn, attr):
+            setattr(wrapped, attr, getattr(fn, attr))
+    return wrapped
+
+
+def phase_prefill_export(torch, setup, *, t=EXPORT_PROMPT,
+                         steps=EXPORT_DECODE):
+    """(a) ``make_prefill_step`` through ``flash_fwd`` on EXPORT_LANES
+    prompts of ``t`` tokens, ``dms`` (CR 8, delay 256) and ``vanilla``:
+    one flash launch per layer, the last logits within 0.05 x max |logit|
+    of the reference path's, α flips between the two paths counted; then
+    ``prefill_import`` into fixed arenas and the pool and ``steps`` greedy
+    decode steps through ``decode_fwd`` (one launch per layer per step, in
+    the fixed or the shared mode): the pool's tokens equal the fixed
+    arenas', and dms imports fewer live tokens than vanilla.  Returns
+    flash_fwd's launches, per policy the imported live tokens and α
+    flips."""
+    from repro_torch.core import policy as policy_lib
+    from repro_torch.core.config import KVPolicyConfig
+    from repro_torch.kernels.dms_attention import ops as fops
+    from repro_torch.kernels.dms_decode import ops
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import transformer as tfm
+    arch, params, device = setup["arch"], setup["params"], setup["device"]
+    cuda = device == "cuda"
+    rng = torch.Generator().manual_seed(11)
+    tokens = torch.randint(3, arch.vocab_size, (EXPORT_LANES, t),
+                           generator=rng, dtype=torch.int32).to(device)
+    live_v = torch.arange(arch.padded_vocab, device=device) < arch.vocab_size
+    out = {"flash": 0, "live": {}, "flips": {}}
+    for kind in ("dms", "vanilla"):
+        dms = kind == "dms"
+        fops.launches["flash_fwd"] = 0
+        t0 = time.perf_counter()
+        logits, kv = make_prefill_step(arch, dms=dms, use_kernel=True)(
+            params, {"tokens": tokens})
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = fops.launches["flash_fwd"]
+        if launched != (arch.num_layers if cuda else 0):
+            raise AssertionError(f"prefill export ({kind}): flash_fwd launched "
+                                 f"{launched} times, want {arch.num_layers}")
+        out["flash"] += launched
+        ref_logits, ref_kv = make_prefill_step(arch, dms=dms,
+                                               use_kernel=False)(
+            params, {"tokens": tokens})
+        diff = (logits - ref_logits)[:, live_v].abs().max().item()
+        scale = ref_logits[:, live_v].abs().max().item()
+        if not bool(torch.isfinite(logits[:, live_v]).all()) \
+                or not diff <= 0.05 * scale:
+            raise AssertionError(f"prefill export ({kind}): kernel-path "
+                                 f"logits off by {diff:.4e} (max |logit| "
+                                 f"{scale:.4e})")
+        flips = 0
+        if dms:
+            a_k, a_r = kv["0"]["alpha_bin"], ref_kv["0"]["alpha_bin"]
+            flips = int((a_k != a_r).sum())
+            evicted = 1.0 - kv["0"]["retained"].float().mean().item()
+            note = (f"alpha flips between the paths {flips} of "
+                    f"{a_k.numel()}; {evicted:.4f} of the prompt evicted at "
+                    "the import")
+        else:
+            note = "no alpha"
+        out["flips"][kind] = flips
+        del ref_kv
+        tokens_by = {}
+        for paged in (False, True):
+            cfg = KVPolicyConfig(kind=kind, cr=8.0, paged=paged)
+            state = tfm.state_from_prefill(arch, cfg, kv, t + steps)
+            pc = state["0"]
+            live = float(policy_lib.get_policy(pc.policy).metrics(
+                pc.cache)["live_tokens"].sum())
+            ops.launches = ops.shared_launches = 0
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            gen = [tok]
+            for i in range(steps - 1):
+                lg, state, _ = tfm.decode_step(params, tok[:, None], state,
+                                               arch, t + i, use_kernel=True)
+                tok = torch.argmax(lg, dim=-1).to(torch.int32)
+                gen.append(tok)
+            got = (ops.launches, ops.shared_launches)
+            want = arch.num_layers * (steps - 1) if cuda else 0
+            if got != ((0, want) if paged else (want, 0)):
+                raise AssertionError(f"prefill export ({kind}, paged "
+                                     f"{paged}): decode launches (fixed, "
+                                     f"shared) {got}, want {want}")
+            tokens_by[paged] = torch.stack(gen, dim=1).cpu()
+            if paged:
+                pool_pages = int(policy_lib.state_pool_stats(state)[
+                    "allocated_blocks"])
+            else:
+                out["live"][kind] = live
+        if not torch.equal(tokens_by[False], tokens_by[True]):
+            raise AssertionError(f"prefill export ({kind}): the pool's tokens "
+                                 "differ from the fixed arenas'")
+        log(f"5e (a) prefill export, {kind}: {EXPORT_LANES} prompts of {t} "
+            f"tokens through flash_fwd ({launched} launches = "
+            f"{arch.num_layers} layers) in {wall:.3f} s; last logits vs the "
+            f"reference path: max abs diff {diff:.4e}, max |logit| "
+            f"{scale:.4e} (tolerance 0.05 x max |logit|); {note}; imported "
+            f"live tokens {live:.1f} (summed over layers and lanes, mean "
+            f"over heads); {steps} greedy tokens a lane ({steps - 1} decode "
+            f"steps through decode_fwd, {want} launches a layout): the "
+            f"pool's ({pool_pages} pages mapped) equal to the fixed "
+            "arenas'")
+        del kv, logits, ref_logits
+    if not out["live"]["dms"] < out["live"]["vanilla"]:
+        raise AssertionError(f"dms imported {out['live']['dms']} live tokens,"
+                             f" vanilla {out['live']['vanilla']}")
+    return out
+
+
+def prefix_traces(arch, vocab_seed=12):
+    """(b)'s two traces as (prompt, max_new, arrival) lists: the shared
+    system prompt with its suffixes, one request every PREFIX_GAP ticks,
+    and ``multi_turn_trace``'s 2 sessions x 3 turns (each turn's prompt
+    extends the last turn's context)."""
+    import numpy as np
+    from repro_torch.serving import workload
+    rng = np.random.default_rng(vocab_seed)
+
+    def prompt(n):
+        return rng.integers(3, arch.vocab_size, size=(n,)).astype(np.int32)
+
+    system = prompt(PREFIX_LEN)
+    shared = [(np.concatenate([system, prompt(n)]), PREFIX_NEW,
+               i * PREFIX_GAP) for i, n in enumerate(PREFIX_SUFFIXES)]
+    spec = workload.WorkloadSpec(vocab=arch.vocab_size,
+                                 max_len=PREFIX_MAX_LEN, prompt_len=(32, 64),
+                                 max_new=(PREFIX_NEW, PREFIX_NEW))
+    turns = [(r.prompt, r.max_new, r.arrival) for r in workload.multi_turn_trace(
+        vocab_seed, sessions=2, turns=3, spec=spec, think_ticks=8)]
+    return {"shared prefix": shared, "multi-turn": turns}
+
+
+def serve_prefix_trace(torch, engine, trace, *, sync_check=False):
+    """A trace on two lanes of PREFIX_MAX_LEN; with ``sync_check`` the chunk
+    step, the lane export and import and the slab's store and fetch run
+    under :class:`NoSync` (a host sync in any of them raises).  The decode
+    kernel must launch once per layer per decode step, in the shared-pool
+    mode when the engine is paged.  Returns (results by uid, scheduler,
+    wall s, each request's first-token logits by uid)."""
+    from repro_torch.kernels.dms_decode import ops
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving.scheduler import Request
+    cuda = engine.device.type == "cuda"
+    names = ("import_lane_state", "export_lane_state", "store_lane_snapshot",
+             "fetch_lane_snapshot")
+    real = {n: getattr(tfm, n) for n in names}
+    sched = engine.scheduler(num_lanes=2, max_len=PREFIX_MAX_LEN)
+    for uid, (p, n, arr) in enumerate(trace):
+        sched.submit(Request(uid=uid, prompt=p, max_new=n, arrival=arr))
+    first = {}
+    start = sched._start_decode
+
+    def start_decode(r):
+        first[r.req.uid] = r.hold_logits.copy()
+        start(r)
+    sched._start_decode = start_decode
+    if sync_check:
+        sched._chunk_fn = unsynced(torch, sched._chunk_fn, cuda)
+        for n in names:
+            setattr(tfm, n, unsynced(torch, real[n], cuda))
+    engine.chunk_fn.steps = 0
+    ops.launches = ops.shared_launches = 0
+    t0 = time.perf_counter()
+    try:
+        results = {r.uid: r for r in sched.run()}
+    finally:
+        for n in names:
+            setattr(tfm, n, real[n])
+    if cuda:
+        torch.cuda.synchronize()
+    del sched._start_decode          # the hook refers to the scheduler
+    want = engine.arch.num_layers * engine.chunk_fn.steps if cuda else 0
+    got = (ops.launches, ops.shared_launches)
+    if got != ((0, want) if engine.policy.paged else (want, 0)):
+        raise AssertionError(f"decode launches (fixed, shared) {got} for "
+                             f"{engine.chunk_fn.steps} steps")
+    return results, sched, time.perf_counter() - t0, first
+
+
+PREFIX_LAYOUTS = {"dms fixed": dict(kind="dms", cr=8.0),
+                  "dms paged": dict(kind="dms", cr=8.0, paged=True),
+                  "vanilla fixed": dict(kind="vanilla")}
+
+
+def phase_shared_prefix(torch, setup):
+    """(b) Each trace of ``prefix_traces`` served warm by each
+    PREFIX_LAYOUTS engine (one prefix cache for both traces: a
+    PREFIX_DEVICE_MB slab over a PREFIX_MB host tier, chunk PREFIX_CHUNK,
+    export stride PREFIX_STRIDE) and cold (no prefix cache; dms paged's
+    cold tokens are dms fixed's, checked in (a) and phase 5): every
+    request ok with the cold request's tokens, paid + saved prefill reads
+    equal to the cold reads, reads saved; the shared-prefix trace served
+    from the slab with no host<->device snapshot byte and no host sync in a
+    chunk, an import, an export or the slab; every page back at the end.
+    The first token's logits of every warm request (``hold_logits``: the
+    cached boundary row on a whole-prompt hit) are held against the cold
+    request's; the largest gap is logged.  Returns each layout's prefix
+    cache stats."""
+    from repro_torch.core import policy as policy_lib
+    from repro_torch.core.config import KVPolicyConfig
+    from repro_torch.serving.engine import Engine
+    arch, params, device = setup["arch"], setup["params"], setup["device"]
+    traces = prefix_traces(arch)
+    kw = dict(use_kernel=True, device=device, chunk=PREFIX_CHUNK)
+    cold = {}
+    for kind in ("dms", "vanilla"):
+        eng = Engine(arch, params, KVPolicyConfig(**PREFIX_LAYOUTS[
+            f"{kind} fixed"]), **kw)
+        cold[kind] = {}
+        for name, trace in traces.items():
+            res, _, wall, first = serve_prefix_trace(torch, eng, trace)
+            cold[kind][name] = (res, wall, first)
+    out = {}
+    for layout, pkw in PREFIX_LAYOUTS.items():
+        eng = Engine(arch, params, KVPolicyConfig(**pkw),
+                     prefix_cache_mb=PREFIX_MB,
+                     prefix_cache_device_mb=PREFIX_DEVICE_MB,
+                     export_stride=PREFIX_STRIDE, **kw)
+        pc = eng.prefix_cache
+        for name, trace in traces.items():
+            before = pc.traffic()
+            res, sched, wall, first = serve_prefix_trace(
+                torch, eng, trace, sync_check=name == "shared prefix")
+            traffic = {k: v - before[k] for k, v in pc.traffic().items()}
+            ref, cold_wall, cold_first = cold[pkw["kind"]][name]
+            saved = paid = cold_paid = gap = 0.0
+            for uid, r in res.items():
+                c = ref[uid]
+                gap = max(gap, float(abs(first[uid] - cold_first[uid]).max()))
+                if r.status != "ok" or not (r.tokens == c.tokens).all():
+                    raise AssertionError(f"5e (b) {layout}, {name}, request "
+                                         f"{uid}: status {r.status}, or "
+                                         "tokens differ from the cold serve's")
+                got = r.prefill_meter.kv_reads + r.prefill_meter.kv_reads_saved
+                if got != c.prefill_meter.kv_reads:
+                    raise AssertionError(f"5e (b) {layout}, {name}, request "
+                                         f"{uid}: paid + saved {got} != cold "
+                                         f"{c.prefill_meter.kv_reads}")
+                saved += r.prefill_meter.kv_reads_saved
+                paid += r.prefill_meter.kv_reads
+                cold_paid += c.prefill_meter.kv_reads
+            if saved <= 0:
+                raise AssertionError(f"5e (b) {layout}, {name}: no read saved")
+            if name == "shared prefix" and (
+                    pc.hot_hits <= 0 or traffic["h2d_bytes"]
+                    or traffic["d2h_bytes"]):
+                raise AssertionError(f"5e (b) {layout}: the shared prefix was "
+                                     f"not served from the slab: {traffic}, "
+                                     f"hot hits {pc.hot_hits}")
+            pages = ""
+            if pkw.get("paged"):
+                st = policy_lib.state_pool_stats(sched.state)
+                if st["allocated_blocks"] or st["exhausted"]:
+                    raise AssertionError(f"5e (b) {layout}, {name}: pool not "
+                                         f"empty at the end: {st}")
+                pages = "; every page back at the end"
+            sync = ("; no host sync in a chunk, an import, an export or the "
+                    "slab (sync debug mode)" if name == "shared prefix" else "")
+            log(f"5e (b) {layout}, {name} ({len(trace)} requests, prompts "
+                f"{sorted(len(p) for p, _, _ in trace)}, {trace[0][1]} new "
+                f"each): all ok, tokens equal to the cold serve's (first-token"
+                f" logits: max abs gap {gap:.4e}); prefill "
+                f"reads paid {paid:.0f} + saved {saved:.0f} = cold "
+                f"{cold_paid:.0f}; {sched.ticks} ticks, {eng.chunk_fn.steps} "
+                f"decode steps (one decode_fwd launch a layer each) in "
+                f"{wall:.2f} s (cold {cold_wall:.2f} s); traffic "
+                f"{traffic}{pages}{sync}")
+        st = pc.stats()
+        out[layout] = st
+        log(f"5e (b) {layout}: prefix cache stats {json.dumps(st)}")
+    return out
+
+
+def phase_overload(torch, setup):
+    """(c) OVERLOAD's burst trace served without control and with
+    OVERLOAD_SLO's ladder, both scored against that SLO: the ladder's
+    goodput above no control's, every status definite, shed and rejected
+    requests read nothing, every ok request's tokens equal a solo run at
+    its served width.  Returns both runs' stats."""
+    from repro_torch.core.config import KVPolicyConfig
+    from repro_torch.kernels.dms_decode import ops
+    from repro_torch.serving import workload
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.scheduler import SLOSpec, compute_slo_stats
+    arch, params, device = setup["arch"], setup["params"], setup["device"]
+    o = OVERLOAD
+    max_len = o["prompt_len"][1] + o["new"]
+    spec = workload.WorkloadSpec(vocab=arch.vocab_size, max_len=max_len,
+                                 prompt_len=o["prompt_len"],
+                                 max_new=(o["new"], o["new"]),
+                                 widths=o["widths"], deadline=o["deadline"])
+    reqs = workload.burst_trace(0, o["n"], rate=o["rate"],
+                                on_ticks=o["on_ticks"],
+                                off_ticks=o["off_ticks"], spec=spec)
+    eng = Engine(arch, params, KVPolicyConfig(kind="dms", cr=8.0),
+                 use_kernel=True, device=device, chunk=o["chunk"])
+    slo = SLOSpec(**OVERLOAD_SLO)
+    runs = {}
+    for name, ctl in (("uncontrolled", None), ("controlled", slo)):
+        t0 = time.perf_counter()
+        sched = eng.scheduler(num_lanes=o["lanes"], max_len=max_len, slo=ctl)
+        for r in reqs:
+            sched.submit(r)
+        eng.chunk_fn.steps = ops.launches = 0
+        res = sched.run()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if ops.launches != (arch.num_layers * eng.chunk_fn.steps
+                            if device == "cuda" else 0):
+            raise AssertionError(f"5e (c) {name}: {ops.launches} decode "
+                                 f"launches for {eng.chunk_fn.steps} steps")
+        stats = compute_slo_stats(res, slo, offered=len(reqs),
+                                  timeline=sched._timeline,
+                                  num_lanes=o["lanes"])
+        stats["lifecycle"] = sched.lifecycle_stats()
+        runs[name] = (res, stats)
+        log(f"5e (c) overload, {name}: {len(reqs)} requests "
+            f"({workload.trace_summary(reqs)}) in {sched.ticks} ticks, "
+            f"{wall:.2f} s: goodput {stats['goodput']:.4f}, statuses "
+            f"{stats['statuses']}, lifecycle {stats['lifecycle']}, TTFT "
+            f"{stats['ttft']}, queue depth {stats['queue_depth']}")
+    base, ctrl = runs["uncontrolled"][1], runs["controlled"][1]
+    if not ctrl["goodput"] > base["goodput"]:
+        raise AssertionError(f"5e (c): controlled goodput {ctrl['goodput']} "
+                             f"not above uncontrolled {base['goodput']}")
+    definite = {"ok", "failed", "timeout", "rejected"}
+    by_uid = {r.uid: r for r in reqs}
+    solos = 0
+    for name, (res, _) in runs.items():
+        for r in res:
+            if r.status not in definite:
+                raise AssertionError(f"5e (c) {name}: status {r.status}")
+            if r.status == "rejected" and (r.prefill_meter.kv_reads
+                                           or r.admitted_tick != -1):
+                raise AssertionError(f"5e (c): rejected request {r.uid} read "
+                                     "or took a lane")
+    for r in runs["controlled"][0]:
+        if r.status != "ok":
+            continue
+        w = len(r.lengths)
+        solo = eng.scheduler(num_lanes=max(o["lanes"], w), max_len=max_len)
+        solo.submit(dataclasses.replace(by_uid[r.uid], width=w, arrival=0,
+                                        deadline=None))
+        s = solo.run()[0]
+        solos += 1
+        if not ((r.tokens == s.tokens).all() and (r.lengths
+                                                  == s.lengths).all()):
+            raise AssertionError(f"5e (c): request {r.uid}'s tokens differ "
+                                 f"from a solo run at width {w}")
+    log(f"5e (c) overload: controlled goodput {ctrl['goodput']:.4f} > "
+        f"uncontrolled {base['goodput']:.4f}; every status definite; shed "
+        f"and rejected requests read 0 prefill tokens; {solos} ok requests' "
+        "tokens equal a solo run at the served width")
+    return {"uncontrolled": base, "controlled": ctrl}
+
+
+def phase_serve_cli(torch):
+    """(d) ``repro_torch.launch.serve.main`` on the card at the smoke
+    config (SERVE_ARGV): every request ok, ``decode_fwd`` launched, the
+    prefix cache hit."""
+    import contextlib
+    import io
+    from repro_torch.kernels.dms_decode import ops
+    from repro_torch.launch import serve
+    ops.launches = ops.shared_launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        serve.main(SERVE_ARGV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lines = [json.loads(x) for x in buf.getvalue().splitlines()
+             if x.startswith("{")]
+    reqs = [x for x in lines if "uid" in x]
+    cache = next(x["prefix_cache"] for x in lines if "prefix_cache" in x)
+    if not reqs or any(x["status"] != "ok" for x in reqs) or not ops.launches \
+            or cache["hits"] <= 0:
+        raise AssertionError(f"5e (d) serve: requests {reqs}, decode_fwd "
+                             f"launches {ops.launches}, cache {cache}")
+    log(f"5e (d) python -m repro_torch.launch.serve {' '.join(SERVE_ARGV)}: "
+        f"{len(reqs)} requests ok in {wall:.2f} s, decode_fwd launched "
+        f"{ops.launches} times; prefix cache hits {cache['hits']} (hot "
+        f"{cache['hot_hits']}), h2d {cache['h2d_bytes']} B, d2h "
+        f"{cache['d2h_bytes']} B; first request {json.dumps(reqs[0])}")
+    return {"requests": len(reqs), "launches": ops.launches}
+
+
+def phase_prefix_serve(torch, setup, checked):
+    """Phase 5e: (a) the prefill export, (b) the shared prefix and
+    multi-turn traces through the prefix cache, (c) the overload ladder,
+    (d) the serving entry point.  Every fixed-arena decode launch must be
+    at a shape phase 3 checked (``checked``).  Returns flash_fwd's launches
+    in (a) and the decode kernel's fixed-arena launch shapes."""
+    from repro_torch.kernels.dms_decode import ops
+    cuda = setup["device"] == "cuda"
+    recording, _, shapes, real = recording_decode_rows(torch, setup["device"])
+    ops.decode_rows = recording
+    try:
+        exported = phase_prefill_export(torch, setup)
+        phase_shared_prefix(torch, setup)
+        phase_overload(torch, setup)
+        if cuda:
+            phase_serve_cli(torch)
+    finally:
+        ops.decode_rows = real
+    if cuda and not shapes <= checked:
+        raise AssertionError(f"phase 5e launched the decode kernel at "
+                             f"{sorted(shapes - checked)}, not among phase "
+                             f"3's checked {sorted(checked)}")
+    log(f"phase 5e's fixed-arena decode launch shapes {sorted(shapes)}: each "
+        "checked in phase 3")
+    return {"flash": exported["flash"], "shapes": shapes}
+
+
+def phase_prefill_timing(torch, launches, err):
+    """``flash_fwd`` at the prefill export's shape (B EXPORT_LANES, T
+    EXPORT_PROMPT, Hq 12, Hkv 2, Dh 128, bf16, binarised α, delay 256, no
+    block skipping): kernel, plain version, bound (the causal product's
+    flops at the bf16 tensor-core peak, or its bytes) and SDPA's forward
+    over the same function (the DMS mask materialised, K/V expanded to the
+    query heads); SDPA's plain causal forward (no DMS mask) is logged
+    beside it."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.dms_attention import ops as fops
+    from repro_torch.kernels.dms_attention import ref as fref
+    kw = PREFILL_FLASH["prefill export, binarised alpha"]
+    qf, kf, vf, ls, cfg = prefill_flash_case(
+        torch, b=EXPORT_LANES, seed=kw["t"] + kw["binary"], **kw)
+    b, t, hq, hkv, dh = EXPORT_LANES, cfg.t, cfg.hq, cfg.hkv, cfg.orig_dh
+    if qf.shape[1] != t:
+        raise AssertionError("the timed prefill shape must need no padding")
+    saved = dict(fops.launches)
+    ms = time_cuda(torch, lambda: fops.flash_fwd(qf, kf, vf, ls, None, cfg))
+    fops.launches.update(saved)           # timing launches are not the path's
+    plain = time_cuda(torch, lambda: fref.flash_fwd_plain(qf, kf, vf, ls,
+                                                          None, cfg))
+    g = hq // hkv
+    qs = qf.reshape(b, hq, t, dh)
+    ks = kf.reshape(b, hkv, t, dh).repeat_interleave(g, dim=1)
+    vs = vf.reshape(b, hkv, t, dh).repeat_interleave(g, dim=1)
+    i = torch.arange(t, device="cuda")[:, None]
+    j = torch.arange(t, device="cuda")[None, :]
+    lsb = ls.reshape(b, hkv, 1, t)
+    mask = torch.where(j <= i, torch.where(i - j >= cfg.dms_delay, lsb, 0.0),
+                       float("-inf")).repeat_interleave(g, dim=1).to(qf.dtype)
+    library = time_cuda(torch, lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=mask))
+    causal = time_cuda(torch, lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=True))
+    out, lse = fops.flash_fwd(qf, kf, vf, ls, None, cfg)
+    fops.launches.update(saved)
+    nbytes = lambda *xs: sum(x.numel() * x.element_size() for x in xs)  # noqa: E731
+    flops = 4 * dh * (b * hq * t * (t + 1) // 2)
+    moved = nbytes(qf, kf, vf, ls, out, lse)
+    ops_ms = flops / BF16_FLOPS_PER_S * 1e3
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    entry = {"name": "flash_fwd (prefill export)", "route": "cuda",
+             "source": "src/repro_torch/kernels/dms_attention/csrc/dms_attention.cu",
+             "replaces": "src/repro/kernels/dms_attention/dms_attention.py:142",
+             "launches": launches, "max_abs_err": err, "ms": ms,
+             "plain_ms": plain, "bound_ms": max(ops_ms, bytes_ms),
+             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+             "library_ms": library}
+    log(f"timing: flash_fwd at the prefill export's shape (B={b}, T={t}, "
+        f"Hq={hq}, Hkv={hkv}, Dh={dh}, bf16, binarised alpha, delay "
+        f"{cfg.dms_delay}): kernel {ms:.4f} ms, bound {entry['bound_ms']:.5f}"
+        f" ms ({flops} flop, {moved} B), plain {plain:.4f} ms, library "
+        f"{library:.4f} ms (SDPA forward, DMS mask); SDPA causal forward, no "
+        f"DMS mask: {causal:.4f} ms")
+    return entry
+
+
+# -- phase 6 ---------------------------------------------------------------
 
 
 def phase_train(torch, device="cuda", arch_name="qwen-r1-1.5b", seq_len=1024,
@@ -2391,7 +3090,7 @@ def profile_train_step(torch, arch, out, batch_t, step):
             f"x{e.count:<5d} {e.key[:90]}")
 
 
-# -- phase 6 ---------------------------------------------------------------
+# -- phase 7 ---------------------------------------------------------------
 
 
 def time_cuda(torch, fn, *, iters=50):
@@ -2751,6 +3450,8 @@ def main() -> int:
         torch, shallow["arch"], layouts)
     flash_errs = phase_flash_kernels(torch)
     phase_flash_grads(torch)
+    _, export_checked, prefill_err = phase_export_kernels(
+        torch, export_decode_keys(arch))
     lap("phases 1-3")
     served = phase_serve(torch, shallow)
     lap("phase 4")
@@ -2761,13 +3462,13 @@ def main() -> int:
                              f"checked shape {want}")
     paged = phase_paged_serve(torch, shallow, served)
     lap("phase 5")
-    weighted = phase_weights_serve(torch, cut_depth(setup, WEIGHTS_LAYERS),
-                                   served)
+    seven = cut_depth(setup, WEIGHTS_LAYERS)
+    weighted = phase_weights_serve(torch, seven, served)
     if weighted["arena"] != weights_shape[3]:
         raise AssertionError(f"weights-phase arena {weighted['arena']} is not "
                              f"the checked {weights_shape[3]} slots")
     lap("phase 5b")
-    scaled = phase_hyperscale_serve(torch, shallow)
+    scaled = phase_hyperscale_serve(torch, seven)
     if not scaled["vanilla_shapes"] <= prefix_checked:
         raise AssertionError(
             f"phase 5c launched vanilla at (rows, G, Dh, P, block_p) "
@@ -2776,7 +3477,7 @@ def main() -> int:
     log(f"phase 5c's vanilla launch shapes (rows, G, Dh, P, block_p) "
         f"{sorted(scaled['vanilla_shapes'])}: each checked in phase 3")
     lap("phase 5c")
-    qd = phase_quest_dmc_serve(torch, shallow, scaled["evals"], layouts)
+    qd = phase_quest_dmc_serve(torch, seven, scaled["evals"], layouts)
     for kind, got in qd["shapes"].items():
         if not got <= qd_checked[kind]:
             raise AssertionError(
@@ -2785,7 +3486,9 @@ def main() -> int:
         log(f"phase 5d's {kind} launch shapes {sorted(got)}: each checked in "
             "phase 3")
     lap("phase 5d")
-    del shallow, setup["params"]
+    prefixed = phase_prefix_serve(torch, seven, export_checked)
+    lap("phase 5e")
+    del shallow, seven, setup["params"]
     trained = phase_train(torch)
     lap("phase 6")
     kernels = phase_timing(torch, main_shape, {"fixed": served["launches"],
@@ -2796,6 +3499,7 @@ def main() -> int:
                                     errs["weights"])
     kernels += phase_quest_dmc_timing(torch, qd_timed, qd, qd_errs)
     kernels += phase_flash_timing(torch, trained["launches"], flash_errs)
+    kernels.append(phase_prefill_timing(torch, prefixed["flash"], prefill_err))
     lap("phase 7")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -114,6 +114,18 @@ def build_dms_mask(alpha: torch.Tensor, q_positions: torch.Tensor,
     return mask
 
 
+def retained_after_prefill(alpha_bin: torch.Tensor, seq_len: int,
+                           cfg: DMSConfig) -> torch.Tensor:
+    """Which of ``seq_len`` prefill tokens are still cached after the
+    prefill: token j's decision executes once position ``j + w`` is written,
+    so it is gone iff ``α_j`` and ``j <= seq_len - 1 - w``.  ``alpha_bin``
+    (B, Hkv, T) bool; returns (B, Hkv, T) bool, True = retained."""
+    delay = 1 if cfg.immediate_eviction else cfg.window
+    executed = torch.arange(seq_len, device=alpha_bin.device) <= (
+        seq_len - 1 - delay)
+    return ~(alpha_bin & executed)
+
+
 def cr_schedule(step, cfg: DMSConfig) -> torch.Tensor:
     """CR(t) = min(1 + t / steps_per_cr_unit, target)  (§4), fp32."""
     cr = 1.0 + torch.as_tensor(step, dtype=torch.float32) / cfg.steps_per_cr_unit

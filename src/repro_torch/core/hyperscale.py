@@ -65,6 +65,12 @@ class BudgetMeter:
     def observe_peak_bytes(self, nbytes: float):
         self.peak_bytes = max(self.peak_bytes, float(nbytes))
 
+    def observe_saved_reads(self, reads: float):
+        """Prefill reads a prefix-cache hit avoided, on their own axis:
+        ``kv_reads`` stays the reads paid, and ``kv_reads +
+        kv_reads_saved`` is what a cold serve would have read."""
+        self.kv_reads_saved += float(reads)
+
     def merge(self, other: "BudgetMeter") -> "BudgetMeter":
         """Concurrent merge: co-resident lanes, so peak memory adds."""
         return BudgetMeter(

@@ -361,9 +361,15 @@ class VanillaCache:
         slot = start[:, None, None] + torch.arange(t, device=start.device)
         slot = slot.expand(b, h, t)
         if self.pool is None:
-            for i in range(t):
-                write_rows(self.k, self.v, slot[..., i], k_new[:, :, i:i + 1],
-                           v_new[:, :, i:i + 1], active)
+            bi = torch.arange(b, device=slot.device)[:, None, None].expand(b, h, t)
+            hi = torch.arange(h, device=slot.device)[None, :, None].expand(b, h, t)
+            si = slot.long()
+            for arena, new in ((self.k, k_new), (self.v, v_new)):
+                rows = new.to(arena.dtype)
+                if active is not None:
+                    rows = torch.where(active[:, None, None, None], rows,
+                                       arena[bi, hi, si])
+                arena[bi, hi, si] = rows
         else:
             block_pool.token_write(self.pool, self.phys, slot, k_new, v_new,
                                    event_mask(active, (b, h, t),
@@ -641,3 +647,53 @@ class SlotDMSCache:
 
     def retained_tokens(self) -> torch.Tensor:
         return self.valid.sum(dim=-1)
+
+    @staticmethod
+    def from_prefill(k: torch.Tensor, v: torch.Tensor,
+                     positions: torch.Tensor, retained: torch.Tensor,
+                     window: int, num_slots: int,
+                     alpha_bin: Optional[torch.Tensor] = None,
+                     block_p: int = 0) -> "SlotDMSCache":
+        """A compacted cache built from a dense prefill: ``k``/``v`` (B, H,
+        T, Dh) post-RoPE, ``retained`` (B, H, T) bool, ``positions`` (T,).
+        Retained tokens fill the first slots in position order; with
+        ``alpha_bin`` (B, H, T) the tokens still inside the delay window
+        enter the pending ring, so their evictions execute on schedule."""
+        b, h, t, d = k.shape
+        dev = k.device
+        p = _round_up(num_slots, block_p)
+        pos_full = positions.to(_I32).expand(b, h, t)
+        order = torch.argsort(torch.where(retained, pos_full, INVALID_POS),
+                              dim=2, stable=True)
+        idx = (order[..., :p] if t >= p
+               else torch.nn.functional.pad(order, (0, p - t)))
+        n_keep = torch.clamp(retained.sum(dim=2), max=num_slots)    # (B, H)
+        slot_ids = torch.arange(p, device=dev)
+        live = slot_ids < n_keep[..., None]                         # (B, H, P)
+
+        def gather(x):
+            g = x.gather(2, idx[..., None].expand(b, h, p, d))
+            return torch.where(live[..., None], g, torch.zeros((), dtype=x.dtype,
+                                                               device=dev))
+
+        ring = torch.full((b, h, window), -1, dtype=_I32, device=dev)
+        ring_alpha = torch.zeros((b, h, window), dtype=torch.bool, device=dev)
+        if alpha_bin is not None:
+            # tokens (t - 1 - w, t) have decisions not yet executed; each is
+            # retained, and its slot is its rank among the retained
+            js = torch.arange(max(0, t - window), t, device=dev)
+            rank = torch.cumsum(retained.to(_I32), dim=2) - 1
+            ring[..., js % window] = rank[..., js].to(_I32)
+            ring_alpha[..., js % window] = alpha_bin[..., js]
+        return SlotDMSCache(
+            k=gather(k), v=gather(v),
+            pos=torch.where(live, pos_full.gather(2, idx), INVALID_POS),
+            valid=live,
+            free_ring=((n_keep[..., None] + slot_ids) % num_slots).to(_I32),
+            free_head=torch.zeros((b, h), dtype=_I32, device=dev),
+            free_count=(num_slots - n_keep).to(_I32),
+            pending_slot=ring, pending_alpha=ring_alpha,
+            length=torch.full((b,), t, dtype=_I32, device=dev),
+            overflowed=torch.zeros((b, h), dtype=torch.bool, device=dev),
+            blocks=BlockTable.from_valid(live, block_p),
+            window=window, slots=num_slots)

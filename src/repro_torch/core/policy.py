@@ -3,16 +3,17 @@
 The same contract as the reference ``repro.core.policy``: every policy owns
 its cache's lifecycle (``init_cache``, ``decode_update``, ``fork_cache``,
 ``gather_cache``, ``reclaim_cache``, ``export_prefix``, ``import_prefix``,
-``metrics``, ``peak_bytes``) and the model dispatches only through the
-registry, keyed by the name a :class:`PolicyCache` carries.  This port
-registers the reference's nine: ``vanilla`` (the uncompressed baseline;
-local layers get a ring buffer), ``window`` (StreamingLLM's sliding
-window), ``dms``, ``dms_masked`` (DMS on a full-length arena: the
-correctness oracle), ``tova``, ``h2o``, ``keyformer``, ``quest`` (page-
-sparse reads over a full cache) and ``dmc`` (append-or-merge);
-``prefill_import`` is queued in ROADMAP.md.  ``tova``, ``h2o`` and
-``keyformer`` evict by the step's attention weights: their
-:class:`AttendSpec` asks for them (``needs_weights``) and
+``import_slab``, ``export_slab``, ``metrics``, ``peak_bytes``) and the
+model dispatches only through the registry, keyed by the name a
+:class:`PolicyCache` carries.  This port registers the reference's nine:
+``vanilla`` (the uncompressed baseline; local layers get a ring buffer),
+``window`` (StreamingLLM's sliding window), ``dms``, ``dms_masked`` (DMS on
+a full-length arena: the correctness oracle), ``tova``, ``h2o``,
+``keyformer``, ``quest`` (page-sparse reads over a full cache) and ``dmc``
+(append-or-merge).  ``vanilla`` and ``dms`` also build a cache from a dense
+prefill (``prefill_import``); the others raise there, as in the reference.
+``tova``, ``h2o`` and ``keyformer`` evict by the step's attention weights:
+their :class:`AttendSpec` asks for them (``needs_weights``) and
 :meth:`KVPolicy.post_attend` takes them.
 
 Lane lifecycle operations are functional and return new tensors, so lanes
@@ -36,9 +37,9 @@ from repro_torch.core.baselines import (DMCCache, H2OCache, QuestCache,
                                        TOVACache)
 from repro_torch.core.config import ArchConfig, KVPolicyConfig
 from repro_torch.core.kv_cache import (MaskedDMSCache, SlotDMSCache,
-                                       VanillaCache, _round_up,
+                                       VanillaCache, _round_up, pack_dense,
                                        prefix_block_spec)
-from repro_torch.core.tree import tree_map
+from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.device import torch_dtype
 
 # ---------------------------------------------------------------------------
@@ -371,6 +372,36 @@ class KVPolicy:
         return dataclasses.replace(body, pool=block_pool.set_refcounts(pool, phys),
                                    phys=phys)
 
+    def import_slab(self, slab: Any, snap: Any, slot: int, *,
+                    axis: int = 0) -> Any:
+        """Write a width-1 :meth:`export_prefix` snapshot into storage slot
+        ``slot`` of a snapshot slab (``slots`` stacked snapshots, see
+        :func:`repro_torch.models.transformer.init_snapshot_slab`), in
+        place; a snapshot on another device is copied over.  A policy whose
+        snapshot is not a width-1-lane tree overrides this pair with the
+        prefix pair."""
+        for d, s in zip(tree_leaves(slab), tree_leaves(snap)):
+            d.narrow(axis, slot, 1).copy_(s)
+        return slab
+
+    def export_slab(self, slab: Any, slot: int, *, axis: int = 0) -> Any:
+        """The snapshot in slab slot ``slot``, as new tensors on the slab's
+        device (a hot hit's import reads it device to device)."""
+        return tree_map(lambda d: d.narrow(axis, slot, 1).clone(), slab)
+
+    def prefill_import(self, arch: ArchConfig, cfg: KVPolicyConfig,
+                       k: torch.Tensor, v: torch.Tensor,
+                       positions: torch.Tensor,
+                       retained: Optional[torch.Tensor],
+                       alpha_bin: Optional[torch.Tensor], *, max_len: int,
+                       layer_window: Optional[int] = None, dtype=None) -> Any:
+        """A cache built from a dense prefill's outputs: ``k``/``v`` (B,
+        Hkv, T, Dh) post-RoPE, as ``make_prefill_step``'s ``layer_kv`` gives
+        them.  The engine prefills through the decode step; this is for a
+        caller that runs the full forward and imports the result.  Policies
+        without an import path raise."""
+        raise NotImplementedError(f"{self.name}: no prefill import path")
+
     # -- accounting ----------------------------------------------------------
 
     def metrics(self, cache: Any) -> Dict[str, Any]:
@@ -405,8 +436,10 @@ def _per_lane(fn, cache, *rest):
 
 
 def _put_lane(cache, snap, lane: int, axis: int):
-    """``cache`` with lane ``lane`` of every leaf replaced by ``snap``'s."""
-    idx = torch.tensor([lane], device=_device_of(cache))
+    """``cache`` with lane ``lane`` of every leaf replaced by ``snap``'s.
+    The index is filled on the device: a host-built one would be a
+    host-to-device copy, which syncs the stream."""
+    idx = torch.full((1,), lane, dtype=torch.long, device=_device_of(cache))
     return tree_map(lambda a, s: a.index_copy(axis, idx, s.to(a.dtype)),
                     cache, snap)
 
@@ -509,6 +542,18 @@ class VanillaPolicy(_SlotRingMixin, KVPolicy):
                               pool=cache.pool, phys=cache.phys, **kw)
         return cache, spec, step_meters(retained.float().mean(dim=-1))
 
+    def prefill_import(self, arch, cfg, k, v, positions, retained, alpha_bin,
+                       *, max_len, layer_window=None, dtype=None):
+        if layer_window is not None:
+            raise NotImplementedError("vanilla: no local-window import path")
+        a = arch.attn
+        cache = VanillaCache.init(k.shape[0], a.num_kv_heads, max_len,
+                                  a.head_dim, dtype or torch_dtype(arch.dtype),
+                                  block_p=cfg.block_p, paged=cfg.paged,
+                                  pool_blocks=cfg.pool_blocks, device=k.device)
+        cache.append(k, v)
+        return cache
+
 
 @register_policy("window")
 class WindowPolicy(_SlotRingMixin, KVPolicy):
@@ -548,6 +593,20 @@ class DMSPolicy(_SlotRingMixin, KVPolicy):
 
     def decode_update(self, cache, q, k_new, v_new, aux):
         return self._slot_update(cache, k_new, v_new, aux)
+
+    def prefill_import(self, arch, cfg, k, v, positions, retained, alpha_bin,
+                       *, max_len, layer_window=None, dtype=None):
+        """The compacted arena :meth:`init_cache` provisions, filled by
+        :meth:`SlotDMSCache.from_prefill`; paged, its pooled twin."""
+        eff_len = (min(max_len, layer_window + 1) if layer_window is not None
+                   else max_len)
+        slots = SlotDMSCache.provision_slots(eff_len, cfg.cr, arch.dms.window)
+        cache = SlotDMSCache.from_prefill(
+            k, v, positions, retained, arch.dms.window,
+            min(slots, eff_len + 1), alpha_bin=alpha_bin, block_p=cfg.block_p)
+        if cfg.paged:
+            cache = pack_dense(cache, cfg.pool_blocks)
+        return cache
 
 
 @register_policy("dms_masked")

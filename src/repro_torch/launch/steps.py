@@ -1,9 +1,10 @@
-"""Training steps: the LM train step and the DMS retrofit step.
+"""Steps: the LM train step, the DMS retrofit step and the prefill step.
 
 The reference's ``repro.launch.steps`` (``make_train_step``,
-``make_retrofit_step``) without ``jit``: each step runs eagerly, takes the
-gradient with :func:`torch.autograd.grad` over the params' leaves, and
-updates params and optimizer state in place (:mod:`repro_torch.optim.adamw`).
+``make_retrofit_step``, ``make_prefill_step``) without ``jit``: each step
+runs eagerly; the training steps take the gradient with
+:func:`torch.autograd.grad` over the params' leaves and update params and
+optimizer state in place (:mod:`repro_torch.optim.adamw`).
 
 Gumbel noise: the reference folds the step into a fixed key (17 for the
 train step, 23 for the retrofit step) and splits it per layer.  Here a
@@ -151,3 +152,24 @@ def make_retrofit_step(arch: ArchConfig, opt_cfg: adamw.AdamWConfig, *,
         return params, opt_state, {**metrics, **om}
 
     return retrofit_step
+
+
+def make_prefill_step(arch: ArchConfig, *, dms: bool = False,
+                      use_kernel: bool = False):
+    """Prefill: the full forward (``dms_eval`` when ``dms`` and DMS is on,
+    else ``vanilla``), returning the last position's logits (B, V_pad) fp32
+    and the per-layer KV (``model_forward``'s ``layer_kv``), which
+    :meth:`~repro_torch.core.policy.KVPolicy.prefill_import` turns into a
+    cache.  ``use_kernel`` attends through the flash kernel's forward.  It
+    runs under :func:`torch.inference_mode`, so the kernel's autograd
+    Function saves nothing for a backward."""
+    mode = "dms_eval" if (dms and arch.dms.enabled) else "vanilla"
+
+    def prefill_step(params, batch):
+        with torch.inference_mode():
+            logits, aux = tfm.model_forward(params, batch["tokens"], arch,
+                                            mode=mode, collect_kv=True,
+                                            use_kernel=use_kernel)
+        return logits[:, -1], aux["layer_kv"]
+
+    return prefill_step

@@ -81,10 +81,12 @@ def full_attention(
     noise from the uniforms ``dms_u``; without them it uses the
     deterministic relaxation, as the reference does without ``dms_rng``.
     ``use_kernel`` routes attention through the flash kernels, else the
-    masked-softmax reference."""
-    if collect_kv or kv_override is not None:
-        raise NotImplementedError("collect_kv and kv_override (cross-attention) "
-                                  "are not ported yet")
+    masked-softmax reference.  ``collect_kv`` adds the prefill export:
+    ``k_rope`` and ``v`` (B, Hkv, T, Dh) post-RoPE, and in ``dms_eval``
+    ``retained`` (:func:`~repro_torch.core.dms.retained_after_prefill`)."""
+    if kv_override is not None:
+        raise NotImplementedError("kv_override (cross-attention) is not "
+                                  "ported yet")
     dtype = torch_dtype(arch.dtype)
     b, t, _ = x.shape
     if positions is None:
@@ -140,6 +142,12 @@ def full_attention(
         out = attention_ref(q, k, v, mask, cfg.logit_softcap)
 
     y = out.reshape(b, t, cfg.num_heads * cfg.head_dim) @ p["wo"].to(dtype)
+    if collect_kv:
+        aux["k_rope"] = k.transpose(1, 2)
+        aux["v"] = v.transpose(1, 2)
+        if "alpha_bin" in aux:
+            aux["retained"] = dms_lib.retained_after_prefill(
+                aux["alpha_bin"], t, dms)
     return y.to(x.dtype), aux
 
 

@@ -19,6 +19,7 @@ stacked state, updated in place by the step.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -205,10 +206,11 @@ def model_forward(
     ``dms_train`` draws each layer's Gumbel noise from ``uniforms[layer]``
     if given (a test feeds the reference's draws), else from ``generator``
     (seed 0 when None).  ``remat`` recomputes each layer in the backward
-    pass (:func:`torch.utils.checkpoint.checkpoint`)."""
+    pass (:func:`torch.utils.checkpoint.checkpoint`).  ``collect_kv`` adds
+    the prefill export ``aux["layer_kv"]``: ``{"0": {"k_rope", "v"[,
+    "retained", "alpha_bin"]}}``, each stacked over layers (L, B, Hkv, T,
+    ...), as the reference's scan stacks them."""
     check_supported(arch)
-    if collect_kv:
-        raise NotImplementedError("collect_kv (prefill export) is not ported yet")
     x = embed_tokens(params, tokens, arch)
     b, t = x.shape[:2]
     if positions is None:
@@ -221,6 +223,8 @@ def model_forward(
     columns = [leaf.unbind(0) for leaf in tree_leaves(blocks)]
     a_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     a_cnt = 0.0
+    kv_keys = ("k_rope", "v", "retained", "alpha_bin")
+    layer_kv: List[Dict[str, torch.Tensor]] = []
 
     def layer(x, i, u):
         p = tree_unflatten(blocks, [c[i] for c in columns])
@@ -228,7 +232,9 @@ def model_forward(
         a_out, aux = attn_lib.full_attention(
             p["attn"], h, arch.attn, arch, mode=mode, dms_u=u,
             positions=positions, neuron_scale=neuron_scale,
-            use_kernel=use_kernel)
+            use_kernel=use_kernel, collect_kv=collect_kv)
+        if collect_kv:
+            layer_kv.append({k: aux[k] for k in kv_keys if k in aux})
         x = x + a_out
         h = norm_apply(p["mlp_norm"], x, arch.norm, arch.norm_eps)
         m_out, _ = mlp_apply(p["mlp"], h, arch.mlp, dtype)
@@ -245,9 +251,13 @@ def model_forward(
         a_sum = a_sum + s
         a_cnt += cnt
     logits = lm_logits(params, x, arch)
-    return logits, {"alpha_sum": a_sum, "alpha_count": a_cnt,
-                    "moe_aux_loss": torch.zeros((), dtype=torch.float32,
-                                                device=x.device)}
+    out = {"alpha_sum": a_sum, "alpha_count": a_cnt,
+           "moe_aux_loss": torch.zeros((), dtype=torch.float32,
+                                       device=x.device)}
+    if collect_kv:
+        out["layer_kv"] = {"0": {k: torch.stack([d[k] for d in layer_kv])
+                                 for k in layer_kv[0]}}
+    return logits, out
 
 
 # ---------------------------------------------------------------------------
@@ -268,6 +278,27 @@ def init_decode_state(arch: ArchConfig, batch: int, max_len: int,
     nl = arch.num_layers
     return {"0": tree_map(
         lambda a: a.unsqueeze(0).expand((nl,) + a.shape).contiguous(), one)}
+
+
+def state_from_prefill(arch: ArchConfig, policy: KVPolicyConfig,
+                       layer_kv: Dict[str, Any], max_len: int
+                       ) -> Dict[str, Any]:
+    """A decode state built from :func:`model_forward`'s ``layer_kv``: each
+    layer's cache from :meth:`KVPolicy.prefill_import` (positions ``0..T-1``),
+    stacked over layers as :func:`init_decode_state` stacks them.  Every
+    lane sits at position T, ready to decode."""
+    kv = layer_kv["0"]
+    name = policy.kind_for_layer("attn")
+    pol = policy_lib.get_policy(name)
+    t = kv["k_rope"].shape[3]
+    positions = torch.arange(t, dtype=torch.int32, device=kv["k_rope"].device)
+    caches = [pol.prefill_import(
+        arch, policy, kv["k_rope"][i], kv["v"][i], positions,
+        kv["retained"][i] if "retained" in kv else None,
+        kv["alpha_bin"][i] if "alpha_bin" in kv else None, max_len=max_len)
+        for i in range(arch.num_layers)]
+    return {"0": policy_lib.PolicyCache(
+        tree_map(lambda *xs: torch.stack(xs), caches[0], *caches[1:]), name)}
 
 
 def _map_caches(fn, state: Dict[str, Any], *rest) -> Dict[str, Any]:
@@ -318,6 +349,82 @@ def import_lane_state(state: Dict[str, Any], snap: Dict[str, Any],
         policy_lib.get_policy(pc.policy).import_prefix(pc.cache, s.cache, lane,
                                                        axis=1), pc.policy),
         state, snap)
+
+
+def init_snapshot_slab(snap: Dict[str, Any], slots: int) -> Dict[str, Any]:
+    """A zeroed slab for ``slots`` lane snapshots on ``snap``'s device:
+    ``snap`` (an :func:`export_lane_state` exemplar, lane axis 1 of width 1)
+    with the lane axis widened to ``slots`` — the prefix cache's hot tier,
+    written and read by :func:`store_lane_snapshot` and
+    :func:`fetch_lane_snapshot` without leaving the device."""
+    return tree_map(lambda a: a.new_zeros(a.shape[:1] + (int(slots),)
+                                          + a.shape[2:]), snap)
+
+
+def _slab_map(fn_cache, fn_leaf, slab, *rest):
+    """``fn_cache(policy, cache, *rest caches)`` on every PolicyCache node of
+    a slab, ``fn_leaf`` on any other tensor (a raw snapshot leaf)."""
+    def visit(node, *r):
+        if isinstance(node, policy_lib.PolicyCache):
+            pol = policy_lib.get_policy(node.policy)
+            return policy_lib.PolicyCache(
+                fn_cache(pol, node.cache, *(x.cache for x in r)), node.policy)
+        if isinstance(node, dict):
+            return {k: visit(v, *(x[k] for x in r)) for k, v in node.items()}
+        return fn_leaf(node, *r)
+
+    return visit(slab, *rest)
+
+
+def store_lane_snapshot(slab: Dict[str, Any], snap: Dict[str, Any],
+                        slot: int) -> Dict[str, Any]:
+    """Write a width-1 snapshot (on any device) into slab slot ``slot``, in
+    place: the device half of a deferred export, or a promotion's one
+    host-to-device copy.  Dispatches through :meth:`KVPolicy.import_slab`."""
+    def leaf(a, s):
+        a.narrow(1, slot, 1).copy_(s)
+        return a
+
+    return _slab_map(lambda pol, c, s: pol.import_slab(c, s, slot, axis=1),
+                     leaf, slab, snap)
+
+
+def fetch_lane_snapshot(slab: Dict[str, Any], slot: int) -> Dict[str, Any]:
+    """The snapshot in slab slot ``slot`` as new device tensors: a hot hit
+    feeds it to :func:`import_lane_state` device to device.  Dispatches
+    through :meth:`KVPolicy.export_slab`."""
+    return _slab_map(lambda pol, c: pol.export_slab(c, slot, axis=1),
+                     lambda a: a.narrow(1, slot, 1).clone(), slab)
+
+
+def _structure(node: Any) -> str:
+    """The tree structure of a state (types, keys, static fields and empty
+    nodes) as a string, leaves as ``*``."""
+    if isinstance(node, torch.Tensor):
+        return "*"
+    if node is None:
+        return "None"
+    if isinstance(node, dict):
+        return "{" + ",".join(f"{k}:{_structure(v)}"
+                              for k, v in node.items()) + "}"
+    if dataclasses.is_dataclass(node):
+        fields = []
+        for f in dataclasses.fields(node):
+            val = getattr(node, f.name)
+            fields.append(f"{f.name}={val!r}" if f.metadata.get("static")
+                          else f"{f.name}={_structure(val)}")
+        return f"{type(node).__name__}(" + ",".join(fields) + ")"
+    raise TypeError(f"not a state tree node: {type(node).__name__}")
+
+
+def lane_state_signature(state: Dict[str, Any]) -> Tuple:
+    """Hashable signature of one lane's snapshot of ``state``: its tree
+    structure, and each leaf's shape with the lane axis collapsed and its
+    dtype.  Snapshots are interchangeable between states of equal
+    signatures only; the prefix cache keys its trees by it."""
+    return (_structure(state),
+            tuple((tuple(a.shape[:1]) + (1,) + tuple(a.shape[2:]),
+                   str(a.dtype)) for a in tree_leaves(state)))
 
 
 def lane_select(mask: torch.Tensor, on_true: Any, on_false: Any) -> Any:

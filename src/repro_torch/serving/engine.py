@@ -10,6 +10,12 @@ block-table flash-decode kernel, and reports the paper's two budget metrics
 (KV reads, peak tokens) measured from the real cache state.
 :func:`evaluate_hyperscale` scores one L-W-CR point of the paper's
 accuracy-versus-budget comparison over an eval set.
+
+With ``prefix_cache_mb > 0`` (or ``prefix_cache_device_mb > 0``) the engine
+owns a cross-request :class:`~repro_torch.serving.prefix_cache.PrefixCache`:
+a prompt sharing a prefix with earlier traffic (a system prompt, an earlier
+turn) imports the cached snapshot and prefills only its suffix, and the
+reads it avoided land on the meters' ``kv_reads_saved``.
 """
 from __future__ import annotations
 
@@ -22,8 +28,9 @@ from repro_torch.core.config import ArchConfig, KVPolicyConfig
 from repro_torch.core.hyperscale import (BudgetMeter, ScalingConfig,
                                          majority_vote)
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.scheduler import (Request, RequestResult, Scheduler,
-                                           make_chunk_fn)
+                                           SLOSpec, make_chunk_fn)
 
 
 @dataclass
@@ -33,15 +40,30 @@ class GenerationResult:
     requests: List[RequestResult] = field(default_factory=list)
 
 
+#: Engine.scheduler's ``prefix_cache`` default, "the engine's own cache";
+#: a sentinel, so that ``prefix_cache=None`` asks for a cold scheduler
+_ENGINE_CACHE = object()
+
+
 class Engine:
     """Single-device engine.  ``params`` must already live on ``device``
     (``init_model`` or ``bridge.params_from_numpy`` with the same device).
     ``use_kernel=True`` attends through the hand-written CUDA kernel on the
-    card and through its plain version on the CPU."""
+    card and through its plain version on the CPU.
+
+    ``prefix_cache_mb`` is the prefix cache's host (cold tier) budget and
+    ``prefix_cache_device_mb`` its device slab's (hot tier: hits import
+    device to device, exports reach the host only when demoted);
+    ``export_policy`` "second-miss" exports only boundaries earlier traffic
+    asked for, and ``export_stride`` N only every Nth chunk boundary (and
+    the whole prompt's)."""
 
     def __init__(self, arch: ArchConfig, params, policy: KVPolicyConfig,
                  use_kernel: bool = True, temperature: float = 0.0,
-                 chunk: int = 8, device: DeviceLike = None):
+                 chunk: int = 8, device: DeviceLike = None,
+                 prefix_cache_mb: float = 0.0,
+                 prefix_cache_device_mb: float = 0.0,
+                 export_policy: str = "always", export_stride: int = 1):
         self.device = resolve_device(device)
         embed = params["embed"]
         if embed.device.type != self.device.type:
@@ -53,24 +75,37 @@ class Engine:
         self.use_kernel = use_kernel
         self.temperature = temperature
         self.chunk = chunk
+        # the engine's, so it outlives each scheduler: every served prompt
+        # seeds reuse for later traffic
+        self.prefix_cache = (
+            PrefixCache(int(prefix_cache_mb * 2 ** 20),
+                        int(prefix_cache_device_mb * 2 ** 20),
+                        export_policy=export_policy,
+                        export_stride=export_stride)
+            if prefix_cache_mb > 0 or prefix_cache_device_mb > 0 else None)
         # shared by every scheduler of this engine; counts decode steps
         self.chunk_fn = make_chunk_fn(arch, use_kernel=use_kernel,
                                       temperature=temperature)
 
     def scheduler(self, num_lanes: int, max_len: int, *, seed: int = 0,
-                  chunk: Optional[int] = None, faults: Any = None,
-                  on_pressure: str = "preempt",
-                  oversub: float = 1.0) -> Scheduler:
+                  chunk: Optional[int] = None,
+                  prefix_cache: Any = _ENGINE_CACHE, faults: Any = None,
+                  on_pressure: str = "preempt", oversub: float = 1.0,
+                  slo: Optional[SLOSpec] = None) -> Scheduler:
         """A lane arena bound to this engine's chunk step.  ``seed`` seeds
-        its sampling keys; ``faults`` attaches a
-        :class:`~repro_torch.serving.faults.FaultPlan`; ``on_pressure`` and
-        ``oversub`` configure the preemption layer (see
-        :class:`Scheduler`)."""
+        its sampling keys; the engine's prefix cache rides along unless
+        ``prefix_cache`` names another (None: a cold scheduler); ``faults``
+        attaches a :class:`~repro_torch.serving.faults.FaultPlan`;
+        ``on_pressure`` and ``oversub`` configure the preemption layer and
+        ``slo`` the overload ladder (see :class:`Scheduler`)."""
+        if prefix_cache is _ENGINE_CACHE:
+            prefix_cache = self.prefix_cache
         return Scheduler(self.arch, self.params, self.policy, self.chunk_fn,
                          num_lanes=num_lanes, max_len=max_len,
                          chunk=chunk or self.chunk, device=self.device,
                          faults=faults, on_pressure=on_pressure,
-                         oversub=oversub, seed=seed)
+                         oversub=oversub, seed=seed,
+                         prefix_cache=prefix_cache, slo=slo)
 
     def generate(self, prompts: np.ndarray, max_new: int, seed: int = 0,
                  eos_id: Optional[int] = None) -> GenerationResult:

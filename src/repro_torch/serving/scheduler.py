@@ -34,6 +34,27 @@ arena of batch *lanes* — the core lifecycle of the reference
   (``preempt_count`` says how often it was preempted), ``failed`` or
   ``timeout``.
 
+* **Cross-request prefix reuse.**  With a
+  :class:`~repro_torch.serving.prefix_cache.PrefixCache` attached,
+  admission looks up the longest cached prefix of the prompt, imports its
+  snapshot into the lane (device to device when it sits in the cache's hot
+  tier) and prefills only the suffix; prefill offers a snapshot at the
+  chunk boundaries the cache's export policy asks for (stored in the device
+  slab when there is one, with no host copy); a finished request refreshes
+  its prompt's chain.  A hit covering the whole prompt skips prefill: the
+  cached boundary logits give token 0.  The reads a hit avoided go on the
+  prefill meter's ``kv_reads_saved``, so ``kv_reads`` stays what was paid.
+* **SLO and overload control.**  With an :class:`SLOSpec` attached, every
+  result carries TTFT (arrival to first token, in ticks) and TPOT (decode
+  ticks per later token), and overload runs a ladder: **throttle** a
+  width-W request to ``min_width`` chains (flagged ``degraded``; tokens
+  equal a solo run at that width) with ``cooldown_ticks`` of hysteresis;
+  **shed** a queued request that provably cannot meet its deadline or TTFT
+  even if admitted now (status ``rejected``, no prefill read); **reject**
+  at the door the newest arrivals past ``max_queue``; then preempt, then
+  fail.  Every projection is host arithmetic over admission descriptors
+  and the radix tree's read-only probe.  :meth:`Scheduler.slo_stats`
+  reports goodput, TTFT/TPOT percentiles and queue and lane timelines.
 * **Sampling.**  Greedy at temperature 0; above it, the reference's
   Threefry stream exactly (:mod:`repro_torch.core.threefry`): the chunk
   step splits its key once per step and draws ``categorical(sub, logits /
@@ -42,11 +63,11 @@ arena of batch *lanes* — the core lifecycle of the reference
   device.
 
 The host reads the device once per chunk (the reference's "tick-boundary"
-sync); inside a chunk every per-lane decision stays on the device.  The
-pool's pages are read back only when pressure is possible (``oversub > 1``
-or faults), so sound admission adds no sync.  The prefix cache and the SLO
-ladder are not ported yet, so the scheduler takes no ``slo`` and admits at
-full width.
+sync); inside a chunk every per-lane decision stays on the device, and so
+do a hot prefix hit's import, the deferred export's store into the slab and
+the exported boundary logits row; a whole-prompt hit reads its logits row
+once, at admission.  The pool's pages are read back only when pressure is
+possible (``oversub > 1`` or faults), so sound admission adds no sync.
 """
 from __future__ import annotations
 
@@ -61,9 +82,10 @@ from repro_torch.core import block_pool
 from repro_torch.core import policy as policy_lib
 from repro_torch.core import threefry
 from repro_torch.core.hyperscale import BudgetMeter
-from repro_torch.core.tree import tree_map
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer as tfm
+from repro_torch.serving import prefix_cache as prefix_cache_lib
+from repro_torch.serving.prefix_cache import PrefixCache
 
 
 @dataclass
@@ -85,8 +107,39 @@ class Request:
     max_preempts: int = 3
 
 
+@dataclass(frozen=True)
+class SLOSpec:
+    """Latency SLO and overload-control knobs (``Scheduler(slo=)``).
+
+    ``ttft_ticks`` bounds arrival to first token, ``tpot_ticks`` decode
+    ticks per later token (None: unconstrained for goodput).
+    ``max_queue`` bounds the backlog of arrived, unadmitted requests:
+    arrivals past it are ``rejected`` at the door (checked every tick, so a
+    preloaded trace's future arrivals do not count).  ``shed`` rejects a
+    queued request that provably cannot meet its deadline or TTFT even if
+    admitted now.  ``degrade_width`` lets admission serve a width-W request
+    at ``min_width`` under lane or pool pressure, and ``cooldown_ticks`` of
+    hysteresis keep that throttle on after the pressure goes."""
+
+    ttft_ticks: Optional[int] = None
+    tpot_ticks: Optional[float] = None
+    max_queue: Optional[int] = None
+    shed: bool = True
+    degrade_width: bool = True
+    min_width: int = 1
+    cooldown_ticks: int = 4
+
+
 @dataclass
 class RequestResult:
+    """``status``: ``ok`` (after ``preempt_count`` preemptions, if any),
+    ``failed``, ``timeout`` or ``rejected`` (bounced at the door or shed
+    while queued: it never took a lane).  ``ttft_ticks`` is arrival to
+    first token (-1: none sampled), ``tpot_ticks`` decode ticks per token
+    after the first (0.0 for one token); ``degraded`` marks a request the
+    ladder served at fewer chains, whose ``tokens`` has the served width's
+    rows."""
+
     uid: int
     tokens: np.ndarray            # (W, max_new) int32, padded after EOS
     lengths: np.ndarray           # (W,) generated tokens per chain (incl. EOS)
@@ -95,23 +148,29 @@ class RequestResult:
     decode_meter: BudgetMeter
     admitted_tick: int = 0
     finished_tick: int = 0
-    status: str = "ok"            # "ok" | "failed" | "timeout"
+    status: str = "ok"
     preempt_count: int = 0
     latency_ticks: int = 0        # arrival -> finished, queueing included
+    first_token_tick: int = -1
+    ttft_ticks: int = -1
+    tpot_ticks: float = 0.0
+    degraded: bool = False
 
 
 class _ReqState:
     def __init__(self, req: Request):
         self.req = req
         self.lanes: List[int] = []
-        self.width = req.width
+        self.width = req.width                 # served width (the ladder cuts)
         self.consumed = 0                      # prompt tokens prefilled
+        self.prefill_chunks = 0                # chunks prefilled (export stride)
         self.hold_logits: Optional[np.ndarray] = None
         self.chains: List[List[int]] = [[] for _ in range(req.width)]
         self.chain_done = [False] * req.width
         self.prefill_meter = BudgetMeter()
         self.decode_meter = BudgetMeter()
         self.admitted_tick = -1                # -1 = never admitted
+        self.first_token_tick = -1             # -1 = no token sampled
         self.status = "ok"
         self.preempt_count = 0
         self.resume_at = 0                     # backoff: earliest re-admission
@@ -126,6 +185,13 @@ class _ReqState:
     def ready(self, tick: int) -> bool:
         return self.req.arrival <= tick and self.resume_at <= tick
 
+    def degrade(self, width: int) -> None:
+        """Throttle to ``width`` chains (at admission: no chain holds
+        anything yet)."""
+        self.width = width
+        self.chains = [[] for _ in range(width)]
+        self.chain_done = [False] * width
+
     def result(self, peak_bytes: float, finished_tick: int) -> RequestResult:
         w, m = self.width, self.req.max_new
         toks = np.zeros((w, m), np.int32)       # padded with 0 after EOS
@@ -135,13 +201,20 @@ class _ReqState:
             toks[c, :len(chain)] = chain
         for meter in (self.prefill_meter, self.decode_meter):
             meter.observe_peak_bytes(peak_bytes)
+        ft = self.first_token_tick
+        gen = int(lens.max()) if w else 0
+        tpot = ((finished_tick - ft) / (gen - 1)
+                if ft >= 0 and gen > 1 else 0.0)
         return RequestResult(
             uid=self.req.uid, tokens=toks, lengths=lens,
             meter=self.prefill_meter.merge_sequential(self.decode_meter),
             prefill_meter=self.prefill_meter, decode_meter=self.decode_meter,
             admitted_tick=self.admitted_tick, finished_tick=finished_tick,
             status=self.status, preempt_count=self.preempt_count,
-            latency_ticks=max(0, finished_tick - self.req.arrival))
+            latency_ticks=max(0, finished_tick - self.req.arrival),
+            first_token_tick=ft,
+            ttft_ticks=ft - self.req.arrival if ft >= 0 else -1,
+            tpot_ticks=float(tpot), degraded=self.width < self.req.width)
 
 
 def sample(key: Optional[threefry.Key], logits: torch.Tensor,
@@ -223,21 +296,26 @@ class Scheduler:
     only to show that failure mode).  ``oversub`` >= 1 admits against
     1/oversub of worst-case pool demand; preemption absorbs what then
     materialises.  ``faults`` attaches a
-    :class:`~repro_torch.serving.faults.FaultPlan`.  ``seed`` seeds the
-    sampling keys, as the reference's: the chunk step's ``PRNGKey(seed)``
-    and the first tokens' ``PRNGKey(seed ^ 0x5EED0)``."""
+    :class:`~repro_torch.serving.faults.FaultPlan`, ``prefix_cache`` a
+    :class:`~repro_torch.serving.prefix_cache.PrefixCache` and ``slo`` an
+    :class:`SLOSpec`.  ``seed`` seeds the sampling keys, as the
+    reference's: the chunk step's ``PRNGKey(seed)`` and the first tokens'
+    ``PRNGKey(seed ^ 0x5EED0)``."""
 
     def __init__(self, arch, params, policy, chunk_fn: Callable, *,
                  num_lanes: int, max_len: int, chunk: int = 8,
                  device: DeviceLike = None, faults=None,
                  on_pressure: str = "preempt", oversub: float = 1.0,
-                 seed: int = 0):
+                 seed: int = 0, prefix_cache: Optional[PrefixCache] = None,
+                 slo: Optional[SLOSpec] = None):
         if on_pressure not in ("preempt", "ignore"):
             raise ValueError(f"on_pressure must be 'preempt' or 'ignore', "
                              f"got {on_pressure!r}")
         if oversub < 1.0:
             raise ValueError("oversub < 1 would reserve more than worst-case "
                              "demand; shrink pool_blocks instead")
+        if slo is not None and slo.min_width < 1:
+            raise ValueError("SLOSpec.min_width must be >= 1")
         self.arch, self.params, self.policy = arch, params, policy
         self.num_lanes, self.max_len, self.chunk = num_lanes, max_len, chunk
         self.device = resolve_device(device)
@@ -248,10 +326,23 @@ class Scheduler:
         self.faults = faults
         self.on_pressure = on_pressure
         self.oversub = float(oversub)
+        self.slo = slo
+        self.prefix_cache = prefix_cache
         self.preemptions = self.resumes = 0
         self.failures = self.timeouts = self.completed = 0
+        self.rejected = 0              # bounced at the door (max_queue)
+        self.shed = 0                  # shed while queued (also rejected)
+        self.degraded = 0              # admitted at reduced width
+        self.offered = 0               # every submit() that passed its checks
+        # every retired result and per-tick samples, for slo_stats
+        self._finished: List[RequestResult] = []
+        self._timeline: Dict[str, List[int]] = {"queue_depth": [],
+                                                "active_lanes": []}
+        self._hot_until = -1           # throttle hysteresis: degrade before it
         self.state = tfm.init_decode_state(arch, num_lanes, max_len, policy,
                                            device=self.device)
+        self.signature = tfm.lane_state_signature(self.state)
+        self._snap_nb: Optional[int] = None
         self._fresh = tfm.init_decode_state(arch, num_lanes, max_len, policy,
                                             device=self.device)
         self.peak_bytes = float(policy_lib.state_peak_bytes(self.state))
@@ -299,6 +390,7 @@ class Scheduler:
                     f"request {req.uid}: worst-case pool demand "
                     f"{req.width * d} blocks exceeds pool {i} capacity "
                     f"{self._pool_descs[i][3]} — unservable at any load")
+        self.offered += 1
         self.queue.append(_ReqState(req))
 
     def pool_stats(self) -> Optional[Dict[str, Any]]:
@@ -313,10 +405,34 @@ class Scheduler:
     def lifecycle_stats(self) -> Dict[str, int]:
         """How requests left: ``preemptions`` counts evictions, ``resumes``
         snapshot re-admissions; ``completed``/``failures``/``timeouts``
-        partition finished requests by status."""
+        count finished requests by status; ``rejected`` counts door
+        bounces and ``shed`` queue sheds (both end ``rejected``);
+        ``degraded`` counts admissions at reduced width."""
         return {"preemptions": self.preemptions, "resumes": self.resumes,
                 "completed": self.completed, "failures": self.failures,
-                "timeouts": self.timeouts}
+                "timeouts": self.timeouts, "rejected": self.rejected,
+                "shed": self.shed, "degraded": self.degraded}
+
+    def slo_stats(self) -> Dict[str, Any]:
+        """Goodput, TTFT/TPOT percentiles, statuses and the queue and lane
+        timelines over every result retired so far
+        (:func:`compute_slo_stats`), with :meth:`lifecycle_stats`."""
+        out = compute_slo_stats(self._finished, self.slo,
+                                offered=self.offered,
+                                timeline=self._timeline,
+                                num_lanes=self.num_lanes)
+        out["lifecycle"] = self.lifecycle_stats()
+        return out
+
+    @property
+    def _snap_nbytes(self) -> int:
+        """Bytes of one prefix-cache entry of this arena: a lane snapshot
+        and its fp32 logits row (taken once, from lane 0's export)."""
+        if self._snap_nb is None:
+            self._snap_nb = (prefix_cache_lib.snapshot_nbytes(
+                tfm.export_lane_state(self.state, 0))
+                + int(self.arch.padded_vocab) * 4)
+        return self._snap_nb
 
     def run(self) -> List[RequestResult]:
         """Run the queue to completion; results in completion order.  Every
@@ -327,6 +443,8 @@ class Scheduler:
             if self.faults is not None:
                 self.faults.on_tick(self, results)
             self._expire_queued(results)
+            self._bound_queue(results)
+            self._shed_queued(results)
             # fork before admitting: freed lanes reach held requests first
             self._fork_ready()
             self._admit()
@@ -337,6 +455,7 @@ class Scheduler:
                 if self._starved():
                     self._fail_starved(results)
                     continue
+                self._record_timeline()
                 self.ticks += 1        # future arrivals or backoff: time passes
                 continue
             self._tick(results)
@@ -380,7 +499,9 @@ class Scheduler:
         paged state also reserves pool blocks (:meth:`_pool_fits`).  A
         preempted request re-admits once its backoff expires and, when
         pressure is possible, only if the free pages cover its full demand
-        (else it would land straight back under pressure)."""
+        (else it would land straight back under pressure).  The width is
+        :meth:`_effective_width` (the ladder's throttle), and a fresh
+        admission imports its longest cached prefix."""
         while True:
             idle = self._idle_lanes()
             if not idle:
@@ -388,11 +509,13 @@ class Scheduler:
             reserved = sum(r.width - len(r.lanes) for r in self.active_reqs)
             avail = len(idle) - reserved
             free = None                  # lazy free-page readback
-            nxt = None
+            nxt, nxt_w = None, 0
             for r in self.queue:
-                if not r.ready(self.ticks) or r.width > avail \
-                        or not self._pool_fits(
-                            len(r.req.prompt) + r.req.max_new, r.width):
+                if not r.ready(self.ticks):
+                    continue
+                w = self._effective_width(r)
+                if w > avail or not self._pool_fits(
+                        len(r.req.prompt) + r.req.max_new, w):
                     continue
                 if r.snaps is not None and self._pool_descs \
                         and self._pressure_possible():
@@ -403,7 +526,7 @@ class Scheduler:
                     if any(free[i] < len(r.snaps) * need[i]
                            for i in range(len(need))):
                         continue         # wait for pages
-                nxt = r
+                nxt, nxt_w = r, w
                 break
             if nxt is None:
                 break
@@ -411,6 +534,13 @@ class Scheduler:
             if nxt.snaps is not None:
                 self._resume(nxt, idle)
                 continue
+            if nxt_w < nxt.width:
+                # the throttle rung: reduced width beats a preemption storm;
+                # hysteresis keeps admission from flapping back
+                nxt.degrade(nxt_w)
+                self.degraded += 1
+                self._hot_until = max(self._hot_until,
+                                      self.ticks + self.slo.cooldown_ticks)
             lane = idle.pop(0)
             self.owner[lane] = nxt
             self.chain_of[lane] = 0
@@ -421,6 +551,111 @@ class Scheduler:
             self.decoding[lane] = False
             self.finished[lane] = False
             self.lane_eos[lane] = -1 if nxt.req.eos_id is None else nxt.req.eos_id
+            self._import_prefix(nxt, lane)
+
+    # -- SLO and overload control (the degradation ladder) -------------------
+
+    def _effective_width(self, r: _ReqState) -> int:
+        """The width ``r`` would be admitted at now: full, unless the SLO
+        enables width degradation and either the throttle window is hot or
+        the pool fits the request only at ``min_width``.  A resumed request
+        keeps its snapshot's width."""
+        w = r.width
+        if r.snaps is not None or self.slo is None \
+                or not self.slo.degrade_width:
+            return w
+        lo = min(w, max(1, self.slo.min_width))
+        if lo == w:
+            return w
+        if self._throttled():
+            return lo
+        tokens = len(r.req.prompt) + r.req.max_new
+        if self._pool_descs and not self._pool_fits(tokens, w) \
+                and self._pool_fits(tokens, lo):
+            return lo                 # degrade instead of waiting to preempt
+        return w
+
+    def _throttled(self) -> bool:
+        """Is the throttle window hot?  Overload is a ready backlog (arrived,
+        unadmitted lane demand) larger than the whole arena; seeing it arms
+        ``cooldown_ticks`` of hysteresis.  Active lanes do not count: one
+        wide request and one arrival is a queue, not overload."""
+        if self.ticks < self._hot_until:
+            return True
+        backlog = sum(q.width for q in self.queue if q.ready(self.ticks))
+        if backlog > self.num_lanes:
+            self._hot_until = self.ticks + self.slo.cooldown_ticks
+            return True
+        return False
+
+    def _min_prefill_ticks(self, r: _ReqState) -> int:
+        """Prefill ticks if admitted now, at best: the suffix after the
+        longest cached prefix (the tree's read-only probe), in chunks."""
+        plen = len(r.req.prompt)
+        cached = 0
+        if self.prefix_cache is not None:
+            cached = min(plen, self.prefix_cache.covered(self.signature,
+                                                         r.req.prompt))
+        return -(-(plen - cached) // self.chunk)
+
+    def _min_service_ticks(self, r: _ReqState) -> int:
+        """A lower bound on admission-to-completion ticks: the best prefill
+        plus the fewest decode ticks any outcome allows (one token when an
+        EOS may end it, else ``max_new``)."""
+        gen = 1 if r.req.eos_id is not None else r.req.max_new
+        return self._min_prefill_ticks(r) + max(-(-(gen - 1) // self.chunk), 1)
+
+    def _bound_queue(self, results: List[RequestResult]) -> None:
+        """Backpressure: when the arrived, never-admitted backlog exceeds
+        ``max_queue``, the newest arrivals leave ``rejected``.  Preempted
+        requests count towards the depth but are never bounced."""
+        slo = self.slo
+        if slo is None or slo.max_queue is None:
+            return
+        arrived = [r for r in self.queue if r.req.arrival <= self.ticks]
+        fresh = [r for r in arrived if r.admitted_tick == -1]
+        over = len(arrived) - slo.max_queue
+        for r in sorted(fresh, key=lambda r: (r.req.arrival, r.req.uid),
+                        reverse=True)[:max(0, over)]:
+            self.queue.remove(r)
+            r.status = "rejected"
+            self.rejected += 1
+            self._finish(r, results, 0.0)
+
+    def _shed_queued(self, results: List[RequestResult]) -> None:
+        """The shed rung: a queued request that cannot meet its deadline
+        (or the TTFT SLO) even if admitted now leaves ``rejected`` before it
+        reads anything.  Preempted requests are exempt."""
+        slo = self.slo
+        if slo is None or not slo.shed:
+            return
+        for r in list(self.queue):
+            if r.admitted_tick != -1 or r.req.arrival > self.ticks:
+                continue
+            arr, dl = r.req.arrival, r.req.deadline
+            doomed = (dl is not None and
+                      self.ticks + self._min_service_ticks(r) > arr + dl)
+            if not doomed and slo.ttft_ticks is not None:
+                doomed = (self.ticks + self._min_prefill_ticks(r)
+                          > arr + slo.ttft_ticks)
+            if doomed:
+                self.queue.remove(r)
+                r.status = "rejected"
+                self.shed += 1
+                self._finish(r, results, 0.0)
+
+    def _finish(self, r: _ReqState, results: List[RequestResult],
+                peak_bytes: float) -> None:
+        """Retire a request: its result goes to the caller and to the
+        ledger :meth:`slo_stats` reads."""
+        res = r.result(peak_bytes, self.ticks)
+        results.append(res)
+        self._finished.append(res)
+
+    def _record_timeline(self) -> None:
+        self._timeline["queue_depth"].append(len(self.queue))
+        self._timeline["active_lanes"].append(
+            sum(o is not None for o in self.owner))
 
     # -- preemption, failure semantics, pool pressure ------------------------
 
@@ -479,11 +714,15 @@ class Scheduler:
         exponential backoff; past ``max_preempts`` it fails instead."""
         r.preempt_count += 1
         self.preemptions += 1
+        if self.slo is not None:
+            # the strongest overload signal: follow-on admissions degrade
+            self._hot_until = max(self._hot_until,
+                                  self.ticks + self.slo.cooldown_ticks)
         lanes = list(r.lanes)
         give_up = r.preempt_count > r.req.max_preempts
         if not give_up:
-            r.snaps = [_to_host(tfm.export_lane_state(self.state, lane))
-                       for lane in lanes]
+            r.snaps = [prefix_cache_lib.to_host(
+                tfm.export_lane_state(self.state, lane)) for lane in lanes]
             r.saved = {
                 "pos": self.pos[lanes].copy(),
                 "cur_tok": self.cur_tok[lanes].copy(),
@@ -496,7 +735,7 @@ class Scheduler:
         if give_up:
             r.status = "failed"
             self.failures += 1
-            results.append(r.result(self._req_peak(len(lanes)), self.ticks))
+            self._finish(r, results, self._req_peak(len(lanes)))
         else:
             r.resume_at = self.ticks + (1 << (r.preempt_count - 1))
             self.queue.append(r)
@@ -530,7 +769,7 @@ class Scheduler:
         self.active_reqs.remove(r)
         lanes = list(r.lanes)
         self._release_lanes(r, lanes)
-        results.append(r.result(self._req_peak(len(lanes)), self.ticks))
+        self._finish(r, results, self._req_peak(len(lanes)))
 
     def _release_lanes(self, r: _ReqState, lanes: List[int]) -> None:
         reclaim = np.zeros((self.num_lanes,), bool)
@@ -561,7 +800,7 @@ class Scheduler:
                 self.queue.remove(r)
                 r.status = "timeout"
                 self.timeouts += 1
-                results.append(r.result(0.0, self.ticks))
+                self._finish(r, results, 0.0)
 
     def _starved(self) -> bool:
         """All lanes idle, every queued request ready, none admitted, and no
@@ -575,7 +814,60 @@ class Scheduler:
             self.queue.remove(r)
             r.status = "failed"
             self.failures += 1
-            results.append(r.result(0.0, self.ticks))
+            self._finish(r, results, 0.0)
+
+    def _import_prefix(self, r: _ReqState, lane: int) -> None:
+        """Longest-cached-prefix import: the lane resumes at boundary L and
+        prefill feeds only ``prompt[L:]``.  A hot hit's snapshot is already
+        on the device; a cold hit's is shipped up by the import (and
+        promoted).  The reads it avoided go on the prefill meter's saved
+        axis; a whole-prompt hit skips prefill, its cached logits standing
+        in for the last prefill step's (read on the host once, here).  A
+        paged import allocates all of the boundary's pages at once: when
+        pressure is possible and the free pages do not cover them, the
+        request takes a cold prefill instead."""
+        if self.prefix_cache is None:
+            return
+        hit = self.prefix_cache.lookup(self.signature, r.req.prompt)
+        if hit is None:
+            return
+        if self._pool_descs and self._pressure_possible():
+            free = self._free_blocks()
+            need = self._lane_pool_demand(hit.length)
+            if any(free[i] < need[i] for i in range(len(need))):
+                return
+        self.state = tfm.import_lane_state(self.state, hit.snapshot, lane)
+        self._reapply_ghosts()
+        self.pos[lane] = hit.length
+        r.consumed = hit.length
+        r.prefill_meter.observe_saved_reads(hit.reads_cum)
+        if hit.length == len(r.req.prompt):
+            r.hold_logits = hit.logits.cpu().numpy().copy()
+
+    def _want_prefix_export(self, r: _ReqState) -> bool:
+        """Host checks only (no cache, a snapshot too large for any tier,
+        an off-stride boundary, a cached boundary, no earlier asker under
+        ``second-miss``): a skipped export costs no device work."""
+        if self.prefix_cache is None:
+            return False
+        if not self.prefix_cache.can_store(self._snap_nbytes):
+            return False
+        return self.prefix_cache.want_export(
+            self.signature, r.req.prompt[:r.consumed],
+            chunk_index=r.prefill_chunks,
+            final=r.consumed == len(r.req.prompt))
+
+    def _export_prefix(self, r: _ReqState, lane: int,
+                       logits: torch.Tensor) -> None:
+        """Offer the boundary ``prompt[:consumed]`` to the tree: the lane's
+        snapshot (on the device) and its logits row (on the device, a copy
+        of its own).  ``reads_cum`` is what a cold prefill of the prefix
+        reads: the request's paid prefill reads plus what its own import
+        saved."""
+        snap = tfm.export_lane_state(self.state, lane)
+        reads_cum = r.prefill_meter.kv_reads_saved + r.prefill_meter.kv_reads
+        self.prefix_cache.insert(self.signature, r.req.prompt[:r.consumed],
+                                 snap, logits.clone(), reads_cum)
 
     def _fork_ready(self) -> None:
         """hold -> decode: fork prefilled lanes into W chains, sample token 0."""
@@ -615,6 +907,8 @@ class Scheduler:
             first = first.cpu().numpy().astype(np.int32)
         else:
             first = np.full((w,), np.argmax(r.hold_logits), np.int32)
+        if r.first_token_tick < 0:
+            r.first_token_tick = self.ticks    # TTFT endpoint
         r.decode_meter.observe_step([0.0], new_tokens=w,
                                     reads_tokens_per_layer=[0.0])
         for c, lane in enumerate(r.lanes):
@@ -628,6 +922,7 @@ class Scheduler:
         r.hold_logits = None
 
     def _tick(self, results: List[RequestResult]) -> None:
+        self._record_timeline()
         # pressure relief before dispatch: a snapshot taken after a dropped
         # write would not be exact, so the margin check runs at the boundary
         if self.on_pressure == "preempt" and self._pool_descs \
@@ -721,10 +1016,14 @@ class Scheduler:
             if id(r) in doomed:
                 continue
             r.consumed += take
+            r.prefill_chunks += 1
             if r.consumed == len(r.req.prompt):
                 if ll is None:
                     ll = last_logits.cpu().numpy()
                 r.hold_logits = ll[lane].copy()
+            if self._want_prefix_export(r):
+                # deferred: the snapshot and its logits row stay on the device
+                self._export_prefix(r, lane, last_logits[lane])
 
         # collect emitted tokens; EOS / budget exhaustion finishes chains
         for lane in range(b):
@@ -747,8 +1046,10 @@ class Scheduler:
             for r in done:
                 self.active_reqs.remove(r)
                 self.completed += 1
-                results.append(r.result(self._req_peak(len(r.lanes)),
-                                        self.ticks))
+                if self.prefix_cache is not None:
+                    # the finished prompt's chain is recently useful again
+                    self.prefix_cache.touch(self.signature, r.req.prompt)
+                self._finish(r, results, self._req_peak(len(r.lanes)))
                 for lane in r.lanes:
                     self.owner[lane] = None
                     reclaim[lane] = True
@@ -787,6 +1088,67 @@ class Scheduler:
         self._reapply_ghosts()
 
 
-def _to_host(tree: Any) -> Any:
-    """A copy of a state tree in host memory (a preemption snapshot)."""
-    return tree_map(lambda a: a.to("cpu", copy=True), tree)
+
+# -- SLO accounting (Scheduler.slo_stats and the overload trace) -------------
+
+
+def slo_attained(res: RequestResult, slo: Optional[SLOSpec]) -> bool:
+    """Did the request land inside ``slo``?  ``ok`` is necessary, and with
+    no SLO sufficient.  A pure function of the result, so an uncontrolled
+    run can be measured against the same SLO."""
+    if res.status != "ok":
+        return False
+    if slo is None:
+        return True
+    if slo.ttft_ticks is not None and not (
+            0 <= res.ttft_ticks <= slo.ttft_ticks):
+        return False
+    if slo.tpot_ticks is not None and res.tpot_ticks > slo.tpot_ticks:
+        return False
+    return True
+
+
+def _pctiles(xs: List[float]) -> Dict[str, float]:
+    if not xs:
+        return {"p50": -1.0, "p90": -1.0, "max": -1.0}
+    a = np.asarray(xs, np.float64)
+    return {"p50": float(np.percentile(a, 50)),
+            "p90": float(np.percentile(a, 90)), "max": float(a.max())}
+
+
+def compute_slo_stats(results: List[RequestResult],
+                      slo: Optional[SLOSpec] = None, *,
+                      offered: Optional[int] = None,
+                      timeline: Optional[Dict[str, List[int]]] = None,
+                      num_lanes: Optional[int] = None) -> Dict[str, Any]:
+    """Goodput and latency over retired results.  Goodput is the share of
+    ``offered`` requests (default: ``len(results)``) that finished ``ok``
+    within ``slo``: rejected, shed, timed-out and failed requests all count
+    against it, which is why shedding hopeless work can raise it."""
+    offered = len(results) if offered is None else int(offered)
+    by_status: Dict[str, int] = {}
+    for r in results:
+        by_status[r.status] = by_status.get(r.status, 0) + 1
+    ok = [r for r in results if r.status == "ok"]
+    within = sum(1 for r in results if slo_attained(r, slo))
+    out: Dict[str, Any] = {
+        "offered": offered,
+        "finished": len(results),
+        "statuses": by_status,
+        "ok": len(ok),
+        "ok_within_slo": int(within),
+        "goodput": within / offered if offered else 0.0,
+        "degraded": sum(1 for r in results if r.degraded),
+        "ttft": _pctiles([float(r.ttft_ticks) for r in ok
+                          if r.ttft_ticks >= 0]),
+        "tpot": _pctiles([float(r.tpot_ticks) for r in ok
+                          if r.ttft_ticks >= 0]),
+    }
+    if timeline is not None:
+        qd = timeline.get("queue_depth", [])
+        al = timeline.get("active_lanes", [])
+        out["queue_depth"] = {"mean": float(np.mean(qd)) if qd else 0.0,
+                              "max": int(max(qd)) if qd else 0}
+        out["lane_util"] = (float(np.mean(al)) / num_lanes
+                            if al and num_lanes else 0.0)
+    return out

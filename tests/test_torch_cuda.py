@@ -677,3 +677,86 @@ def test_flash_wrapper_rejects_what_the_kernels_cannot_take(cuda_device):
     with pytest.raises(ValueError, match="head_dim"):
         fops.flash_fwd(big, big[:kf.shape[0]], big[:kf.shape[0]], ls, hr,
                        cfg._replace(orig_dh=256))
+
+
+# -- the prefill export's shapes and the prefix cache's slab ------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,mask", [(512, "binary"), (512, "vanilla"),
+                                    (288, "binary")])
+def test_flash_fwd_prefill_shapes_match_plain(cuda_device, t, mask):
+    """``flash_fwd`` at the prefill export's shapes (B 4, Hq 12, Hkv 2, Dh
+    128, bf16): binarised α as a log-survival of -1e30 for evicted keys
+    with delay 256, or vanilla (zero log-survival, delay 0); T 288 pads
+    to 384.  Within 1e-2 of the plain output's scale, and the same bits on
+    a second launch."""
+    from repro_torch.kernels.dms_attention import ops as fops
+    from repro_torch.kernels.dms_attention import ref as fref
+    from repro_torch.kernels.dms_attention.ref import FlashConfig
+    b, hq, hkv, dh = 4, 12, 2, 128
+    gen = torch.Generator(device=cuda_device).manual_seed(t)
+    bk, tp = fops.padded_blocks(t)
+    qf, kf, vf = (fops.fold_heads(torch.randn(
+        (b, t, h, dh), generator=gen, device=cuda_device).bfloat16(), tp)
+        for h in (hq, hkv, hkv))
+    if mask == "binary":
+        alpha = (torch.rand((b, hkv, t), generator=gen,
+                            device=cuda_device) < 0.6).float()
+        ls, delay = fops.kernel_log_survival(alpha, tp), 256
+    else:
+        ls = torch.zeros((b * hkv, tp), device=cuda_device)
+        delay = 0
+    cfg = FlashConfig(t=t, orig_dh=dh, hq=hq, hkv=hkv, window=None,
+                      dms_delay=delay, causal=True, logit_cap=None,
+                      block_k=bk, skip_blocks=False)
+    runs = [fops.flash_fwd(qf, kf, vf, ls, None, cfg) for _ in range(2)]
+    want, _ = fref.flash_fwd_plain(qf, kf, vf, ls, None, cfg)
+    torch.cuda.synchronize()
+    got = runs[0][0][:, :t].float()
+    assert torch.isfinite(got).all()
+    want = want[:, :t].float()
+    assert (got - want).abs().max() <= 1e-2 * want.abs().max()
+    assert all(torch.equal(x, y) for x, y in zip(*runs))
+
+
+@pytest.mark.cuda
+def test_prefix_cache_slab_roundtrip_on_card(cuda_device):
+    """A hot hit on the card: the slab lives on the device, the hit moves
+    no host<->device snapshot bytes, and the warm request's tokens equal a
+    cold prefill's."""
+    import numpy as np
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.config import KVPolicyConfig
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.scheduler import Request
+    arch = get_smoke("qwen-r1-1.5b")
+    params = tfm.init_model(arch, seed=0, device=cuda_device)
+    cfg = KVPolicyConfig(kind="dms", cr=2.0, window=arch.dms.window,
+                         block_p=16)
+    r = np.random.default_rng(0)
+    prefix = r.integers(3, arch.vocab_size, size=(16,)).astype(np.int32)
+    prompts = [np.concatenate([prefix, r.integers(
+        3, arch.vocab_size, size=(n,)).astype(np.int32)]) for n in (5, 9)]
+
+    def serve(eng):
+        out = []
+        for p in prompts:
+            sched = eng.scheduler(num_lanes=1, max_len=40)
+            sched.submit(Request(uid=0, prompt=p, max_new=6))
+            out.append(sched.run()[0])
+        return out
+
+    warm = Engine(arch, params, cfg, chunk=8, device=cuda_device,
+                  prefix_cache_mb=64, prefix_cache_device_mb=64)
+    got = serve(warm)
+    want = serve(Engine(arch, params, cfg, chunk=8, device=cuda_device))
+    st = warm.prefix_cache.stats()
+    assert st["hot_hits"] == 1 and st["h2d_bytes"] == st["d2h_bytes"] == 0
+    slab = next(iter(warm.prefix_cache._hot.values())).slab
+    assert all(a.is_cuda for a in tree_leaves(slab))
+    assert got[1].prefill_meter.kv_reads_saved > 0
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.tokens, w.tokens)

@@ -48,12 +48,14 @@ def test_no_jax_or_reference_imports(path):
 
 def test_every_port_module_is_checked():
     """The walk above reaches every module, the weight-driven policies' own
-    (Threefry, the baselines, Keyformer) and the evaluation's (the tasks)
-    included."""
+    (Threefry, the baselines, Keyformer), the evaluation's (the tasks) and
+    the serving extras' (the prefix cache, the workload traces, the serve
+    launcher) included."""
     names = {p.relative_to(PORT).as_posix() for p in FILES if PORT in p.parents}
     assert {"core/threefry.py", "core/baselines.py", "core/keyformer.py",
             "core/policy.py", "kernels/dms_decode/ops.py", "data/tasks.py",
-            "core/hyperscale.py"} <= names
+            "core/hyperscale.py", "serving/prefix_cache.py",
+            "serving/workload.py", "launch/serve.py"} <= names
 
 
 def test_importing_the_port_loads_no_jax():
