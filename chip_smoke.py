@@ -327,15 +327,16 @@ def phase_kernels(torch, main_shape):
 
 
 def make_pool_case(torch, gen, *, bh, g, dh, nb, bp, density, nan=False,
-                   stale=False, empty_rows=(), hidden_rows=(), device="cuda"):
+                   stale=False, empty_rows=(), hidden_rows=(), pages=None,
+                   device="cuda"):
     """Random shared-pool decode operands, and the same logical contents as
     fixed arenas.  Each row lists its live blocks in shuffled order; their
-    pages are scattered in shuffled order over a pool twice the pages
-    needed.  ``nan``: every page the table does not list is NaN (else it
+    pages are scattered in shuffled order over the pool.  ``nan``: every page the table does not list is NaN (else it
     holds random stale data).  ``stale``: a row lists only half of its live
     blocks and its table past n names unmapped blocks (phys = -1).
     ``hidden_rows``: the first listed block of these rows has every slot
-    hidden, as a local window hides old slots.  Returns a dict: ``shared``
+    hidden, as a local window hides old slots.  ``pages``: the pool's size
+    (else twice the pages needed).  Returns a dict: ``shared``
     = (q, k, v, valid, tbl, n) for the kernel's shared mode, ``fixed`` = the
     same for its fixed mode."""
     cpu = torch.Generator().manual_seed(int(torch.randint(
@@ -346,8 +347,10 @@ def make_pool_case(torch, gen, *, bh, g, dh, nb, bp, density, nan=False,
     n = torch.zeros((bh,), dtype=torch.int32)
     phys = torch.full((bh, nb), -1, dtype=torch.int64)
     need = int(live.sum())
-    npool = 2 * max(need, 1)
-    pages = iter(torch.randperm(npool, generator=cpu).tolist())
+    npool = pages or 2 * max(need, 1)
+    if need > npool:
+        raise AssertionError(f"{need} live blocks do not fit {npool} pages")
+    order = iter(torch.randperm(npool, generator=cpu).tolist())
     for r in range(bh):
         ids = torch.nonzero(live[r]).flatten()
         ids = ids[torch.randperm(len(ids), generator=cpu)]
@@ -359,7 +362,7 @@ def make_pool_case(torch, gen, *, bh, g, dh, nb, bp, density, nan=False,
                             dtype=torch.int64)
         tbl[r] = torch.cat([listed, rest])    # stale tail: unmapped blocks
         for blk in listed.tolist():
-            phys[r, blk] = next(pages)
+            phys[r, blk] = next(order)
     for r in hidden_rows:
         blk = int(tbl[r, 0])
         if n[r] < 1:
@@ -2331,17 +2334,41 @@ def decode_key(arch, kw, lanes, max_len):
             state["0"].cache.k.shape[-2], cfg.block_p)
 
 
+def pool_key(arch, kw, lanes, max_len):
+    """The shared-pool ``launch_key`` a paged layout's decode makes: (B·Hkv,
+    G, Dh, pool slots, block_p, table width, "shared"), read off a one-layer
+    paged state built on the CPU (the kernel sees every page but the dump
+    page)."""
+    from repro_torch.core import policy as policy_lib
+    from repro_torch.core.config import KVPolicyConfig
+    from repro_torch.core.kv_cache import cache_block_p
+    from repro_torch.models import transformer as tfm
+    cfg = KVPolicyConfig(**dict(kw, paged=True))
+    state = tfm.init_decode_state(dataclasses.replace(arch, num_layers=1),
+                                  lanes, max_len, cfg, device="cpu")
+    cache = next(policy_lib.iter_policy_caches(state)).cache
+    a, bp = arch.attn, cache_block_p(cache)
+    return (lanes * a.num_kv_heads, a.q_per_kv, a.head_dim,
+            cache.pool.ref.shape[-1] * bp, bp, cache.phys.shape[-1],
+            "shared")
+
+
 def export_decode_keys(arch):
-    """Every fixed-arena decode launch shape phase 5e makes: (a) dms and
-    vanilla on EXPORT_LANES lanes, (b) on two lanes of PREFIX_MAX_LEN, (c)
-    dms on the overload trace's arena, (d) the smoke config's dms."""
+    """Every decode launch shape phase 5e makes: fixed-arena (``decode_key``)
+    and shared-pool (``pool_key``) for (a) dms and vanilla on EXPORT_LANES
+    lanes and (b) on two lanes of PREFIX_MAX_LEN (dms only paged); fixed-
+    arena for (c) dms on the overload trace's arena and (d) the smoke
+    config's dms."""
     from repro_torch.configs import get_smoke
     keys = set()
     for kind in ("dms", "vanilla"):
         kw = dict(kind=kind, cr=8.0)
         keys.add(decode_key(arch, kw, EXPORT_LANES,
                             EXPORT_PROMPT + EXPORT_DECODE))
+        keys.add(pool_key(arch, kw, EXPORT_LANES,
+                          EXPORT_PROMPT + EXPORT_DECODE))
         keys.add(decode_key(arch, kw, 2, PREFIX_MAX_LEN))
+    keys.add(pool_key(arch, PREFIX_LAYOUTS["dms paged"], 2, PREFIX_MAX_LEN))
     keys.add(decode_key(arch, dict(kind="dms", cr=8.0), OVERLOAD["lanes"],
                         OVERLOAD["prompt_len"][1] + OVERLOAD["new"]))
     smoke = get_smoke("qwen-r1-1.5b")
@@ -2384,11 +2411,14 @@ PREFILL_FLASH = {
 
 
 def phase_export_kernels(torch, keys):
-    """Phase 3's checks at phase 5e's launch shapes: the decode kernel in
-    fixed-arena mode at every shape ``keys`` lists (random fragmented
-    tables, NaN in unlisted blocks) against the plain version and the plain
-    split; ``flash_fwd`` at the prefill export's shapes (``PREFILL_FLASH``,
-    B = EXPORT_LANES) against its plain version within FLASH_REL_TOL.  Each
+    """Phase 3's checks at phase 5e's launch shapes: the decode kernel at
+    every shape ``keys`` lists, in fixed-arena mode (random fragmented
+    tables, NaN in unlisted blocks) and in shared-pool mode
+    (``make_pool_case`` on a pool of the key's pages, NaN in every page no
+    table lists, at slot densities 0.5, which lists nearly every block, and
+    0.05, which lists about half of them in fragmented tables), against the
+    plain version and the plain split; ``flash_fwd`` at the prefill export's shapes (``PREFILL_FLASH``, B =
+    EXPORT_LANES) against its plain version within FLASH_REL_TOL.  Each
     bit-equal on a second launch.  Returns (the decode kernel's largest max
     abs error, the checked decode shapes, flash_fwd's max abs error at the
     main prefill case)."""
@@ -2396,22 +2426,39 @@ def phase_export_kernels(torch, keys):
     from repro_torch.kernels.dms_attention import ref as fref
     from repro_torch.kernels.dms_decode import ops
     from repro_torch.kernels.dms_decode.ref import (dms_decode_plain,
+                                                    dms_decode_plain_shared,
                                                     dms_decode_plain_split)
     gen = torch.Generator(device="cuda").manual_seed(4321)
-    before = (ops.launches, fops.launches["flash_fwd"])
+    before = (ops.launches, ops.shared_launches, fops.launches["flash_fwd"])
     worst, checked = 0.0, set()
-    for key in sorted(keys):
-        bh, g, dh, p, bp = key
-        q, k, v, valid, tbl, n = make_case(torch, gen, bh=bh, g=g, dh=dh, p=p,
-                                           bp=bp, density=0.5)
-        out = ops.decode_rows(q, k, v, valid, tbl, n, bp, None)
-        again = ops.decode_rows(q, k, v, valid, tbl, n, bp, None)
+    cases = [(key, density) for key in sorted(keys)
+             for density in ((0.5, 0.05) if len(key) == 7 else (0.5,))]
+    for key, density in cases:
+        shared = len(key) == 7
+        if shared:
+            bh, g, dh, slots, bp, nb, _ = key
+            case = make_pool_case(torch, gen, bh=bh, g=g, dh=dh, nb=nb, bp=bp,
+                                  density=density, nan=True,
+                                  pages=slots // bp)
+            args = case["shared"]
+            plain, mode = dms_decode_plain_shared, "shared-pool"
+        else:
+            bh, g, dh, p, bp = key
+            args = make_case(torch, gen, bh=bh, g=g, dh=dh, p=p, bp=bp,
+                             density=density)
+            plain, mode = dms_decode_plain, "fixed-arena"
+        q, k, v, valid, tbl, n = args
+        got = launch_key(q, k, tbl, bp, shared)
+        if got != key:
+            raise AssertionError(f"5e case {got} is not the shape {key}")
+        out = ops.decode_rows(*args, bp, None, shared_kv=shared)
+        again = ops.decode_rows(*args, bp, None, shared_kv=shared)
         torch.cuda.synchronize()
         if not torch.equal(out, again):
             raise AssertionError(f"kernel [5e shape {key}]: a second launch "
                                  "gave other bits")
-        ref = dms_decode_plain(q, k, v, valid, tbl, n, bp, None)
-        split = dms_decode_plain_split(q, k, v, valid, tbl, n, bp, None,
+        ref = plain(*args, bp, None)
+        split = dms_decode_plain_split(*args, bp, None, shared_kv=shared,
                                        splits=ops.splits(tbl.shape[1]))
         if not bool(torch.isfinite(out.float()).all()):
             raise AssertionError(f"kernel [5e shape {key}]: non-finite output")
@@ -2420,9 +2467,13 @@ def phase_export_kernels(torch, keys):
         err = (out.float() - ref.float()).abs().max().item()
         worst = max(worst, err)
         checked.add(key)
-        log(f"kernel vs plain [phase 5e's fixed-arena launch (B·Hkv, G, Dh, "
-            f"P, block_p) {key}, {int(n.sum())} listed blocks]: max_abs_err "
-            f"{err:.3e} (tolerance atol {KERNEL_TOL['atol']}, rtol "
+        what = ("(B·Hkv, G, Dh, pool slots, block_p, table width)" if shared
+                else "(B·Hkv, G, Dh, P, block_p)")
+        nan = (f", slot density {density}, NaN in every unlisted page"
+               if shared else "")
+        log(f"kernel vs plain [phase 5e's {mode} launch {what} {key[:6]}, "
+            f"{int(n.sum())} listed blocks{nan}]: max_abs_err {err:.3e} "
+            f"(tolerance atol {KERNEL_TOL['atol']}, rtol "
             f"{KERNEL_TOL['rtol']}; the plain split too); bit-equal on a "
             "second launch")
     tol = FLASH_REL_TOL["bfloat16"]
@@ -2456,8 +2507,11 @@ def phase_export_kernels(torch, keys):
             f"Dh=128 bf16, Tp={qf.shape[1]}, delay {cfg.dms_delay}, no block "
             f"skipping]: max abs err / max |plain|: {', '.join(parts)} "
             f"(tolerance {tol} relative); bit-equal on a second launch")
-    moved = (ops.launches - before[0], fops.launches["flash_fwd"] - before[1])
-    if moved != (2 * len(keys), 2 * len(PREFILL_FLASH)):
+    moved = (ops.launches - before[0], ops.shared_launches - before[1],
+             fops.launches["flash_fwd"] - before[2])
+    n_shared = sum(len(key) == 7 for key, _ in cases)
+    if moved != (2 * (len(cases) - n_shared), 2 * n_shared,
+                 2 * len(PREFILL_FLASH)):
         raise AssertionError(f"launch counters moved {moved}")
     return worst, checked, flash_err
 
@@ -2754,7 +2808,8 @@ def phase_shared_prefix(torch, setup):
                 f"{cold_paid:.0f}; {sched.ticks} ticks, {eng.chunk_fn.steps} "
                 f"decode steps (one decode_fwd launch a layer each) in "
                 f"{wall:.2f} s (cold {cold_wall:.2f} s); traffic "
-                f"{traffic}{pages}{sync}")
+                f"{traffic}; paged imports degraded to a cold prefill "
+                f"{sched.prefix_import_degrades}{pages}{sync}")
         st = pc.stats()
         out[layout] = st
         log(f"5e (b) {layout}: prefix cache stats {json.dumps(st)}")
@@ -2879,12 +2934,15 @@ def phase_serve_cli(torch):
 def phase_prefix_serve(torch, setup, checked):
     """Phase 5e: (a) the prefill export, (b) the shared prefix and
     multi-turn traces through the prefix cache, (c) the overload ladder,
-    (d) the serving entry point.  Every fixed-arena decode launch must be
-    at a shape phase 3 checked (``checked``).  Returns flash_fwd's launches
-    in (a) and the decode kernel's fixed-arena launch shapes."""
+    (d) the serving entry point.  Every decode launch, fixed-arena or
+    shared-pool, must be at a shape phase 3 checked (``checked``).
+    Returns flash_fwd's launches in (a) and the decode kernel's launch
+    shapes."""
     from repro_torch.kernels.dms_decode import ops
     cuda = setup["device"] == "cuda"
-    recording, _, shapes, real = recording_decode_rows(torch, setup["device"])
+    pooled = set()
+    recording, _, shapes, real = recording_decode_rows(torch, setup["device"],
+                                                       pooled)
     ops.decode_rows = recording
     try:
         exported = phase_prefill_export(torch, setup)
@@ -2894,13 +2952,14 @@ def phase_prefix_serve(torch, setup, checked):
             phase_serve_cli(torch)
     finally:
         ops.decode_rows = real
-    if cuda and not shapes <= checked:
+    launched = shapes | pooled
+    if cuda and not launched <= checked:
         raise AssertionError(f"phase 5e launched the decode kernel at "
-                             f"{sorted(shapes - checked)}, not among phase "
+                             f"{sorted(launched - checked)}, not among phase "
                              f"3's checked {sorted(checked)}")
-    log(f"phase 5e's fixed-arena decode launch shapes {sorted(shapes)}: each "
-        "checked in phase 3")
-    return {"flash": exported["flash"], "shapes": shapes}
+    log(f"phase 5e's decode launch shapes: fixed-arena {sorted(shapes)}, "
+        f"shared-pool {sorted(pooled)}: each checked in phase 3")
+    return {"flash": exported["flash"], "shapes": launched}
 
 
 def phase_prefill_timing(torch, launches, err):

@@ -85,17 +85,20 @@ def commit(cache, meta: Dict[str, torch.Tensor],
 def write_rows(k_arena: torch.Tensor, v_arena: torch.Tensor,
                slot: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
                active: Optional[torch.Tensor]) -> None:
-    """Scatter one K/V row per (lane, head) into its slot of a fixed arena
-    (B, H, P, Dh), in place; where ``active`` ((B,) lanes or (B, H) rows;
-    None = all) is False the row it already holds is rewritten."""
-    b, h = slot.shape
-    bi = torch.arange(b, device=slot.device)[:, None].expand(b, h)
-    hi = torch.arange(h, device=slot.device)[None, :].expand(b, h)
-    si = slot.long()
+    """Scatter K/V rows into their slots of a fixed arena (B, H, P, Dh), in
+    place: ``slot`` (B, H) takes one row per (lane, head), ``k_new``/
+    ``v_new`` (B, H, 1, Dh); ``slot`` (B, H, T) takes T rows, (B, H, T,
+    Dh).  Where ``active`` ((B,) lanes or (B, H) rows; None = all) is False
+    the rows it already holds are rewritten."""
+    si = (slot if slot.dim() == 3 else slot[..., None]).long()
+    b, h, t = si.shape
+    bi = torch.arange(b, device=si.device)[:, None, None].expand(b, h, t)
+    hi = torch.arange(h, device=si.device)[None, :, None].expand(b, h, t)
     if active is not None:
-        active = (active if active.dim() == 2 else active[:, None])[..., None]
+        active = (active if active.dim() == 2 else active[:, None])[
+            ..., None, None]
     for arena, new in ((k_arena, k_new), (v_arena, v_new)):
-        rows = new[:, :, 0].to(arena.dtype)
+        rows = new.to(arena.dtype)
         if active is not None:
             rows = torch.where(active, rows, arena[bi, hi, si])
         arena[bi, hi, si] = rows
@@ -361,15 +364,7 @@ class VanillaCache:
         slot = start[:, None, None] + torch.arange(t, device=start.device)
         slot = slot.expand(b, h, t)
         if self.pool is None:
-            bi = torch.arange(b, device=slot.device)[:, None, None].expand(b, h, t)
-            hi = torch.arange(h, device=slot.device)[None, :, None].expand(b, h, t)
-            si = slot.long()
-            for arena, new in ((self.k, k_new), (self.v, v_new)):
-                rows = new.to(arena.dtype)
-                if active is not None:
-                    rows = torch.where(active[:, None, None, None], rows,
-                                       arena[bi, hi, si])
-                arena[bi, hi, si] = rows
+            write_rows(self.k, self.v, slot, k_new, v_new, active)
         else:
             block_pool.token_write(self.pool, self.phys, slot, k_new, v_new,
                                    event_mask(active, (b, h, t),

@@ -5,7 +5,9 @@ config of ``--arch`` (random weights from seed 0) and serves synthetic
 requests through the continuous-batching scheduler, as the reference's
 ``repro.launch.serve`` does, with the same flags and the same output: one
 JSON line per request (statuses, budget meters, ticks), a summary table,
-then the run's, the SLO's, the pool's and the prefix cache's counters.
+then the run's, the SLO's, the pool's and the prefix cache's counters;
+the last also holds ``import_degrades``, the hits prefilled cold because
+the pool could not take their pages, which the reference does not count.
 It runs on the card (``--device cpu`` for the CPU)::
 
     python -m repro_torch.launch.serve --policy dms --requests 4 \\
@@ -27,9 +29,7 @@ from repro_torch.serving.engine import Engine
 from repro_torch.serving.scheduler import Request, SLOSpec
 
 
-def main(argv=None, params=None):
-    """Parse ``argv`` and serve.  ``params`` (on ``--device``) replaces the
-    seeded random weights: a test serves the reference's own."""
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen-r1-1.5b")
     ap.add_argument("--policy", default="dms",
@@ -124,8 +124,7 @@ def main(argv=None, params=None):
     args = ap.parse_args(argv)
 
     arch = get_smoke(args.arch)
-    if params is None:
-        params = tfm.init_model(arch, seed=0, device=args.device)
+    params = tfm.init_model(arch, seed=0, device=args.device)
     policy = KVPolicyConfig(kind=args.policy, cr=args.cr, window=arch.dms.window,
                             paged=args.paged, pool_blocks=args.pool_blocks)
     engine = Engine(arch, params, policy, use_kernel=args.use_kernel,
@@ -216,7 +215,7 @@ def main(argv=None, params=None):
     if pool is not None:
         print(json.dumps({"block_pool": pool}))
     if engine.prefix_cache is not None:
-        print(json.dumps({"prefix_cache": engine.prefix_cache.stats()}))
+        print(json.dumps({"prefix_cache": sched.prefix_stats()}))
 
 
 if __name__ == "__main__":

@@ -44,6 +44,9 @@ arena of batch *lanes* — the core lifecycle of the reference
   its prompt's chain.  A hit covering the whole prompt skips prefill: the
   cached boundary logits give token 0.  The reads a hit avoided go on the
   prefill meter's ``kv_reads_saved``, so ``kv_reads`` stays what was paid.
+  Under pool pressure a paged hit whose pages the pool cannot take
+  prefills cold instead, as in the reference, and is counted
+  (``prefix_import_degrades``, reported by :meth:`Scheduler.prefix_stats`).
 * **SLO and overload control.**  With an :class:`SLOSpec` attached, every
   result carries TTFT (arrival to first token, in ticks) and TPOT (decode
   ticks per later token), and overload runs a ladder: **throttle** a
@@ -333,6 +336,9 @@ class Scheduler:
         self.rejected = 0              # bounced at the door (max_queue)
         self.shed = 0                  # shed while queued (also rejected)
         self.degraded = 0              # admitted at reduced width
+        # prefix hits imported as a cold prefill: the pool could not take
+        # the boundary's pages (the reference's one degrade, counted here)
+        self.prefix_import_degrades = 0
         self.offered = 0               # every submit() that passed its checks
         # every retired result and per-tick samples, for slo_stats
         self._finished: List[RequestResult] = []
@@ -412,6 +418,15 @@ class Scheduler:
                 "completed": self.completed, "failures": self.failures,
                 "timeouts": self.timeouts, "rejected": self.rejected,
                 "shed": self.shed, "degraded": self.degraded}
+
+    def prefix_stats(self) -> Optional[Dict[str, Any]]:
+        """The prefix cache's :meth:`~PrefixCache.stats` with
+        ``import_degrades``, the hits this scheduler prefilled cold because
+        the pool could not take their pages; None with no cache."""
+        if self.prefix_cache is None:
+            return None
+        return dict(self.prefix_cache.stats(),
+                    import_degrades=self.prefix_import_degrades)
 
     def slo_stats(self) -> Dict[str, Any]:
         """Goodput, TTFT/TPOT percentiles, statuses and the queue and lane
@@ -825,7 +840,8 @@ class Scheduler:
         in for the last prefill step's (read on the host once, here).  A
         paged import allocates all of the boundary's pages at once: when
         pressure is possible and the free pages do not cover them, the
-        request takes a cold prefill instead."""
+        request takes a cold prefill instead, counted in
+        ``prefix_import_degrades`` (the cache still counts the hit)."""
         if self.prefix_cache is None:
             return
         hit = self.prefix_cache.lookup(self.signature, r.req.prompt)
@@ -835,6 +851,7 @@ class Scheduler:
             free = self._free_blocks()
             need = self._lane_pool_demand(hit.length)
             if any(free[i] < need[i] for i in range(len(need))):
+                self.prefix_import_degrades += 1
                 return
         self.state = tfm.import_lane_state(self.state, hit.snapshot, lane)
         self._reapply_ghosts()

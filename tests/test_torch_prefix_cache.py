@@ -643,3 +643,53 @@ def test_traces_match_reference_engine(tiny_arch, tiny_params, trace,
     assert tsched.signature != _run(Engine(
         tarch, params, KVPolicyConfig(**kw), chunk=8, device="cpu"),
         Request, [], max_len + 8)[1].signature
+
+
+@pytest.mark.parametrize("arrival,degrades", [(5, 1), (8, 0)],
+                         ids=["pool-short", "pool-room"])
+def test_paged_import_under_pressure_degrades_counted(tiny_arch, tiny_params,
+                                                      arrival, degrades):
+    """An oversubscribed pool (8 pages of 8 slots, two lanes of 24) and a
+    third request sharing the first's 16-token prompt: while the second
+    request holds the pages the hit's boundary needs, the import degrades
+    to a cold prefill, as the reference's does (saved reads 0, the same
+    ``stats()``); the port counts it in ``prefix_import_degrades``.  The
+    degraded request's tokens equal a cold serve's."""
+    jarch, tarch, params = _fp32(tiny_arch, tiny_params)
+    vocab = jarch.vocab_size
+    prefix = _prompt(16, seed=1, vocab=vocab)
+    reqs = [(np.concatenate([prefix, _prompt(2, seed=2, vocab=vocab)]), 4, 0),
+            (_prompt(18, seed=3, vocab=vocab), 6, 0),
+            (np.concatenate([prefix, _prompt(3, seed=4, vocab=vocab)]), 4,
+             arrival)]
+    kw = dict(kind="dms", cr=2.0, window=jarch.dms.window, paged=True,
+              block_p=8, pool_blocks=8)
+    sched_kw = dict(oversub=2.0, on_pressure="preempt")
+
+    def run(eng, req_cls):
+        sched = eng.scheduler(num_lanes=2, max_len=24, **sched_kw)
+        for uid, (p, n, arr) in enumerate(reqs):
+            sched.submit(req_cls(uid=uid, prompt=p, max_new=n, arrival=arr))
+        return {r.uid: r for r in sched.run()}, sched
+
+    jeng = JEngine(jarch, tiny_params, JKV(**kw), chunk=4, prefix_cache_mb=64)
+    teng = Engine(tarch, params, KVPolicyConfig(**kw), chunk=4, device="cpu",
+                  prefix_cache_mb=64)
+    jres, _ = run(jeng, JRequest)
+    tres, tsched = run(teng, Request)
+    for uid, j in jres.items():
+        t = tres[uid]
+        assert t.status == j.status == "ok"
+        np.testing.assert_array_equal(t.tokens, j.tokens, err_msg=str(uid))
+        assert t.prefill_meter.kv_reads_saved == j.prefill_meter.kv_reads_saved
+    assert teng.prefix_cache.stats() == jeng.prefix_cache.stats()
+    assert teng.prefix_cache.stats()["hits"] == 1
+    assert tsched.prefix_import_degrades == degrades
+    stats = tsched.prefix_stats()
+    assert stats == dict(teng.prefix_cache.stats(), import_degrades=degrades)
+    assert (tres[2].prefill_meter.kv_reads_saved == 0) == bool(degrades)
+    cold = Engine(tarch, params, KVPolicyConfig(**dict(kw, paged=False)),
+                  chunk=4, device="cpu")
+    solo = cold.scheduler(num_lanes=1, max_len=24)
+    solo.submit(Request(uid=2, prompt=reqs[2][0], max_new=4))
+    np.testing.assert_array_equal(tres[2].tokens, solo.run()[0].tokens)
