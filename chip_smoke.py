@@ -41,8 +41,8 @@ Phases (any failure raises, so the exit code is non-zero):
               zero off the visible listed slots and summing to G, the
               shared-pool layout bitwise equal to the fixed one.
 4. serve    — qwen-r1-1.5b at full width (d_model 1536, 12/2 heads of 128,
-              random weights from a seed, bf16) and half its depth (the
-              first 14 of its 28 layers: the script's time limit) served
+              random weights from a seed, bf16) and a quarter of its depth
+              (the first 4 of its 28 layers: the script's time limit) served
               by ``Engine`` with the ``dms`` policy at CR 8 on fixed
               arenas: four staggered requests (prompts 512/384/256/128,
               new 64/48/32/64), then one width-4
@@ -52,24 +52,24 @@ Phases (any failure raises, so the exit code is non-zero):
               teacher-forced trace then holds the kernel path's logits
               against the reference path's.
 5. paged    — the same trace on the paged KV block pool (shared-pool
-              kernel, 14 launches per decode step): tokens equal to phase
+              kernel, 4 launches per decode step): tokens equal to phase
               4's, no page copied at the fork and copies once the chains
               write, every page back at the end.  Then two of its requests
               oversubscribe a pool of 1.5x one lane's worst case
               (``oversub`` 2, preemption): all ``ok``, preemptions equal
               resumes and are > 0, the pool never exhausted, tokens equal.
-5b. weights — the same model at 7 layers (``WEIGHTS_LAYERS``) serving
+5b. weights — the same model at ``SERVE_LAYERS`` (4) layers serving
               requests 2 and 3 of the trace with the weight-driven
               policies at CR 8 (budget 72, 80-slot arenas):
               TOVA on fixed arenas and on the pool, H2O and Keyformer on
-              fixed arenas, through the weights-out kernel (7 launches per
+              fixed arenas, through the weights-out kernel (4 launches per
               decode step): all ok, live tokens within the budget, the
               pool's tokens equal to the fixed arenas'.  A teacher-forced
               trace per policy holds the kernel path's logits against the
               reference path's and every weights-out call against the
               plain version; then a profiled step of each beside dms.
-5c. hyperscale — the same model at 7 layers (``WEIGHTS_LAYERS``; phase 4's
-              14 before phase 5e): (a) the paper's
+5c. hyperscale — the same model at 4 layers: (a) the
+              paper's
               comparison through ``evaluate_hyperscale`` at temperature 0.7
               on one 288-token needle problem: ``vanilla`` at L-W-CR
               320-1-1, ``dms`` at 320-4-8, ``dms_masked`` at 320-4, each
@@ -81,7 +81,7 @@ Phases (any failure raises, so the exit code is non-zero):
               reference path's, teacher-forced, for ``vanilla``, ``window``
               and ``dms_masked`` (delay 16: holed tables); (d)
               ``threefry.categorical`` on the card against the CPU.
-5d. quest/dmc — the same model at 7 layers, as 5c: (a) ``quest`` and
+5d. quest/dmc — the same model at 4 layers, as 5c: (a) ``quest`` and
               ``dmc`` at 320-4-8 through ``evaluate_hyperscale`` at
               temperature 0.7 on 5c's problem, beside 5c's vanilla and dms:
               Quest's ``kv_reads`` equal to the count by hand and below
@@ -93,7 +93,7 @@ Phases (any failure raises, so the exit code is non-zero):
               (Quest with 8- and 4-slot pages, DMC with 16- and 8-slot
               blocks); a profiled step of each beside dms, with the device
               time of Quest's page scoring and of DMC's cast a layer.
-5e. prefix/slo — the same model at 7 layers: (a) ``make_prefill_step``
+5e. prefix/slo — the same model at 4 layers: (a) ``make_prefill_step``
               through ``flash_fwd`` on 4 prompts of 512 tokens, ``dms`` (CR
               8, delay 256) and ``vanilla``: one flash launch per layer,
               last logits within 0.05 x max |logit| of the reference
@@ -118,6 +118,26 @@ Phases (any failure raises, so the exit code is non-zero):
               tokens equal a solo run at the served width; (d)
               ``python -m repro_torch.launch.serve`` on the card at the
               smoke config with the prefix cache: every request ok.
+5f. families — gemma2-2b, chatglm3-6b, qwen2-vl-7b (its text path) and
+              granite-moe-3b-a800m at full width, random bf16 weights from
+              seed 0 and phase 4's DMS bias: (a) gemma2 at 4 layers (two
+              superblocks of a local and a global layer) serving phase 4's
+              prompts with 32/24/16/32 new tokens on 4 lanes under
+              ``layer_map={"attn_local": "window", "attn": "dms"}`` (a
+              4097-slot ring at its 4096-token window, dms at CR 8), fixed
+              then paged: tokens equal, 4 launches a step; a 48-step
+              kernel-vs-reference trace; (b) gemma2 at one superblock, one
+              lane: a 4160-token prompt and 16 new tokens, the lane
+              snapshot after the prompt (the local layer at its ring, the
+              global one following DMS), then 16 teacher-forced steps from
+              the snapshot on both paths; (c) chatglm3, qwen2-vl and
+              granite at 2 layers: requests 3 and 1 with dms at CR 8,
+              fixed and paged, tokens equal, a 48-step trace (granite's
+              steps that send a token to another expert on the two paths
+              not held), chatglm3's prefill export (4 x 512 tokens through
+              ``flash_fwd``, 15 decode steps); a profiled step of each.
+              Every decode step runs the kernel in every layer, and every
+              launch shape must be one phase 3 checked.
 6. train    — qwen-r1-1.5b at full width, fp32 weights from seed 0, DMS
               retrofit (one phase-1 step, three distillation steps) on the
               synthetic stream at (B 2, T 1024) through the flash kernels:
@@ -151,8 +171,12 @@ which 5d launches the kernel must be one of those checked.  It holds the
 fixed-arena mode at every shape phase 5e launches it at, and ``flash_fwd``
 at the prefill export's shapes (B 4, T 512, binarised α and vanilla; T
 288, padded to 384) against its plain version, bit-equal on a second
-launch; every fixed-arena shape 5e launches must be one of those.  Phase 7
-also times ``flash_fwd`` at the prefill export's shape.  The last
+launch; every fixed-arena shape 5e launches must be one of those.  It
+holds both modes at every shape 5f launches (``arch_decode_keys``, with
+gemma2's softcap 50; slot densities 0.5 and 0.05) and at granite-1b's G 2
+at Dh 64, and ``flash_fwd`` at chatglm3's prefill shape (Hq 32, G 16).
+Phase 7 also times ``flash_fwd`` at the prefill export's shapes and the
+decode kernel at 5f's serving shapes.  The last
 four lines are the script's total seconds, the ``kernels`` JSON line, the
 card's name and power limit (again) and the result line ``{"ok": true,
 "device": {...}}``.  Imports nothing of JAX.
@@ -1114,12 +1138,15 @@ def phase_flash_grads(torch):
 
 def serving_setup(torch, device="cuda", arch_name="qwen-r1-1.5b",
                   lens=(512, 384, 256, 128), news=(64, 48, 32, 64),
-                  hs=(256, 64, 4)):
-    """The served model (random weights from seed 0) and the trace phases 4
-    and 7 share: staggered requests and one width-W hyperscale prompt."""
+                  hs=(256, 64, 4), layers=None):
+    """The served model (random weights from seed 0; its first ``layers``
+    layers if given) and the trace phases 4 and 7 share: staggered requests
+    and one width-W hyperscale prompt."""
     from repro_torch.configs import get_arch, get_smoke
     from repro_torch.models import transformer as tfm
     arch = get_arch(arch_name) if device == "cuda" else get_smoke(arch_name)
+    if layers is not None:
+        arch = dataclasses.replace(arch, num_layers=layers)
     # random weights almost never evict at the trained bias of -5; a bias of
     # Phi^-1(7/8) makes P(alpha = 1) = 7/8 for an N(0, 1) neuron, the
     # eviction rate of an 8x-trained model
@@ -1147,25 +1174,24 @@ def serving_setup(torch, device="cuda", arch_name="qwen-r1-1.5b",
             "max_len": max(len(p) + m for p, m in zip(prompts, news))}
 
 
-# phases 4 and 5 serve the first SERVE_LAYERS layers of the model: the
-# script's time limit (the eager decode step costs ~3.5 ms of host time a
-# layer)
-SERVE_LAYERS = 14
-# phases 5b-5e serve half of those: the time 5d and then 5e take (their
-# checks are per layer and per step, and 7 layers keep a layer below the
-# top one)
-WEIGHTS_LAYERS = 7
+# phases 4-5e serve the first SERVE_LAYERS layers of the model: the
+# script's time limit (the eager decode step costs 3.5-7 ms of host time a
+# layer, by the host; phases 4 and 5 served 14 and 5b-5e 7 until phase 5f
+# came)
+SERVE_LAYERS = 4
 
 
 def cut_depth(setup, layers):
-    """``setup`` with its model cut to its first ``layers`` layers (views
-    of the same weights, and of their noise salts)."""
+    """``setup`` with its model cut to its first ``layers`` layers, a
+    whole number of superblocks (views of the same weights, and of their
+    noise salts)."""
     from repro_torch.core.tree import tree_map
     from repro_torch.models.transformer import Params
     params = setup["params"]
+    nsb = layers // setup["arch"].pattern_period
     cut = Params(params)
-    cut["blocks"] = {"0": tree_map(lambda a: a[:layers],
-                                   params["blocks"]["0"])}
+    cut["blocks"] = {key: tree_map(lambda a: a[:nsb], blk)
+                     for key, blk in params["blocks"].items()}
     cut.layer_salt = params.layer_salt[:layers]
     arch = dataclasses.replace(setup["arch"], num_layers=layers)
     return dict(setup, arch=arch, params=cut)
@@ -1869,24 +1895,39 @@ def quest_spy(torch, attn_lib, tables, worst):
     return masked_decode, real
 
 
+def route_spy(layers_lib, routes):
+    """``layers_lib.moe_apply`` that also keeps each call's expert ids
+    (``moe_route``) in ``routes``.  Returns (the wrapper, the real
+    function)."""
+    real = layers_lib.moe_apply
+
+    def moe_apply(p, x, cfg, dtype, *args, **kw):
+        routes.append(layers_lib.moe_route(p, x.to(dtype), cfg.moe.top_k)[2])
+        return real(p, x, cfg, dtype, *args, **kw)
+    return moe_apply, real
+
+
 def policy_paths(torch, setup, traces, *, steps=48, what="paths (c)"):
     """Kernel path against reference path, teacher-forced: each step runs
     both paths from the same cache (a copy), so the logits differ only by
     this step's attention, for each of ``traces`` (name -> (arch, policy
     config)), two lanes of arenas of ``steps + 16``; the logits
-    within 0.05 x max |logit|.  Quest selects pages by scores that the
-    layers below feed: where an ulp of theirs flips a near tie of page
-    scores, the two paths attend over other pages.  So for Quest every
+    within 0.05 x max |logit|.  Quest selects pages, and a MoE router
+    experts, by scores that the layers below feed: where an ulp of theirs
+    flips a near tie, the two paths attend over other pages or send a
+    token to another expert.  So for Quest and for a MoE model every
     layer's kernel output is also held against the reference attention on
-    the same operands (``KERNEL_TOL``), a step whose page tables differ
-    between the paths in any layer is counted and its logits not held,
-    and at least half of the steps must be held.  Returns the launch
+    the same operands (``KERNEL_TOL``), a step whose block tables or
+    expert ids differ between the paths in any layer is counted and its
+    logits not held, and at least half of the steps must be held.
+    Returns the launch
     shapes of the kernel path (``launch_key``) by trace.  Launches here are
     not the main path's."""
     from repro_torch.core.config import KVPolicyConfig
     from repro_torch.core.tree import tree_map
     from repro_torch.kernels.dms_decode import ops
     from repro_torch.models import attention as attn_lib
+    from repro_torch.models import layers as layers_lib
     from repro_torch.models import transformer as tfm
     arch, params, device = setup["arch"], setup["params"], setup["device"]
     bp = setup.get("block_p", 16)
@@ -1903,16 +1944,21 @@ def policy_paths(torch, setup, traces, *, steps=48, what="paths (c)"):
         pooled.clear()
         gap = scale = 0.0
         agree = flips = 0
-        tables, worst = [], [0.0]
+        tables, routes, worst = [], [], [0.0]
         quest = kw["kind"] == "quest"
+        moe = a.mlp.moe is not None
         spy, real_attn = quest_spy(torch, attn_lib, tables, worst)
+        routed, real_moe = route_spy(layers_lib, routes)
         for t in range(steps):
             tok = tokens[:, t:t + 1].to(device)
             ref_state = tree_map(torch.clone, state)
             tables.clear()
+            routes.clear()
             ops.decode_rows = recording
-            if quest:
+            if quest or moe:
                 attn_lib._masked_decode = spy
+            if moe:
+                layers_lib.moe_apply = routed
             try:
                 lk, _, aux = tfm.decode_step(params, tok, state, a, t,
                                              use_kernel=True)
@@ -1921,12 +1967,15 @@ def policy_paths(torch, setup, traces, *, steps=48, what="paths (c)"):
             finally:
                 ops.decode_rows = real
                 attn_lib._masked_decode = real_attn
+                layers_lib.moe_apply = real_moe
             if not bool(torch.isfinite(lk[:, live]).all()):
                 raise AssertionError(f"{name}: non-finite kernel-path logits "
                                      f"at step {t}")
-            half = len(tables) // 2
+            half, rhalf = len(tables) // 2, len(routes) // 2
             if any(not (torch.equal(x[0], y[0]) and torch.equal(x[1], y[1]))
-                   for x, y in zip(tables[:half], tables[half:])):
+                   for x, y in zip(tables[:half], tables[half:])) \
+                    or any(not torch.equal(x, y) for x, y in
+                           zip(routes[:rhalf], routes[rhalf:])):
                 flips += 1
                 continue
             gap = max(gap, (lk - lr)[:, live].abs().max().item())
@@ -1964,6 +2013,17 @@ def policy_paths(torch, setup, traces, *, steps=48, what="paths (c)"):
                     f"pages; {flips} of {steps} steps chose other pages on "
                     "the two paths (a near tie of page scores after the "
                     "layers below rounded apart): their logits not held")
+        if moe:
+            if 2 * flips > steps:
+                raise AssertionError(f"{name}: {flips} of {steps} steps "
+                                     "routed or attended otherwise on the "
+                                     "two paths")
+            note = (f"; every layer's kernel output within {worst[0]:.3e} "
+                    f"of the reference attention on the same operands; "
+                    f"{flips} of {steps} steps sent a token to another "
+                    "expert or listed other blocks on the two paths (a near"
+                    " tie after the layers below rounded apart): their "
+                    "logits not held")
         if kw["kind"] == "dmc":
             count = cache.count
             full = int((count > cache.z.shape[-1]).sum())
@@ -2321,36 +2381,42 @@ SERVE_ARGV = ["--use-kernel", "--prefix-cache-mb", "64",
 SERVE_SMOKE = dict(lanes=4, max_len=32 + 32 + 32, cr=4.0)   # serve's defaults
 
 
-def decode_key(arch, kw, lanes, max_len):
-    """The fixed-arena ``launch_key`` a layout's decode makes: (B·Hkv, G,
-    Dh, P, block_p), P read off a one-layer state built on the CPU."""
-    from repro_torch.core.config import KVPolicyConfig
-    from repro_torch.models import transformer as tfm
-    cfg = KVPolicyConfig(**kw)
-    state = tfm.init_decode_state(dataclasses.replace(arch, num_layers=1),
-                                  lanes, max_len, cfg, device="cpu")
-    a = arch.attn
-    return (lanes * a.num_kv_heads, a.q_per_kv, a.head_dim,
-            state["0"].cache.k.shape[-2], cfg.block_p)
-
-
-def pool_key(arch, kw, lanes, max_len):
-    """The shared-pool ``launch_key`` a paged layout's decode makes: (B·Hkv,
-    G, Dh, pool slots, block_p, table width, "shared"), read off a one-layer
-    paged state built on the CPU (the kernel sees every page but the dump
-    page)."""
+def state_keys(arch, kw, lanes, max_len):
+    """The ``launch_key`` each pattern position's decode makes under a
+    layout, read off a one-superblock state built on the CPU: fixed-arena
+    (B·Hkv, G, Dh, P, block_p), or with ``kw["paged"]`` shared-pool (B·Hkv,
+    G, Dh, pool slots, block_p, table width, "shared") (the kernel sees
+    every page but the dump page)."""
     from repro_torch.core import policy as policy_lib
     from repro_torch.core.config import KVPolicyConfig
     from repro_torch.core.kv_cache import cache_block_p
     from repro_torch.models import transformer as tfm
-    cfg = KVPolicyConfig(**dict(kw, paged=True))
-    state = tfm.init_decode_state(dataclasses.replace(arch, num_layers=1),
-                                  lanes, max_len, cfg, device="cpu")
-    cache = next(policy_lib.iter_policy_caches(state)).cache
-    a, bp = arch.attn, cache_block_p(cache)
-    return (lanes * a.num_kv_heads, a.q_per_kv, a.head_dim,
-            cache.pool.ref.shape[-1] * bp, bp, cache.phys.shape[-1],
-            "shared")
+    cfg = KVPolicyConfig(**kw)
+    state = tfm.init_decode_state(
+        dataclasses.replace(arch, num_layers=arch.pattern_period), lanes,
+        max_len, cfg, device="cpu")
+    a = arch.attn
+    head = (lanes * a.num_kv_heads, a.q_per_kv, a.head_dim)
+    keys = []
+    for pc in policy_lib.iter_policy_caches(state):
+        cache = pc.cache
+        if cfg.paged:
+            bp = cache_block_p(cache)
+            keys.append(head + (cache.pool.ref.shape[-1] * bp, bp,
+                                cache.phys.shape[-1], "shared"))
+        else:
+            keys.append(head + (cache.k.shape[-2], cfg.block_p))
+    return keys
+
+
+def decode_key(arch, kw, lanes, max_len):
+    """The fixed-arena ``launch_key`` of a one-position layout."""
+    return state_keys(arch, dict(kw, paged=False), lanes, max_len)[0]
+
+
+def pool_key(arch, kw, lanes, max_len):
+    """The shared-pool ``launch_key`` of a one-position paged layout."""
+    return state_keys(arch, dict(kw, paged=True), lanes, max_len)[0]
 
 
 def export_decode_keys(arch):
@@ -2378,14 +2444,15 @@ def export_decode_keys(arch):
     return keys
 
 
-def prefill_flash_case(torch, *, b, t, binary, seed, device="cuda"):
-    """The prefill export's folded flash operands (bf16, Hq 12, Hkv 2, Dh
-    128): binarised α (1 with probability 7/8, the served model's rate) as
-    a log-survival of -1e30 for evicted keys, delay 256, no block skipping
-    (the reference's default); or vanilla (zero log-survival, delay 0)."""
+def prefill_flash_case(torch, *, b, t, binary, seed, hq=12, device="cuda"):
+    """The prefill export's folded flash operands (bf16, Hq ``hq``: 12 for
+    qwen-r1-1.5b, 32 for chatglm3-6b; Hkv 2, Dh 128): binarised α (1 with
+    probability 7/8, the served model's rate) as a log-survival of -1e30
+    for evicted keys, delay 256, no block skipping (the reference's
+    default); or vanilla (zero log-survival, delay 0)."""
     from repro_torch.kernels.dms_attention import ops as fops
     from repro_torch.kernels.dms_attention.ref import FlashConfig
-    hq, hkv, dh = 12, 2, 128
+    hkv, dh = 2, 128
     gen = torch.Generator(device=device).manual_seed(seed)
     bk, tp = fops.padded_blocks(t)
     qf, kf, vf = (fops.fold_heads(torch.randn(
@@ -2410,31 +2477,28 @@ PREFILL_FLASH = {
 }
 
 
-def phase_export_kernels(torch, keys):
-    """Phase 3's checks at phase 5e's launch shapes: the decode kernel at
-    every shape ``keys`` lists, in fixed-arena mode (random fragmented
-    tables, NaN in unlisted blocks) and in shared-pool mode
-    (``make_pool_case`` on a pool of the key's pages, NaN in every page no
-    table lists, at slot densities 0.5, which lists nearly every block, and
-    0.05, which lists about half of them in fragmented tables), against the
-    plain version and the plain split; ``flash_fwd`` at the prefill export's shapes (``PREFILL_FLASH``, B =
-    EXPORT_LANES) against its plain version within FLASH_REL_TOL.  Each
-    bit-equal on a second launch.  Returns (the decode kernel's largest max
-    abs error, the checked decode shapes, flash_fwd's max abs error at the
-    main prefill case)."""
-    from repro_torch.kernels.dms_attention import ops as fops
-    from repro_torch.kernels.dms_attention import ref as fref
+def check_decode_keys(torch, keys, *, what, caps=None):
+    """The decode kernel at every launch shape ``keys`` lists, in fixed-
+    arena mode (random tables, NaN in unlisted blocks) and in shared-pool
+    mode (``make_pool_case`` on a pool of the key's pages, NaN in every page
+    no table lists), at slot densities 0.5, which lists nearly every
+    block, and 0.05, which lists about half of them in fragmented tables;
+    ``caps`` maps a key to its logit softcap (default none).  Each against
+    the plain version and the plain split, bit-equal on a second launch.
+    Returns (the largest max abs error, the errors by key); the launches
+    made here are checked against the counters."""
     from repro_torch.kernels.dms_decode import ops
     from repro_torch.kernels.dms_decode.ref import (dms_decode_plain,
                                                     dms_decode_plain_shared,
                                                     dms_decode_plain_split)
     gen = torch.Generator(device="cuda").manual_seed(4321)
-    before = (ops.launches, ops.shared_launches, fops.launches["flash_fwd"])
-    worst, checked = 0.0, set()
+    before = (ops.launches, ops.shared_launches)
+    errs = {}
     cases = [(key, density) for key in sorted(keys)
-             for density in ((0.5, 0.05) if len(key) == 7 else (0.5,))]
+             for density in (0.5, 0.05)]
     for key, density in cases:
         shared = len(key) == 7
+        cap = (caps or {}).get(key)
         if shared:
             bh, g, dh, slots, bp, nb, _ = key
             case = make_pool_case(torch, gen, bh=bh, g=g, dh=dh, nb=nb, bp=bp,
@@ -2450,37 +2514,52 @@ def phase_export_kernels(torch, keys):
         q, k, v, valid, tbl, n = args
         got = launch_key(q, k, tbl, bp, shared)
         if got != key:
-            raise AssertionError(f"5e case {got} is not the shape {key}")
-        out = ops.decode_rows(*args, bp, None, shared_kv=shared)
-        again = ops.decode_rows(*args, bp, None, shared_kv=shared)
+            raise AssertionError(f"{what} case {got} is not the shape {key}")
+        out = ops.decode_rows(*args, bp, cap, shared_kv=shared)
+        again = ops.decode_rows(*args, bp, cap, shared_kv=shared)
         torch.cuda.synchronize()
         if not torch.equal(out, again):
-            raise AssertionError(f"kernel [5e shape {key}]: a second launch "
-                                 "gave other bits")
-        ref = plain(*args, bp, None)
-        split = dms_decode_plain_split(*args, bp, None, shared_kv=shared,
+            raise AssertionError(f"kernel [{what} shape {key}]: a second "
+                                 "launch gave other bits")
+        ref = plain(*args, bp, cap)
+        split = dms_decode_plain_split(*args, bp, cap, shared_kv=shared,
                                        splits=ops.splits(tbl.shape[1]))
         if not bool(torch.isfinite(out.float()).all()):
-            raise AssertionError(f"kernel [5e shape {key}]: non-finite output")
+            raise AssertionError(f"kernel [{what} shape {key}]: non-finite "
+                                 "output")
         torch.testing.assert_close(out.float(), ref.float(), **KERNEL_TOL)
         torch.testing.assert_close(out.float(), split.float(), **KERNEL_TOL)
         err = (out.float() - ref.float()).abs().max().item()
-        worst = max(worst, err)
-        checked.add(key)
-        what = ("(B·Hkv, G, Dh, pool slots, block_p, table width)" if shared
-                else "(B·Hkv, G, Dh, P, block_p)")
-        nan = (f", slot density {density}, NaN in every unlisted page"
-               if shared else "")
-        log(f"kernel vs plain [phase 5e's {mode} launch {what} {key[:6]}, "
-            f"{int(n.sum())} listed blocks{nan}]: max_abs_err {err:.3e} "
+        errs[key] = max(err, errs.get(key, 0.0))
+        shape = ("(B·Hkv, G, Dh, pool slots, block_p, table width)" if shared
+                 else "(B·Hkv, G, Dh, P, block_p)")
+        log(f"kernel vs plain [{what}'s {mode} launch {shape} {key[:6]}, "
+            f"{int(n.sum())} listed blocks, slot density {density}, NaN in "
+            f"every unlisted {'page' if shared else 'block'}"
+            f"{f', softcap {cap:g}' if cap else ''}]: max_abs_err {err:.3e} "
             f"(tolerance atol {KERNEL_TOL['atol']}, rtol "
             f"{KERNEL_TOL['rtol']}; the plain split too); bit-equal on a "
             "second launch")
+    moved = (ops.launches - before[0], ops.shared_launches - before[1])
+    n_shared = sum(len(key) == 7 for key, _ in cases)
+    if moved != (2 * (len(cases) - n_shared), 2 * n_shared):
+        raise AssertionError(f"launch counters moved {moved}")
+    return max(errs.values(), default=0.0), errs
+
+
+def check_flash_cases(torch, cases, *, b=EXPORT_LANES):
+    """``flash_fwd`` on ``prefill_flash_case`` operands for each of
+    ``cases`` (name -> keywords) against its plain version within
+    FLASH_REL_TOL, bit-equal on a second launch; returns the first case's
+    max abs error."""
+    from repro_torch.kernels.dms_attention import ops as fops
+    from repro_torch.kernels.dms_attention import ref as fref
+    before = fops.launches["flash_fwd"]
     tol = FLASH_REL_TOL["bfloat16"]
     flash_err = None
-    for name, kw in PREFILL_FLASH.items():
+    for name, kw in cases.items():
         qf, kf, vf, ls, cfg = prefill_flash_case(
-            torch, b=EXPORT_LANES, seed=kw["t"] + kw["binary"], **kw)
+            torch, b=b, seed=kw["t"] + kw["binary"], **kw)
         t = cfg.t
         out, lse = fops.flash_fwd(qf, kf, vf, ls, None, cfg)
         again = fops.flash_fwd(qf, kf, vf, ls, None, cfg)
@@ -2503,17 +2582,25 @@ def phase_export_kernels(torch, keys):
             errs.append(err)
         if flash_err is None:
             flash_err = max(errs)
-        log(f"flash_fwd vs plain [{name}, B={EXPORT_LANES} T={t} Hq=12 Hkv=2 "
-            f"Dh=128 bf16, Tp={qf.shape[1]}, delay {cfg.dms_delay}, no block "
-            f"skipping]: max abs err / max |plain|: {', '.join(parts)} "
-            f"(tolerance {tol} relative); bit-equal on a second launch")
-    moved = (ops.launches - before[0], ops.shared_launches - before[1],
-             fops.launches["flash_fwd"] - before[2])
-    n_shared = sum(len(key) == 7 for key, _ in cases)
-    if moved != (2 * (len(cases) - n_shared), 2 * n_shared,
-                 2 * len(PREFILL_FLASH)):
-        raise AssertionError(f"launch counters moved {moved}")
-    return worst, checked, flash_err
+        log(f"flash_fwd vs plain [{name}, B={b} T={t} Hq={cfg.hq} "
+            f"Hkv={cfg.hkv} Dh={cfg.orig_dh} bf16, Tp={qf.shape[1]}, delay "
+            f"{cfg.dms_delay}, no block skipping]: max abs err / max |plain|:"
+            f" {', '.join(parts)} (tolerance {tol} relative); bit-equal on a "
+            "second launch")
+    if fops.launches["flash_fwd"] - before != 2 * len(cases):
+        raise AssertionError("flash_fwd launch counter moved "
+                             f"{fops.launches['flash_fwd'] - before}")
+    return flash_err
+
+
+def phase_export_kernels(torch, keys):
+    """Phase 3's checks at phase 5e's launch shapes: the decode kernel at
+    every shape ``keys`` lists (``check_decode_keys``), and ``flash_fwd``
+    at the prefill export's shapes (``PREFILL_FLASH``, B = EXPORT_LANES).
+    Returns (the decode kernel's largest max abs error, the checked decode
+    shapes, flash_fwd's max abs error at the main prefill case)."""
+    worst, errs = check_decode_keys(torch, keys, what="phase 5e")
+    return worst, set(errs), check_flash_cases(torch, PREFILL_FLASH)
 
 
 class NoSync:
@@ -2544,7 +2631,7 @@ def unsynced(torch, fn, on):
 
 
 def phase_prefill_export(torch, setup, *, t=EXPORT_PROMPT,
-                         steps=EXPORT_DECODE):
+                         steps=EXPORT_DECODE, what="5e (a)"):
     """(a) ``make_prefill_step`` through ``flash_fwd`` on EXPORT_LANES
     prompts of ``t`` tokens, ``dms`` (CR 8, delay 256) and ``vanilla``:
     one flash launch per layer, the last logits within 0.05 x max |logit|
@@ -2634,7 +2721,7 @@ def phase_prefill_export(torch, setup, *, t=EXPORT_PROMPT,
         if not torch.equal(tokens_by[False], tokens_by[True]):
             raise AssertionError(f"prefill export ({kind}): the pool's tokens "
                                  "differ from the fixed arenas'")
-        log(f"5e (a) prefill export, {kind}: {EXPORT_LANES} prompts of {t} "
+        log(f"{what} prefill export, {kind}: {EXPORT_LANES} prompts of {t} "
             f"tokens through flash_fwd ({launched} launches = "
             f"{arch.num_layers} layers) in {wall:.3f} s; last logits vs the "
             f"reference path: max abs diff {diff:.4e}, max |logit| "
@@ -2962,18 +3049,20 @@ def phase_prefix_serve(torch, setup, checked):
     return {"flash": exported["flash"], "shapes": launched}
 
 
-def phase_prefill_timing(torch, launches, err):
-    """``flash_fwd`` at the prefill export's shape (B EXPORT_LANES, T
-    EXPORT_PROMPT, Hq 12, Hkv 2, Dh 128, bf16, binarised α, delay 256, no
-    block skipping): kernel, plain version, bound (the causal product's
-    flops at the bf16 tensor-core peak, or its bytes) and SDPA's forward
-    over the same function (the DMS mask materialised, K/V expanded to the
-    query heads); SDPA's plain causal forward (no DMS mask) is logged
-    beside it."""
+def phase_prefill_timing(torch, launches, err,
+                         case="prefill export, binarised alpha",
+                         name="flash_fwd (prefill export)"):
+    """``flash_fwd`` at a prefill export's shape (``case`` of PREFILL_FLASH
+    or ARCH_FLASH: B EXPORT_LANES, T EXPORT_PROMPT, Hkv 2, Dh 128, bf16,
+    binarised α, delay 256, no block skipping): kernel, plain version,
+    bound (the causal product's flops at the bf16 tensor-core peak, or its
+    bytes) and SDPA's forward over the same function (the DMS mask
+    materialised, K/V expanded to the query heads); SDPA's plain causal
+    forward (no DMS mask) is logged beside it."""
     import torch.nn.functional as F
     from repro_torch.kernels.dms_attention import ops as fops
     from repro_torch.kernels.dms_attention import ref as fref
-    kw = PREFILL_FLASH["prefill export, binarised alpha"]
+    kw = {**PREFILL_FLASH, **ARCH_FLASH}[case]
     qf, kf, vf, ls, cfg = prefill_flash_case(
         torch, b=EXPORT_LANES, seed=kw["t"] + kw["binary"], **kw)
     b, t, hq, hkv, dh = EXPORT_LANES, cfg.t, cfg.hq, cfg.hkv, cfg.orig_dh
@@ -3004,20 +3093,382 @@ def phase_prefill_timing(torch, launches, err):
     moved = nbytes(qf, kf, vf, ls, out, lse)
     ops_ms = flops / BF16_FLOPS_PER_S * 1e3
     bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-    entry = {"name": "flash_fwd (prefill export)", "route": "cuda",
+    entry = {"name": name, "route": "cuda",
              "source": "src/repro_torch/kernels/dms_attention/csrc/dms_attention.cu",
              "replaces": "src/repro/kernels/dms_attention/dms_attention.py:142",
              "launches": launches, "max_abs_err": err, "ms": ms,
              "plain_ms": plain, "bound_ms": max(ops_ms, bytes_ms),
              "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
              "library_ms": library}
-    log(f"timing: flash_fwd at the prefill export's shape (B={b}, T={t}, "
+    log(f"timing: {name} at (B={b}, T={t}, "
         f"Hq={hq}, Hkv={hkv}, Dh={dh}, bf16, binarised alpha, delay "
         f"{cfg.dms_delay}): kernel {ms:.4f} ms, bound {entry['bound_ms']:.5f}"
         f" ms ({flops} flop, {moved} B), plain {plain:.4f} ms, library "
         f"{library:.4f} ms (SDPA forward, DMS mask); SDPA causal forward, no "
         f"DMS mask: {causal:.4f} ms")
     return entry
+
+
+# -- phase 5f: gemma2, chatglm3, qwen2-vl and granite ------------------------
+
+# the families 5f serves and the layers it serves of each (the time limit):
+# two superblocks of gemma2's local and global layers, two layers else
+ARCH_LAYERS = {"gemma2-2b": 4, "chatglm3-6b": 2, "qwen2-vl-7b": 2,
+               "granite-moe-3b-a800m": 2}
+# checked in phase 3 and timed in phase 7, not served: granite-1b's G 2 at
+# Dh 64 (granite-3b's G 3 serves)
+ARCH_CHECKED = ("granite-moe-1b-a400m",)
+ARCH_NEWS = (32, 24, 16, 32)     # new tokens of phase 4's four prompts
+ARCH_PAIR = (3, 1)               # (c): phase 4's requests 3 and 1
+ARCH_TRACE = 48                  # teacher-forced kernel-vs-reference steps
+# (b): a prompt past gemma2's 4096-token local window, then new tokens
+WINDOW_PROMPT, WINDOW_NEW = 4160, 16
+# (c): chatglm3's prefill export, EXPORT_LANES prompts of EXPORT_PROMPT
+# tokens and 15 decode steps
+EXPORT_ARCH, ARCH_EXPORT_DECODE = "chatglm3-6b", 16
+ARCH_FLASH = {"chatglm3-6b prefill export, binarised alpha": dict(
+    t=EXPORT_PROMPT, binary=True, hq=32)}
+
+
+def arch_policy(arch):
+    """5f's policy keywords for ``arch``: ``dms`` at CR 8, and for gemma2's
+    local layers a window ring of its local window (``layer_map``)."""
+    if "attn_local" in arch.layer_pattern:
+        return dict(kind="dms", cr=8.0, budget=arch.attn.window,
+                    layer_map={"attn_local": "window", "attn": "dms"})
+    return dict(kind="dms", cr=8.0)
+
+
+def arch_uids(arch):
+    """The requests of phase 4's trace that 5f serves with ``arch``."""
+    return (0, 1, 2, 3) if "attn_local" in arch.layer_pattern else ARCH_PAIR
+
+
+def arch_layouts(arch, lens, news=ARCH_NEWS, window=(WINDOW_PROMPT,
+                                                    WINDOW_NEW),
+                 trace=ARCH_TRACE, export=(EXPORT_PROMPT, ARCH_EXPORT_DECODE)):
+    """Every (policy keywords, lanes, max_len) 5f builds a decode state for
+    with ``arch``: serving fixed and paged (the profile's too), the
+    kernel-vs-reference trace, gemma2's one-lane window run and chatglm3's
+    prefill export."""
+    kw, uids = arch_policy(arch), arch_uids(arch)
+    max_len = max(lens[u] + news[u] for u in uids)
+    out = [(kw, len(uids), max_len), (dict(kw, paged=True), len(uids), max_len),
+           (kw, 2, trace + 16)]
+    if "attn_local" in arch.layer_pattern:
+        out.append((kw, 1, sum(window)))
+    if arch.name == EXPORT_ARCH:
+        out += [(dict(kind=kind, cr=8.0, paged=paged), EXPORT_LANES,
+                 sum(export)) for kind in ("dms", "vanilla")
+                for paged in (False, True)]
+    return out
+
+
+def arch_decode_keys(archs=None, lens=(512, 384, 256, 128), **kw):
+    """{launch key: logit softcap} of every decode launch 5f makes, from
+    ``arch_layouts`` of each family at full width (or of ``archs``)."""
+    from repro_torch.configs import get_arch
+    keys = {}
+    for arch in archs or [get_arch(name) for name in (*ARCH_LAYERS,
+                                                      *ARCH_CHECKED)]:
+        for pol, lanes, max_len in arch_layouts(arch, lens, **kw):
+            for key in state_keys(arch, pol, lanes, max_len):
+                keys[key] = arch.attn.logit_softcap
+    return keys
+
+
+def serve_requests(torch, engine, setup, uids):
+    """Requests ``uids`` of the setup's trace, one tick apart, on one lane
+    each: every request ok with its full token count.  Returns (results by
+    uid, wall s, decode steps, scheduler)."""
+    from repro_torch.serving.scheduler import Request
+    arch, prompts, news = setup["arch"], setup["prompts"], setup["news"]
+    engine.chunk_fn.steps = 0
+    t0 = time.perf_counter()
+    sched = engine.scheduler(num_lanes=len(uids), max_len=max(
+        len(prompts[u]) + news[u] for u in uids))
+    for i, u in enumerate(uids):
+        sched.submit(Request(uid=u, prompt=prompts[u], max_new=news[u],
+                             arrival=i))
+    results = {r.uid: r for r in sched.run()}
+    if setup["device"] == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for u in uids:
+        res = results[u]
+        if res.status != "ok" or res.tokens.shape != (1, news[u]) \
+                or ((res.tokens < 0) | (res.tokens >= arch.vocab_size)).any():
+            raise AssertionError(f"{arch.name} request {u}: status "
+                                 f"{res.status}, tokens {res.tokens.shape}")
+    return results, wall, engine.chunk_fn.steps, sched
+
+
+def arch_serve(torch, setup, what):
+    """Serve ``arch_uids`` on fixed arenas, then on the paged pool, through
+    the decode kernel: every request ok, one launch a layer a decode step
+    (fixed-arena, then shared-pool mode), the pool's tokens equal the fixed
+    arenas' and every page back at the end."""
+    from repro_torch.core.config import KVPolicyConfig
+    from repro_torch.kernels.dms_decode import ops
+    from repro_torch.serving.engine import Engine
+    arch, params, device = setup["arch"], setup["params"], setup["device"]
+    kw, uids = arch_policy(arch), arch_uids(arch)
+    fixed = None
+    for paged in (False, True):
+        engine = Engine(arch, params, KVPolicyConfig(**dict(kw, paged=paged)),
+                        use_kernel=True, device=device)
+        ops.launches = ops.shared_launches = 0
+        results, wall, steps, sched = serve_requests(torch, engine, setup,
+                                                     uids)
+        got = (ops.launches, ops.shared_launches)
+        want = arch.num_layers * steps if device == "cuda" else 0
+        if got != ((0, want) if paged else (want, 0)):
+            raise AssertionError(f"{what}: launches (fixed, shared) {got} for"
+                                 f" {steps} decode steps, want {want}")
+        tokens = {u: r.tokens for u, r in results.items()}
+        note = ""
+        if paged:
+            for u in uids:
+                if not (tokens[u] == fixed[u]).all():
+                    raise AssertionError(f"{what} request {u}: the pool's "
+                                         "tokens differ from the fixed "
+                                         "arenas'")
+            st = sched.pool_stats()
+            if st["allocated_blocks"] != 0 or st["exhausted"]:
+                raise AssertionError(f"{what}: pool not empty at the end: {st}")
+            note = (f"; tokens equal to the fixed arenas'; pool high water "
+                    f"{st['high_water_blocks']} blocks, every page back")
+        fixed = fixed or tokens
+        generated = sum(int(r.lengths.sum()) for r in results.values())
+        log(f"{what}: requests {list(uids)} (prompts "
+            f"{[len(setup['prompts'][u]) for u in uids]}, new "
+            f"{[setup['news'][u] for u in uids]}) on "
+            f"{'the paged pool' if paged else 'fixed arenas'}, policies "
+            f"{ {key: pc.policy for key, pc in sched.state.items()} }: all "
+            f"ok; {generated} tokens in {wall:.2f} s, {steps} decode steps, "
+            f"{1e3 * wall / steps:.2f} ms/step; decode launches {want} = "
+            f"{arch.num_layers} x {steps}{note}")
+
+
+def arch_window(torch, setup, prompt_len=WINDOW_PROMPT, new=WINDOW_NEW):
+    """(b) gemma2 at one superblock on one lane: a ``prompt_len``-token
+    prompt and ``new`` tokens.  The lane is snapshot (``export_lane_state``)
+    when its prefill ends: the local layer's live tokens stop at its window
+    ring, the global layer's follow DMS (at least its delay window, fewer
+    than the ring holds).  Then ``new`` teacher-forced steps of the served
+    tokens from two imports of the snapshot, one on the kernel path and one
+    on the reference path: logits within 0.05 x max |logit|."""
+    from repro_torch.core import policy as policy_lib
+    from repro_torch.core.config import KVPolicyConfig
+    from repro_torch.kernels.dms_decode import ops
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.scheduler import Request
+    arch, params, device = setup["arch"], setup["params"], setup["device"]
+    cfg = KVPolicyConfig(**arch_policy(arch))
+    max_len = prompt_len + new
+    engine = Engine(arch, params, cfg, use_kernel=True, device=device)
+    rng = torch.Generator().manual_seed(13)
+    prompt = torch.randint(3, arch.vocab_size, (prompt_len,), generator=rng,
+                           dtype=torch.int32).numpy()
+    sched = engine.scheduler(num_lanes=1, max_len=max_len)
+    snap = {}
+    start = sched._start_decode
+
+    def snapshot_then_start(r):
+        snap["state"] = tfm.export_lane_state(sched.state, r.lanes[0])
+        start(r)
+    sched._start_decode = snapshot_then_start
+    sched.submit(Request(uid=0, prompt=prompt, max_new=new))
+    ops.launches = ops.shared_launches = 0
+    engine.chunk_fn.steps = 0
+    t0 = time.perf_counter()
+    res = sched.run()[0]
+    del sched._start_decode          # the hook refers to the scheduler
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = engine.chunk_fn.steps
+    want = arch.num_layers * steps if device == "cuda" else 0
+    if res.status != "ok" or res.tokens.shape != (1, new) \
+            or (ops.launches, ops.shared_launches) != (want, 0):
+        raise AssertionError(f"5f (b): status {res.status}, tokens "
+                             f"{res.tokens.shape}, launches {ops.launches}")
+    live = {}
+    for key, pc in snap["state"].items():
+        m = policy_lib.get_policy(pc.policy).metrics(pc.cache)["live_tokens"]
+        live[key] = (pc.policy, float(m.min()), float(m.max()))
+    ring = arch.attn.window + 1
+    local, glob = live["0"], live["1"]
+    if not (local[0] == "window" and local[2] <= ring < prompt_len
+            and bool(snap["state"]["0"].cache.overflowed.all())):
+        raise AssertionError(f"5f (b): the local layer holds {local} tokens, "
+                             f"its ring {ring}")
+    if not (glob[0] == "dms" and arch.dms.window <= glob[1]
+            and glob[2] < local[1]):
+        raise AssertionError(f"5f (b): the global layer holds {glob} tokens")
+    # the kernel path against the reference path from the snapshot
+    states = [tfm.import_lane_state(
+        tfm.init_decode_state(arch, 1, max_len, cfg, device=device),
+        snap["state"], 0) for _ in range(2)]
+    tokens = torch.from_numpy(res.tokens[0].astype("int64")).to(device)
+    vocab = torch.arange(arch.padded_vocab, device=device) < arch.vocab_size
+    gap = scale = 0.0
+    for i in range(new):
+        tok = tokens[i].reshape(1, 1)
+        lk, _, aux = tfm.decode_step(params, tok, states[0], arch,
+                                     prompt_len + i, use_kernel=True)
+        lr, _, _ = tfm.decode_step(params, tok, states[1], arch,
+                                   prompt_len + i, use_kernel=False)
+        if aux["attn_impl_kernel"] != 1 or \
+                not bool(torch.isfinite(lk[:, vocab]).all()):
+            raise AssertionError(f"5f (b): step {i} left the kernel or is "
+                                 "not finite")
+        gap = max(gap, (lk - lr)[:, vocab].abs().max().item())
+        scale = max(scale, lr[:, vocab].abs().max().item())
+    log(f"5f (b): {arch.name} at {arch.num_layers} layers, one lane, prompt "
+        f"{prompt_len} + {new} new: ok in {wall:.2f} s, {steps} decode steps"
+        f" ({1e3 * wall / steps:.2f} ms/step), {want} decode launches; live "
+        f"tokens after the prompt (min, max over heads): local layer "
+        f"({local[0]}) {local[1]:.0f}-{local[2]:.0f}, its ring {ring} slots "
+        f"recycled; global layer ({glob[0]}) {glob[1]:.0f}-{glob[2]:.0f}; "
+        f"{new} teacher-forced steps from the snapshot, kernel vs reference "
+        f"path: max abs logit diff {gap:.4e}, max |logit| {scale:.4e} "
+        "(tolerance 0.05 x max |logit|)")
+    if not gap <= 0.05 * scale:
+        raise AssertionError("5f (b): kernel-path logits disagree with the "
+                             "reference path")
+
+
+def phase_archs(torch, device="cuda", checked=None, *,
+                lens=(512, 384, 256, 128), news=ARCH_NEWS,
+                window=(WINDOW_PROMPT, WINDOW_NEW), trace=ARCH_TRACE,
+                export=(EXPORT_PROMPT, ARCH_EXPORT_DECODE)):
+    """Phase 5f: each family of ``ARCH_LAYERS`` at full width (random bf16
+    weights from seed 0, the DMS bias of phase 4) and the layers it lists:
+    (a)/(c) ``arch_serve``, then a ``policy_paths`` trace of ``trace``
+    steps; gemma2's (b) ``arch_window`` at one superblock; chatglm3's
+    prefill export (``phase_prefill_export``, dms and vanilla, fixed and
+    paged); a profiled decode step of each.  Every decode step must run the
+    kernel in every layer (``attn_impl_kernel``), and every decode launch
+    must be at a shape phase 3 checked (``checked``; on the CPU, the shapes
+    ``arch_layouts`` predicts).  Returns the main path's decode launches by
+    shape (the serving runs and the export) and the export's flash
+    launches."""
+    import collections
+    from repro_torch.core.config import KVPolicyConfig
+    from repro_torch.kernels.dms_decode import ops
+    from repro_torch.models import transformer as tfm
+    layouts = dict(news=news, window=window, trace=trace, export=export)
+    main = collections.Counter()
+    seen, flag = set(), {"main": True}
+    real_rows, real_step = ops.decode_rows, tfm.decode_step
+
+    def counting(qf, kf, vf, valf, tblf, nf, block_p, *args, **kw):
+        key = launch_key(qf, kf, tblf, block_p, kw.get("shared_kv"))
+        seen.add(key)
+        if flag["main"]:
+            main[key] += 1
+        return real_rows(qf, kf, vf, valf, tblf, nf, block_p, *args, **kw)
+
+    def kernel_step(*args, **kw):
+        out = real_step(*args, **kw)
+        if kw.get("use_kernel") and out[2]["attn_impl_kernel"] != 1:
+            raise AssertionError("phase 5f: a decode step left the kernel")
+        return out
+
+    out = {"flash": 0}
+    expected = {}
+    ops.decode_rows, tfm.decode_step = counting, kernel_step
+    try:
+        for name, layers in ARCH_LAYERS.items():
+            t0 = time.perf_counter()
+            setup = serving_setup(torch, device=device, arch_name=name,
+                                  lens=lens, news=news, layers=layers)
+            arch = setup["arch"]
+            if device != "cuda":
+                expected.update(arch_decode_keys([arch], lens, **layouts))
+            what = "5f (a)" if "attn_local" in arch.layer_pattern else "5f (c)"
+            flag["main"] = True
+            arch_serve(torch, setup, f"{what} {name}")
+            if arch.name == EXPORT_ARCH:
+                exported = phase_prefill_export(torch, setup, t=export[0],
+                                                steps=export[1],
+                                                what=f"5f (c) {name}")
+                out["flash"] += exported["flash"]
+            if "attn_local" in arch.layer_pattern:
+                arch_window(torch, cut_depth(setup, arch.pattern_period),
+                            *window)
+            flag["main"] = False
+            policy_paths(torch, setup, {f"{name} ({arch.num_layers} layers)":
+                                        (arch, arch_policy(arch))},
+                         steps=trace, what=what)
+            uids = arch_uids(arch)
+            phase_profile(torch, setup["params"], arch,
+                          {f"{name} {what}": KVPolicyConfig(
+                              **arch_policy(arch))},
+                          lanes=len(uids), max_len=max(
+                              lens[u] + news[u] for u in uids),
+                          device=device)
+            del setup
+            if device == "cuda":
+                torch.cuda.empty_cache()
+            log(f"seconds: 5f {name} {time.perf_counter() - t0:.1f}")
+    finally:
+        ops.decode_rows, tfm.decode_step = real_rows, real_step
+    checked = checked if checked is not None else expected
+    if not seen <= set(checked):
+        raise AssertionError(f"phase 5f launched the decode kernel at "
+                             f"{sorted(seen - set(checked))}, not among phase"
+                             f" 3's checked {sorted(checked)}")
+    log(f"phase 5f's decode launch shapes {sorted(seen)}: each checked in "
+        "phase 3")
+    out["launches"] = main
+    return out
+
+
+def phase_arch_timing(torch, launches, errs, flash_launches, flash_err):
+    """Phase 7's rows for 5f's serving shapes: the decode kernel at each
+    family's fixed-arena and shared-pool serving shapes (``arch_layouts``'
+    first two), each with its launches in 5f and the softcap the family
+    runs, then ``flash_fwd`` at chatglm3's prefill export shape."""
+    from repro_torch.configs import get_arch
+    gen = torch.Generator(device="cuda").manual_seed(97)
+    rows = []
+    for name in (*ARCH_LAYERS, *ARCH_CHECKED):
+        arch = get_arch(name)
+        cap, hkv = arch.attn.logit_softcap, arch.attn.num_kv_heads
+        for pol, lanes, max_len in arch_layouts(arch, (512, 384, 256, 128))[:2]:
+            for pi, key in enumerate(state_keys(arch, pol, lanes, max_len)):
+                kind = (pol.get("layer_map") or {}).get(
+                    arch.layer_pattern[pi], pol["kind"])
+                shared = len(key) == 7
+                bh, g, dh = key[:3]
+                bp = key[4]
+                if shared:
+                    nb = key[5]
+                    case = make_pool_case(torch, gen, bh=bh, g=g, dh=dh,
+                                          nb=nb, bp=bp, density=0.85,
+                                          pages=key[3] // bp)
+                    operands = {"kernel": case["shared"],
+                                "dense": case["fixed"][1:4]}
+                    shape = (bh, g, dh, nb * bp, bp)
+                else:
+                    args = make_case(torch, gen, bh=bh, g=g, dh=dh, p=key[3],
+                                     bp=bp, density=0.85)
+                    operands = {"kernel": args, "dense": args[1:4]}
+                    shape = key
+                mode = "shared" if shared else "fixed"
+                rows.append(decode_entry(
+                    torch, f"dms_decode{'_shared_kv' if shared else ''} "
+                    f"({name} {kind}, G {g}, Dh {dh}"
+                    f"{f', cap {cap:g}' if cap else ''})", mode, operands,
+                    shape, launches.get(key, 0), errs.get(key, 0.0), hkv=hkv,
+                    cap=cap))
+    rows.append(phase_prefill_timing(
+        torch, flash_launches, flash_err, case=next(iter(ARCH_FLASH)),
+        name="flash_fwd (chatglm3-6b prefill export)"))
+    return rows
 
 
 # -- phase 6 ---------------------------------------------------------------
@@ -3188,12 +3639,14 @@ def log_method_floor(torch):
         f"{time_cuda(torch, tiny.zero_):.4f} ms")
 
 
-def decode_entry(torch, name, mode, operands, shape, launches, max_abs_err):
+def decode_entry(torch, name, mode, operands, shape, launches, max_abs_err,
+                 hkv=2, cap=None):
     """One decode-kernel row of the ``kernels`` line: the kernel (``mode``
-    "fixed" or "shared") and its plain version timed on ``operands``, the
-    bound, and SDPA over the dense per-row arenas ``dense`` = (k, v, valid)
-    as the yardstick (for the shared pool, the dense view is built outside
-    the timed call)."""
+    "fixed" or "shared") and its plain version timed on ``operands`` (rows
+    of ``hkv`` kv heads a lane, logit softcap ``cap``), the bound, and SDPA
+    over the dense per-row arenas ``dense`` = (k, v, valid) as the
+    yardstick (for the shared pool, the dense view is built outside the
+    timed call; SDPA takes no softcap)."""
     import torch.nn.functional as F
     from repro_torch.kernels.dms_decode import ops
     from repro_torch.kernels.dms_decode import ref
@@ -3203,16 +3656,16 @@ def decode_entry(torch, name, mode, operands, shape, launches, max_abs_err):
     plain = ref.dms_decode_plain_shared if shared else ref.dms_decode_plain
     saved = (ops.launches, ops.shared_launches)
     ms = time_cuda(torch, lambda: ops.decode_rows(q, k, v, valid, tbl, n, bp,
-                                                  shared_kv=shared))
+                                                  cap, shared_kv=shared))
     # the kernel's own floor: the same launch with no listed entry in any row
     n0 = torch.zeros_like(n)
     floor_ms = time_cuda(torch, lambda: ops.decode_rows(
-        q, k, v, valid, tbl, n0, bp, shared_kv=shared))
+        q, k, v, valid, tbl, n0, bp, cap, shared_kv=shared))
     ops.launches, ops.shared_launches = saved     # timing is not the path's
-    plain_ms = time_cuda(torch, lambda: plain(q, k, v, valid, tbl, n, bp))
+    plain_ms = time_cuda(torch, lambda: plain(q, k, v, valid, tbl, n, bp, cap))
     # yardstick only: one SDPA call over the whole arena with the bool mask
     kd, vd, vald = operands["dense"]
-    b, hkv = bh // 2, 2
+    b = bh // hkv
     qs = q.reshape(b, hkv * g, 1, dh)
     ks = torch.nan_to_num(kd).reshape(b, hkv, p, dh)
     vs = torch.nan_to_num(vd).reshape(b, hkv, p, dh)
@@ -3511,6 +3964,10 @@ def main() -> int:
     phase_flash_grads(torch)
     _, export_checked, prefill_err = phase_export_kernels(
         torch, export_decode_keys(arch))
+    arch_keys = arch_decode_keys()
+    _, arch_errs = check_decode_keys(torch, arch_keys, what="phase 5f",
+                                     caps=arch_keys)
+    arch_flash_err = check_flash_cases(torch, ARCH_FLASH)
     lap("phases 1-3")
     served = phase_serve(torch, shallow)
     lap("phase 4")
@@ -3521,13 +3978,12 @@ def main() -> int:
                              f"checked shape {want}")
     paged = phase_paged_serve(torch, shallow, served)
     lap("phase 5")
-    seven = cut_depth(setup, WEIGHTS_LAYERS)
-    weighted = phase_weights_serve(torch, seven, served)
+    weighted = phase_weights_serve(torch, shallow, served)
     if weighted["arena"] != weights_shape[3]:
         raise AssertionError(f"weights-phase arena {weighted['arena']} is not "
                              f"the checked {weights_shape[3]} slots")
     lap("phase 5b")
-    scaled = phase_hyperscale_serve(torch, seven)
+    scaled = phase_hyperscale_serve(torch, shallow)
     if not scaled["vanilla_shapes"] <= prefix_checked:
         raise AssertionError(
             f"phase 5c launched vanilla at (rows, G, Dh, P, block_p) "
@@ -3536,7 +3992,7 @@ def main() -> int:
     log(f"phase 5c's vanilla launch shapes (rows, G, Dh, P, block_p) "
         f"{sorted(scaled['vanilla_shapes'])}: each checked in phase 3")
     lap("phase 5c")
-    qd = phase_quest_dmc_serve(torch, seven, scaled["evals"], layouts)
+    qd = phase_quest_dmc_serve(torch, shallow, scaled["evals"], layouts)
     for kind, got in qd["shapes"].items():
         if not got <= qd_checked[kind]:
             raise AssertionError(
@@ -3545,9 +4001,12 @@ def main() -> int:
         log(f"phase 5d's {kind} launch shapes {sorted(got)}: each checked in "
             "phase 3")
     lap("phase 5d")
-    prefixed = phase_prefix_serve(torch, seven, export_checked)
+    prefixed = phase_prefix_serve(torch, shallow, export_checked)
     lap("phase 5e")
-    del shallow, seven, setup["params"]
+    del shallow, setup["params"]
+    torch.cuda.empty_cache()
+    archs = phase_archs(torch, checked=set(arch_keys))
+    lap("phase 5f")
     trained = phase_train(torch)
     lap("phase 6")
     kernels = phase_timing(torch, main_shape, {"fixed": served["launches"],
@@ -3559,6 +4018,8 @@ def main() -> int:
     kernels += phase_quest_dmc_timing(torch, qd_timed, qd, qd_errs)
     kernels += phase_flash_timing(torch, trained["launches"], flash_errs)
     kernels.append(phase_prefill_timing(torch, prefixed["flash"], prefill_err))
+    kernels += phase_arch_timing(torch, archs["launches"], arch_errs,
+                                 archs["flash"], arch_flash_err)
     lap("phase 7")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -49,14 +49,16 @@ def params_from_numpy(tree: Dict[str, Any], arch: ArchConfig,
                       dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
     """A reference ``init_model`` tree of numpy arrays -> the port's params.
 
-    The layout is kept (``embed``, ``blocks["0"]`` stacked over layers,
-    ``final_norm``, ``lm_head`` only when embeddings are untied) and so is
-    the ``x @ W`` orientation: W stays ``(in, out)``, no transpose.  Matmul
-    weights are cast once to ``dtype`` (default ``arch.dtype``) — the
-    reference keeps fp32 masters and casts at every matmul, which gives the
-    same values; norm scales stay fp32, as the reference applies them.
+    The layout is kept (``embed``, ``blocks[str(position)]`` stacked over
+    superblocks, MoE experts ``(nsb, E, in, out)``, ``final_norm``,
+    ``lm_head`` only when embeddings are untied) and so is the ``x @ W``
+    orientation: W stays ``(in, out)``, no transpose.  Matmul weights
+    (the router too) are cast once to ``dtype`` (default ``arch.dtype``) —
+    the reference keeps fp32 masters and casts at every matmul, which gives
+    the same values; norm scales stay fp32, as the reference applies them.
     Returns :class:`~repro_torch.models.transformer.Params`, with each
-    layer's noise salt taken from the fp32 ``wo`` before the cast."""
+    layer's noise salt taken from the fp32 ``wo`` before the cast, in the
+    reference's layer order (superblocks, then positions)."""
     dev = resolve_device(device)
     dtype = dtype or torch_dtype(arch.dtype)
     if ("lm_head" in tree) == arch.tie_embeddings:
@@ -71,7 +73,9 @@ def params_from_numpy(tree: Dict[str, Any], arch: ArchConfig,
         return arr.to(device=dev, dtype=want)
 
     params = Params(conv(tree, ""))
-    wo = np.asarray(tree["blocks"]["0"]["attn"]["wo"], dtype=np.float32)
+    wo00 = np.stack([np.asarray(tree["blocks"][str(pi)]["attn"]["wo"],
+                                dtype=np.float32)[:, 0, 0]
+                     for pi in range(arch.pattern_period)], axis=1)
     params.layer_salt = torch.from_numpy(
-        wo[:, 0, 0].view(np.uint32).astype(np.int64)).to(dev)
+        wo00.reshape(-1).view(np.uint32).astype(np.int64)).to(dev)
     return params

@@ -1,6 +1,8 @@
 """Architecture registry of the port: the paper's Qwen-R1 family, its
-ablation model Llama 3.2 1B, and the other dense GQA decoders the port runs
-(minitron-4b, phi3-mini-3.8b).
+ablation model Llama 3.2 1B, the other dense GQA decoders (minitron-4b,
+phi3-mini-3.8b), gemma2-2b (local and global layers, softcaps, post-norm,
+GeGLU), chatglm3-6b (half RoPE), qwen2-vl-7b (M-RoPE, the text path) and
+the granite MoE models (top-k experts).
 
 ``get_arch(name)`` returns the full-size :class:`ArchConfig`; ``get_smoke``
 the reduced same-family config the CPU tests run.
@@ -17,6 +19,11 @@ _ARCH_MODULES = {
     "llama32-1b": "repro_torch.configs.llama32_1b",
     "minitron-4b": "repro_torch.configs.minitron_4b",
     "phi3-mini-3.8b": "repro_torch.configs.phi3_mini",
+    "gemma2-2b": "repro_torch.configs.gemma2_2b",
+    "chatglm3-6b": "repro_torch.configs.chatglm3_6b",
+    "qwen2-vl-7b": "repro_torch.configs.qwen2_vl_7b",
+    "granite-moe-1b-a400m": "repro_torch.configs.granite_moe_1b",
+    "granite-moe-3b-a800m": "repro_torch.configs.granite_moe_3b",
 }
 
 

@@ -42,8 +42,10 @@ class KVPolicyConfig:
     keep compacted live-block tables, so decode reads only live blocks
     (0 disables the tables).  ``paged=True`` backs each cache with a shared
     page pool of ``pool_blocks`` pages (default: the fixed arenas'
-    capacity; see :mod:`repro_torch.core.block_pool`).  ``layer_map`` is
-    kept for field parity with the reference.
+    capacity; see :mod:`repro_torch.core.block_pool`).  ``layer_map``
+    overrides the policy per layer kind, e.g. ``{"attn_local": "window",
+    "attn": "dms"}`` for gemma2's local and global layers; it is stored as
+    a sorted tuple of pairs, so the config stays hashable.
     """
 
     kind: str = "vanilla"

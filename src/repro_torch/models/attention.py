@@ -112,8 +112,12 @@ def full_attention(
         q_raw = dms_lib.zero_borrowed_neuron(q_raw, cfg.num_kv_heads,
                                              neuron_scale)
 
-    q = apply_rope(q_raw, positions, cfg.rope_theta, cfg.rope)
-    k = apply_rope(k, positions, cfg.rope_theta, cfg.rope)
+    rope_pos = positions
+    if cfg.rope == "mrope" and positions.dim() == 1:
+        rope_pos = positions.expand((3,) + positions.shape)
+    q = apply_rope(q_raw, rope_pos, cfg.rope_theta, cfg.rope,
+                   cfg.mrope_sections)
+    k = apply_rope(k, rope_pos, cfg.rope_theta, cfg.rope, cfg.mrope_sections)
     window = layer_window if layer_window is not None else cfg.window
 
     if use_kernel:
@@ -193,8 +197,12 @@ def decode_attention(
         alpha_bin = dms_lib.binary_alpha(logits)[..., 0]
         q_raw = dms_lib.zero_borrowed_neuron(q_raw, cfg.num_kv_heads)
 
-    q = apply_rope(q_raw, pos_lane[:, None], cfg.rope_theta, cfg.rope)
-    k_new = apply_rope(k_new, pos_lane[:, None], cfg.rope_theta, cfg.rope)
+    rpos = pos_lane[:, None]
+    if cfg.rope == "mrope":
+        rpos = rpos.expand((3,) + rpos.shape)
+    q = apply_rope(q_raw, rpos, cfg.rope_theta, cfg.rope, cfg.mrope_sections)
+    k_new = apply_rope(k_new, rpos, cfg.rope_theta, cfg.rope,
+                       cfg.mrope_sections)
     k_new_c = k_new.transpose(1, 2)                           # (B, Hkv, 1, Dh)
     v_new_c = v_new.transpose(1, 2)
 

@@ -1,10 +1,13 @@
-"""Dense decoder-only transformer of the port: init, the full-sequence
-forward (training), the decode step and the lane lifecycle.
+"""Decoder-only transformer of the port: init, the full-sequence forward
+(training and prefill), the decode step and the lane lifecycle.
 
-Params keep the reference's layout (``repro.models.transformer``)::
+Layers are grouped into *superblocks*, one repetition of
+``arch.layer_pattern`` each (gemma2: a local then a global attention
+layer), and params keep the reference's layout
+(``repro.models.transformer``)::
 
     {"embed": (V_pad, D),
-     "blocks": {"0": <every leaf stacked over layers>},
+     "blocks": {"0": <stacked over superblocks>, "1": ...},   # per position
      "final_norm": {"scale": (D,)}, "lm_head": (D, V_pad) unless tied}
 
 For serving, matmul weights are stored in the compute dtype (cast once, at
@@ -12,9 +15,11 @@ load or init); for training they are fp32 (``init_model(dtype=float32)``),
 as the reference keeps them, and cast at each matmul.  Norm scales stay
 fp32.  The tree comes as :class:`Params`, a dict that also carries each
 layer's noise salt (:func:`layer_salts`).  The decode state mirrors it:
-``{"0": PolicyCache}`` with every cache leaf stacked over layers and the
-lane axis at position 1.  The reference scans superblocks with ``jax.lax.scan``; here
-a Python loop walks the layers and each layer's cache is a view into the
+``{"0": PolicyCache, ...}``, one cache per pattern position with every
+leaf stacked over superblocks and the lane axis at position 1; under a
+``KVPolicyConfig.layer_map`` two positions may hold two policies.  The
+reference scans superblocks with ``jax.lax.scan``; here a Python loop walks
+superblocks, then positions, and each layer's cache is a view into the
 stacked state, updated in place by the step.
 """
 from __future__ import annotations
@@ -35,15 +40,40 @@ from repro_torch.device import DeviceLike, resolve_device, torch_dtype
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.layers import mlp_apply, norm_apply, softcap
 
+_ATTN_KINDS = ("attn", "attn_local")
+
 
 def check_supported(arch: ArchConfig) -> None:
-    """This slice ports dense decoder-only attention models."""
-    if (arch.layer_pattern != ("attn",) or arch.attn is None
-            or arch.mlp is None or arch.mlp.moe is not None
-            or arch.post_norm or arch.encoder_layers or arch.cross_attention
-            or arch.frontend != "none"):
+    """The port runs decoder-only attention models: global and local
+    attention layers, dense or MoE MLPs, RMSNorm, and no frontend but
+    precomputed vision patch embeddings.  Recurrent layers (``ssd``,
+    ``rglru``), encoders and cross-attention raise."""
+    missing = [what for what, bad in (
+        (f"layer kinds {sorted(set(arch.layer_pattern) - set(_ATTN_KINDS))}",
+         not set(arch.layer_pattern) <= set(_ATTN_KINDS)),
+        ("attention", arch.attn is None),
+        ("an MLP in every layer", arch.mlp is None),
+        (f"norm {arch.norm!r}", arch.norm != "rmsnorm"),
+        ("an encoder", bool(arch.encoder_layers)),
+        ("cross-attention", arch.cross_attention),
+        (f"frontend {arch.frontend!r}",
+         arch.frontend not in ("none", "vision_patches"))) if bad]
+    if missing:
         raise NotImplementedError(
-            f"{arch.name}: only dense decoder-only 'attn' models are ported")
+            f"{arch.name}: not ported yet: {', '.join(missing)}")
+
+
+def _layer_window(arch: ArchConfig, kind: str) -> Optional[int]:
+    return arch.attn.window if kind == "attn_local" else None
+
+
+def _layers(arch: ArchConfig):
+    """(layer index, superblock, position, kind) in the reference's layer
+    order: superblocks, then the positions of the pattern."""
+    period = arch.pattern_period
+    for sb in range(arch.num_superblocks):
+        for pi, kind in enumerate(arch.layer_pattern):
+            yield sb * period + pi, sb, pi, kind
 
 
 # ---------------------------------------------------------------------------
@@ -53,7 +83,8 @@ def check_supported(arch: ArchConfig) -> None:
 
 class Params(dict):
     """A params tree (the dict above) that also carries ``layer_salt``:
-    (L,) int64, the IEEE bits of each layer's fp32 ``attn.wo[0, 0]``.
+    (L,) int64 in the reference's layer order (superblock-major), the IEEE
+    bits of each layer's fp32 ``attn.wo[0, 0]``.
 
     The reference seeds stochastic policies (Keyformer) per layer with those
     bits, taken from its fp32 master weights; a bf16 copy no longer holds
@@ -66,11 +97,15 @@ class Params(dict):
 
 
 def layer_salts(params: dict) -> torch.Tensor:
-    """(L,) int64 noise salts: the recorded ``layer_salt``, else the bits
-    of each stored ``wo[0, 0]`` (exact when the weights are fp32)."""
+    """(L,) int64 noise salts in layer order: the recorded ``layer_salt``,
+    else the bits of each stored ``wo[0, 0]`` (exact when the weights are
+    fp32)."""
     salt = getattr(params, "layer_salt", None)
     if salt is None:
-        salt = threefry.float_bits(params["blocks"]["0"]["attn"]["wo"][:, 0, 0])
+        blocks = params["blocks"]
+        salt = torch.stack([threefry.float_bits(blocks[str(pi)]["attn"]["wo"]
+                                                [:, 0, 0])
+                            for pi in range(len(blocks))], dim=1).reshape(-1)
     return salt
 
 
@@ -83,20 +118,20 @@ def init_model(arch: ArchConfig, *, seed: int = 0,
                device: DeviceLike = None,
                dtype: Optional[torch.dtype] = None) -> dict:
     """Random weights with the reference's distributions and scales
-    (N(0, 1) · d_in^-0.5 for projections, N(0, 1) · 0.02 for the
-    embedding, ones for norm scales), drawn from a seeded
-    :class:`torch.Generator` on ``device``.  The draws differ from the
-    reference's threefry streams; tests copy reference weights in through
-    :func:`repro_torch.bridge.params_from_numpy` instead.  Matmul weights
-    take ``dtype`` (default: the compute dtype ``arch.dtype``); the layer
-    salts come from the fp32 draws (:class:`Params`)."""
+    (N(0, 1) · d_in^-0.5 for projections and experts, N(0, 1) · 0.02 for
+    the embedding and the router, ones for norm scales), drawn from a
+    seeded :class:`torch.Generator` on ``device``.  The draws differ from
+    the reference's threefry streams; tests copy reference weights in
+    through :func:`repro_torch.bridge.params_from_numpy` instead.  Matmul
+    weights take ``dtype`` (default: the compute dtype ``arch.dtype``); the
+    layer salts come from the fp32 draws (:class:`Params`)."""
     check_supported(arch)
     dev = resolve_device(device)
     dtype = dtype or torch_dtype(arch.dtype)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    d, nl, vp = arch.d_model, arch.num_layers, arch.padded_vocab
-    a, f = arch.attn, arch.mlp.d_ff
+    d, nsb, vp = arch.d_model, arch.num_superblocks, arch.padded_vocab
+    a, mlp = arch.attn, arch.mlp
 
     def normal(shape, scale, first=None):
         """N(0, 1) * scale in ``dtype``; ``first`` (shape[0],) fp32, if
@@ -114,10 +149,20 @@ def init_model(arch: ArchConfig, *, seed: int = 0,
         return out
 
     def dense(d_in, d_out, first=None):
-        return normal((nl, d_in, d_out), d_in ** -0.5, first)
+        return normal((nsb, d_in, d_out), d_in ** -0.5, first)
 
-    def ones():
-        return torch.ones((nl, d), dtype=torch.float32, device=dev)
+    def norm():
+        return {"scale": torch.ones((nsb, d), dtype=torch.float32, device=dev)}
+
+    def mlp_params():
+        f, moe = mlp.d_ff, mlp.moe
+        names = [("w_gate", d, f)] if mlp.kind in ("swiglu", "geglu") else []
+        names += [("w_up", d, f), ("w_down", f, d)]
+        if moe is None:
+            return {n: dense(i, o) for n, i, o in names}
+        e = moe.num_experts
+        return {"router": normal((nsb, d, e), 0.02),
+                **{n: normal((nsb, e, i, o), i ** -0.5) for n, i, o in names}}
 
     params = Params({
         "embed": normal((vp, d), 0.02),
@@ -126,18 +171,22 @@ def init_model(arch: ArchConfig, *, seed: int = 0,
     })
     if not arch.tie_embeddings:
         params["lm_head"] = normal((d, vp), d ** -0.5)
-    wo00 = torch.empty((nl,), dtype=torch.float32, device=dev)
-    params["blocks"] = {"0": {
-        "attn_norm": {"scale": ones()},
-        "attn": {"wq": dense(d, a.num_heads * a.head_dim),
-                 "wk": dense(d, a.num_kv_heads * a.head_dim),
-                 "wv": dense(d, a.num_kv_heads * a.head_dim),
-                 "wo": dense(a.num_heads * a.head_dim, d, wo00)},
-        "mlp_norm": {"scale": ones()},
-        "mlp": {"w_gate": dense(d, f), "w_up": dense(d, f),
-                "w_down": dense(f, d)},
-    }}
-    params.layer_salt = threefry.float_bits(wo00)
+    wo00 = torch.empty((nsb, arch.pattern_period), dtype=torch.float32,
+                       device=dev)
+    params["blocks"] = {}
+    for pi, _ in enumerate(arch.layer_pattern):
+        blk = {"attn_norm": norm(),
+               "attn": {"wq": dense(d, a.num_heads * a.head_dim),
+                        "wk": dense(d, a.num_kv_heads * a.head_dim),
+                        "wv": dense(d, a.num_kv_heads * a.head_dim),
+                        "wo": dense(a.num_heads * a.head_dim, d,
+                                    wo00[:, pi])},
+               "mlp_norm": norm(), "mlp": mlp_params()}
+        if arch.post_norm:
+            blk["attn_post_norm"] = norm()
+            blk["mlp_post_norm"] = norm()
+        params["blocks"][str(pi)] = blk
+    params.layer_salt = threefry.float_bits(wo00.reshape(-1))
     return params
 
 
@@ -146,11 +195,17 @@ def init_model(arch: ArchConfig, *, seed: int = 0,
 # ---------------------------------------------------------------------------
 
 
-def embed_tokens(params: dict, tokens: torch.Tensor,
-                 arch: ArchConfig) -> torch.Tensor:
+def embed_tokens(params: dict, tokens: torch.Tensor, arch: ArchConfig,
+                 frontend_embeds: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    """Token embeddings in the compute dtype, times the embedding multiplier
+    rounded to that dtype first (as the reference multiplies), with
+    ``frontend_embeds`` (B, F, D), if given, prepended."""
     x = params["embed"][tokens.long()].to(torch_dtype(arch.dtype))
     if arch.embedding_multiplier != 1.0:
-        x = x * arch.embedding_multiplier
+        x = x * torch.tensor(arch.embedding_multiplier, dtype=x.dtype).item()
+    if frontend_embeds is not None:
+        x = torch.cat([frontend_embeds.to(x.dtype), x], dim=1)
     return x
 
 
@@ -174,8 +229,9 @@ def lm_logits(params: dict, x: torch.Tensor, arch: ArchConfig) -> torch.Tensor:
 def layer_noise(arch: ArchConfig, batch: int, seq: int,
                 generator: Optional[torch.Generator],
                 device) -> List[torch.Tensor]:
-    """One (B, Hkv, T) tensor of Gumbel uniforms per layer, all drawn before
-    the layer loop (so a recomputed layer sees the same noise)."""
+    """One (B, Hkv, T) tensor of Gumbel uniforms per layer, in layer order,
+    all drawn before the layer loop (so a recomputed layer sees the same
+    noise)."""
     gen = generator
     if gen is None:                 # the reference falls back to PRNGKey(0)
         gen = torch.Generator(device=device).manual_seed(0)
@@ -184,9 +240,28 @@ def layer_noise(arch: ArchConfig, batch: int, seq: int,
             for _ in range(arch.num_layers)]
 
 
+def _apply_block(p: dict, x: torch.Tensor, arch: ArchConfig, kind: str, *,
+                 dtype, **attn_kw) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One attention layer over the full sequence: pre-norm attention and
+    MLP, each with its post-norm when ``arch.post_norm``.  Returns (x, aux):
+    the attention's aux and the MLP's MoE aux."""
+    h = norm_apply(p["attn_norm"], x, arch.norm, arch.norm_eps)
+    a_out, aux = attn_lib.full_attention(
+        p["attn"], h, arch.attn, arch, layer_window=_layer_window(arch, kind),
+        **attn_kw)
+    if arch.post_norm:
+        a_out = norm_apply(p["attn_post_norm"], a_out, arch.norm, arch.norm_eps)
+    x = x + a_out
+    h = norm_apply(p["mlp_norm"], x, arch.norm, arch.norm_eps)
+    m_out, m_aux = mlp_apply(p["mlp"], h, arch.mlp, dtype)
+    if arch.post_norm:
+        m_out = norm_apply(p["mlp_post_norm"], m_out, arch.norm, arch.norm_eps)
+    return x + m_out, {**aux, **m_aux}
+
+
 def model_forward(
     params: dict,
-    tokens: torch.Tensor,                      # (B, T) int
+    tokens: torch.Tensor,                      # (B, T_text) int
     arch: ArchConfig,
     *,
     mode: str = "vanilla",                     # vanilla | dms_train | dms_eval | dms_phase1
@@ -197,21 +272,25 @@ def model_forward(
     use_kernel: bool = False,
     collect_kv: bool = False,
     remat: bool = False,
+    frontend_embeds: Optional[torch.Tensor] = None,   # (B, F, D)
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Full forward.  Returns (logits (B, T, V_pad) fp32, aux) with aux
     ``alpha_sum`` (0-d fp32 tensor), ``alpha_count`` (float) and
-    ``moe_aux_loss`` summed over layers, as the reference's
-    ``_scan_blocks`` aggregates them.
+    ``moe_aux_loss`` (0-d fp32) summed over layers, as the reference's
+    ``_scan_blocks`` aggregates them.  ``frontend_embeds`` are prepended to
+    the token embeddings (T counts them).
 
     ``dms_train`` draws each layer's Gumbel noise from ``uniforms[layer]``
-    if given (a test feeds the reference's draws), else from ``generator``
-    (seed 0 when None).  ``remat`` recomputes each layer in the backward
-    pass (:func:`torch.utils.checkpoint.checkpoint`).  ``collect_kv`` adds
-    the prefill export ``aux["layer_kv"]``: ``{"0": {"k_rope", "v"[,
-    "retained", "alpha_bin"]}}``, each stacked over layers (L, B, Hkv, T,
-    ...), as the reference's scan stacks them."""
+    (layer order: superblocks, then positions) if given (a test feeds the
+    reference's draws), else from ``generator`` (seed 0 when None).
+    ``remat`` recomputes each layer in the backward pass
+    (:func:`torch.utils.checkpoint.checkpoint`).  ``collect_kv`` adds the
+    prefill export ``aux["layer_kv"]``: ``{"0": {"k_rope", "v"[,
+    "retained", "alpha_bin"]}, ...}``, one entry per pattern position, each
+    leaf stacked over superblocks (nsb, B, Hkv, T, ...), as the
+    reference's scan stacks them."""
     check_supported(arch)
-    x = embed_tokens(params, tokens, arch)
+    x = embed_tokens(params, tokens, arch, frontend_embeds)
     b, t = x.shape[:2]
     if positions is None:
         positions = torch.arange(t, dtype=torch.int32, device=x.device)
@@ -219,44 +298,41 @@ def model_forward(
         uniforms = layer_noise(arch, b, t, generator, x.device)
     dtype = torch_dtype(arch.dtype)
     # one unbind per leaf: a single backward node stacks every layer's grad
-    blocks = params["blocks"]["0"]
-    columns = [leaf.unbind(0) for leaf in tree_leaves(blocks)]
-    a_sum = torch.zeros((), dtype=torch.float32, device=x.device)
-    a_cnt = 0.0
+    blocks = params["blocks"]
+    columns = {pi: [leaf.unbind(0) for leaf in tree_leaves(blk)]
+               for pi, blk in blocks.items()}
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    a_sum, moe_sum, a_cnt = zero, zero, 0.0
     kv_keys = ("k_rope", "v", "retained", "alpha_bin")
-    layer_kv: List[Dict[str, torch.Tensor]] = []
+    layer_kv: Dict[str, List[Dict[str, torch.Tensor]]] = {
+        str(pi): [] for pi in range(arch.pattern_period)}
 
-    def layer(x, i, u):
-        p = tree_unflatten(blocks, [c[i] for c in columns])
-        h = norm_apply(p["attn_norm"], x, arch.norm, arch.norm_eps)
-        a_out, aux = attn_lib.full_attention(
-            p["attn"], h, arch.attn, arch, mode=mode, dms_u=u,
+    def layer(x, sb, pi, kind, u):
+        key = str(pi)
+        p = tree_unflatten(blocks[key], [c[sb] for c in columns[key]])
+        x, aux = _apply_block(
+            p, x, arch, kind, dtype=dtype, mode=mode, dms_u=u,
             positions=positions, neuron_scale=neuron_scale,
             use_kernel=use_kernel, collect_kv=collect_kv)
         if collect_kv:
-            layer_kv.append({k: aux[k] for k in kv_keys if k in aux})
-        x = x + a_out
-        h = norm_apply(p["mlp_norm"], x, arch.norm, arch.norm_eps)
-        m_out, _ = mlp_apply(p["mlp"], h, arch.mlp, dtype)
-        zero = torch.zeros((), dtype=torch.float32, device=x.device)
-        return x + m_out, aux.get("alpha_sum", zero), aux.get("alpha_count", 0.0)
+            layer_kv[key].append({k: aux[k] for k in kv_keys if k in aux})
+        return (x, aux.get("alpha_sum", zero), aux.get("moe_aux_loss", zero),
+                aux.get("alpha_count", 0.0))
 
-    for i in range(arch.num_layers):
+    for i, sb, pi, kind in _layers(arch):
         u = uniforms[i] if uniforms is not None else None
         if remat:
-            x, s, cnt = torch.utils.checkpoint.checkpoint(
-                layer, x, i, u, use_reentrant=False)
+            x, s, m, cnt = torch.utils.checkpoint.checkpoint(
+                layer, x, sb, pi, kind, u, use_reentrant=False)
         else:
-            x, s, cnt = layer(x, i, u)
-        a_sum = a_sum + s
-        a_cnt += cnt
+            x, s, m, cnt = layer(x, sb, pi, kind, u)
+        a_sum, moe_sum, a_cnt = a_sum + s, moe_sum + m, a_cnt + cnt
     logits = lm_logits(params, x, arch)
-    out = {"alpha_sum": a_sum, "alpha_count": a_cnt,
-           "moe_aux_loss": torch.zeros((), dtype=torch.float32,
-                                       device=x.device)}
+    out = {"alpha_sum": a_sum, "alpha_count": a_cnt, "moe_aux_loss": moe_sum}
     if collect_kv:
-        out["layer_kv"] = {"0": {k: torch.stack([d[k] for d in layer_kv])
-                                 for k in layer_kv[0]}}
+        out["layer_kv"] = {key: {k: torch.stack([d[k] for d in kvs])
+                                 for k in kvs[0]}
+                           for key, kvs in layer_kv.items()}
     return logits, out
 
 
@@ -268,37 +344,51 @@ def model_forward(
 def init_decode_state(arch: ArchConfig, batch: int, max_len: int,
                       policy: KVPolicyConfig,
                       device: DeviceLike = None) -> Dict[str, Any]:
-    """One cache per layer, stacked over layers (lane axis at position 1),
-    provisioned through the policy registry.  A paged policy gets one pool
-    per layer, stacked too: pages (L, NPOOL, block_p, Dh), ref (L, NPOOL)."""
+    """One cache per pattern position, stacked over superblocks (lane axis
+    at position 1), provisioned through the policy registry with the
+    position's layer kind (``policy.layer_map`` picks its policy) and, for
+    a local layer, its window.  A paged policy gets one pool per layer,
+    stacked too: pages (nsb, NPOOL, block_p, Dh), ref (nsb, NPOOL)."""
     check_supported(arch)
     dev = resolve_device(device)
-    one = policy_lib.init_policy_cache(arch, batch, max_len, policy,
-                                       device=dev)
-    nl = arch.num_layers
-    return {"0": tree_map(
-        lambda a: a.unsqueeze(0).expand((nl,) + a.shape).contiguous(), one)}
+    nsb = arch.num_superblocks
+    state = {}
+    for pi, kind in enumerate(arch.layer_pattern):
+        one = policy_lib.init_policy_cache(
+            arch, batch, max_len, policy, layer_kind=kind,
+            layer_window=_layer_window(arch, kind), device=dev)
+        state[str(pi)] = tree_map(
+            lambda a: a.unsqueeze(0).expand((nsb,) + a.shape).contiguous(),
+            one)
+    return state
 
 
 def state_from_prefill(arch: ArchConfig, policy: KVPolicyConfig,
                        layer_kv: Dict[str, Any], max_len: int
                        ) -> Dict[str, Any]:
     """A decode state built from :func:`model_forward`'s ``layer_kv``: each
-    layer's cache from :meth:`KVPolicy.prefill_import` (positions ``0..T-1``),
-    stacked over layers as :func:`init_decode_state` stacks them.  Every
-    lane sits at position T, ready to decode."""
-    kv = layer_kv["0"]
-    name = policy.kind_for_layer("attn")
-    pol = policy_lib.get_policy(name)
-    t = kv["k_rope"].shape[3]
-    positions = torch.arange(t, dtype=torch.int32, device=kv["k_rope"].device)
-    caches = [pol.prefill_import(
-        arch, policy, kv["k_rope"][i], kv["v"][i], positions,
-        kv["retained"][i] if "retained" in kv else None,
-        kv["alpha_bin"][i] if "alpha_bin" in kv else None, max_len=max_len)
-        for i in range(arch.num_layers)]
-    return {"0": policy_lib.PolicyCache(
-        tree_map(lambda *xs: torch.stack(xs), caches[0], *caches[1:]), name)}
+    layer's cache from its position's policy's
+    :meth:`KVPolicy.prefill_import` (positions ``0..T-1``; a local layer
+    with its window), stacked over superblocks as :func:`init_decode_state`
+    stacks them.  Every lane sits at position T, ready to decode."""
+    state = {}
+    for pi, kind in enumerate(arch.layer_pattern):
+        kv = layer_kv[str(pi)]
+        name = policy.kind_for_layer(kind)
+        pol = policy_lib.get_policy(name)
+        t = kv["k_rope"].shape[3]
+        positions = torch.arange(t, dtype=torch.int32,
+                                 device=kv["k_rope"].device)
+        caches = [pol.prefill_import(
+            arch, policy, kv["k_rope"][sb], kv["v"][sb], positions,
+            kv["retained"][sb] if "retained" in kv else None,
+            kv["alpha_bin"][sb] if "alpha_bin" in kv else None,
+            max_len=max_len, layer_window=_layer_window(arch, kind))
+            for sb in range(arch.num_superblocks)]
+        state[str(pi)] = policy_lib.PolicyCache(
+            tree_map(lambda *xs: torch.stack(xs), caches[0], *caches[1:]),
+            name)
+    return state
 
 
 def _map_caches(fn, state: Dict[str, Any], *rest) -> Dict[str, Any]:
@@ -462,34 +552,44 @@ def decode_step(
     ``state`` is updated in place and returned.  Lanes where ``active`` is
     False keep their state exactly and add zero to ``reads_tokens``; their
     ``live_tokens`` is what the step would have left, as the reference
-    reports it."""
+    reports it.  Layers run in the reference's order (superblocks, then
+    positions); each position's policy prepares the step once for its
+    stacked layers, with their salts."""
     check_supported(arch)
     x = embed_tokens(params, token, arch)
     b = x.shape[0]
     live = torch.zeros((b,), dtype=torch.float32, device=x.device)
     reads = torch.zeros_like(live)
-    blocks, stacked = params["blocks"]["0"], state["0"]
     dtype = torch_dtype(arch.dtype)
-    salt = layer_salts(params)
-    pol = policy_lib.get_policy(stacked.policy)
-    prepared = pol.prepare_step(stacked.cache, {"layer_salt": salt,
-                                                "active": active})
-    salts = salt.unbind(0)
+    salts = layer_salts(params).reshape(arch.num_superblocks,
+                                        arch.pattern_period)
+    prepared = {}
+    for pi in range(arch.pattern_period):
+        stacked = state[str(pi)]
+        prepared[pi] = policy_lib.get_policy(stacked.policy).prepare_step(
+            stacked.cache, {"layer_salt": salts[:, pi], "active": active})
     impls = set()
-    for i in range(arch.num_layers):
-        p = tree_map(lambda a: a[i], blocks)         # views of layer i
-        cache = tree_map(lambda a: a[i], stacked)
+    for _, sb, pi, kind in _layers(arch):
+        p = tree_map(lambda a: a[sb], params["blocks"][str(pi)])  # views
+        cache = tree_map(lambda a: a[sb], state[str(pi)])
         h = norm_apply(p["attn_norm"], x, arch.norm, arch.norm_eps)
         a_out, _, aux = attn_lib.decode_attention(
-            p["attn"], h, cache, arch.attn, arch, pos_t=pos_t,
-            use_kernel=use_kernel, active=active, layer_salt=salts[i],
-            step_aux=None if prepared is None else prepared[i])
+            p["attn"], h, cache, arch.attn, arch,
+            layer_window=_layer_window(arch, kind), pos_t=pos_t,
+            use_kernel=use_kernel, active=active, layer_salt=salts[sb, pi],
+            step_aux=None if prepared[pi] is None else prepared[pi][sb])
         impls.add(aux["attn_impl"])
+        if arch.post_norm:
+            a_out = norm_apply(p["attn_post_norm"], a_out, arch.norm,
+                               arch.norm_eps)
         x = x + a_out
         live = live + aux["live_tokens"]
         reads = reads + aux["reads_tokens"]
         h = norm_apply(p["mlp_norm"], x, arch.norm, arch.norm_eps)
         m_out, _ = mlp_apply(p["mlp"], h, arch.mlp, dtype)
+        if arch.post_norm:
+            m_out = norm_apply(p["mlp_post_norm"], m_out, arch.norm,
+                               arch.norm_eps)
         x = x + m_out
     if active is not None:
         reads = reads * active.to(reads.dtype)

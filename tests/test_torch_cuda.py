@@ -13,6 +13,10 @@ from repro_torch.kernels.dms_decode.ref import dms_decode_plain
 
 BP = 16
 BF16 = dict(rtol=2e-2, atol=2e-2)   # each side rounds its output to bf16
+# (G, Dh, P, cap) of gemma2-2b, chatglm3-6b, qwen2-vl-7b, granite-moe-3b and
+# granite-moe-1b at their served arenas
+FAMILY_SHAPES = [(2, 256, 352, 50.0), (16, 128, 336, None),
+                 (7, 128, 336, None), (3, 64, 336, None), (2, 64, 336, None)]
 
 
 @pytest.fixture
@@ -24,11 +28,15 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("g,dh,p,cap", [(6, 128, 416, None), (2, 16, 64, None),
-                                        (16, 256, 64, None), (4, 64, 128, 30.0)])
+                                        (16, 256, 64, None), (4, 64, 128, 30.0)]
+                         + FAMILY_SHAPES)
 def test_decode_kernel_matches_plain(cuda_device, g, dh, p, cap):
     """Random fragmented arenas with NaN in every unlisted block: a finite,
     equal output shows those blocks are never read.  Rows 0 and 3 list no
-    block and must come out zero."""
+    block and must come out zero.  Also each served family's (G, Dh, cap):
+    gemma2's G 2 at Dh 256 with the softcap 50 (its one-stage ring),
+    chatglm3's G 16 (the kernel's largest), qwen2-vl's G 7, granite's G 3
+    and G 2 at Dh 64."""
     gen = torch.Generator(device=cuda_device).manual_seed(g * dh)
     bh = 8
     q = torch.randn((bh, g, dh), generator=gen, device=cuda_device).bfloat16()
@@ -261,7 +269,9 @@ def test_decode_wrapper_rejects_what_the_kernel_cannot_take(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("g,dh,nb,cap", [(6, 128, 26, None), (2, 16, 4, None),
-                                         (4, 64, 8, 30.0)])
+                                         (4, 64, 8, 30.0)]
+                         + [(g, dh, p // BP, cap)
+                            for g, dh, p, cap in FAMILY_SHAPES])
 def test_shared_pool_kernel_matches_plain_and_fixed(cuda_device, g, dh, nb, cap):
     """Shared-pool mode through the wrapper: pages scattered in shuffled
     order over a pool twice the size needed, NaN in every unlisted page,
@@ -665,6 +675,28 @@ def test_flash_bf16_rejects_head_dim_above_128(cuda_device):
 
 
 @pytest.mark.cuda
+def test_gemma2_prefill_export_raises_at_head_dim_256(cuda_device):
+    """gemma2's head dim (256) is beyond the flash kernels: the prefill
+    export through the kernel raises on the card, and never takes the
+    reference attention instead."""
+    import dataclasses
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels.dms_attention import ops as fops
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import transformer as tfm
+    arch = get_smoke("gemma2-2b")
+    arch = dataclasses.replace(arch, attn=dataclasses.replace(arch.attn,
+                                                              head_dim=256))
+    params = tfm.init_model(arch, seed=0, device=cuda_device)
+    tokens = torch.zeros((2, 64), dtype=torch.int32, device=cuda_device)
+    before = dict(fops.launches)
+    with pytest.raises(ValueError, match="head_dim"):
+        make_prefill_step(arch, dms=True, use_kernel=True)(
+            params, {"tokens": tokens})
+    assert fops.launches == before
+
+
+@pytest.mark.cuda
 def test_flash_wrapper_rejects_what_the_kernels_cannot_take(cuda_device):
     from repro_torch.kernels.dms_attention import ops as fops
     qf, kf, vf, ls, hr, cfg, _ = _flash_operands(cuda_device, torch.float32)
@@ -683,18 +715,21 @@ def test_flash_wrapper_rejects_what_the_kernels_cannot_take(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("t,mask", [(512, "binary"), (512, "vanilla"),
-                                    (288, "binary")])
-def test_flash_fwd_prefill_shapes_match_plain(cuda_device, t, mask):
-    """``flash_fwd`` at the prefill export's shapes (B 4, Hq 12, Hkv 2, Dh
-    128, bf16): binarised α as a log-survival of -1e30 for evicted keys
-    with delay 256, or vanilla (zero log-survival, delay 0); T 288 pads
-    to 384.  Within 1e-2 of the plain output's scale, and the same bits on
-    a second launch."""
+@pytest.mark.parametrize("t,mask,hq", [
+    pytest.param(512, "binary", 12, id="512-binary"),
+    pytest.param(512, "vanilla", 12, id="512-vanilla"),
+    pytest.param(288, "binary", 12, id="288-binary"),
+    pytest.param(512, "binary", 32, id="512-binary-chatglm3")])
+def test_flash_fwd_prefill_shapes_match_plain(cuda_device, t, mask, hq):
+    """``flash_fwd`` at the prefill export's shapes (B 4, Hkv 2, Dh 128,
+    bf16; Hq 12, and chatglm3-6b's 32, G 16): binarised α as a
+    log-survival of -1e30 for evicted keys with delay 256, or vanilla (zero
+    log-survival, delay 0); T 288 pads to 384.  Within 1e-2 of the plain
+    output's scale, and the same bits on a second launch."""
     from repro_torch.kernels.dms_attention import ops as fops
     from repro_torch.kernels.dms_attention import ref as fref
     from repro_torch.kernels.dms_attention.ref import FlashConfig
-    b, hq, hkv, dh = 4, 12, 2, 128
+    b, hkv, dh = 4, 2, 128
     gen = torch.Generator(device=cuda_device).manual_seed(t)
     bk, tp = fops.padded_blocks(t)
     qf, kf, vf = (fops.fold_heads(torch.randn(

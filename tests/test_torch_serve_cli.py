@@ -36,6 +36,9 @@ ARGVS = {
     "burst-slo": BASE + ["--arrival", "burst", "--rate", "2.0",
                          "--slo-ttft", "6", "--max-queue", "2", "--width",
                          "2", "--deadline", "12", "--requests", "8"],
+    "gemma2-prefix-paged": BASE + ["--arch", "gemma2-2b", "--prefix-cache-mb",
+                                   "64", "--shared-prefix", "16",
+                                   "--stagger", "--paged", "--use-kernel"],
 }
 
 
@@ -52,7 +55,9 @@ def test_serve_prints_what_the_reference_prints(name, capsys, monkeypatch):
     argv = ARGVS[name]
     jserve.main(argv)
     want = capsys.readouterr().out.splitlines()
-    params = _params()
+    arch = argv[argv.index("--arch") + 1] if "--arch" in argv else \
+        "qwen-r1-1.5b"
+    params = _params(arch)
     monkeypatch.setattr(tserve.tfm, "init_model", lambda *a, **k: params)
     tserve.main(argv + ["--device", "cpu"])
     got = capsys.readouterr().out.splitlines()
