@@ -138,6 +138,26 @@ Phases (any failure raises, so the exit code is non-zero):
               ``flash_fwd``, 15 decode steps); a profiled step of each.
               Every decode step runs the kernel in every layer, and every
               launch shape must be one phase 3 checked.
+5g. hybrids — recurrentgemma-2b (RG-LRU and local attention, G 10 at Dh
+              256, a 2048-token window) and mamba2-2.7b (SSD, no
+              attention) at full width, random bf16 weights from seed 0 and
+              phase 4's DMS bias: (a) recurrentgemma at 4 layers (two
+              superblocks of an RG-LRU and a local layer) serving phase 4's
+              prompts with 32/24/16/32 new tokens on 4 lanes, dms at CR 8
+              on the local layers, fixed then paged (tokens equal, 2
+              launches a step), and requests 3 and 1 on its 2049-slot
+              window rings; a 48-step kernel-vs-reference trace; (b)
+              recurrentgemma at one superblock, one lane: a 2112-token
+              prompt and 16 new under dms and under window (the RG-LRU
+              state carried through the prompt, the ring recycled), then
+              16 teacher-forced steps from the snapshot on both paths; (c)
+              mamba2 at 4 layers: requests 3 and 1 with vanilla, fixed and
+              paged, tokens equal, no pool, no decode launch; (d) three
+              requests sharing a 256-token prefix through one prefix cache
+              on recurrentgemma at one superblock: warm tokens and
+              first-token logits equal to a cold engine's exactly (the
+              snapshot carries the RG-LRU state); a profiled step of each
+              model.  The depth cuts are printed on a line of their own.
 6. train    — qwen-r1-1.5b at full width, fp32 weights from seed 0, DMS
               retrofit (one phase-1 step, three distillation steps) on the
               synthetic stream at (B 2, T 1024) through the flash kernels:
@@ -174,9 +194,11 @@ at the prefill export's shapes (B 4, T 512, binarised α and vanilla; T
 launch; every fixed-arena shape 5e launches must be one of those.  It
 holds both modes at every shape 5f launches (``arch_decode_keys``, with
 gemma2's softcap 50; slot densities 0.5 and 0.05) and at granite-1b's G 2
-at Dh 64, and ``flash_fwd`` at chatglm3's prefill shape (Hq 32, G 16).
-Phase 7 also times ``flash_fwd`` at the prefill export's shapes and the
-decode kernel at 5f's serving shapes.  The last
+at Dh 64, and ``flash_fwd`` at chatglm3's prefill shape (Hq 32, G 16);
+and both modes at every shape 5g launches (``hybrid_decode_keys``:
+recurrentgemma's G 10 at Dh 256).  Phase 7 also times ``flash_fwd`` at the
+prefill export's shapes and the decode kernel at 5f's serving shapes and
+at recurrentgemma's serving shapes and (b)'s window ring.  The last
 four lines are the script's total seconds, the ``kernels`` JSON line, the
 card's name and power limit (again) and the result line ``{"ok": true,
 "device": {...}}``.  Imports nothing of JAX.
@@ -1158,9 +1180,8 @@ def serving_setup(torch, device="cuda", arch_name="qwen-r1-1.5b",
     if device == "cuda":
         torch.cuda.synchronize()
     log(f"serve: {arch.name} L={arch.num_layers} d={arch.d_model} "
-        f"Hq={arch.attn.num_heads} Hkv={arch.attn.num_kv_heads} "
-        f"Dh={arch.attn.head_dim} d_ff={arch.mlp.d_ff} V={arch.padded_vocab}; "
-        f"init {time.perf_counter() - t0:.1f} s; dms logit_bias {bias:.4f}")
+        f"{widths(arch)} V={arch.padded_vocab}; init "
+        f"{time.perf_counter() - t0:.1f} s; dms logit_bias {bias:.4f}")
     rng = torch.Generator().manual_seed(7)
 
     def prompt(t):
@@ -1172,6 +1193,31 @@ def serving_setup(torch, device="cuda", arch_name="qwen-r1-1.5b",
             "prompts": prompts, "news": list(news), "hs": hs,
             "hs_prompt": prompt(hs[0]),
             "max_len": max(len(p) + m for p, m in zip(prompts, news))}
+
+
+def widths(arch):
+    """The widths of ``arch``'s layers, for a log line."""
+    out = []
+    if arch.attn is not None:
+        a = arch.attn
+        out.append(f"Hq={a.num_heads} Hkv={a.num_kv_heads} Dh={a.head_dim}")
+    if arch.rglru is not None:
+        out.append(f"lru_width={arch.rglru.lru_width or arch.d_model}")
+    if arch.ssm is not None:
+        m = arch.ssm
+        out.append(f"d_inner={m.d_inner(arch.d_model)} "
+                   f"ssm_heads={m.num_heads(arch.d_model)}x{m.head_dim} "
+                   f"d_state={m.d_state}")
+    if arch.mlp is not None:
+        out.append(f"d_ff={arch.mlp.d_ff}")
+    return " ".join(out) + f" pattern={'/'.join(arch.layer_pattern)}"
+
+
+def attn_layers(arch):
+    """The attention layers of ``arch`` (a decode step launches the decode
+    kernel once in each): all of a dense model's, none of mamba2's."""
+    return arch.num_superblocks * sum(kind in ("attn", "attn_local")
+                                      for kind in arch.layer_pattern)
 
 
 # phases 4-5e serve the first SERVE_LAYERS layers of the model: the
@@ -1923,6 +1969,7 @@ def policy_paths(torch, setup, traces, *, steps=48, what="paths (c)"):
     Returns the launch
     shapes of the kernel path (``launch_key``) by trace.  Launches here are
     not the main path's."""
+    from repro_torch.core import policy as policy_lib
     from repro_torch.core.config import KVPolicyConfig
     from repro_torch.core.tree import tree_map
     from repro_torch.kernels.dms_decode import ops
@@ -1946,7 +1993,7 @@ def policy_paths(torch, setup, traces, *, steps=48, what="paths (c)"):
         agree = flips = 0
         tables, routes, worst = [], [], [0.0]
         quest = kw["kind"] == "quest"
-        moe = a.mlp.moe is not None
+        moe = a.mlp is not None and a.mlp.moe is not None
         spy, real_attn = quest_spy(torch, attn_lib, tables, worst)
         routed, real_moe = route_spy(layers_lib, routes)
         for t in range(steps):
@@ -1981,7 +2028,7 @@ def policy_paths(torch, setup, traces, *, steps=48, what="paths (c)"):
             gap = max(gap, (lk - lr)[:, live].abs().max().item())
             scale = max(scale, lr[:, live].abs().max().item())
             agree += int((lk[:, live].argmax(-1) == lr[:, live].argmax(-1)).sum())
-        cache = state["0"].cache
+        cache = next(policy_lib.iter_policy_caches(state)).cache
         note = ""
         if kw["kind"] == "window":
             if not bool(cache.overflowed.all()):
@@ -2800,7 +2847,7 @@ def serve_prefix_trace(torch, engine, trace, *, sync_check=False):
     if cuda:
         torch.cuda.synchronize()
     del sched._start_decode          # the hook refers to the scheduler
-    want = engine.arch.num_layers * engine.chunk_fn.steps if cuda else 0
+    want = attn_layers(engine.arch) * engine.chunk_fn.steps if cuda else 0
     got = (ops.launches, ops.shared_launches)
     if got != ((0, want) if engine.policy.paged else (want, 0)):
         raise AssertionError(f"decode launches (fixed, shared) {got} for "
@@ -3131,9 +3178,12 @@ ARCH_FLASH = {"chatglm3-6b prefill export, binarised alpha": dict(
 
 
 def arch_policy(arch):
-    """5f's policy keywords for ``arch``: ``dms`` at CR 8, and for gemma2's
-    local layers a window ring of its local window (``layer_map``)."""
-    if "attn_local" in arch.layer_pattern:
+    """5f's and 5g's policy keywords for ``arch``: ``dms`` at CR 8, and for
+    gemma2's local layers a window ring of its local window
+    (``layer_map``); ``vanilla`` for a model with no attention (mamba2)."""
+    if arch.attn is None:
+        return dict(kind="vanilla")
+    if {"attn_local", "attn"} <= set(arch.layer_pattern):
         return dict(kind="dms", cr=8.0, budget=arch.attn.window,
                     layer_map={"attn_local": "window", "attn": "dms"})
     return dict(kind="dms", cr=8.0)
@@ -3203,25 +3253,29 @@ def serve_requests(torch, engine, setup, uids):
     return results, wall, engine.chunk_fn.steps, sched
 
 
-def arch_serve(torch, setup, what):
-    """Serve ``arch_uids`` on fixed arenas, then on the paged pool, through
-    the decode kernel: every request ok, one launch a layer a decode step
-    (fixed-arena, then shared-pool mode), the pool's tokens equal the fixed
-    arenas' and every page back at the end."""
+def arch_serve(torch, setup, what, kw=None, uids=None,
+               layouts=(False, True)):
+    """Serve ``uids`` (``arch_uids``) under the policy keywords ``kw``
+    (``arch_policy``) on fixed arenas, then on the paged pool (``layouts``
+    says which), through the decode kernel: every request ok, one launch an
+    attention layer a decode step (fixed-arena, then shared-pool mode), the
+    pool's tokens equal the fixed arenas' and every page back at the end.
+    A model with no attention layer (mamba2) launches nothing and builds no
+    pool."""
     from repro_torch.core.config import KVPolicyConfig
     from repro_torch.kernels.dms_decode import ops
     from repro_torch.serving.engine import Engine
     arch, params, device = setup["arch"], setup["params"], setup["device"]
-    kw, uids = arch_policy(arch), arch_uids(arch)
+    kw, uids = kw or arch_policy(arch), uids or arch_uids(arch)
     fixed = None
-    for paged in (False, True):
+    for paged in layouts:
         engine = Engine(arch, params, KVPolicyConfig(**dict(kw, paged=paged)),
                         use_kernel=True, device=device)
         ops.launches = ops.shared_launches = 0
         results, wall, steps, sched = serve_requests(torch, engine, setup,
                                                      uids)
         got = (ops.launches, ops.shared_launches)
-        want = arch.num_layers * steps if device == "cuda" else 0
+        want = attn_layers(arch) * steps if device == "cuda" else 0
         if got != ((0, want) if paged else (want, 0)):
             raise AssertionError(f"{what}: launches (fixed, shared) {got} for"
                                  f" {steps} decode steps, want {want}")
@@ -3234,38 +3288,100 @@ def arch_serve(torch, setup, what):
                                          "tokens differ from the fixed "
                                          "arenas'")
             st = sched.pool_stats()
-            if st["allocated_blocks"] != 0 or st["exhausted"]:
+            if attn_layers(arch) == 0:
+                if st is not None or sched.peak_bytes:
+                    raise AssertionError(f"{what}: a pool or an arena for a "
+                                         "model with no attention layer")
+                note = ("; tokens equal to the fixed arenas'; no pool built, "
+                        "no arena, no decode launch")
+            elif st["allocated_blocks"] != 0 or st["exhausted"]:
                 raise AssertionError(f"{what}: pool not empty at the end: {st}")
-            note = (f"; tokens equal to the fixed arenas'; pool high water "
-                    f"{st['high_water_blocks']} blocks, every page back")
+            else:
+                note = (f"; tokens equal to the fixed arenas'; pool high "
+                        f"water {st['high_water_blocks']} blocks, every page "
+                        "back")
         fixed = fixed or tokens
         generated = sum(int(r.lengths.sum()) for r in results.values())
+        pols = {key: getattr(node, "policy", type(node).__name__)
+                for key, node in sched.state.items()}
         log(f"{what}: requests {list(uids)} (prompts "
             f"{[len(setup['prompts'][u]) for u in uids]}, new "
             f"{[setup['news'][u] for u in uids]}) on "
             f"{'the paged pool' if paged else 'fixed arenas'}, policies "
-            f"{ {key: pc.policy for key, pc in sched.state.items()} }: all "
+            f"{pols}: all "
             f"ok; {generated} tokens in {wall:.2f} s, {steps} decode steps, "
             f"{1e3 * wall / steps:.2f} ms/step; decode launches {want} = "
-            f"{arch.num_layers} x {steps}{note}")
+            f"{attn_layers(arch)} x {steps}{note}")
 
 
-def arch_window(torch, setup, prompt_len=WINDOW_PROMPT, new=WINDOW_NEW):
-    """(b) gemma2 at one superblock on one lane: a ``prompt_len``-token
-    prompt and ``new`` tokens.  The lane is snapshot (``export_lane_state``)
-    when its prefill ends: the local layer's live tokens stop at its window
-    ring, the global layer's follow DMS (at least its delay window, fewer
-    than the ring holds).  Then ``new`` teacher-forced steps of the served
-    tokens from two imports of the snapshot, one on the kernel path and one
-    on the reference path: logits within 0.05 x max |logit|."""
+def gemma2_window_check(arch, snap, prompt_len, kw):
+    """5f (b)'s snapshot: gemma2's local layer holds at most its window ring
+    (recycled), its global layer follows DMS (at least its delay window,
+    fewer than the ring holds).  Returns what it found, for the log."""
     from repro_torch.core import policy as policy_lib
+    live = {}
+    for key, pc in snap.items():
+        m = policy_lib.get_policy(pc.policy).metrics(pc.cache)["live_tokens"]
+        live[key] = (pc.policy, float(m.min()), float(m.max()))
+    ring = arch.attn.window + 1
+    local, glob = live["0"], live["1"]
+    if not (local[0] == "window" and local[2] <= ring < prompt_len
+            and bool(snap["0"].cache.overflowed.all())):
+        raise AssertionError(f"5f (b): the local layer holds {local} tokens, "
+                             f"its ring {ring}")
+    if not (glob[0] == "dms" and arch.dms.window <= glob[1]
+            and glob[2] < local[1]):
+        raise AssertionError(f"5f (b): the global layer holds {glob} tokens")
+    return (f"live tokens (min, max over heads): local layer ({local[0]}) "
+            f"{local[1]:.0f}-{local[2]:.0f}, its ring {ring} slots recycled; "
+            f"global layer ({glob[0]}) {glob[1]:.0f}-{glob[2]:.0f}")
+
+
+def hybrid_window_check(arch, snap, prompt_len, kw):
+    """5g (b)'s snapshot: recurrentgemma's RG-LRU state has carried every
+    prompt token (its length), its local layer holds at most its ring
+    (``window``: the ring recycled) or follows DMS (``dms``: at least its
+    delay window, fewer than the prompt).  Returns what it found."""
+    from repro_torch.core import policy as policy_lib
+    rec, pc = snap["0"], snap["1"]
+    carried = rec.length.unique().tolist()
+    if carried != [prompt_len]:
+        raise AssertionError(f"5g (b): the RG-LRU state carried {carried} "
+                             f"tokens of the {prompt_len}-token prompt")
+    m = policy_lib.get_policy(pc.policy).metrics(pc.cache)["live_tokens"]
+    lo, hi = float(m.min()), float(m.max())
+    ring = arch.attn.window + 1
+    if kw["kind"] == "window":
+        ok = hi <= ring < prompt_len and bool(pc.cache.overflowed.all())
+        held = f"at most its ring of {ring} slots, recycled"
+    else:
+        ok = arch.dms.window <= lo and hi < prompt_len
+        held = f"DMS at CR {kw['cr']:g} (delay window {arch.dms.window})"
+    if not ok:
+        raise AssertionError(f"5g (b): the local layer holds {lo}-{hi} "
+                             f"tokens under {kw['kind']}")
+    return (f"the RG-LRU state has carried {prompt_len} tokens and the local "
+            f"layer holds {lo:.0f}-{hi:.0f} live tokens (min, max over "
+            f"heads): {held}")
+
+
+def arch_window(torch, setup, kw, prompt_len, new, what, check, flag):
+    """(b) A model at one superblock on one lane under the policy keywords
+    ``kw``: a ``prompt_len``-token prompt and ``new`` tokens.  The lane is
+    snapshot (``export_lane_state``) when its prefill ends and ``check``
+    holds the snapshot to the layout (``gemma2_window_check``,
+    ``hybrid_window_check``).  Then ``new`` teacher-forced steps of the
+    served tokens from two imports of the snapshot, one on the kernel path
+    and one on the reference path: logits within 0.05 x max |logit|.  The
+    check's launches are not the main path's: ``flag["main"]`` is off
+    while it runs."""
     from repro_torch.core.config import KVPolicyConfig
     from repro_torch.kernels.dms_decode import ops
     from repro_torch.models import transformer as tfm
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.scheduler import Request
     arch, params, device = setup["arch"], setup["params"], setup["device"]
-    cfg = KVPolicyConfig(**arch_policy(arch))
+    cfg = KVPolicyConfig(**kw)
     max_len = prompt_len + new
     engine = Engine(arch, params, cfg, use_kernel=True, device=device)
     rng = torch.Generator().manual_seed(13)
@@ -3289,24 +3405,12 @@ def arch_window(torch, setup, prompt_len=WINDOW_PROMPT, new=WINDOW_NEW):
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     steps = engine.chunk_fn.steps
-    want = arch.num_layers * steps if device == "cuda" else 0
+    want = attn_layers(arch) * steps if device == "cuda" else 0
     if res.status != "ok" or res.tokens.shape != (1, new) \
             or (ops.launches, ops.shared_launches) != (want, 0):
-        raise AssertionError(f"5f (b): status {res.status}, tokens "
+        raise AssertionError(f"{what}: status {res.status}, tokens "
                              f"{res.tokens.shape}, launches {ops.launches}")
-    live = {}
-    for key, pc in snap["state"].items():
-        m = policy_lib.get_policy(pc.policy).metrics(pc.cache)["live_tokens"]
-        live[key] = (pc.policy, float(m.min()), float(m.max()))
-    ring = arch.attn.window + 1
-    local, glob = live["0"], live["1"]
-    if not (local[0] == "window" and local[2] <= ring < prompt_len
-            and bool(snap["state"]["0"].cache.overflowed.all())):
-        raise AssertionError(f"5f (b): the local layer holds {local} tokens, "
-                             f"its ring {ring}")
-    if not (glob[0] == "dms" and arch.dms.window <= glob[1]
-            and glob[2] < local[1]):
-        raise AssertionError(f"5f (b): the global layer holds {glob} tokens")
+    found = check(arch, snap["state"], prompt_len, kw)
     # the kernel path against the reference path from the snapshot
     states = [tfm.import_lane_state(
         tfm.init_decode_state(arch, 1, max_len, cfg, device=device),
@@ -3314,29 +3418,31 @@ def arch_window(torch, setup, prompt_len=WINDOW_PROMPT, new=WINDOW_NEW):
     tokens = torch.from_numpy(res.tokens[0].astype("int64")).to(device)
     vocab = torch.arange(arch.padded_vocab, device=device) < arch.vocab_size
     gap = scale = 0.0
-    for i in range(new):
-        tok = tokens[i].reshape(1, 1)
-        lk, _, aux = tfm.decode_step(params, tok, states[0], arch,
-                                     prompt_len + i, use_kernel=True)
-        lr, _, _ = tfm.decode_step(params, tok, states[1], arch,
-                                   prompt_len + i, use_kernel=False)
-        if aux["attn_impl_kernel"] != 1 or \
-                not bool(torch.isfinite(lk[:, vocab]).all()):
-            raise AssertionError(f"5f (b): step {i} left the kernel or is "
-                                 "not finite")
-        gap = max(gap, (lk - lr)[:, vocab].abs().max().item())
-        scale = max(scale, lr[:, vocab].abs().max().item())
-    log(f"5f (b): {arch.name} at {arch.num_layers} layers, one lane, prompt "
-        f"{prompt_len} + {new} new: ok in {wall:.2f} s, {steps} decode steps"
-        f" ({1e3 * wall / steps:.2f} ms/step), {want} decode launches; live "
-        f"tokens after the prompt (min, max over heads): local layer "
-        f"({local[0]}) {local[1]:.0f}-{local[2]:.0f}, its ring {ring} slots "
-        f"recycled; global layer ({glob[0]}) {glob[1]:.0f}-{glob[2]:.0f}; "
-        f"{new} teacher-forced steps from the snapshot, kernel vs reference "
-        f"path: max abs logit diff {gap:.4e}, max |logit| {scale:.4e} "
-        "(tolerance 0.05 x max |logit|)")
+    flag["main"] = False
+    try:
+        for i in range(new):
+            tok = tokens[i].reshape(1, 1)
+            lk, _, aux = tfm.decode_step(params, tok, states[0], arch,
+                                         prompt_len + i, use_kernel=True)
+            lr, _, _ = tfm.decode_step(params, tok, states[1], arch,
+                                       prompt_len + i, use_kernel=False)
+            if aux["attn_impl_kernel"] != 1 or \
+                    not bool(torch.isfinite(lk[:, vocab]).all()):
+                raise AssertionError(f"{what}: step {i} left the kernel or "
+                                     "is not finite")
+            gap = max(gap, (lk - lr)[:, vocab].abs().max().item())
+            scale = max(scale, lr[:, vocab].abs().max().item())
+    finally:
+        flag["main"] = True
+    log(f"{what}: {arch.name} at {arch.num_layers} layers, one lane, "
+        f"{kw['kind']}, prompt {prompt_len} + {new} new: ok in {wall:.2f} s, "
+        f"{steps} decode steps ({1e3 * wall / steps:.2f} ms/step), {want} "
+        f"decode launches; after the prompt {found}; {new} teacher-forced "
+        f"steps from the snapshot, kernel vs reference path (launches not "
+        f"counted on the main path): max abs logit diff {gap:.4e}, max "
+        f"|logit| {scale:.4e} (tolerance 0.05 x max |logit|)")
     if not gap <= 0.05 * scale:
-        raise AssertionError("5f (b): kernel-path logits disagree with the "
+        raise AssertionError(f"{what}: kernel-path logits disagree with the "
                              "reference path")
 
 
@@ -3398,7 +3504,8 @@ def phase_archs(torch, device="cuda", checked=None, *,
                 out["flash"] += exported["flash"]
             if "attn_local" in arch.layer_pattern:
                 arch_window(torch, cut_depth(setup, arch.pattern_period),
-                            *window)
+                            arch_policy(arch), *window, what="5f (b)",
+                            check=gemma2_window_check, flag=flag)
             flag["main"] = False
             policy_paths(torch, setup, {f"{name} ({arch.num_layers} layers)":
                                         (arch, arch_policy(arch))},
@@ -3468,6 +3575,324 @@ def phase_arch_timing(torch, launches, errs, flash_launches, flash_err):
     rows.append(phase_prefill_timing(
         torch, flash_launches, flash_err, case=next(iter(ARCH_FLASH)),
         name="flash_fwd (chatglm3-6b prefill export)"))
+    return rows
+
+
+# -- phase 5g: the hybrids recurrentgemma-2b and mamba2-2.7b -----------------
+
+# the hybrids 5g serves and the layers it serves of each (the script's time;
+# both fit one card whole): two superblocks of recurrentgemma's (rglru,
+# attn_local), four of mamba2's 64 SSD layers
+HYBRID_LAYERS = {"recurrentgemma-2b": 4, "mamba2-2.7b": 4}
+# (b): a prompt past recurrentgemma's 2048-token local window, then new tokens
+HYBRID_WINDOW = (2048 + 64, 16)
+# (d): three requests sharing a PREFIX_LEN-token prefix, PREFIX_NEW new each
+HYBRID_SUFFIXES = (8, 24, 40)
+
+
+def hybrid_window_policy(arch):
+    """recurrentgemma's ``window`` layout: a ring of its local window."""
+    return dict(kind="window", budget=arch.attn.window)
+
+
+def hybrid_layouts(arch, lens, news=ARCH_NEWS, window=HYBRID_WINDOW,
+                   trace=ARCH_TRACE):
+    """Every (policy keywords, lanes, max_len) 5g builds a decode state for
+    with recurrentgemma: (a) dms on 4 lanes fixed and paged (the profile's
+    too) and ``window`` on requests 3 and 1, the kernel-vs-reference trace,
+    (b)'s one lane under dms and ``window`` and (d)'s two prefix lanes."""
+    kw, win = arch_policy(arch), hybrid_window_policy(arch)
+    max_len = max(lens[u] + news[u] for u in range(4))
+    pair = max(lens[u] + news[u] for u in ARCH_PAIR)
+    return [(kw, 4, max_len), (dict(kw, paged=True), 4, max_len),
+            (win, len(ARCH_PAIR), pair), (kw, 2, trace + 16),
+            (kw, 1, sum(window)), (win, 1, sum(window)),
+            (kw, 2, PREFIX_MAX_LEN)]
+
+
+def hybrid_decode_keys(arch=None, lens=(512, 384, 256, 128), **kw):
+    """{launch key: logit softcap} of every decode launch 5g makes (mamba2
+    makes none), from ``hybrid_layouts`` of recurrentgemma at full width
+    (or of ``arch``)."""
+    from repro_torch.configs import get_arch
+    arch = arch or get_arch("recurrentgemma-2b")
+    return {key: arch.attn.logit_softcap
+            for pol, lanes, max_len in hybrid_layouts(arch, lens, **kw)
+            for key in state_keys(arch, pol, lanes, max_len)}
+
+
+def hybrid_prefix(torch, setup, *, prefix_len=PREFIX_LEN,
+                  suffixes=HYBRID_SUFFIXES, new=PREFIX_NEW, what="5g (d)"):
+    """(d) Requests sharing a ``prefix_len``-token prefix, one every
+    PREFIX_GAP ticks, served cold and warm through one prefix cache (5e's
+    slab, host tier, chunk and stride) with dms at CR 8 on recurrentgemma:
+    the snapshots carry the RG-LRU state, so warm tokens and first-token
+    logits equal the cold ones exactly; paid + saved prefill reads equal
+    the cold reads, and the warm trace reads from the slab with no host
+    sync in a chunk, an import, an export or the slab."""
+    import numpy as np
+    from repro_torch.core.config import KVPolicyConfig
+    from repro_torch.serving.engine import Engine
+    arch, params, device = setup["arch"], setup["params"], setup["device"]
+    rng = np.random.default_rng(21)
+
+    def prompt(n):
+        return rng.integers(3, arch.vocab_size, size=(n,)).astype(np.int32)
+
+    system = prompt(prefix_len)
+    trace = [(np.concatenate([system, prompt(n)]), new, i * PREFIX_GAP)
+             for i, n in enumerate(suffixes)]
+    cfg = KVPolicyConfig(**arch_policy(arch))
+    kw = dict(use_kernel=True, device=device, chunk=PREFIX_CHUNK)
+    cold, _, cold_wall, cold_first = serve_prefix_trace(
+        torch, Engine(arch, params, cfg, **kw), trace)
+    eng = Engine(arch, params, cfg, prefix_cache_mb=PREFIX_MB,
+                 prefix_cache_device_mb=PREFIX_DEVICE_MB,
+                 export_stride=PREFIX_STRIDE, **kw)
+    warm, sched, wall, first = serve_prefix_trace(torch, eng, trace,
+                                                  sync_check=True)
+    paid = saved = cold_paid = 0.0
+    for uid, r in warm.items():
+        c = cold[uid]
+        if r.status != "ok" or not (r.tokens == c.tokens).all() \
+                or not (first[uid] == cold_first[uid]).all():
+            raise AssertionError(f"{what} request {uid}: status {r.status}, "
+                                 "or tokens or first-token logits differ "
+                                 "from the cold serve's")
+        got = r.prefill_meter.kv_reads + r.prefill_meter.kv_reads_saved
+        if got != c.prefill_meter.kv_reads:
+            raise AssertionError(f"{what} request {uid}: paid + saved {got} "
+                                 f"!= cold {c.prefill_meter.kv_reads}")
+        paid += r.prefill_meter.kv_reads
+        saved += r.prefill_meter.kv_reads_saved
+        cold_paid += c.prefill_meter.kv_reads
+    pc = eng.prefix_cache
+    if saved <= 0 or pc.hot_hits <= 0:
+        raise AssertionError(f"{what}: no read saved or no hot hit")
+    log(f"{what}: {arch.name} at {arch.num_layers} layers, {len(trace)} "
+        f"requests sharing a {prefix_len}-token prefix (suffixes "
+        f"{list(suffixes)}, {new} new each), dms at CR 8: warm tokens and "
+        f"first-token logits equal to the cold serve's exactly; prefill "
+        f"reads paid {paid:.0f} + saved {saved:.0f} = cold {cold_paid:.0f}; "
+        f"{pc.hot_hits} hot hits; the snapshot carries the RG-LRU state "
+        f"({snapshot_parts(sched)}); {eng.chunk_fn.steps} decode steps "
+        f"in {wall:.2f} s (cold {cold_wall:.2f} s); no host sync in a chunk,"
+        " an import, an export or the slab (sync debug mode)")
+
+
+def snapshot_parts(sched):
+    """A lane snapshot's bytes by pattern position, for a log line."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.models import transformer as tfm
+    snap = tfm.export_lane_state(sched.state, 0)
+    return ", ".join(
+        f"position {key} ({getattr(node, 'policy', type(node).__name__)}) "
+        f"{sum(a.numel() * a.element_size() for a in tree_leaves(node))} B"
+        for key, node in snap.items())
+
+
+def ops_by_kind(torch, params, arch, cfg, *, lanes, max_len, device):
+    """Host-dispatched ATen ops of one decode step by where they run: the
+    recurrent layers (norm, RG-LRU or SSD, MLP), the attention calls
+    (``decode_attention``: projections, RoPE, the cache step, the kernel's
+    wrapper) and the rest (embedding, the attention layers' norms and
+    MLPs, the policies' step preparation, the head); logged a layer."""
+    import collections
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.models import attention as attn_lib
+    from repro_torch.models import transformer as tfm
+    counts, where = collections.Counter(), ["rest"]
+
+    def tagged(fn, tag):
+        def run(*args, **kw):
+            where[0] = tag
+            try:
+                return fn(*args, **kw)
+            finally:
+                where[0] = "rest"
+        return run
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            counts[where[0]] += 1
+            return func(*args, **(kwargs or {}))
+
+    state = tfm.init_decode_state(arch, lanes, max_len, cfg, device=device)
+    tok = torch.full((lanes, 1), 7, dtype=torch.int32, device=device)
+    pos = torch.zeros((lanes,), dtype=torch.int32, device=device)
+    real = (tfm._recurrent_layer, attn_lib.decode_attention)
+    tfm._recurrent_layer = tagged(real[0], "recurrent")
+    attn_lib.decode_attention = tagged(real[1], "attention")
+    try:
+        tfm.decode_step(params, tok, state, arch, pos, use_kernel=True)
+        with Count():
+            tfm.decode_step(params, tok, state, arch, pos, use_kernel=True)
+    finally:
+        tfm._recurrent_layer, attn_lib.decode_attention = real
+    n_attn = attn_layers(arch)
+    n_rec = arch.num_layers - n_attn
+    per = [f"{counts['recurrent'] / n_rec:.1f} a recurrent layer "
+           f"({'/'.join(sorted(set(arch.layer_pattern) - {'attn', 'attn_local'}))})"]
+    if n_attn:
+        per.append(f"{counts['attention'] / n_attn:.1f} a decode_attention "
+                   "call")
+    log(f"profile: {arch.name}, {lanes} lanes, ATen ops of one decode step "
+        f"by kind: {'; '.join(per)}; {counts['rest']} elsewhere (embedding, "
+        f"the attention layers' norms and MLPs, step preparation, head); "
+        f"{sum(counts.values())} in all")
+    return counts
+
+
+def phase_hybrids(torch, device="cuda", checked=None, *,
+                  lens=(512, 384, 256, 128), news=ARCH_NEWS,
+                  window=HYBRID_WINDOW, trace=ARCH_TRACE,
+                  prefix=(PREFIX_LEN, HYBRID_SUFFIXES, PREFIX_NEW)):
+    """Phase 5g: recurrentgemma-2b and mamba2-2.7b at full width (random
+    bf16 weights from seed 0, phase 4's DMS bias), at the layers of
+    ``HYBRID_LAYERS``.  recurrentgemma: (a) ``arch_serve`` of phase 4's four
+    prompts under dms at CR 8, fixed then paged, and requests 3 and 1
+    under ``window``; (b) ``arch_window`` at one superblock under dms and
+    ``window``; (d) ``hybrid_prefix`` at one superblock; a
+    ``policy_paths`` trace of ``trace`` steps; a profiled decode step.
+    mamba2: (c) ``arch_serve`` of requests 3 and 1 under vanilla, fixed
+    and paged (no pool, no launch); a profiled step.  Every decode step
+    runs the kernel in every attention layer (``attn_impl_kernel`` 1;
+    mamba2's 0, with no launch at all), and every decode launch must be at
+    a shape phase 3 checked (``checked``; on the CPU, the shapes
+    ``hybrid_layouts`` predicts).  Returns the main path's decode launches
+    by shape ((a), (b), (c) and (d))."""
+    import collections
+    from repro_torch.configs import get_arch, get_smoke
+    from repro_torch.core.config import KVPolicyConfig
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels.dms_decode import ops
+    from repro_torch.models import transformer as tfm
+    main = collections.Counter()
+    seen, flag = set(), {"main": True}
+    real_rows, real_step = ops.decode_rows, tfm.decode_step
+
+    def counting(qf, kf, vf, valf, tblf, nf, block_p, *args, **kw):
+        key = launch_key(qf, kf, tblf, block_p, kw.get("shared_kv"))
+        seen.add(key)
+        if flag["main"]:
+            main[key] += 1
+        return real_rows(qf, kf, vf, valf, tblf, nf, block_p, *args, **kw)
+
+    def kernel_step(params, token, state, arch, *args, **kw):
+        out = real_step(params, token, state, arch, *args, **kw)
+        want = int(attn_layers(arch) > 0)
+        if kw.get("use_kernel") and out[2]["attn_impl_kernel"] != want:
+            raise AssertionError(f"phase 5g: a {arch.name} decode step "
+                                 f"reported attn_impl_kernel "
+                                 f"{out[2]['attn_impl_kernel']}, want {want}")
+        return out
+
+    expected = {}
+    ops.decode_rows, tfm.decode_step = counting, kernel_step
+    try:
+        for name, layers in HYBRID_LAYERS.items():
+            t0 = time.perf_counter()
+            setup = serving_setup(torch, device=device, arch_name=name,
+                                  lens=lens, news=news, layers=layers)
+            arch = setup["arch"]
+            full = (get_arch if device == "cuda" else get_smoke)(name)
+            params = setup["params"]
+            nsb = arch.num_superblocks
+            embed = params["embed"].numel() * params["embed"].element_size()
+            layer_bytes = sum(a.numel() * a.element_size()
+                              for a in tree_leaves(params["blocks"])) // nsb
+            whole = embed + layer_bytes * full.num_superblocks
+            cuts = (f"{arch.num_layers} in (a), {arch.pattern_period} in (b) "
+                    "and (d)" if arch.attn is not None else
+                    f"{arch.num_layers} in (c)")
+            log(f"5g depth cut: {name} serves {cuts} of its "
+                f"{full.num_layers} layers (the script's time; its bf16 "
+                f"weights take {whole / 1e9:.2f} GB whole, {embed / 1e9:.2f} "
+                f"GB of them the tied embedding: one card holds it whole)")
+            flag["main"] = True
+            ops.launches = ops.shared_launches = 0
+            if arch.attn is None:
+                before = sum(main.values())
+                arch_serve(torch, setup, f"5g (c) {name}")
+                if sum(main.values()) != before:
+                    raise AssertionError(f"5g (c): {name} called the decode "
+                                         "kernel's wrapper")
+            else:
+                if device != "cuda":
+                    expected.update(hybrid_decode_keys(
+                        arch, lens, news=news, window=window, trace=trace))
+                arch_serve(torch, setup, f"5g (a) {name}")
+                arch_serve(torch, setup, f"5g (a) {name}",
+                           kw=hybrid_window_policy(arch), uids=ARCH_PAIR,
+                           layouts=(False,))
+                one = cut_depth(setup, arch.pattern_period)
+                for kw in (arch_policy(arch), hybrid_window_policy(arch)):
+                    arch_window(torch, one, kw, *window,
+                                what=f"5g (b) {kw['kind']}",
+                                check=hybrid_window_check, flag=flag)
+                hybrid_prefix(torch, one, prefix_len=prefix[0],
+                              suffixes=prefix[1], new=prefix[2])
+                flag["main"] = False
+                policy_paths(torch, setup, {
+                    f"{name} ({arch.num_layers} layers)":
+                        (arch, arch_policy(arch))}, steps=trace,
+                    what="5g (a)")
+            flag["main"] = False
+            uids = arch_uids(arch)
+            shape = dict(lanes=len(uids), max_len=max(lens[u] + news[u]
+                                                      for u in uids),
+                         device=device)
+            cfg = KVPolicyConfig(**arch_policy(arch))
+            phase_profile(torch, setup["params"], arch, {f"{name} 5g": cfg},
+                          **shape)
+            ops_by_kind(torch, setup["params"], arch, cfg, **shape)
+            del setup, params
+            if device == "cuda":
+                torch.cuda.empty_cache()
+            log(f"seconds: 5g {name} {time.perf_counter() - t0:.1f}")
+    finally:
+        ops.decode_rows, tfm.decode_step = real_rows, real_step
+    checked = checked if checked is not None else expected
+    if not seen <= set(checked):
+        raise AssertionError(f"phase 5g launched the decode kernel at "
+                             f"{sorted(seen - set(checked))}, not among phase"
+                             f" 3's checked {sorted(checked)}")
+    log(f"phase 5g's decode launch shapes {sorted(seen)}: each checked in "
+        "phase 3")
+    return main
+
+
+def phase_hybrid_timing(torch, launches, errs):
+    """Phase 7's rows for 5g: the decode kernel at recurrentgemma's (a)
+    fixed-arena and shared-pool serving shapes and at (b)'s window ring
+    (P 2064, one lane), each with its launches in 5g."""
+    from repro_torch.configs import get_arch
+    gen = torch.Generator(device="cuda").manual_seed(98)
+    arch = get_arch("recurrentgemma-2b")
+    layouts = hybrid_layouts(arch, (512, 384, 256, 128))
+    rows = []
+    for pol, lanes, max_len in (layouts[0], layouts[1], layouts[5]):
+        (key,) = state_keys(arch, pol, lanes, max_len)
+        shared = len(key) == 7
+        bh, g, dh, p, bp = key[:5]
+        if shared:
+            nb = key[5]
+            case = make_pool_case(torch, gen, bh=bh, g=g, dh=dh, nb=nb, bp=bp,
+                                  density=0.85, pages=p // bp)
+            operands = {"kernel": case["shared"], "dense": case["fixed"][1:4]}
+            shape = (bh, g, dh, nb * bp, bp)
+        else:
+            args = make_case(torch, gen, bh=bh, g=g, dh=dh, p=p, bp=bp,
+                             density=0.85)
+            operands = {"kernel": args, "dense": args[1:4]}
+            shape = key
+        rows.append(decode_entry(
+            torch, f"dms_decode{'_shared_kv' if shared else ''} "
+            f"(recurrentgemma-2b {pol['kind']}, {lanes} lane"
+            f"{'s' if lanes > 1 else ''}, G {g}, Dh {dh})",
+            "shared" if shared else "fixed", operands, shape,
+            launches.get(key, 0), errs.get(key, 0.0),
+            hkv=arch.attn.num_kv_heads))
     return rows
 
 
@@ -3968,6 +4393,9 @@ def main() -> int:
     _, arch_errs = check_decode_keys(torch, arch_keys, what="phase 5f",
                                      caps=arch_keys)
     arch_flash_err = check_flash_cases(torch, ARCH_FLASH)
+    hybrid_keys = hybrid_decode_keys()
+    _, hybrid_errs = check_decode_keys(torch, hybrid_keys, what="phase 5g",
+                                       caps=hybrid_keys)
     lap("phases 1-3")
     served = phase_serve(torch, shallow)
     lap("phase 4")
@@ -4007,6 +4435,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     archs = phase_archs(torch, checked=set(arch_keys))
     lap("phase 5f")
+    hybrids = phase_hybrids(torch, checked=set(hybrid_keys))
+    lap("phase 5g")
     trained = phase_train(torch)
     lap("phase 6")
     kernels = phase_timing(torch, main_shape, {"fixed": served["launches"],
@@ -4020,6 +4450,7 @@ def main() -> int:
     kernels.append(phase_prefill_timing(torch, prefixed["flash"], prefill_err))
     kernels += phase_arch_timing(torch, archs["launches"], arch_errs,
                                  archs["flash"], arch_flash_err)
+    kernels += phase_hybrid_timing(torch, hybrids, hybrid_errs)
     lap("phase 7")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

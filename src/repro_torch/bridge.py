@@ -18,8 +18,11 @@ from repro_torch.core.config import (ArchConfig, AttentionConfig, DMSConfig,
 from repro_torch.device import DeviceLike, resolve_device, torch_dtype
 from repro_torch.models.transformer import Params
 
-#: leaves kept in fp32 whatever the compute dtype (norm parameters)
-_FP32_LEAVES = ("scale", "bias")
+#: leaves kept in fp32 whatever the compute dtype: norm parameters, and the
+#: recurrent layers' vectors the reference applies in fp32 with no cast
+#: (RG-LRU's Λ and gate biases; SSD's decay, step bias, skip and norm scale)
+_FP32_LEAVES = ("scale", "bias", "lam", "b_gate_r", "b_gate_i", "a_log",
+                "dt_bias", "d_skip", "norm_scale")
 
 
 def arch_from_dict(d: Dict[str, Any]) -> ArchConfig:
@@ -55,10 +58,12 @@ def params_from_numpy(tree: Dict[str, Any], arch: ArchConfig,
     orientation: W stays ``(in, out)``, no transpose.  Matmul weights
     (the router too) are cast once to ``dtype`` (default ``arch.dtype``) —
     the reference keeps fp32 masters and casts at every matmul, which gives
-    the same values; norm scales stay fp32, as the reference applies them.
-    Returns :class:`~repro_torch.models.transformer.Params`, with each
-    layer's noise salt taken from the fp32 ``wo`` before the cast, in the
-    reference's layer order (superblocks, then positions)."""
+    the same values; the leaves of ``_FP32_LEAVES`` stay fp32, as the
+    reference applies them.  Returns
+    :class:`~repro_torch.models.transformer.Params`, with each attention
+    layer's noise salt taken from the fp32 ``wo`` before the cast (0 for a
+    recurrent layer), in the reference's layer order (superblocks, then
+    positions)."""
     dev = resolve_device(device)
     dtype = dtype or torch_dtype(arch.dtype)
     if ("lm_head" in tree) == arch.tie_embeddings:
@@ -73,9 +78,12 @@ def params_from_numpy(tree: Dict[str, Any], arch: ArchConfig,
         return arr.to(device=dev, dtype=want)
 
     params = Params(conv(tree, ""))
-    wo00 = np.stack([np.asarray(tree["blocks"][str(pi)]["attn"]["wo"],
-                                dtype=np.float32)[:, 0, 0]
-                     for pi in range(arch.pattern_period)], axis=1)
+    nsb = arch.num_superblocks
+    wo00 = np.stack([np.asarray(blk["attn"]["wo"], dtype=np.float32)[:, 0, 0]
+                     if "attn" in blk else np.zeros((nsb,), np.float32)
+                     for blk in (tree["blocks"][str(pi)]
+                                 for pi in range(arch.pattern_period))],
+                    axis=1)
     params.layer_salt = torch.from_numpy(
         wo00.reshape(-1).view(np.uint32).astype(np.int64)).to(dev)
     return params

@@ -62,7 +62,8 @@ def make_train_step(arch: ArchConfig, opt_cfg: adamw.AdamWConfig, *,
         logits, aux = tfm.model_forward(
             p, batch["tokens"], arch, mode=mode, uniforms=uniforms,
             generator=step_generator(17, step, batch["tokens"].device),
-            remat=remat, use_kernel=use_kernel)
+            remat=remat, use_kernel=use_kernel,
+            frontend_embeds=batch.get("frontend_embeds"))
         ce = distill_lib.lm_cross_entropy(logits, batch["labels"])
         loss = ce + aux["moe_aux_loss"]
         if mode == "dms_train":
@@ -107,9 +108,11 @@ def retrofit_loss_and_grads(
     compression loss (§3.2, §4); ``phase1`` runs the borrowed-neuron zeroing
     schedule (App. B) instead of the DMS mask."""
     tokens = batch["tokens"]
+    frontend = batch.get("frontend_embeds")
     with torch.no_grad():
         teacher_logits, _ = tfm.model_forward(
-            teacher, tokens, arch, mode="vanilla", use_kernel=use_kernel)
+            teacher, tokens, arch, mode="vanilla", use_kernel=use_kernel,
+            frontend_embeds=frontend)
 
     def loss_fn(p):
         if phase1:
@@ -117,14 +120,14 @@ def retrofit_loss_and_grads(
                         1.0)
             logits, aux = tfm.model_forward(
                 p, tokens, arch, mode="dms_phase1", neuron_scale=scale,
-                remat=remat, use_kernel=use_kernel)
+                remat=remat, use_kernel=use_kernel, frontend_embeds=frontend)
             a_sum = torch.zeros((), dtype=torch.float32, device=tokens.device)
             a_cnt = 1.0
         else:
             logits, aux = tfm.model_forward(
                 p, tokens, arch, mode="dms_train", uniforms=uniforms,
                 generator=step_generator(23, step, tokens.device),
-                remat=remat, use_kernel=use_kernel)
+                remat=remat, use_kernel=use_kernel, frontend_embeds=frontend)
             a_sum, a_cnt = aux["alpha_sum"], aux["alpha_count"]
         loss, metrics = distill_lib.retrofit_loss(
             logits, teacher_logits, batch["labels"], a_sum, a_cnt, step,
@@ -167,9 +170,10 @@ def make_prefill_step(arch: ArchConfig, *, dms: bool = False,
 
     def prefill_step(params, batch):
         with torch.inference_mode():
-            logits, aux = tfm.model_forward(params, batch["tokens"], arch,
-                                            mode=mode, collect_kv=True,
-                                            use_kernel=use_kernel)
+            logits, aux = tfm.model_forward(
+                params, batch["tokens"], arch, mode=mode, collect_kv=True,
+                use_kernel=use_kernel,
+                frontend_embeds=batch.get("frontend_embeds"))
         return logits[:, -1], aux["layer_kv"]
 
     return prefill_step

@@ -10,13 +10,21 @@ layer), and params keep the reference's layout
      "blocks": {"0": <stacked over superblocks>, "1": ...},   # per position
      "final_norm": {"scale": (D,)}, "lm_head": (D, V_pad) unless tied}
 
+A position's block holds an attention layer (``attn``/``attn_local``), an
+RG-LRU layer (``rglru``: :mod:`repro_torch.models.rglru`) or an SSD layer
+(``ssd``: :mod:`repro_torch.models.ssd`), as in recurrentgemma's
+(rglru, attn_local) and mamba2's (ssd,) patterns.
+
 For serving, matmul weights are stored in the compute dtype (cast once, at
 load or init); for training they are fp32 (``init_model(dtype=float32)``),
-as the reference keeps them, and cast at each matmul.  Norm scales stay
-fp32.  The tree comes as :class:`Params`, a dict that also carries each
-layer's noise salt (:func:`layer_salts`).  The decode state mirrors it:
-``{"0": PolicyCache, ...}``, one cache per pattern position with every
-leaf stacked over superblocks and the lane axis at position 1; under a
+as the reference keeps them, and cast at each matmul.  Norm scales and the
+recurrent layers' decay and bias vectors stay fp32.  The tree comes as
+:class:`Params`, a dict that also carries each layer's noise salt
+(:func:`layer_salts`).  The decode state mirrors it: ``{"0": PolicyCache,
+...}``, one cache per attention position and a raw recurrent state
+(:class:`~repro_torch.models.rglru.RGLRUState`,
+:class:`~repro_torch.models.ssd.SSDState`) per recurrent one, every leaf
+stacked over superblocks with the lane axis at position 1; under a
 ``KVPolicyConfig.layer_map`` two positions may hold two policies.  The
 reference scans superblocks with ``jax.lax.scan``; here a Python loop walks
 superblocks, then positions, and each layer's cache is a view into the
@@ -38,21 +46,26 @@ from repro_torch.core.config import ArchConfig, KVPolicyConfig
 from repro_torch.core.tree import tree_leaves, tree_map, tree_unflatten
 from repro_torch.device import DeviceLike, resolve_device, torch_dtype
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import rglru as rglru_lib
+from repro_torch.models import ssd as ssd_lib
 from repro_torch.models.layers import mlp_apply, norm_apply, softcap
 
 _ATTN_KINDS = ("attn", "attn_local")
+_KINDS = _ATTN_KINDS + ("rglru", "ssd")
 
 
 def check_supported(arch: ArchConfig) -> None:
-    """The port runs decoder-only attention models: global and local
-    attention layers, dense or MoE MLPs, RMSNorm, and no frontend but
-    precomputed vision patch embeddings.  Recurrent layers (``ssd``,
-    ``rglru``), encoders and cross-attention raise."""
+    """The port runs decoder-only models: global and local attention
+    layers, RG-LRU and SSD recurrent layers, dense or MoE MLPs (or none, as
+    mamba2), RMSNorm, and no frontend but precomputed vision patch
+    embeddings.  Encoders, cross-attention and LayerNorm raise."""
+    kinds = set(arch.layer_pattern)
     missing = [what for what, bad in (
-        (f"layer kinds {sorted(set(arch.layer_pattern) - set(_ATTN_KINDS))}",
-         not set(arch.layer_pattern) <= set(_ATTN_KINDS)),
-        ("attention", arch.attn is None),
-        ("an MLP in every layer", arch.mlp is None),
+        (f"layer kinds {sorted(kinds - set(_KINDS))}",
+         not kinds <= set(_KINDS)),
+        ("attention", arch.attn is None and bool(kinds & set(_ATTN_KINDS))),
+        ("an RG-LRU config", arch.rglru is None and "rglru" in kinds),
+        ("an SSM config", arch.ssm is None and "ssd" in kinds),
         (f"norm {arch.norm!r}", arch.norm != "rmsnorm"),
         ("an encoder", bool(arch.encoder_layers)),
         ("cross-attention", arch.cross_attention),
@@ -65,6 +78,11 @@ def check_supported(arch: ArchConfig) -> None:
 
 def _layer_window(arch: ArchConfig, kind: str) -> Optional[int]:
     return arch.attn.window if kind == "attn_local" else None
+
+
+def _attn_positions(arch: ArchConfig) -> List[int]:
+    return [pi for pi, kind in enumerate(arch.layer_pattern)
+            if kind in _ATTN_KINDS]
 
 
 def _layers(arch: ArchConfig):
@@ -84,7 +102,8 @@ def _layers(arch: ArchConfig):
 class Params(dict):
     """A params tree (the dict above) that also carries ``layer_salt``:
     (L,) int64 in the reference's layer order (superblock-major), the IEEE
-    bits of each layer's fp32 ``attn.wo[0, 0]``.
+    bits of each attention layer's fp32 ``attn.wo[0, 0]`` (0 for a
+    recurrent layer, which reads none).
 
     The reference seeds stochastic policies (Keyformer) per layer with those
     bits, taken from its fp32 master weights; a bf16 copy no longer holds
@@ -102,10 +121,15 @@ def layer_salts(params: dict) -> torch.Tensor:
     fp32)."""
     salt = getattr(params, "layer_salt", None)
     if salt is None:
-        blocks = params["blocks"]
-        salt = torch.stack([threefry.float_bits(blocks[str(pi)]["attn"]["wo"]
-                                                [:, 0, 0])
-                            for pi in range(len(blocks))], dim=1).reshape(-1)
+        cols = []
+        for pi in range(len(params["blocks"])):
+            blk = params["blocks"][str(pi)]
+            nsb = tree_leaves(blk)[0].shape[0]
+            cols.append(threefry.float_bits(blk["attn"]["wo"][:, 0, 0])
+                        if "attn" in blk else
+                        torch.zeros((nsb,), dtype=torch.int64,
+                                    device=params["embed"].device))
+        salt = torch.stack(cols, dim=1).reshape(-1)
     return salt
 
 
@@ -119,7 +143,9 @@ def init_model(arch: ArchConfig, *, seed: int = 0,
                dtype: Optional[torch.dtype] = None) -> dict:
     """Random weights with the reference's distributions and scales
     (N(0, 1) · d_in^-0.5 for projections and experts, N(0, 1) · 0.02 for
-    the embedding and the router, ones for norm scales), drawn from a
+    the embedding and the router, ones for norm scales; the recurrent
+    layers' as :func:`~repro_torch.models.rglru.init_rglru` and
+    :func:`~repro_torch.models.ssd.init_ssd` draw them), drawn from a
     seeded :class:`torch.Generator` on ``device``.  The draws differ from
     the reference's threefry streams; tests copy reference weights in
     through :func:`repro_torch.bridge.params_from_numpy` instead.  Matmul
@@ -171,20 +197,39 @@ def init_model(arch: ArchConfig, *, seed: int = 0,
     })
     if not arch.tie_embeddings:
         params["lm_head"] = normal((d, vp), d ** -0.5)
-    wo00 = torch.empty((nsb, arch.pattern_period), dtype=torch.float32,
+
+    def stacked_normal(shape, scale):
+        return normal((nsb,) + tuple(shape), scale)
+
+    def stacked_uniform(shape, lo, hi):
+        return torch.rand((nsb,) + tuple(shape), generator=gen,
+                          device=dev) * (hi - lo) + lo
+
+    wo00 = torch.zeros((nsb, arch.pattern_period), dtype=torch.float32,
                        device=dev)
     params["blocks"] = {}
-    for pi, _ in enumerate(arch.layer_pattern):
-        blk = {"attn_norm": norm(),
-               "attn": {"wq": dense(d, a.num_heads * a.head_dim),
-                        "wk": dense(d, a.num_kv_heads * a.head_dim),
-                        "wv": dense(d, a.num_kv_heads * a.head_dim),
-                        "wo": dense(a.num_heads * a.head_dim, d,
-                                    wo00[:, pi])},
-               "mlp_norm": norm(), "mlp": mlp_params()}
-        if arch.post_norm:
-            blk["attn_post_norm"] = norm()
-            blk["mlp_post_norm"] = norm()
+    for pi, kind in enumerate(arch.layer_pattern):
+        if kind == "ssd":
+            blk = {"norm": norm(),
+                   "ssd": ssd_lib.init_ssd(d, arch.ssm, stacked_normal)}
+        elif kind == "rglru":
+            blk = {"rglru_norm": norm(),
+                   "rglru": rglru_lib.init_rglru(d, arch.rglru,
+                                                 stacked_normal,
+                                                 stacked_uniform)}
+        else:
+            blk = {"attn_norm": norm(),
+                   "attn": {"wq": dense(d, a.num_heads * a.head_dim),
+                            "wk": dense(d, a.num_kv_heads * a.head_dim),
+                            "wv": dense(d, a.num_kv_heads * a.head_dim),
+                            "wo": dense(a.num_heads * a.head_dim, d,
+                                        wo00[:, pi])}}
+            if arch.post_norm:
+                blk["attn_post_norm"] = norm()
+        if mlp is not None and kind != "ssd":
+            blk.update(mlp_norm=norm(), mlp=mlp_params())
+            if arch.post_norm and kind in _ATTN_KINDS:
+                blk["mlp_post_norm"] = norm()
         params["blocks"][str(pi)] = blk
     params.layer_salt = threefry.float_bits(wo00.reshape(-1))
     return params
@@ -235,26 +280,41 @@ def layer_noise(arch: ArchConfig, batch: int, seq: int,
     gen = generator
     if gen is None:                 # the reference falls back to PRNGKey(0)
         gen = torch.Generator(device=device).manual_seed(0)
-    shape = (batch, arch.attn.num_kv_heads, seq)
+    shape = (batch, arch.attn.num_kv_heads if arch.attn else 1, seq)
     return [dms_lib.uniform_noise(shape, gen, device=device)
             for _ in range(arch.num_layers)]
 
 
 def _apply_block(p: dict, x: torch.Tensor, arch: ArchConfig, kind: str, *,
                  dtype, **attn_kw) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """One attention layer over the full sequence: pre-norm attention and
-    MLP, each with its post-norm when ``arch.post_norm``.  Returns (x, aux):
-    the attention's aux and the MLP's MoE aux."""
-    h = norm_apply(p["attn_norm"], x, arch.norm, arch.norm_eps)
-    a_out, aux = attn_lib.full_attention(
-        p["attn"], h, arch.attn, arch, layer_window=_layer_window(arch, kind),
-        **attn_kw)
-    if arch.post_norm:
-        a_out = norm_apply(p["attn_post_norm"], a_out, arch.norm, arch.norm_eps)
-    x = x + a_out
+    """One layer over the full sequence, as the reference's
+    ``_apply_block_full``: an attention layer is pre-norm attention then
+    MLP, each with its post-norm when ``arch.post_norm``; an RG-LRU layer
+    pre-norm RG-LRU then MLP; an SSD layer pre-norm SSD alone.  Returns
+    (x, aux): the attention's aux and the MLP's MoE aux."""
+    if kind == "ssd":
+        s_out, _ = ssd_lib.ssd_forward(
+            p["ssd"], norm_apply(p["norm"], x, arch.norm, arch.norm_eps), arch)
+        return x + s_out, {}
+    if kind == "rglru":
+        r_out, _ = rglru_lib.rglru_forward(
+            p["rglru"], norm_apply(p["rglru_norm"], x, arch.norm,
+                                   arch.norm_eps), arch)
+        x, aux = x + r_out, {}
+    else:
+        h = norm_apply(p["attn_norm"], x, arch.norm, arch.norm_eps)
+        a_out, aux = attn_lib.full_attention(
+            p["attn"], h, arch.attn, arch,
+            layer_window=_layer_window(arch, kind), **attn_kw)
+        if arch.post_norm:
+            a_out = norm_apply(p["attn_post_norm"], a_out, arch.norm,
+                               arch.norm_eps)
+        x = x + a_out
+    if arch.mlp is None:
+        return x, aux
     h = norm_apply(p["mlp_norm"], x, arch.norm, arch.norm_eps)
     m_out, m_aux = mlp_apply(p["mlp"], h, arch.mlp, dtype)
-    if arch.post_norm:
+    if arch.post_norm and kind in _ATTN_KINDS:
         m_out = norm_apply(p["mlp_post_norm"], m_out, arch.norm, arch.norm_eps)
     return x + m_out, {**aux, **m_aux}
 
@@ -345,18 +405,27 @@ def init_decode_state(arch: ArchConfig, batch: int, max_len: int,
                       policy: KVPolicyConfig,
                       device: DeviceLike = None) -> Dict[str, Any]:
     """One cache per pattern position, stacked over superblocks (lane axis
-    at position 1), provisioned through the policy registry with the
-    position's layer kind (``policy.layer_map`` picks its policy) and, for
-    a local layer, its window.  A paged policy gets one pool per layer,
-    stacked too: pages (nsb, NPOOL, block_p, Dh), ref (nsb, NPOOL)."""
+    at position 1).  An attention position's is provisioned through the
+    policy registry with its layer kind (``policy.layer_map`` picks its
+    policy) and, for a local layer, its window; a paged policy gets one
+    pool per layer, stacked too: pages (nsb, NPOOL, block_p, Dh), ref (nsb,
+    NPOOL).  A recurrent position holds its raw zero state (the
+    reference's ``_init_layer_cache``): no policy, no pages."""
     check_supported(arch)
     dev = resolve_device(device)
     nsb = arch.num_superblocks
     state = {}
     for pi, kind in enumerate(arch.layer_pattern):
-        one = policy_lib.init_policy_cache(
-            arch, batch, max_len, policy, layer_kind=kind,
-            layer_window=_layer_window(arch, kind), device=dev)
+        if kind == "ssd":
+            one = ssd_lib.init_ssd_state(batch, arch.d_model, arch.ssm,
+                                         device=dev)
+        elif kind == "rglru":
+            one = rglru_lib.init_rglru_state(batch, arch.d_model, arch.rglru,
+                                             device=dev)
+        else:
+            one = policy_lib.init_policy_cache(
+                arch, batch, max_len, policy, layer_kind=kind,
+                layer_window=_layer_window(arch, kind), device=dev)
         state[str(pi)] = tree_map(
             lambda a: a.unsqueeze(0).expand((nsb,) + a.shape).contiguous(),
             one)
@@ -370,7 +439,15 @@ def state_from_prefill(arch: ArchConfig, policy: KVPolicyConfig,
     layer's cache from its position's policy's
     :meth:`KVPolicy.prefill_import` (positions ``0..T-1``; a local layer
     with its window), stacked over superblocks as :func:`init_decode_state`
-    stacks them.  Every lane sits at position T, ready to decode."""
+    stacks them.  Every lane sits at position T, ready to decode.
+
+    A recurrent position raises: the reference has no path from a prefill
+    to a recurrent state, and a zero state would decode wrongly."""
+    for pi, kind in enumerate(arch.layer_pattern):
+        if kind not in _ATTN_KINDS:
+            raise NotImplementedError(
+                f"{arch.name}: no prefill import for the {kind!r} layer at "
+                f"pattern position {pi}; serve it through the decode step")
     state = {}
     for pi, kind in enumerate(arch.layer_pattern):
         kv = layer_kv[str(pi)]
@@ -391,41 +468,55 @@ def state_from_prefill(arch: ArchConfig, policy: KVPolicyConfig,
     return state
 
 
-def _map_caches(fn, state: Dict[str, Any], *rest) -> Dict[str, Any]:
-    return {key: fn(pc, *(r[key] for r in rest)) for key, pc in state.items()}
+def _map_state(fn_cache, fn_leaf, state, *rest):
+    """A state (or a slab) with ``fn_cache(policy, cache, *rest caches)``
+    applied to every :class:`~repro_torch.core.policy.PolicyCache` (its
+    policy's lifecycle hook) and ``fn_leaf(leaf, *rest leaves)`` to every
+    leaf of a raw recurrent state, as the reference maps over every
+    leaf."""
+    def visit(node, *r):
+        if isinstance(node, policy_lib.PolicyCache):
+            pol = policy_lib.get_policy(node.policy)
+            return policy_lib.PolicyCache(
+                fn_cache(pol, node.cache, *(x.cache for x in r)), node.policy)
+        if isinstance(node, dict):
+            return {k: visit(v, *(x[k] for x in r)) for k, v in node.items()}
+        return tree_map(fn_leaf, node, *r)
+
+    return visit(state, *rest)
 
 
 def fork_decode_state(state: Dict[str, Any], width: int) -> Dict[str, Any]:
     """Shared-prefill fork: clone every lane into ``width`` chains."""
-    return _map_caches(lambda pc: policy_lib.PolicyCache(
-        policy_lib.get_policy(pc.policy).fork_cache(pc.cache, width, axis=1),
-        pc.policy), state)
+    return _map_state(lambda pol, c: pol.fork_cache(c, width, axis=1),
+                      lambda a: a.repeat_interleave(width, dim=1), state)
 
 
 def gather_lanes(state: Dict[str, Any], src) -> Dict[str, Any]:
     """Lane shuffle: new lane ``l`` is a copy of old lane ``src[l]``."""
     src = torch.as_tensor(src)
-    return _map_caches(lambda pc: policy_lib.PolicyCache(
-        policy_lib.get_policy(pc.policy).gather_cache(pc.cache, src, axis=1),
-        pc.policy), state)
+    return _map_state(
+        lambda pol, c: pol.gather_cache(c, src, axis=1),
+        lambda a: a.index_select(1, src.to(device=a.device, dtype=torch.long)),
+        state)
 
 
 def reclaim_lanes(state: Dict[str, Any], reset_mask: torch.Tensor,
                   fresh: Dict[str, Any]) -> Dict[str, Any]:
     """Lanes where ``reset_mask`` (B,) is True return to ``fresh``."""
-    return _map_caches(lambda pc, init: policy_lib.PolicyCache(
-        policy_lib.get_policy(pc.policy).reclaim_cache(
-            pc.cache, reset_mask, init.cache, axis=1), pc.policy),
+    return _map_state(
+        lambda pol, c, init: pol.reclaim_cache(c, reset_mask, init, axis=1),
+        lambda a, init: torch.where(reset_mask.to(a.device).reshape(
+            (1, -1) + (1,) * (a.dim() - 2)), init, a),
         state, fresh)
 
 
 def export_lane_state(state: Dict[str, Any], lane: int) -> Dict[str, Any]:
     """One lane's complete decode state as a width-1-lane state of the same
-    structure (new tensors; a paged cache densifies its pages) — the
-    preemption snapshot."""
-    return _map_caches(lambda pc: policy_lib.PolicyCache(
-        policy_lib.get_policy(pc.policy).export_prefix(pc.cache, lane, axis=1),
-        pc.policy), state)
+    structure (new tensors; a paged cache densifies its pages, a recurrent
+    state is sliced) — the preemption and prefix snapshot."""
+    return _map_state(lambda pol, c: pol.export_prefix(c, lane, axis=1),
+                      lambda a: a.narrow(1, lane, 1).clone(), state)
 
 
 def import_lane_state(state: Dict[str, Any], snap: Dict[str, Any],
@@ -435,10 +526,11 @@ def import_lane_state(state: Dict[str, Any], snap: Dict[str, Any],
     snapshot was taken."""
     dev = next(iter(state.values())).length.device
     snap = tree_map(lambda a: a.to(dev), snap)
-    return _map_caches(lambda pc, s: policy_lib.PolicyCache(
-        policy_lib.get_policy(pc.policy).import_prefix(pc.cache, s.cache, lane,
-                                                       axis=1), pc.policy),
-        state, snap)
+    # the index is filled on the device: a host-built one would sync
+    idx = torch.full((1,), lane, dtype=torch.long, device=dev)
+    return _map_state(
+        lambda pol, c, s: pol.import_prefix(c, s, lane, axis=1),
+        lambda a, s: a.index_copy(1, idx, s.to(a.dtype)), state, snap)
 
 
 def init_snapshot_slab(snap: Dict[str, Any], slots: int) -> Dict[str, Any]:
@@ -451,21 +543,6 @@ def init_snapshot_slab(snap: Dict[str, Any], slots: int) -> Dict[str, Any]:
                                           + a.shape[2:]), snap)
 
 
-def _slab_map(fn_cache, fn_leaf, slab, *rest):
-    """``fn_cache(policy, cache, *rest caches)`` on every PolicyCache node of
-    a slab, ``fn_leaf`` on any other tensor (a raw snapshot leaf)."""
-    def visit(node, *r):
-        if isinstance(node, policy_lib.PolicyCache):
-            pol = policy_lib.get_policy(node.policy)
-            return policy_lib.PolicyCache(
-                fn_cache(pol, node.cache, *(x.cache for x in r)), node.policy)
-        if isinstance(node, dict):
-            return {k: visit(v, *(x[k] for x in r)) for k, v in node.items()}
-        return fn_leaf(node, *r)
-
-    return visit(slab, *rest)
-
-
 def store_lane_snapshot(slab: Dict[str, Any], snap: Dict[str, Any],
                         slot: int) -> Dict[str, Any]:
     """Write a width-1 snapshot (on any device) into slab slot ``slot``, in
@@ -475,7 +552,7 @@ def store_lane_snapshot(slab: Dict[str, Any], snap: Dict[str, Any],
         a.narrow(1, slot, 1).copy_(s)
         return a
 
-    return _slab_map(lambda pol, c, s: pol.import_slab(c, s, slot, axis=1),
+    return _map_state(lambda pol, c, s: pol.import_slab(c, s, slot, axis=1),
                      leaf, slab, snap)
 
 
@@ -483,7 +560,7 @@ def fetch_lane_snapshot(slab: Dict[str, Any], slot: int) -> Dict[str, Any]:
     """The snapshot in slab slot ``slot`` as new device tensors: a hot hit
     feeds it to :func:`import_lane_state` device to device.  Dispatches
     through :meth:`KVPolicy.export_slab`."""
-    return _slab_map(lambda pol, c: pol.export_slab(c, slot, axis=1),
+    return _map_state(lambda pol, c: pol.export_slab(c, slot, axis=1),
                      lambda a: a.narrow(1, slot, 1).clone(), slab)
 
 
@@ -550,11 +627,12 @@ def decode_step(
     """One decode step.  Returns (logits (B, V_pad) fp32, state, aux).
 
     ``state`` is updated in place and returned.  Lanes where ``active`` is
-    False keep their state exactly and add zero to ``reads_tokens``; their
-    ``live_tokens`` is what the step would have left, as the reference
-    reports it.  Layers run in the reference's order (superblocks, then
-    positions); each position's policy prepares the step once for its
-    stacked layers, with their salts."""
+    False keep their state exactly (a recurrent layer's h, conv history and
+    length too) and add zero to ``reads_tokens``; their ``live_tokens`` is
+    what the step would have left, as the reference reports it.  Layers
+    run in the reference's order (superblocks, then positions); each
+    attention position's policy prepares the step once for its stacked
+    layers, with their salts."""
     check_supported(arch)
     x = embed_tokens(params, token, arch)
     b = x.shape[0]
@@ -564,7 +642,7 @@ def decode_step(
     salts = layer_salts(params).reshape(arch.num_superblocks,
                                         arch.pattern_period)
     prepared = {}
-    for pi in range(arch.pattern_period):
+    for pi in _attn_positions(arch):
         stacked = state[str(pi)]
         prepared[pi] = policy_lib.get_policy(stacked.policy).prepare_step(
             stacked.cache, {"layer_salt": salts[:, pi], "active": active})
@@ -572,6 +650,9 @@ def decode_step(
     for _, sb, pi, kind in _layers(arch):
         p = tree_map(lambda a: a[sb], params["blocks"][str(pi)])  # views
         cache = tree_map(lambda a: a[sb], state[str(pi)])
+        if kind not in _ATTN_KINDS:
+            x = _recurrent_layer(p, x, cache, arch, kind, active, dtype)
+            continue
         h = norm_apply(p["attn_norm"], x, arch.norm, arch.norm_eps)
         a_out, _, aux = attn_lib.decode_attention(
             p["attn"], h, cache, arch.attn, arch,
@@ -585,6 +666,8 @@ def decode_step(
         x = x + a_out
         live = live + aux["live_tokens"]
         reads = reads + aux["reads_tokens"]
+        if arch.mlp is None:
+            continue
         h = norm_apply(p["mlp_norm"], x, arch.norm, arch.norm_eps)
         m_out, _ = mlp_apply(p["mlp"], h, arch.mlp, dtype)
         if arch.post_norm:
@@ -596,3 +679,30 @@ def decode_step(
     logits = lm_logits(params, x, arch)[:, 0]
     return logits, state, {"live_tokens": live, "reads_tokens": reads,
                            "attn_impl_kernel": int(impls == {"kernel"})}
+
+
+def _recurrent_layer(p: dict, x: torch.Tensor, cache: Any, arch: ArchConfig,
+                     kind: str, active: Optional[torch.Tensor],
+                     dtype) -> torch.Tensor:
+    """One RG-LRU (then MLP) or SSD layer of the decode step; the layer's
+    state ``cache`` (views into the stacked state) takes the new state in
+    place for the lanes of ``active`` (None: all)."""
+    if kind == "ssd":
+        out, new = ssd_lib.ssd_decode_step(
+            p["ssd"], norm_apply(p["norm"], x, arch.norm, arch.norm_eps),
+            cache, arch)
+    else:
+        out, new = rglru_lib.rglru_decode_step(
+            p["rglru"], norm_apply(p["rglru_norm"], x, arch.norm,
+                                   arch.norm_eps), cache, arch)
+    for old, val in zip(tree_leaves(cache), tree_leaves(new)):
+        old.copy_(val if active is None else
+                  torch.where(active.reshape((-1,) + (1,) * (old.dim() - 1)),
+                              val.to(old.dtype), old))
+    x = x + out
+    if kind == "rglru" and arch.mlp is not None:
+        m_out, _ = mlp_apply(p["mlp"], norm_apply(p["mlp_norm"], x, arch.norm,
+                                                  arch.norm_eps),
+                             arch.mlp, dtype)
+        x = x + m_out
+    return x

@@ -12,6 +12,14 @@ layers, through the weights-out mode and per-layer noise salts), a prefix
 cache (warm equal to cold on a two-position state) and granite under pool
 pressure (preemption and resume).  bf16 MoE routing can flip on an ulp, so
 the prompts are pinned on seeds with no near tie.
+
+The hybrids: recurrentgemma (an RG-LRU state beside a local-attention
+cache) under ``dms``, ``window`` and ``vanilla`` and mamba2 (SSD states
+only, no cache) under ``vanilla``, on the same trace fixed and paged; a
+recurrentgemma prefix-cache trace whose snapshots carry the RG-LRU state;
+and both archs' prefix-cache entry bytes.  XLA's bf16 SiLU and GELU round
+apart from torch's in some elements (ROADMAP's bf16 caveat); the pinned
+prompts (seeds 13, 27 and 50, and the prefix trace's 4) meet no near tie.
 """
 import dataclasses
 
@@ -53,7 +61,7 @@ def _port(name):
 
 def _engines(name, chunk=8, **pol):
     jarch, jparams, tarch, tparams = _port(name)
-    kw = dict(kind="dms", cr=2.0, window=jarch.dms.window, **pol)
+    kw = {"kind": "dms", "cr": 2.0, "window": jarch.dms.window, **pol}
     return (JEngine(jarch, jparams, JKV(**kw), use_kernel=True, chunk=chunk),
             Engine(tarch, tparams, KVPolicyConfig(**kw), use_kernel=True,
                    chunk=chunk, device="cpu"))
@@ -115,15 +123,11 @@ def test_gemma2_layer_maps_match_reference(layout):
     assert pols == {"0": want.get("attn_local", "dms"), "1": want["attn"]}
 
 
-def test_gemma2_prefix_cache_warm_equals_cold():
-    """Two requests sharing a 20-token prefix through the prefix cache
-    (its hot slab): the second's suffix prefill starts from the first's
-    two-position snapshot, and its tokens equal a cold serve's and the
-    reference's."""
-    name = "gemma2-2b"
+def _warm_equals_cold(name, kw):
+    """Two requests sharing a 20-token prefix through the prefix cache (its
+    hot slab): the second's suffix prefill starts from the first's
+    snapshot, and its tokens equal a cold serve's and the reference's."""
     jarch, jparams, tarch, tparams = _port(name)
-    kw = dict(kind="dms", cr=2.0, window=tarch.dms.window, budget=12,
-              layer_map={"attn_local": "window", "attn": "dms"})
     pol = KVPolicyConfig(**kw)
     vocab = tarch.vocab_size
     r = np.random.default_rng(4)
@@ -155,17 +159,21 @@ def test_gemma2_prefix_cache_warm_equals_cold():
         pytest.approx(cold[1].prefill_meter.kv_reads)
 
 
-def test_granite_paged_preemption_matches_reference():
-    """Two lanes oversubscribe a pool of 10 pages (a lane's worst case at
-    max_len 24 is 3 pages a kv head, 6 a layer): preemption and resume on
-    an MoE model, equal to the reference and to solo runs."""
-    name = "granite-moe-1b-a400m"
-    jeng, teng = _engines(name, chunk=4, paged=True, block_p=8,
-                          pool_blocks=10)
-    prompts = _prompts(name, lens=(10, 10), seed=50)
-    kw = dict(oversub=2.0, on_pressure="preempt")
-    rj, sj = _serve(jeng, JRequest, prompts, max_len=24, max_new=8, **kw)
-    rt, st = _serve(teng, Request, prompts, max_len=24, max_new=8, **kw)
+def test_gemma2_prefix_cache_warm_equals_cold():
+    """``_warm_equals_cold`` on a two-position state (a window ring on the
+    local layer, dms on the global one)."""
+    _warm_equals_cold("gemma2-2b", dict(
+        kind="dms", cr=2.0, window=_port("gemma2-2b")[2].dms.window,
+        budget=12, layer_map={"attn_local": "window", "attn": "dms"}))
+
+
+def _preemption_trace(name, kw, prompts):
+    """Two lanes oversubscribe the pool of ``kw`` (``oversub`` 2):
+    preemption and resume, equal to the reference and to solo runs."""
+    jeng, teng = _engines(name, chunk=4, **kw)
+    over = dict(oversub=2.0, on_pressure="preempt")
+    rj, sj = _serve(jeng, JRequest, prompts, max_len=24, max_new=8, **over)
+    rt, st = _serve(teng, Request, prompts, max_len=24, max_new=8, **over)
     assert_same(rt, rj)
     life = st.pool_stats()["lifecycle"]
     assert life == sj.pool_stats()["lifecycle"]
@@ -173,3 +181,93 @@ def test_granite_paged_preemption_matches_reference():
     for i, p in enumerate(prompts):
         solo, _ = _serve(teng, Request, [p], lanes=1, max_len=24, max_new=8)
         np.testing.assert_array_equal(rt[i].tokens, solo[0].tokens)
+
+
+def test_granite_paged_preemption_matches_reference():
+    """A pool of 10 pages (a lane's worst case at max_len 24 is 3 pages a
+    kv head, 6 a layer) on an MoE model."""
+    name = "granite-moe-1b-a400m"
+    _preemption_trace(name, dict(paged=True, block_p=8, pool_blocks=10),
+                      _prompts(name, lens=(10, 10), seed=50))
+
+
+HYBRID_CASES = [("recurrentgemma-2b", "dms"), ("recurrentgemma-2b", "window"),
+                ("recurrentgemma-2b", "vanilla"), ("mamba2-2.7b", "vanilla")]
+
+
+def _hybrid_policy(name, kind, **kw):
+    jarch = _port(name)[0]
+    return dict(kind=kind, cr=2.0, window=jarch.dms.window,
+                budget=12 if kind == "window" else None, **kw)
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["fixed", "paged"])
+@pytest.mark.parametrize("name,kind", HYBRID_CASES,
+                         ids=[f"{n}-{k}" for n, k in HYBRID_CASES])
+def test_hybrid_engine_matches_reference(name, kind, paged):
+    """The staggered trace on two lanes (lanes reclaimed and reused, the
+    recurrent state reset with them); the 14-token prompt plus 5 new
+    tokens outruns the smoke window of 16, so recurrentgemma's local
+    caches hide keys.  mamba2 has no cache: no pool, zero reads."""
+    jeng, teng = _engines(name, **_hybrid_policy(name, kind, paged=paged,
+                                                 block_p=8))
+    prompts = _prompts(name)
+    rj, sj = _serve(jeng, JRequest, prompts)
+    rt, st = _serve(teng, Request, prompts)
+    assert_same(rt, rj)
+    if name == "mamba2-2.7b":
+        assert st.pool_stats() is None and st.peak_bytes == 0.0
+        assert all(r.meter.kv_reads == 0 for r in rt.values())
+    else:
+        assert st.peak_bytes == sj.peak_bytes > 0
+
+
+def test_recurrentgemma_prefix_cache_warm_equals_cold():
+    """``_warm_equals_cold`` with the snapshot carrying the RG-LRU state
+    beside the local cache."""
+    _warm_equals_cold("recurrentgemma-2b",
+                      _hybrid_policy("recurrentgemma-2b", "dms"))
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["fixed", "paged"])
+@pytest.mark.parametrize("name,kind", [HYBRID_CASES[0], HYBRID_CASES[3]],
+                         ids=["recurrentgemma-2b", "mamba2-2.7b"])
+def test_snapshot_bytes_match_reference(name, kind, paged):
+    """One prefix-cache entry's bytes (a lane snapshot, recurrent leaves
+    included, and its logits row) equal the reference's, as
+    ``test_torch_prefix_cache.py``'s test of that name holds them for the
+    dense model."""
+    jarch, jparams, tarch, tparams = _port(name)
+    kw = _hybrid_policy(name, kind, paged=paged, block_p=8)
+    want = JEngine(jarch, jparams, JKV(**kw), prefix_cache_mb=64).scheduler(
+        num_lanes=2, max_len=32)._snap_nbytes
+    got = Engine(tarch, tparams, KVPolicyConfig(**kw), device="cpu",
+                 prefix_cache_mb=64).scheduler(
+        num_lanes=2, max_len=32)._snap_nbytes
+    assert got == want
+
+
+def test_recurrentgemma_paged_preemption_matches_reference():
+    """A pool of 4 pages: a preempted request's snapshot carries its RG-LRU
+    state to the host and back."""
+    name = "recurrentgemma-2b"
+    _preemption_trace(name, dict(paged=True, block_p=8, pool_blocks=4),
+                      _prompts(name, lens=(10, 10), seed=50))
+
+
+def test_recurrentgemma_fork_matches_reference():
+    """A width-2 request: the prompt is prefilled once and the lane forked
+    (the RG-LRU state copied with the local cache), beside a width-1
+    request; tokens and meters equal the JAX ``Engine``'s."""
+    name = "recurrentgemma-2b"
+    jeng, teng = _engines(name, block_p=8)
+    prompts = _prompts(name, lens=(13, 9), seed=27)
+    out = []
+    for eng, req in ((jeng, JRequest), (teng, Request)):
+        sched = eng.scheduler(num_lanes=3, max_len=32)
+        for i, (p, w) in enumerate(zip(prompts, (2, 1))):
+            sched.submit(req(uid=i, prompt=p, max_new=6, arrival=i, width=w))
+        out.append({r.uid: r for r in sched.run()})
+    rj, rt = out
+    assert_same(rt, rj)
+    assert rt[0].tokens.shape == (2, 6)

@@ -92,11 +92,10 @@ def test_init_model_layout_matches_reference(name):
     assert tparams.layer_salt.shape == (tarch.num_layers,)
 
 
-@pytest.mark.parametrize("name", ["mamba2-2.7b", "recurrentgemma-2b",
-                                  "seamless-m4t-large-v2"])
+@pytest.mark.parametrize("name", ["seamless-m4t-large-v2"])
 def test_other_families_still_raise(name):
-    """Recurrent layers, encoders and cross-attention are not ported: every
-    entry point refuses them, nothing falls back."""
+    """Encoders, cross-attention and LayerNorm are not ported: every entry
+    point refuses them, nothing falls back."""
     tarch = bridge.arch_from_dict(dataclasses.asdict(jget_smoke(name)))
     with pytest.raises(NotImplementedError, match="not ported"):
         ttfm.check_supported(tarch)

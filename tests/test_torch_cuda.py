@@ -13,10 +13,12 @@ from repro_torch.kernels.dms_decode.ref import dms_decode_plain
 
 BP = 16
 BF16 = dict(rtol=2e-2, atol=2e-2)   # each side rounds its output to bf16
-# (G, Dh, P, cap) of gemma2-2b, chatglm3-6b, qwen2-vl-7b, granite-moe-3b and
-# granite-moe-1b at their served arenas
+# (G, Dh, P, cap) of gemma2-2b, chatglm3-6b, qwen2-vl-7b, granite-moe-3b,
+# granite-moe-1b and recurrentgemma-2b at their served arenas, and
+# recurrentgemma's window ring
 FAMILY_SHAPES = [(2, 256, 352, 50.0), (16, 128, 336, None),
-                 (7, 128, 336, None), (3, 64, 336, None), (2, 64, 336, None)]
+                 (7, 128, 336, None), (3, 64, 336, None), (2, 64, 336, None),
+                 (10, 256, 352, None), (10, 256, 2064, None)]
 
 
 @pytest.fixture
@@ -36,7 +38,8 @@ def test_decode_kernel_matches_plain(cuda_device, g, dh, p, cap):
     block and must come out zero.  Also each served family's (G, Dh, cap):
     gemma2's G 2 at Dh 256 with the softcap 50 (its one-stage ring),
     chatglm3's G 16 (the kernel's largest), qwen2-vl's G 7, granite's G 3
-    and G 2 at Dh 64."""
+    and G 2 at Dh 64, recurrentgemma's G 10 at Dh 256 (its arena and its
+    2049-slot window ring)."""
     gen = torch.Generator(device=cuda_device).manual_seed(g * dh)
     bh = 8
     q = torch.randn((bh, g, dh), generator=gen, device=cuda_device).bfloat16()
@@ -693,6 +696,34 @@ def test_gemma2_prefill_export_raises_at_head_dim_256(cuda_device):
     with pytest.raises(ValueError, match="head_dim"):
         make_prefill_step(arch, dms=True, use_kernel=True)(
             params, {"tokens": tokens})
+    assert fops.launches == before
+
+
+@pytest.mark.cuda
+def test_recurrentgemma_kernel_path_raises_at_head_dim_256(cuda_device):
+    """recurrentgemma's local layers have gemma2's head dim (256): its
+    prefill export and its retrofit through the flash kernels raise on the
+    card, and never take the reference attention instead."""
+    import dataclasses
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels.dms_attention import ops as fops
+    from repro_torch.launch.steps import make_prefill_step, make_retrofit_step
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw
+    arch = get_smoke("recurrentgemma-2b")
+    arch = dataclasses.replace(arch, attn=dataclasses.replace(arch.attn,
+                                                              head_dim=256))
+    params = tfm.init_model(arch, seed=0, device=cuda_device,
+                            dtype=torch.float32)
+    tokens = torch.zeros((2, 64), dtype=torch.int32, device=cuda_device)
+    batch = {"tokens": tokens, "labels": tokens}
+    before = dict(fops.launches)
+    with pytest.raises(ValueError, match="head_dim"):
+        make_prefill_step(arch, dms=True, use_kernel=True)(params, batch)
+    step = make_retrofit_step(arch, adamw.AdamWConfig(), use_kernel=True,
+                              remat=False)
+    with pytest.raises(ValueError, match="head_dim"):
+        step(params, params, adamw.init(params), batch, 3)
     assert fops.launches == before
 
 

@@ -50,12 +50,13 @@ def test_every_port_module_is_checked():
     """The walk above reaches every module, the weight-driven policies' own
     (Threefry, the baselines, Keyformer), the evaluation's (the tasks) and
     the serving extras' (the prefix cache, the workload traces, the serve
-    launcher) included."""
+    launcher) and the hybrids' (RG-LRU, SSD and its chunk op) included."""
     names = {p.relative_to(PORT).as_posix() for p in FILES if PORT in p.parents}
     assert {"core/threefry.py", "core/baselines.py", "core/keyformer.py",
             "core/policy.py", "kernels/dms_decode/ops.py", "data/tasks.py",
             "core/hyperscale.py", "serving/prefix_cache.py",
-            "serving/workload.py", "launch/serve.py"} <= names
+            "serving/workload.py", "launch/serve.py", "models/rglru.py",
+            "models/ssd.py", "kernels/ssd/ops.py"} <= names
 
 
 def test_importing_the_port_loads_no_jax():
