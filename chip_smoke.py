@@ -158,6 +158,21 @@ Phases (any failure raises, so the exit code is non-zero):
               first-token logits equal to a cold engine's exactly (the
               snapshot carries the RG-LRU state); a profiled step of each
               model.  The depth cuts are printed on a line of their own.
+5h. enc-dec — seamless-m4t-large-v2 at full width (24 + 24 layers, 16/16
+              heads of 64, LayerNorm), random bf16 weights from seed 0 and
+              phase 4's DMS bias: (a) 4 lanes of 1024 frames encoded once
+              through ``flash_fwd`` with ``causal=False`` (24 launches), a
+              320-token prompt a lane teacher-forced and 32 greedy tokens
+              through ``make_serve_step`` with the encoder output, dms at CR
+              8: two decode launches a decoder layer a step (self-attention
+              on fixed arenas, the cross-attention through the wrapper's
+              dense mode); a profiled step; (b) the same trace at 4 decoder
+              layers (the encoder whole), fixed then paged: tokens equal; (c)
+              48 teacher-forced steps at 4 layers, kernel against reference
+              path, lane 1's last 200 frames hidden, and the encoder's output
+              through the kernel against the reference path's; (d) one
+              ``make_train_step`` at 2 + 2 layers (B 2, 1024 tokens, 1024
+              frames), kernel against reference path: loss within 1e-2.
 6. train    — qwen-r1-1.5b at full width, fp32 weights from seed 0, DMS
               retrofit (one phase-1 step, three distillation steps) on the
               synthetic stream at (B 2, T 1024) through the flash kernels:
@@ -196,9 +211,16 @@ holds both modes at every shape 5f launches (``arch_decode_keys``, with
 gemma2's softcap 50; slot densities 0.5 and 0.05) and at granite-1b's G 2
 at Dh 64, and ``flash_fwd`` at chatglm3's prefill shape (Hq 32, G 16);
 and both modes at every shape 5g launches (``hybrid_decode_keys``:
-recurrentgemma's G 10 at Dh 256).  Phase 7 also times ``flash_fwd`` at the
-prefill export's shapes and the decode kernel at 5f's serving shapes and
-at recurrentgemma's serving shapes and (b)'s window ring.  The last
+recurrentgemma's G 10 at Dh 256); and at every shape 5h launches: the decode
+kernel at G 1, Dh 64 (both modes), the dense mode at the cross-attention's
+shape (every frame visible, and a hidden tail), and ``flash_fwd``,
+``flash_dq`` and ``flash_dkv`` with ``causal=False`` at the encoder's shapes
+(T 1024 and 1000, bf16 and fp32) and at the train step's (``encdec_flash_
+cases``), with the autograd Function against the dense oracle.  Phase 7
+also times ``flash_fwd`` at the prefill export's shapes and the decode
+kernel at 5f's serving shapes, at recurrentgemma's serving shapes and (b)'s
+window ring, and at 5h's (G 1, the cross-attention's dense mode), and the
+three flash kernels at 5h's encoder shape beside SDPA with no mask.  The last
 four lines are the script's total seconds, the ``kernels`` JSON line, the
 card's name and power limit (again) and the result line ``{"ok": true,
 "device": {...}}``.  Imports nothing of JAX.
@@ -971,12 +993,12 @@ def phase_quest_dmc_kernels(torch, arch, layouts, device="cuda"):
 
 def flash_case(torch, *, b, t, hq, hkv, dh, dtype, alpha="relaxed",
                delay=256, window=None, cap=None, skip=False, seed=0,
-               device="cuda"):
+               device="cuda", causal=True):
     """Folded flash-attention operands as ``dms_flash_attention`` builds them
     (q/k/v ~ N(0, 1); α uniform in [0.02, 0.9], or binarised: 1 with
     probability 0.9 and on every key of [128, 640), so that four whole
     128-key blocks hold no retained key and their tiles below the diagonal
-    are skipped), with a random dO (zero on padded rows):
+    are skipped; or None, vanilla), with a random dO (zero on padded rows):
     (qf, kf, vf, ls, hr, cfg, do)."""
     from repro_torch.kernels.dms_attention import ops as fops
     from repro_torch.kernels.dms_attention.ref import FlashConfig
@@ -1000,7 +1022,7 @@ def flash_case(torch, *, b, t, hq, hkv, dh, dtype, alpha="relaxed",
             a[:, :, 128:640] = 1.0
         ls = fops.kernel_log_survival(a, tp)
     cfg = FlashConfig(t=t, orig_dh=dh, hq=hq, hkv=hkv, window=window,
-                      dms_delay=delay, causal=True, logit_cap=cap,
+                      dms_delay=delay, causal=causal, logit_cap=cap,
                       block_k=bk, skip_blocks=skip)
     hr = fops.prep_tables(ls, cfg)
     do = torch.randn(qf.shape, generator=gen, device=device).to(dtype)
@@ -2315,15 +2337,16 @@ def device_events(torch, prof):
 
 
 def phase_profile(torch, params, arch, policies, *, lanes, max_len, device,
-                  steps=4, pairs=4):
+                  steps=4, pairs=4, step_kw=None):
     """Where a decode step's time goes, for each named policy: host-
     dispatched ATen ops per step (counted with a dispatch mode), wall time
     per step, and the device's busy time under torch.profiler (its device-
     side entries, summed).  With several policies the wall times are taken
     in ``pairs`` alternating turns (A B ..., ... B A), since the host's
     speed drifts between runs; a line gives each pair's ratio to the
-    first policy.  Returns per policy the median wall ms, the ATen ops and
-    the device ms of a step (0 where not measured)."""
+    first policy.  ``step_kw`` goes to every ``decode_step`` (an encoder-
+    decoder's ``enc_out``).  Returns per policy the median wall ms, the
+    ATen ops and the device ms of a step (0 where not measured)."""
     from torch.utils._python_dispatch import TorchDispatchMode
     from repro_torch.models import transformer as tfm
     tok = torch.full((lanes, 1), 7, dtype=torch.int32, device=device)
@@ -2333,10 +2356,12 @@ def phase_profile(torch, params, arch, policies, *, lanes, max_len, device,
                                           device=device)
               for name, pol in policies.items()}
 
+    step_kw = step_kw or {}
+
     def run(name, n):
         for _ in range(n):
             tfm.decode_step(params, tok, states[name], arch, pos,
-                            use_kernel=True, active=act)
+                            use_kernel=True, active=act, **step_kw)
         if device == "cuda":
             torch.cuda.synchronize()
 
@@ -2372,7 +2397,7 @@ def phase_profile(torch, params, arch, policies, *, lanes, max_len, device,
             torch.cuda.set_sync_debug_mode("error")
             try:
                 tfm.decode_step(params, tok, states[name], arch, pos,
-                                use_kernel=True, active=act)
+                                use_kernel=True, active=act, **step_kw)
             finally:
                 torch.cuda.set_sync_debug_mode(0)
             torch.cuda.synchronize()
@@ -3896,6 +3921,708 @@ def phase_hybrid_timing(torch, launches, errs):
     return rows
 
 
+# -- phase 5h: the encoder–decoder seamless-m4t-large-v2 ----------------------
+
+ENCDEC = "seamless-m4t-large-v2"
+# (a) lanes, encoder frames a lane, teacher-forced prompt tokens and greedy
+# new tokens a lane (dms evicts past its 256-token delay)
+ENCDEC_LANES, ENCDEC_FRAMES, ENCDEC_PROMPT, ENCDEC_NEW = 4, 1024, 320, 32
+# (b) and (c): the decoder layers served (the encoder stays whole)
+ENCDEC_SHALLOW = 4
+# (c): teacher-forced kernel-vs-reference steps; lane 1's hidden tail frames
+ENCDEC_TRACE, ENCDEC_TAIL = 48, 200
+# (d): one train step: encoder and decoder layers each, batch, decoder
+# tokens and frames
+ENCDEC_TRAIN = dict(layers=2, batch=2, tokens=1024, frames=1024)
+
+
+def encdec_policy(arch):
+    """5h's decoder self-attention layout: dms at CR 8."""
+    from repro_torch.core.config import KVPolicyConfig
+    return KVPolicyConfig(kind="dms", cr=8.0)
+
+
+def cross_key(arch, lanes, frames):
+    """The ``launch_key`` of one decoder layer's cross-attention over
+    ``frames`` encoder frames a lane: the dense mode derives a table over
+    blocks of ``min(DEFAULT_BLOCK_P, round_up(frames, 8))`` slots."""
+    from repro_torch.kernels.dms_decode import ops
+    a = arch.attn
+    bp = min(ops.DEFAULT_BLOCK_P, -(-frames // 8) * 8)
+    return (lanes * a.num_kv_heads, a.q_per_kv, a.head_dim,
+            -(-frames // bp) * bp, bp)
+
+
+def encdec_decode_keys(arch=None, lanes=ENCDEC_LANES, frames=ENCDEC_FRAMES,
+                       max_len=ENCDEC_PROMPT + ENCDEC_NEW):
+    """Every decode launch shape 5h makes: the self-attention's fixed-arena
+    and shared-pool keys of its layout (the trace's and the profile's too)
+    and the cross-attention's dense-mode key."""
+    from repro_torch.configs import get_arch
+    arch = arch or get_arch(ENCDEC)
+    kw = dataclasses.asdict(encdec_policy(arch))
+    return {*state_keys(arch, kw, lanes, max_len),
+            *state_keys(arch, dict(kw, paged=True), lanes, max_len),
+            cross_key(arch, lanes, frames)}
+
+
+def flash_key(q, cfg):
+    """A flash launch's shape: (causal, B, T, Hq, Hkv, Dh, dtype, DMS
+    delay)."""
+    return (cfg.causal, q.shape[0] // cfg.hq, cfg.t, cfg.hq, cfg.hkv,
+            cfg.orig_dh, str(q.dtype).removeprefix("torch."), cfg.dms_delay)
+
+
+def encdec_flash_cases(arch=None, lanes=ENCDEC_LANES, frames=ENCDEC_FRAMES,
+                       train=ENCDEC_TRAIN):
+    """{name: ``flash_case`` keywords} of every flash launch shape 5h makes
+    — (a)'s encoder (non-causal, no α, bf16), (d)'s encoder and decoder (the
+    LM train step runs vanilla) — and (a)'s encoder 24 frames short (off
+    the 64-row tile) and in fp32."""
+    from repro_torch.configs import get_arch
+    a = (arch or get_arch(ENCDEC)).attn
+    head = dict(hq=a.num_heads, hkv=a.num_kv_heads, dh=a.head_dim, alpha=None)
+    cases = {f"encoder (a), T {t}, {dtype}": dict(
+        head, b=lanes, t=t, dtype=dtype, causal=False)
+        for t in (frames, frames - 24) for dtype in ("bfloat16", "float32")}
+    cases["encoder (d)"] = dict(head, b=train["batch"], t=train["frames"],
+                                dtype="bfloat16", causal=False)
+    cases["decoder (d)"] = dict(head, b=train["batch"], t=train["tokens"],
+                                dtype="bfloat16", causal=True)
+    return cases
+
+
+def encdec_flash_keys(torch, cases, device="cuda"):
+    """The ``flash_key`` of each of ``cases``."""
+    keys = set()
+    for kw in cases.values():
+        kw = dict(kw)
+        dtype = getattr(torch, kw.pop("dtype"))
+        qf, *_, cfg, _ = flash_case(torch, dtype=dtype, device=device, **kw)
+        keys.add(flash_key(qf, cfg))
+    return keys
+
+
+def check_encdec_flash(torch, cases, device="cuda"):
+    """Phase 3's flash checks at 5h's shapes: for each of ``cases``
+    (``encdec_flash_cases``) fwd, dq and dkv against their plain versions
+    within FLASH_REL_TOL, each bit-equal on a second launch, d(log_surv)
+    zero; then the autograd Function at the first non-causal fp32 case
+    against autograd through the dense oracle (``causal=False``) within
+    GRAD_REL_TOL.  Returns each kernel's max abs error at the first case."""
+    from repro_torch.kernels.dms_attention import ops as fops
+    from repro_torch.kernels.dms_attention import ref as fref
+    before = dict(fops.launches)
+    errs = {}
+    for name, kw in cases.items():
+        kw = dict(kw)
+        dtype = getattr(torch, kw.pop("dtype"))
+        qf, kf, vf, ls, hr, cfg, do = flash_case(torch, dtype=dtype, seed=7,
+                                                 device=device, **kw)
+        t = cfg.t
+        out_p, lse_p = fref.flash_fwd_plain(qf, kf, vf, ls, hr, cfg)
+        delta = (do.float() * out_p.float()).sum(-1)
+        runs = []
+        for _ in range(2):
+            out, lse = fops.flash_fwd(qf, kf, vf, ls, hr, cfg)
+            dq = fops.flash_dq(qf, kf, vf, ls, do, lse_p, delta, hr, cfg)
+            runs.append((out, lse, dq) + tuple(fops.flash_dkv(
+                qf, kf, vf, ls, do, lse_p, delta, hr, cfg)))
+        if device == "cuda":
+            torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(*runs)):
+            raise AssertionError(f"flash [{name}]: a second launch of fwd, "
+                                 "dq or dkv gave other bits")
+        out, lse, dq, dk, dv, dls = runs[0]
+        dq_p = fref.flash_dq_plain(qf, kf, vf, ls, do, lse_p, delta, hr, cfg)
+        dk_p, dv_p, dls_p = fref.flash_dkv_plain(qf, kf, vf, ls, do, lse_p,
+                                                 delta, hr, cfg)
+        tol = FLASH_REL_TOL[str(dtype).removeprefix("torch.")]
+        parts, case = [], {}
+        for key, got, want in (("out", out[:, :t], out_p[:, :t]),
+                               ("lse", lse[:, :t], lse_p[:, :t]),
+                               ("dq", dq, dq_p), ("dk", dk, dk_p),
+                               ("dv", dv, dv_p)):
+            got, want = got.float(), want.float()
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"flash [{name}]: non-finite {key}")
+            err = (got - want).abs().max().item()
+            scale = want.abs().max().item()
+            if err > tol * max(scale, 1.0 if key == "lse" else 0.0) + 1e-30:
+                raise AssertionError(f"flash [{name}] {key}: max abs err "
+                                     f"{err:.3e} > {tol} x {scale:.3e}")
+            case[key] = err
+            parts.append(f"{key} {err:.2e}/{scale:.2e}")
+        if dls.abs().max().item() != 0.0 or dls_p.abs().max().item() != 0.0:
+            raise AssertionError(f"flash [{name}]: d(log_surv) is not zero "
+                                 "with no DMS mask")
+        errs = errs or {"flash_fwd": max(case["out"], case["lse"]),
+                        "flash_dq": case["dq"],
+                        "flash_dkv": max(case["dk"], case["dv"])}
+        log(f"flash vs plain [phase 5h's {name}: causal {cfg.causal}, "
+            f"B={kw['b']} T={t} Hq={cfg.hq} Hkv={cfg.hkv} Dh={cfg.orig_dh}, "
+            f"no alpha, Tp={qf.shape[1]}]: max abs err / max |plain|: "
+            + ", ".join(parts) + f" (tolerance {tol} relative: {dtype}); "
+            "d(log_surv) zero on both; fwd, dq and dkv bit-equal on a second "
+            "launch")
+    moved = {k: fops.launches[k] - before[k] for k in before}
+    want = {k: 2 * len(cases) if device == "cuda" else 0 for k in before}
+    if moved != want:
+        raise AssertionError(f"flash launch counters moved {moved}, want "
+                             f"{want}")
+    # the autograd Function, non-causal, against the dense oracle
+    kw = next(kw for kw in cases.values()
+              if not kw["causal"] and kw["dtype"] == "float32")
+    b, t, hq, hkv, dh = (kw[k] for k in ("b", "t", "hq", "hkv", "dh"))
+    gen = torch.Generator(device=device).manual_seed(6)
+    leaves = [torch.randn(shape, generator=gen, device=device)
+              for shape in ((b, t, hq, dh), (b, t, hkv, dh), (b, t, hkv, dh))]
+    tgt = torch.randn((b, t, hq, dh), generator=gen, device=device)
+    grads = []
+    for attend in (fops.dms_flash_attention, fref.dms_attention_plain):
+        xs = [x.clone().requires_grad_() for x in leaves]
+        (attend(*xs, None, causal=False) * tgt).sum().backward()
+        grads.append([x.grad for x in xs])
+    parts = []
+    for key, got, want in zip("qkv", *grads):
+        rel = ((got - want).abs().max()
+               / want.abs().max().clamp_min(1e-30)).item()
+        if not rel < GRAD_REL_TOL:
+            raise AssertionError(f"non-causal flash grad d{key}: relative "
+                                 f"error {rel:.3e}")
+        parts.append(f"d{key} {rel:.2e}")
+    log(f"flash autograd vs dense oracle (fp32, causal False, no alpha, "
+        f"B={b} T={t} Hq={hq} Hkv={hkv} Dh={dh}): max |diff| / max |oracle|:"
+        f" {', '.join(parts)} (tolerance {GRAD_REL_TOL})")
+    return errs
+
+
+def check_cross_dense(torch, arch=None, lanes=ENCDEC_LANES,
+                      frames=ENCDEC_FRAMES, tail=ENCDEC_TAIL, device="cuda"):
+    """Phase 3's check of the cross-attention's dense mode at 5h's shape,
+    through the wrapper as the decode step calls it (K/V transposed views,
+    the valid mask expanded over the heads): every frame visible, then lane
+    1's last ``tail`` frames hidden (its last block dropped from the
+    derived table, the one before it masked within); against the same
+    wrapper on the CPU (the plain version) within KERNEL_TOL, bit-equal on
+    a second launch.  Returns the max abs error."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.dms_decode import ops
+    arch = arch or get_arch(ENCDEC)
+    a = arch.attn
+    gen = torch.Generator(device=device).manual_seed(31)
+    hkv, dh = a.num_kv_heads, a.head_dim
+    q = torch.randn((lanes, 1, a.num_heads, dh), generator=gen,
+                    device=device).to(torch.bfloat16)
+    ek, ev = (torch.randn((lanes, frames, hkv, dh), generator=gen,
+                          device=device).to(torch.bfloat16) for _ in range(2))
+    worst = 0.0
+    before = ops.launches
+    for hidden in (0, tail):
+        valid = torch.ones((lanes, frames), dtype=torch.bool, device=device)
+        valid[1, frames - hidden:] = False
+        args = (q, ek.transpose(1, 2), ev.transpose(1, 2),
+                valid[:, None, :].expand(lanes, hkv, frames))
+        out = ops.dms_decode_attention(*args)
+        again = ops.dms_decode_attention(*args)
+        want = ops.dms_decode_attention(*(x.cpu() for x in args))
+        if not torch.equal(out, again):
+            raise AssertionError("cross dense mode: a second launch gave "
+                                 "other bits")
+        if not bool(torch.isfinite(out.float()).all()):
+            raise AssertionError("cross dense mode: non-finite output")
+        torch.testing.assert_close(out.cpu().float(), want.float(),
+                                   **KERNEL_TOL)
+        err = (out.cpu().float() - want.float()).abs().max().item()
+        worst = max(worst, err)
+        log(f"kernel vs plain [phase 5h's cross-attention, dense mode "
+            f"{cross_key(arch, lanes, frames)} (B·Hkv, G, Dh, P, block_p), "
+            f"{frames} frames a lane, lane 1's last {hidden} hidden]: "
+            f"max_abs_err {err:.3e} (tolerance atol {KERNEL_TOL['atol']}, "
+            f"rtol {KERNEL_TOL['rtol']}); bit-equal on a second launch")
+    if ops.launches - before != (4 if device == "cuda" else 0):
+        raise AssertionError(f"cross dense check launched "
+                             f"{ops.launches - before}")
+    return worst
+
+
+def encdec_setup(torch, device="cuda", layers=None, dtype=None):
+    """seamless at full width (the smoke config on the CPU), random weights
+    from seed 0 (matmul weights in ``dtype``, default bf16) and phase 4's
+    DMS bias, at ``layers`` encoder and decoder layers each if given."""
+    from repro_torch.configs import get_arch, get_smoke
+    from repro_torch.models import transformer as tfm
+    arch = (get_arch if device == "cuda" else get_smoke)(ENCDEC)
+    arch = dataclasses.replace(
+        arch, num_layers=layers or arch.num_layers,
+        encoder_layers=layers or arch.encoder_layers,
+        dms=dataclasses.replace(
+            arch.dms, logit_bias=statistics.NormalDist().inv_cdf(7 / 8)))
+    t0 = time.perf_counter()
+    params = tfm.init_model(arch, seed=0, device=device, dtype=dtype)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    log(f"5h: {arch.name} encoder L={arch.encoder_layers}, decoder "
+        f"L={arch.num_layers}, d={arch.d_model} {widths(arch)} "
+        f"V={arch.padded_vocab}, {params['embed'].dtype} weights; init "
+        f"{time.perf_counter() - t0:.1f} s")
+    return arch, params
+
+
+def encdec_frames(torch, arch, lanes, frames, device, seed=0):
+    """Frame embeddings (lanes, frames, D) ~ N(0, 1) · 0.02, seeded."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn((lanes, frames, arch.d_model), generator=gen,
+                       device=device) * 0.02
+
+
+def encdec_serve(torch, arch, params, enc_out, prompts, new, *, paged=False,
+                 what="5h (a)"):
+    """The prompts (lanes, P) teacher-forced, then ``new`` greedy tokens a
+    lane, through ``make_serve_step`` with ``enc_out`` (dms at CR 8, fixed
+    arenas or the paged pool): P + ``new`` steps, the last one feeding the
+    last new token, every step's input on the device (no host read until
+    the end).  Returns (the new tokens (lanes, new) on the host, wall s,
+    steps, the last step's meters)."""
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import transformer as tfm
+    device = enc_out.device
+    lanes, plen = prompts.shape
+    cfg = dataclasses.replace(encdec_policy(arch), paged=paged)
+    state = tfm.init_decode_state(arch, lanes, plen + new, cfg, device=device)
+    step = steps_lib.make_serve_step(arch, use_kernel=True)
+    live = torch.arange(arch.padded_vocab, device=device) < arch.vocab_size
+    pos = torch.zeros((lanes,), dtype=torch.int32, device=device)
+    tok, out = prompts[:, :1], []
+    t0 = time.perf_counter()
+    for i in range(plen + new):
+        logits, state, meters = step(params, state, {
+            "token": tok, "pos": pos, "enc_out": enc_out})
+        nxt = torch.where(live, logits, -1e30).argmax(-1, keepdim=True)
+        if i + 1 >= plen:
+            out.append(nxt.to(torch.int32))
+        tok = prompts[:, i + 1:i + 2] if i + 1 < plen else out[-1]
+        pos = pos + 1
+    tokens = torch.cat(out[:new], dim=1).cpu().numpy()
+    wall = time.perf_counter() - t0
+    if ((tokens < 0) | (tokens >= arch.vocab_size)).any():
+        raise AssertionError(f"{what}: tokens outside the vocab")
+    return tokens, wall, plen + new, meters
+
+
+def encdec_trace(torch, arch, params, enc_out, tokens, tail, max_len):
+    """(c) Teacher-forced steps of ``tokens`` (lanes, steps), kernel path
+    against reference path from the same cache each step (a copy), with
+    ``enc_out`` and lane 1's last ``tail`` frames hidden.  Returns (max abs
+    logit diff, max |logit|) over the live vocab."""
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models import transformer as tfm
+    device = enc_out.device
+    lanes, steps = tokens.shape
+    frames = enc_out.shape[1]
+    valid = torch.ones((lanes, frames), dtype=torch.bool, device=device)
+    valid[1, frames - tail:] = False
+    state = tfm.init_decode_state(arch, lanes, max_len, encdec_policy(arch),
+                                  device=device)
+    live = torch.arange(arch.padded_vocab, device=device) < arch.vocab_size
+    kw = dict(enc_out=enc_out, enc_valid=valid)
+    gap = scale = 0.0
+    for t in range(steps):
+        tok = tokens[:, t:t + 1]
+        ref_state = tree_map(torch.clone, state)
+        lk, _, aux = tfm.decode_step(params, tok, state, arch, t,
+                                     use_kernel=True, **kw)
+        lr, _, _ = tfm.decode_step(params, tok, ref_state, arch, t,
+                                   use_kernel=False, **kw)
+        if aux["attn_impl_kernel"] != 1 or \
+                not bool(torch.isfinite(lk[:, live]).all()):
+            raise AssertionError(f"5h (c): step {t} left the kernel or is "
+                                 "not finite")
+        gap = max(gap, (lk - lr)[:, live].abs().max().item())
+        scale = max(scale, lr[:, live].abs().max().item())
+    return gap, scale
+
+
+def encoder_layer_gaps(torch, params, arch, x_enc):
+    """Each encoder layer's self-attention (``causal=False``) from the same
+    normed input on the kernel path and the reference path, the layers fed
+    by the kernel path's stream: max |kernel - reference| / max
+    |reference| a layer."""
+    from repro_torch.core.tree import tree_map
+    from repro_torch.device import torch_dtype
+    from repro_torch.models import attention as attn_lib
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import norm_apply
+    dtype = torch_dtype(arch.dtype)
+    acfg = dataclasses.replace(arch.attn, causal=False)
+    gaps = []
+    with torch.no_grad():
+        x = x_enc.to(dtype)
+        for sb in range(arch.encoder_layers // arch.pattern_period):
+            p = tree_map(lambda a: a[sb], params["enc_blocks"]["0"])
+            h = norm_apply(p["attn_norm"], x, arch.norm, arch.norm_eps)
+            got, want = (attn_lib.full_attention(
+                p["attn"], h, acfg, arch, use_kernel=kernel)[0].float()
+                for kernel in (True, False))
+            gaps.append(((got - want).abs().max()
+                         / want.abs().max()).item())
+            x, _ = tfm._apply_block(p, x, arch, "attn", dtype=dtype,
+                                    causal=False, mode="vanilla",
+                                    use_kernel=True)
+    return gaps
+
+
+def encdec_train(torch, device, train, flag):
+    """(d) One ``make_train_step`` at ``train["layers"]`` encoder and
+    decoder layers, full width, fp32 weights and bf16 compute, on a seeded
+    batch with frames: the kernel path (its flash launches counted: the
+    encoder's non-causal forward and backward, the decoder's causal
+    forward, its remat recompute and backward), then the reference path on
+    a copy of the same weights (``flag["main"]`` off).  Returns (launches,
+    metrics by path)."""
+    from repro_torch.core.tree import tree_map
+    from repro_torch.kernels.dms_attention import ops as fops
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.optim import adamw
+    n = train["layers"]
+    arch, params = encdec_setup(torch, device, layers=n, dtype=torch.float32)
+    copy = tree_map(torch.clone, params)
+    gen = torch.Generator().manual_seed(19)
+    batch = {k: torch.randint(0, arch.vocab_size,
+                              (train["batch"], train["tokens"]),
+                              generator=gen).to(device)
+             for k in ("tokens", "labels")}
+    batch["enc_embeds"] = encdec_frames(torch, arch, train["batch"],
+                                        train["frames"], device, seed=1)
+    opt = adamw.AdamWConfig(lr=1e-4, warmup_steps=1, total_steps=10)
+    metrics = {}
+    for k in fops.launches:
+        fops.launches[k] = 0
+    for use_kernel, p in ((True, params), (False, copy)):
+        flag["main"] = use_kernel
+        step = steps_lib.make_train_step(arch, opt, use_kernel=use_kernel)
+        _, _, m = step(p, adamw.init(p), batch, 0)
+        metrics[use_kernel] = {k: float(m[k]) for k in ("loss", "grad_norm")}
+        if use_kernel:
+            launches = dict(fops.launches)
+    flag["main"] = True
+    return launches, metrics
+
+
+def phase_encdec(torch, device="cuda", checked=None, flash_checked=None, *,
+                 lanes=ENCDEC_LANES, frames=ENCDEC_FRAMES,
+                 prompt=ENCDEC_PROMPT, new=ENCDEC_NEW, shallow=ENCDEC_SHALLOW,
+                 trace=ENCDEC_TRACE, tail=ENCDEC_TAIL, train=ENCDEC_TRAIN):
+    """Phase 5h: seamless-m4t-large-v2 at full width (random bf16 weights
+    from seed 0, phase 4's DMS bias).  (a) Full depth: ``lanes`` lanes of
+    ``frames`` frames encoded once through ``flash_fwd`` (``causal=False``,
+    one launch an encoder layer), ``prompt`` tokens teacher-forced then
+    ``new`` greedy through ``make_serve_step`` with ``enc_out``: two decode
+    launches a decoder layer a step (self-attention on fixed arenas, the
+    cross-attention's dense mode); a profiled step.  (b) The same trace at
+    ``shallow`` decoder layers (the encoder's output reused), fixed then
+    paged: tokens equal.  (c) ``trace`` teacher-forced steps at ``shallow``
+    layers, kernel path against reference path from the same cache with
+    lane 1's last ``tail`` frames hidden: logits within 0.05 x max |logit|;
+    each encoder layer's attention through the flash kernel against the
+    reference path's from the same input within FLASH_REL_TOL
+    (``encoder_layer_gaps``), and the encoder's output after every layer
+    on each path within 0.05 x max |ref|.  (d) ``encdec_train``: loss within 1e-2
+    relative.  Every decode and flash launch must be at a shape phase 3
+    checked (``checked``, ``flash_checked``; on the CPU, the shapes
+    ``encdec_decode_keys`` and ``encdec_flash_cases`` predict).  Returns
+    the main path's ((a), (b), (d)) decode launches by shape and flash
+    launches by (kernel, causal)."""
+    import collections
+    from repro_torch.kernels.dms_attention import ops as fops
+    from repro_torch.kernels.dms_decode import ops
+    from repro_torch.models import transformer as tfm
+    on_card = device == "cuda"
+    main, flash_main = collections.Counter(), collections.Counter()
+    seen, flash_seen, flag = set(), set(), {"main": True}
+    real_rows = ops.decode_rows
+    real_flash = {k: getattr(fops, k) for k in fops.launches}
+
+    def counting(qf, kf, vf, valf, tblf, nf, block_p, *args, **kw):
+        key = launch_key(qf, kf, tblf, block_p, kw.get("shared_kv"))
+        seen.add(key)
+        if flag["main"]:
+            main[key] += 1
+        return real_rows(qf, kf, vf, valf, tblf, nf, block_p, *args, **kw)
+
+    def flash_counting(name):
+        def run(q, *args):
+            flash_seen.add(flash_key(q, args[-1]))
+            if flag["main"]:
+                flash_main[name, args[-1].causal] += 1
+            return real_flash[name](q, *args)
+        return run
+
+    t0 = time.perf_counter()
+    arch, params = encdec_setup(torch, device)
+    rng = torch.Generator().manual_seed(17)
+    prompts = torch.randint(3, arch.vocab_size, (lanes, prompt), generator=rng,
+                            dtype=torch.int32).to(device)
+    x_enc = encdec_frames(torch, arch, lanes, frames, device)
+    ops.decode_rows = counting
+    for k in real_flash:
+        setattr(fops, k, flash_counting(k))
+    try:
+        # (a) full depth: the counts from 0 just before, read just after
+        ops.launches = ops.shared_launches = 0
+        for k in fops.launches:
+            fops.launches[k] = 0
+        t_enc = time.perf_counter()
+        with torch.no_grad():
+            enc_out = tfm.encode(params, x_enc, arch, use_kernel=True)
+        if on_card:
+            torch.cuda.synchronize()
+        t_enc = time.perf_counter() - t_enc
+        enc_launches = dict(fops.launches)
+        if enc_launches != {"flash_fwd": arch.encoder_layers if on_card else 0,
+                            "flash_dq": 0, "flash_dkv": 0}:
+            raise AssertionError(f"5h (a): the encoder launched "
+                                 f"{enc_launches}")
+        if not bool(torch.isfinite(enc_out.float()).all()):
+            raise AssertionError("5h (a): non-finite encoder output")
+        tokens, wall, steps, meters = encdec_serve(
+            torch, arch, params, enc_out, prompts, new)
+        got = (ops.launches, ops.shared_launches)
+        want = 2 * arch.num_layers * steps if on_card else 0
+        if got != (want, 0):
+            raise AssertionError(f"5h (a): decode launches (fixed, shared) "
+                                 f"{got}, want ({want}, 0): 2 x "
+                                 f"{arch.num_layers} layers x {steps} steps")
+        live = [round(x, 1) for x in meters["live_tokens"].tolist()]
+        log(f"5h (a): {arch.name} at full depth ({arch.encoder_layers} + "
+            f"{arch.num_layers} layers), {lanes} lanes: {frames} frames a "
+            f"lane encoded in {t_enc:.2f} s through flash_fwd (causal False, "
+            f"{enc_launches['flash_fwd']} launches); {prompt} prompt tokens "
+            f"teacher-forced and {new} greedy through make_serve_step with "
+            f"enc_out: {steps} steps in {wall:.2f} s, "
+            f"{1e3 * wall / steps:.2f} ms/step; decode launches {got[0]} = 2 "
+            f"x {arch.num_layers} x {steps} (self-attention on fixed arenas, "
+            f"cross-attention in dense mode); live tokens a lane after the "
+            f"last step {live} (summed over layers and heads; dms at CR 8 "
+            f"evicts past its {arch.dms.window}-token delay)")
+        flag["main"] = False
+        phase_profile(torch, params, arch, {f"{ENCDEC} 5h (a)":
+                                            encdec_policy(arch)},
+                      lanes=lanes, max_len=prompt + new, device=device,
+                      step_kw={"enc_out": enc_out})
+        flag["main"] = True
+        log(f"seconds: 5h (a) {time.perf_counter() - t0:.1f}")
+
+        # (b) the same trace at `shallow` decoder layers, fixed then paged
+        t1 = time.perf_counter()
+        cut = cut_depth({"arch": arch, "params": params}, shallow)
+        s_arch, s_params = cut["arch"], cut["params"]
+        fixed = None
+        for paged in (False, True):
+            ops.launches = ops.shared_launches = 0
+            got_tok, wall, steps, _ = encdec_serve(
+                torch, s_arch, s_params, enc_out, prompts, new, paged=paged,
+                what="5h (b)")
+            want = shallow * steps if on_card else 0
+            got = (ops.launches, ops.shared_launches)
+            if got != ((want, want) if paged else (2 * want, 0)):
+                raise AssertionError(f"5h (b): decode launches (fixed, "
+                                     f"shared) {got} for {steps} steps")
+            if paged and not (got_tok == fixed).all():
+                raise AssertionError("5h (b): the pool's tokens differ from "
+                                     "the fixed arenas'")
+            fixed = got_tok
+            log(f"5h (b): {shallow} decoder layers, the encoder whole, "
+                f"{'the paged pool' if paged else 'fixed arenas'}: {steps} "
+                f"steps in {wall:.2f} s ({1e3 * wall / steps:.2f} ms/step), "
+                f"decode launches (fixed or dense, shared) {got}"
+                + ("; tokens equal to the fixed arenas'" if paged else ""))
+
+        # (c) kernel path against reference path: not the main path's
+        flag["main"] = False
+        gap, scale = encdec_trace(torch, s_arch, s_params, enc_out,
+                                  prompts[:, :trace], tail, prompt + new)
+        layer_rel = encoder_layer_gaps(torch, params, arch, x_enc)
+        with torch.no_grad():
+            enc_ref = tfm.encode(params, x_enc, arch, use_kernel=False)
+        e_err = (enc_out.float() - enc_ref.float()).abs().max().item()
+        e_scale = enc_ref.float().abs().max().item()
+        e_tol = FLASH_REL_TOL[str(enc_out.dtype).removeprefix("torch.")]
+        log(f"5h (c): {trace} teacher-forced steps at {shallow} decoder "
+            f"layers, kernel vs reference path from the same cache, lane 1's "
+            f"last {tail} frames hidden (launches not counted on the main "
+            f"path): max abs logit diff {gap:.4e}, max |logit| {scale:.4e} "
+            f"(tolerance 0.05 x max |logit|); each encoder layer's attention "
+            f"from the same input, flash_fwd vs the reference path: at most "
+            f"{max(layer_rel):.4e} of max |ref| over {len(layer_rel)} layers "
+            f"(tolerance {e_tol}); the encoder's output after "
+            f"{arch.encoder_layers} layers on each path: max abs err "
+            f"{e_err:.4e}, max |ref| {e_scale:.4e} (tolerance 0.05 x max "
+            "|ref|, as the logits': bf16 roundings compound over the "
+            "layers)")
+        if not gap <= 0.05 * scale:
+            raise AssertionError("5h (c): kernel-path logits disagree with "
+                                 "the reference path")
+        if not (max(layer_rel) <= e_tol and e_err <= 0.05 * e_scale):
+            raise AssertionError("5h (c): the encoder through the flash "
+                                 "kernel disagrees with the reference path")
+        flag["main"] = True
+        log(f"seconds: 5h (b), (c) {time.perf_counter() - t1:.1f}")
+        del params, cut, s_params, enc_out, enc_ref
+        if on_card:
+            torch.cuda.empty_cache()
+
+        # (d) one train step, kernel against reference path
+        t2 = time.perf_counter()
+        launches, metrics = encdec_train(torch, device, train, flag)
+        n = train["layers"]
+        want = ({"flash_fwd": 3 * n, "flash_dq": 2 * n, "flash_dkv": 2 * n}
+                if on_card else {k: 0 for k in fops.launches})
+        mk, mr = metrics[True], metrics[False]
+        rel = abs(mk["loss"] - mr["loss"]) / max(abs(mr["loss"]), 1e-12)
+        log(f"5h (d): make_train_step at {n} + {n} layers, full width, "
+            f"B={train['batch']}, {train['tokens']} decoder tokens, "
+            f"{train['frames']} frames, fp32 weights, bf16 compute: kernel "
+            f"path loss {mk['loss']:.6e}, grad norm {mk['grad_norm']:.6e}; "
+            f"reference path loss {mr['loss']:.6e}, grad norm "
+            f"{mr['grad_norm']:.6e}; loss rel {rel:.2e} (tolerance 1e-2); "
+            f"flash launches {launches}, want {want} (the encoder's "
+            f"non-causal fwd, dq, dkv; the decoder's causal fwd, its remat "
+            f"recompute, dq, dkv)")
+        if launches != want:
+            raise AssertionError("5h (d): train step flash launches")
+        if not (math.isfinite(mk["loss"]) and rel < 1e-2):
+            raise AssertionError("5h (d): the kernel-path train step "
+                                 "disagrees with the reference path")
+        if on_card:
+            torch.cuda.empty_cache()
+        log(f"seconds: 5h (d) {time.perf_counter() - t2:.1f}")
+    finally:
+        ops.decode_rows = real_rows
+        for k, fn in real_flash.items():
+            setattr(fops, k, fn)
+    if checked is None:
+        checked = encdec_decode_keys(arch, lanes, frames, prompt + new)
+    if flash_checked is None:
+        flash_checked = encdec_flash_keys(torch, encdec_flash_cases(
+            arch, lanes, frames, train), device)
+    if not seen <= set(checked):
+        raise AssertionError(f"phase 5h launched the decode kernel at "
+                             f"{sorted(seen - set(checked))}, not among phase"
+                             f" 3's checked {sorted(checked)}")
+    if not flash_seen <= set(flash_checked):
+        raise AssertionError(f"phase 5h launched the flash kernels at "
+                             f"{sorted(flash_seen - set(flash_checked))}, not "
+                             f"among phase 3's checked {sorted(flash_checked)}")
+    log(f"phase 5h's decode launch shapes {sorted(seen)} and flash launch "
+        f"shapes {sorted(flash_seen)}: each checked in phase 3")
+    return {"launches": main, "flash": flash_main}
+
+
+def phase_encdec_timing(torch, out, errs, flash_errs):
+    """Phase 7's rows for 5h: the decode kernel at the decoder's
+    fixed-arena and shared-pool serving shapes (G 1, Dh 64) and the
+    cross-attention's dense mode at (a)'s shape (every frame visible: a
+    table of every block), each with its launches in 5h; then flash_fwd,
+    flash_dq and flash_dkv at (a)'s encoder shape (B 4, T 1024, Hq = Hkv =
+    16, Dh 64, bf16, causal False, no α) with their non-causal launches in
+    5h, beside SDPA with no mask (exactly the same function)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.dms_attention import ops as fops
+    from repro_torch.kernels.dms_attention import ref as fref
+    arch = get_arch(ENCDEC)
+    gen = torch.Generator(device="cuda").manual_seed(96)
+    kw = dataclasses.asdict(encdec_policy(arch))
+    max_len = ENCDEC_PROMPT + ENCDEC_NEW
+    keys = [("dms", key) for paged in (False, True)
+            for key in state_keys(arch, dict(kw, paged=paged), ENCDEC_LANES,
+                                  max_len)]
+    keys.append(("cross-attention, dense mode",
+                 cross_key(arch, ENCDEC_LANES, ENCDEC_FRAMES)))
+    rows = []
+    for what, key in keys:
+        shared = len(key) == 7
+        bh, g, dh, p, bp = key[:5]
+        if shared:
+            nb = key[5]
+            case = make_pool_case(torch, gen, bh=bh, g=g, dh=dh, nb=nb, bp=bp,
+                                  density=0.85, pages=p // bp)
+            operands = {"kernel": case["shared"], "dense": case["fixed"][1:4]}
+            shape = (bh, g, dh, nb * bp, bp)
+        elif what == "dms":
+            args = make_case(torch, gen, bh=bh, g=g, dh=dh, p=p, bp=bp,
+                             density=0.85)
+            operands, shape = {"kernel": args, "dense": args[1:4]}, key
+        else:                     # every frame visible: every block listed
+            q, k, v = (torch.randn((bh, n_, dh), generator=gen, device="cuda")
+                       .to(torch.bfloat16) for n_ in (g, p, p))
+            valid = torch.ones((bh, p), dtype=torch.bool, device="cuda")
+            tbl = torch.arange(p // bp, dtype=torch.int32,
+                               device="cuda").expand(bh, p // bp).contiguous()
+            n = torch.full((bh,), p // bp, dtype=torch.int32, device="cuda")
+            operands = {"kernel": (q, k, v, valid, tbl, n),
+                        "dense": (k, v, valid)}
+            shape = key
+        rows.append(decode_entry(
+            torch, f"dms_decode{'_shared_kv' if shared else ''} ({ENCDEC} "
+            f"{what}, G {g}, Dh {dh})", "shared" if shared else "fixed",
+            operands, shape, out["launches"].get(key, 0), errs.get(key, 0.0),
+            hkv=arch.attn.num_kv_heads))
+    # the encoder's flash kernels at (a)'s shape
+    a = arch.attn
+    b, t, hq, hkv, dh = (ENCDEC_LANES, ENCDEC_FRAMES, a.num_heads,
+                         a.num_kv_heads, a.head_dim)
+    qf, kf, vf, ls, hr, cfg, do = flash_case(
+        torch, b=b, t=t, hq=hq, hkv=hkv, dh=dh, dtype=torch.bfloat16,
+        alpha=None, causal=False, seed=95)
+    o, lse = fops.flash_fwd(qf, kf, vf, ls, hr, cfg)
+    delta = (do.float() * o.float()).sum(-1)
+    grad_args = (qf, kf, vf, ls, do, lse, delta, hr, cfg)
+    saved = dict(fops.launches)
+    ms = {"flash_fwd": time_cuda(torch, lambda: fops.flash_fwd(
+              qf, kf, vf, ls, hr, cfg)),
+          "flash_dq": time_cuda(torch, lambda: fops.flash_dq(*grad_args)),
+          "flash_dkv": time_cuda(torch, lambda: fops.flash_dkv(*grad_args))}
+    fops.launches.update(saved)           # timing launches are not the path's
+    plain = {"flash_fwd": time_cuda(torch, lambda: fref.flash_fwd_plain(
+                 qf, kf, vf, ls, hr, cfg)),
+             "flash_dq": time_cuda(torch, lambda: fref.flash_dq_plain(
+                 *grad_args)),
+             "flash_dkv": time_cuda(torch, lambda: fref.flash_dkv_plain(
+                 *grad_args))}
+    library = sdpa_times(torch, qf, kf, vf, ls, do, cfg, b=b)
+    pairs = b * hq * t * t                # every (i, j) pair is live
+    nbytes = lambda *xs: sum(x.numel() * x.element_size() for x in xs)  # noqa: E731
+    ins = nbytes(qf, kf, vf, ls)
+    grad_ins = ins + nbytes(do, lse, delta)
+    work = {"flash_fwd": (4 * dh * pairs, ins + nbytes(o, lse)),
+            "flash_dq": (6 * dh * pairs, grad_ins + nbytes(qf)),
+            "flash_dkv": (8 * dh * pairs, grad_ins + nbytes(kf, vf, ls))}
+    lines = {"flash_fwd": 142, "flash_dq": 242, "flash_dkv": 343}
+    for name, (flops, moved) in work.items():
+        ops_ms = flops / BF16_FLOPS_PER_S * 1e3
+        bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+        entry = {
+            "name": f"{name} ({ENCDEC} encoder, non-causal)", "route": "cuda",
+            "source": "src/repro_torch/kernels/dms_attention/csrc/dms_attention.cu",
+            "replaces": "src/repro/kernels/dms_attention/dms_attention.py:"
+                        f"{lines[name]}",
+            "launches": out["flash"].get((name, False), 0),
+            "max_abs_err": flash_errs[name], "ms": ms[name],
+            "plain_ms": plain[name], "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": library[name],
+        }
+        rows.append(entry)
+        log(f"timing: {entry['name']} at (B={b}, T={t}, Hq={hq}, Hkv={hkv}, "
+            f"Dh={dh}, bf16, no alpha): kernel {ms[name]:.4f} ms, bound "
+            f"{entry['bound_ms']:.5f} ms ({flops} flop, {moved} B), plain "
+            f"{plain[name]:.4f} ms, library {library[name]:.4f} ms "
+            f"({'SDPA forward' if name == 'flash_fwd' else 'SDPA backward'}"
+            ", no mask: the same function)")
+    return rows
+
+
 # -- phase 6 ---------------------------------------------------------------
 
 
@@ -4249,7 +4976,9 @@ def phase_quest_dmc_timing(torch, timed, launches, errs):
 
 def sdpa_times(torch, qf, kf, vf, ls, do, cfg, *, b):
     """Yardsticks only: SDPA with the DMS mask materialised as a (B, Hq, T,
-    T) additive tensor and K/V expanded to the query heads.  The forward is
+    T) additive tensor and K/V expanded to the query heads; with no DMS
+    delay and no causality (the encoder) no mask at all, which is exactly
+    the kernels' function.  The forward is
     ``F.scaled_dot_product_attention``; the backward is the memory-efficient
     attention's backward op (the backend that takes an additive mask),
     called directly so that a graph replay times it with no host gap.  It
@@ -4264,8 +4993,12 @@ def sdpa_times(torch, qf, kf, vf, ls, do, cfg, *, b):
     i = torch.arange(t, device="cuda")[:, None]
     j = torch.arange(t, device="cuda")[None, :]
     lsb = ls.reshape(b, hkv, 1, t)
-    mask = torch.where(j <= i, torch.where(i - j >= cfg.dms_delay, lsb, 0.0),
-                       float("-inf")).repeat_interleave(g, dim=1).to(qf.dtype)
+    mask = None
+    if cfg.causal or cfg.dms_delay:
+        live = (j <= i) if cfg.causal else torch.ones_like(i - j, dtype=bool)
+        mask = torch.where(live, torch.where(i - j >= cfg.dms_delay, lsb, 0.0),
+                           float("-inf")).repeat_interleave(g, dim=1).to(
+                               qf.dtype)
     do_lib = do.reshape(b, hq, t, dh)
     fwd = time_cuda(torch, lambda: F.scaled_dot_product_attention(
         qs, ks, vs, attn_mask=mask))
@@ -4396,6 +5129,12 @@ def main() -> int:
     hybrid_keys = hybrid_decode_keys()
     _, hybrid_errs = check_decode_keys(torch, hybrid_keys, what="phase 5g",
                                        caps=hybrid_keys)
+    encdec_keys = encdec_decode_keys()
+    _, encdec_errs = check_decode_keys(torch, encdec_keys, what="phase 5h")
+    cross = cross_key(get_arch(ENCDEC), ENCDEC_LANES, ENCDEC_FRAMES)
+    encdec_errs[cross] = max(encdec_errs[cross], check_cross_dense(torch))
+    flash_cases = encdec_flash_cases()
+    encdec_flash_errs = check_encdec_flash(torch, flash_cases)
     lap("phases 1-3")
     served = phase_serve(torch, shallow)
     lap("phase 4")
@@ -4437,6 +5176,9 @@ def main() -> int:
     lap("phase 5f")
     hybrids = phase_hybrids(torch, checked=set(hybrid_keys))
     lap("phase 5g")
+    encdec = phase_encdec(torch, checked=encdec_keys,
+                          flash_checked=encdec_flash_keys(torch, flash_cases))
+    lap("phase 5h")
     trained = phase_train(torch)
     lap("phase 6")
     kernels = phase_timing(torch, main_shape, {"fixed": served["launches"],
@@ -4451,6 +5193,8 @@ def main() -> int:
     kernels += phase_arch_timing(torch, archs["launches"], arch_errs,
                                  archs["flash"], arch_flash_err)
     kernels += phase_hybrid_timing(torch, hybrids, hybrid_errs)
+    kernels += phase_encdec_timing(torch, encdec, encdec_errs,
+                                   encdec_flash_errs)
     lap("phase 7")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

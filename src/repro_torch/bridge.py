@@ -54,7 +54,9 @@ def params_from_numpy(tree: Dict[str, Any], arch: ArchConfig,
 
     The layout is kept (``embed``, ``blocks[str(position)]`` stacked over
     superblocks, MoE experts ``(nsb, E, in, out)``, ``final_norm``,
-    ``lm_head`` only when embeddings are untied) and so is the ``x @ W``
+    ``lm_head`` only when embeddings are untied; an encoder–decoder's
+    ``enc_blocks``, ``enc_final_norm`` and each decoder block's ``cross``
+    and ``cross_norm``; LayerNorm's ``bias``) and so is the ``x @ W``
     orientation: W stays ``(in, out)``, no transpose.  Matmul weights
     (the router too) are cast once to ``dtype`` (default ``arch.dtype``) —
     the reference keeps fp32 masters and casts at every matmul, which gives
@@ -63,7 +65,7 @@ def params_from_numpy(tree: Dict[str, Any], arch: ArchConfig,
     :class:`~repro_torch.models.transformer.Params`, with each attention
     layer's noise salt taken from the fp32 ``wo`` before the cast (0 for a
     recurrent layer), in the reference's layer order (superblocks, then
-    positions)."""
+    positions): the decoder's self-attention only."""
     dev = resolve_device(device)
     dtype = dtype or torch_dtype(arch.dtype)
     if ("lm_head" in tree) == arch.tie_embeddings:

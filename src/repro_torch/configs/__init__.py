@@ -3,7 +3,9 @@ ablation model Llama 3.2 1B, the other dense GQA decoders (minitron-4b,
 phi3-mini-3.8b), gemma2-2b (local and global layers, softcaps, post-norm,
 GeGLU), chatglm3-6b (half RoPE), qwen2-vl-7b (M-RoPE, the text path),
 the granite MoE models (top-k experts) and the hybrids recurrentgemma-2b
-(RG-LRU and local attention) and mamba2-2.7b (SSD, no attention).
+(RG-LRU and local attention) and mamba2-2.7b (SSD, no attention), and the
+encoder–decoder seamless-m4t-large-v2 (a bidirectional encoder over
+precomputed audio frames, cross-attention in every decoder layer).
 
 ``get_arch(name)`` returns the full-size :class:`ArchConfig`; ``get_smoke``
 the reduced same-family config the CPU tests run.
@@ -27,6 +29,7 @@ _ARCH_MODULES = {
     "granite-moe-3b-a800m": "repro_torch.configs.granite_moe_3b",
     "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
     "mamba2-2.7b": "repro_torch.configs.mamba2_2p7b",
+    "seamless-m4t-large-v2": "repro_torch.configs.seamless_m4t",
 }
 
 

@@ -1,7 +1,9 @@
-"""Steps: the LM train step, the DMS retrofit step and the prefill step.
+"""Steps: the LM train step, the DMS retrofit step, the prefill step and
+the serve step.
 
 The reference's ``repro.launch.steps`` (``make_train_step``,
-``make_retrofit_step``, ``make_prefill_step``) without ``jit``: each step
+``make_retrofit_step``, ``make_prefill_step``, ``make_serve_step``)
+without ``jit``: each step
 runs eagerly; the training steps take the gradient with
 :func:`torch.autograd.grad` over the params' leaves and update params and
 optimizer state in place (:mod:`repro_torch.optim.adamw`).
@@ -12,6 +14,10 @@ fresh :class:`torch.Generator` is seeded from the same pair, so a step
 draws the same noise whenever it is run again; or the caller hands the
 per-layer uniforms in (``uniforms=``), as the parity tests do with the
 reference's own draws.
+
+Every full-forward step passes the batch's ``frontend_embeds`` (prepended
+patch embeddings) and ``enc_embeds`` (an encoder–decoder's frame
+embeddings) to ``model_forward``, when the batch has them.
 """
 from __future__ import annotations
 
@@ -63,7 +69,8 @@ def make_train_step(arch: ArchConfig, opt_cfg: adamw.AdamWConfig, *,
             p, batch["tokens"], arch, mode=mode, uniforms=uniforms,
             generator=step_generator(17, step, batch["tokens"].device),
             remat=remat, use_kernel=use_kernel,
-            frontend_embeds=batch.get("frontend_embeds"))
+            frontend_embeds=batch.get("frontend_embeds"),
+            enc_embeds=batch.get("enc_embeds"))
         ce = distill_lib.lm_cross_entropy(logits, batch["labels"])
         loss = ce + aux["moe_aux_loss"]
         if mode == "dms_train":
@@ -108,11 +115,12 @@ def retrofit_loss_and_grads(
     compression loss (§3.2, §4); ``phase1`` runs the borrowed-neuron zeroing
     schedule (App. B) instead of the DMS mask."""
     tokens = batch["tokens"]
-    frontend = batch.get("frontend_embeds")
+    inputs = dict(frontend_embeds=batch.get("frontend_embeds"),
+                  enc_embeds=batch.get("enc_embeds"))
     with torch.no_grad():
         teacher_logits, _ = tfm.model_forward(
             teacher, tokens, arch, mode="vanilla", use_kernel=use_kernel,
-            frontend_embeds=frontend)
+            **inputs)
 
     def loss_fn(p):
         if phase1:
@@ -120,14 +128,14 @@ def retrofit_loss_and_grads(
                         1.0)
             logits, aux = tfm.model_forward(
                 p, tokens, arch, mode="dms_phase1", neuron_scale=scale,
-                remat=remat, use_kernel=use_kernel, frontend_embeds=frontend)
+                remat=remat, use_kernel=use_kernel, **inputs)
             a_sum = torch.zeros((), dtype=torch.float32, device=tokens.device)
             a_cnt = 1.0
         else:
             logits, aux = tfm.model_forward(
                 p, tokens, arch, mode="dms_train", uniforms=uniforms,
                 generator=step_generator(23, step, tokens.device),
-                remat=remat, use_kernel=use_kernel, frontend_embeds=frontend)
+                remat=remat, use_kernel=use_kernel, **inputs)
             a_sum, a_cnt = aux["alpha_sum"], aux["alpha_count"]
         loss, metrics = distill_lib.retrofit_loss(
             logits, teacher_logits, batch["labels"], a_sum, a_cnt, step,
@@ -173,7 +181,27 @@ def make_prefill_step(arch: ArchConfig, *, dms: bool = False,
             logits, aux = tfm.model_forward(
                 params, batch["tokens"], arch, mode=mode, collect_kv=True,
                 use_kernel=use_kernel,
-                frontend_embeds=batch.get("frontend_embeds"))
+                frontend_embeds=batch.get("frontend_embeds"),
+                enc_embeds=batch.get("enc_embeds"))
         return logits[:, -1], aux["layer_kv"]
 
     return prefill_step
+
+
+def make_serve_step(arch: ArchConfig, *, use_kernel: bool = False):
+    """One decode step: ``serve_step(params, state, batch) -> (logits (B,
+    V_pad) fp32, state, meters)`` with ``batch["token"]`` (B, 1),
+    ``batch["pos"]`` and, for an encoder–decoder, ``batch["enc_out"]``
+    (:func:`~repro_torch.models.transformer.encode`'s output).  The meters are both axes of the
+    policies' ``metrics()`` contract, ``live_tokens`` and ``reads_tokens``
+    (B,), so a caller meters KV reads and peak memory without knowing the
+    policy.  The state is updated in place."""
+
+    def serve_step(params, state, batch):
+        logits, state, aux = tfm.decode_step(
+            params, batch["token"], state, arch, batch["pos"],
+            use_kernel=use_kernel, enc_out=batch.get("enc_out"))
+        return logits, state, {"live_tokens": aux["live_tokens"],
+                               "reads_tokens": aux["reads_tokens"]}
+
+    return serve_step

@@ -9,7 +9,8 @@
   :class:`~repro_torch.core.policy.PolicyCache`: project q/k/v, take the DMS
   eviction (or DMC merge) decision from the borrowed query neuron, rotate q
   and k, let the policy absorb the token, and attend — through the block-table
-  flash-decode kernel (``use_kernel=True``) or the reference einsum path.
+  flash-decode kernel (``use_kernel=True``) or the reference einsum path;
+  cross-attention over an encoder memory (``cross_kv``) reads no cache.
   A policy that evicts by attention weights (TOVA, H2O, Keyformer) gets
   them back: the kernel in its weights-out mode, or the reference softmax.
 * :func:`attention_ref` — the O(T²) masked-softmax oracle.
@@ -72,7 +73,7 @@ def full_attention(
     neuron_scale=0.0,
     use_kernel: bool = False,
     collect_kv: bool = False,
-    kv_override=None,
+    kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Full-sequence attention; returns (output (B, T, D), aux).
 
@@ -83,15 +84,22 @@ def full_attention(
     ``use_kernel`` routes attention through the flash kernels, else the
     masked-softmax reference.  ``collect_kv`` adds the prefill export:
     ``k_rope`` and ``v`` (B, Hkv, T, Dh) post-RoPE, and in ``dms_eval``
-    ``retained`` (:func:`~repro_torch.core.dms.retained_after_prefill`)."""
-    if kv_override is not None:
-        raise NotImplementedError("kv_override (cross-attention) is not "
-                                  "ported yet")
+    ``retained`` (:func:`~repro_torch.core.dms.retained_after_prefill`).
+
+    ``kv_override`` (k, v), each (B, S, Hkv, Dh), is cross-attention's
+    encoder memory: only q is projected from ``x``, k is not rotated, and
+    attention always takes the masked-softmax reference, as the
+    reference's kernel branch requires no override."""
     dtype = torch_dtype(arch.dtype)
     b, t, _ = x.shape
     if positions is None:
         positions = torch.arange(t, dtype=torch.int32, device=x.device)
-    q_raw, k, v = project_qkv(p, x, cfg, dtype)
+    if kv_override is None:
+        q_raw, k, v = project_qkv(p, x, cfg, dtype)
+    else:
+        q_raw = (x.to(dtype) @ p["wq"].to(dtype)).reshape(
+            b, t, cfg.num_heads, cfg.head_dim)
+        k, v = kv_override
 
     aux: Dict[str, Any] = {}
     alpha = None
@@ -117,18 +125,21 @@ def full_attention(
         rope_pos = positions.expand((3,) + positions.shape)
     q = apply_rope(q_raw, rope_pos, cfg.rope_theta, cfg.rope,
                    cfg.mrope_sections)
-    k = apply_rope(k, rope_pos, cfg.rope_theta, cfg.rope, cfg.mrope_sections)
+    if kv_override is None:
+        k = apply_rope(k, rope_pos, cfg.rope_theta, cfg.rope,
+                       cfg.mrope_sections)
     window = layer_window if layer_window is not None else cfg.window
 
-    if use_kernel:
+    if use_kernel and kv_override is None:
         out = fkops.dms_flash_attention(
             q, k, v, alpha, window=window,
             dms_window=dms.window if alpha is not None else 0,
             causal=cfg.causal, logit_cap=cfg.logit_softcap,
             immediate=dms.immediate_eviction)
     else:
+        tk = k.shape[1]
         i = torch.arange(t, device=x.device)[:, None]
-        j = torch.arange(t, device=x.device)[None, :]
+        j = torch.arange(tk, device=x.device)[None, :]
         mask = None
         if cfg.causal:
             mask = torch.where(j <= i, 0.0, NEG_INF)
@@ -136,12 +147,13 @@ def full_attention(
             wm = torch.where((i - j) < window, 0.0, NEG_INF)
             mask = wm if mask is None else mask + wm
         if mask is not None:
-            mask = mask.expand(b, cfg.num_kv_heads, t, t)
+            mask = mask.expand(b, cfg.num_kv_heads, t, tk)
         if alpha is not None:
             qpos = positions if positions.dim() == 1 else torch.arange(
                 t, device=x.device)
             dmask = dms_lib.build_dms_mask(
-                alpha, qpos, torch.arange(t, device=x.device), dms, causal=False)
+                alpha, qpos, torch.arange(tk, device=x.device), dms,
+                causal=False)
             mask = dmask if mask is None else mask + dmask
         out = attention_ref(q, k, v, mask, cfg.logit_softcap)
 
@@ -158,7 +170,7 @@ def full_attention(
 def decode_attention(
     p: dict,
     x_t: torch.Tensor,             # (B, 1, D)
-    cache: policy_lib.PolicyCache,
+    cache: Optional[policy_lib.PolicyCache],
     cfg: AttentionConfig,
     arch: ArchConfig,
     *,
@@ -168,7 +180,9 @@ def decode_attention(
     active: Optional[torch.Tensor] = None,   # (B,) live-lane mask
     layer_salt: Optional[torch.Tensor] = None,
     step_aux: Optional[Dict[str, Any]] = None,
-) -> Tuple[torch.Tensor, policy_lib.PolicyCache, Dict[str, Any]]:
+    cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor,
+                             torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, Optional[policy_lib.PolicyCache], Dict[str, Any]]:
     """One decode step.  Returns (output (B, 1, D), cache, aux) with
     ``aux["live_tokens"]``/``aux["reads_tokens"]`` (B,) and
     ``aux["attn_impl"]`` ("kernel" | "ref").  The cache is updated in
@@ -176,10 +190,28 @@ def decode_attention(
     0) seeds the noise of stochastic policies (Keyformer): the bits of this
     layer's fp32 ``wo[0, 0]``, as :func:`repro_torch.models.transformer.
     layer_salts` gives them.  ``step_aux`` is this layer's entry of the
-    policy's ``prepare_step``."""
+    policy's ``prepare_step``.
+
+    ``cross_kv`` (k, v (B, Hkv, S, Dh), valid (B, Hkv, S) bool) is
+    cross-attention over the encoder memory: ``cache`` is None and nothing
+    is written; attention takes the decode kernel's dense mode (no table:
+    the wrapper derives one from ``valid``) or the reference einsum; the
+    meters count the valid slots."""
     dtype = torch_dtype(arch.dtype)
     b = x_t.shape[0]
     dms = arch.dms
+    if cross_kv is not None:
+        q = (x_t.to(dtype) @ p["wq"].to(dtype)).reshape(
+            b, 1, cfg.num_heads, cfg.head_dim)            # no RoPE
+        k_all, v_all, valid = cross_kv
+        out, _, impl = _masked_decode(
+            q, policy_lib.AttendSpec(k_all, v_all, valid), None, cfg,
+            use_kernel)
+        y = out.reshape(b, 1, cfg.num_heads * cfg.head_dim) @ p["wo"].to(dtype)
+        live = valid.sum(dim=-1).float().mean(dim=-1)
+        return y.to(x_t.dtype), cache, {"live_tokens": live,
+                                        "reads_tokens": live,
+                                        "attn_impl": impl}
     q_raw, k_new, v_new = project_qkv(p, x_t, cfg, dtype)
     if pos_t is None:
         pos_t = cache.length

@@ -1,5 +1,5 @@
-"""Common layers: RMSNorm, softcap, RoPE (full, half, M-RoPE), the gated
-and plain MLPs and the top-k MoE.
+"""Common layers: RMSNorm and LayerNorm, softcap, RoPE (full, half,
+M-RoPE), the gated and plain MLPs and the top-k MoE.
 
 Plain functions on tensors over a params dict, as in the reference
 ``repro.models.layers``.  Matmuls run in the compute dtype (bf16 by
@@ -17,12 +17,19 @@ from repro_torch.core.config import MLPConfig
 
 
 def norm_apply(p: dict, x: torch.Tensor, kind: str, eps: float) -> torch.Tensor:
-    """RMSNorm with fp32 statistics; the result is cast back to x's dtype."""
-    if kind != "rmsnorm":
-        raise NotImplementedError(f"norm {kind!r} is not ported yet")
+    """RMSNorm (``scale``) or LayerNorm (``scale`` and ``bias``, the
+    population variance, as ``jnp.var``) with fp32 statistics; the result
+    is cast back to x's dtype."""
     xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * p["scale"]).to(x.dtype)
+    if kind == "rmsnorm":
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+        return (xf * torch.rsqrt(var + eps) * p["scale"]).to(x.dtype)
+    if kind != "layernorm":
+        raise NotImplementedError(f"norm {kind!r}")
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    return ((xf - mu) * torch.rsqrt(var + eps) * p["scale"]
+            + p["bias"]).to(x.dtype)
 
 
 def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:

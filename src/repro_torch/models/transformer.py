@@ -1,4 +1,4 @@
-"""Decoder-only transformer of the port: init, the full-sequence forward
+"""Transformer of the port: init, the encoder, the full-sequence forward
 (training and prefill), the decode step and the lane lifecycle.
 
 Layers are grouped into *superblocks*, one repetition of
@@ -8,12 +8,17 @@ layer), and params keep the reference's layout
 
     {"embed": (V_pad, D),
      "blocks": {"0": <stacked over superblocks>, "1": ...},   # per position
-     "final_norm": {"scale": (D,)}, "lm_head": (D, V_pad) unless tied}
+     "enc_blocks": {...}, "enc_final_norm": {...},            # enc-dec only
+     "final_norm": {"scale": (D,)[, "bias"]}, "lm_head": (D, V_pad) unless tied}
 
 A position's block holds an attention layer (``attn``/``attn_local``), an
 RG-LRU layer (``rglru``: :mod:`repro_torch.models.rglru`) or an SSD layer
 (``ssd``: :mod:`repro_torch.models.ssd`), as in recurrentgemma's
-(rglru, attn_local) and mamba2's (ssd,) patterns.
+(rglru, attn_local) and mamba2's (ssd,) patterns.  An encoder–decoder
+(seamless) adds a bidirectional encoder stack over precomputed frame
+embeddings (:func:`encode`) and, in every decoder attention block,
+cross-attention (``cross_norm``, ``cross``) over the encoder's output
+between the self-attention and the MLP; LayerNorm norms carry a ``bias``.
 
 For serving, matmul weights are stored in the compute dtype (cast once, at
 load or init); for training they are fp32 (``init_model(dtype=float32)``),
@@ -55,10 +60,13 @@ _KINDS = _ATTN_KINDS + ("rglru", "ssd")
 
 
 def check_supported(arch: ArchConfig) -> None:
-    """The port runs decoder-only models: global and local attention
-    layers, RG-LRU and SSD recurrent layers, dense or MoE MLPs (or none, as
-    mamba2), RMSNorm, and no frontend but precomputed vision patch
-    embeddings.  Encoders, cross-attention and LayerNorm raise."""
+    """The port runs every model the reference builds: global and local
+    attention layers, RG-LRU and SSD recurrent layers, dense or MoE MLPs
+    (or none, as mamba2), RMSNorm or LayerNorm, precomputed vision patch
+    embeddings, and an encoder over precomputed audio frames with
+    cross-attention in the decoder.  What the reference cannot build (an
+    unknown layer kind or norm, a layer without its config) raises, and so
+    does an encoder of recurrent layers, which no config has."""
     kinds = set(arch.layer_pattern)
     missing = [what for what, bad in (
         (f"layer kinds {sorted(kinds - set(_KINDS))}",
@@ -66,14 +74,15 @@ def check_supported(arch: ArchConfig) -> None:
         ("attention", arch.attn is None and bool(kinds & set(_ATTN_KINDS))),
         ("an RG-LRU config", arch.rglru is None and "rglru" in kinds),
         ("an SSM config", arch.ssm is None and "ssd" in kinds),
-        (f"norm {arch.norm!r}", arch.norm != "rmsnorm"),
-        ("an encoder", bool(arch.encoder_layers)),
-        ("cross-attention", arch.cross_attention),
+        (f"norm {arch.norm!r}", arch.norm not in ("rmsnorm", "layernorm")),
         (f"frontend {arch.frontend!r}",
-         arch.frontend not in ("none", "vision_patches"))) if bad]
+         arch.frontend not in ("none", "vision_patches", "audio_frames")),
+        ("an encoder of recurrent layers",
+         bool(arch.encoder_layers) and not kinds <= set(_ATTN_KINDS)))
+        if bad]
     if missing:
         raise NotImplementedError(
-            f"{arch.name}: not ported yet: {', '.join(missing)}")
+            f"{arch.name}: not supported: {', '.join(missing)}")
 
 
 def _layer_window(arch: ArchConfig, kind: str) -> Optional[int]:
@@ -143,7 +152,8 @@ def init_model(arch: ArchConfig, *, seed: int = 0,
                dtype: Optional[torch.dtype] = None) -> dict:
     """Random weights with the reference's distributions and scales
     (N(0, 1) · d_in^-0.5 for projections and experts, N(0, 1) · 0.02 for
-    the embedding and the router, ones for norm scales; the recurrent
+    the embedding and the router, ones for norm scales and zeros for
+    LayerNorm biases; the recurrent
     layers' as :func:`~repro_torch.models.rglru.init_rglru` and
     :func:`~repro_torch.models.ssd.init_ssd` draw them), drawn from a
     seeded :class:`torch.Generator` on ``device``.  The draws differ from
@@ -174,27 +184,48 @@ def init_model(arch: ArchConfig, *, seed: int = 0,
             out[i:i + n] = x
         return out
 
-    def dense(d_in, d_out, first=None):
-        return normal((nsb, d_in, d_out), d_in ** -0.5, first)
+    def dense(d_in, d_out, first=None, n=nsb):
+        return normal((n, d_in, d_out), d_in ** -0.5, first)
 
-    def norm():
-        return {"scale": torch.ones((nsb, d), dtype=torch.float32, device=dev)}
+    def norm(*lead):
+        f32 = dict(dtype=torch.float32, device=dev)
+        out = {"scale": torch.ones(lead + (d,), **f32)}
+        if arch.norm == "layernorm":
+            out["bias"] = torch.zeros(lead + (d,), **f32)
+        return out
 
-    def mlp_params():
+    def attn_params(first=None, n=nsb):
+        return {"wq": dense(d, a.num_heads * a.head_dim, n=n),
+                "wk": dense(d, a.num_kv_heads * a.head_dim, n=n),
+                "wv": dense(d, a.num_kv_heads * a.head_dim, n=n),
+                "wo": dense(a.num_heads * a.head_dim, d, first, n=n)}
+
+    def mlp_params(n=nsb):
         f, moe = mlp.d_ff, mlp.moe
         names = [("w_gate", d, f)] if mlp.kind in ("swiglu", "geglu") else []
         names += [("w_up", d, f), ("w_down", f, d)]
         if moe is None:
-            return {n: dense(i, o) for n, i, o in names}
+            return {nm: dense(i, o, n=n) for nm, i, o in names}
         e = moe.num_experts
-        return {"router": normal((nsb, d, e), 0.02),
-                **{n: normal((nsb, e, i, o), i ** -0.5) for n, i, o in names}}
+        return {"router": normal((n, d, e), 0.02),
+                **{nm: normal((n, e, i, o), i ** -0.5)
+                   for nm, i, o in names}}
 
-    params = Params({
-        "embed": normal((vp, d), 0.02),
-        "final_norm": {"scale": torch.ones((d,), dtype=torch.float32,
-                                           device=dev)},
-    })
+    def attn_block(n, first=None, cross=False):
+        """An attention layer's block over ``n`` superblocks: attention,
+        its post-norm, cross-attention if ``cross``, the MLP."""
+        blk = {"attn_norm": norm(n), "attn": attn_params(first, n)}
+        if arch.post_norm:
+            blk["attn_post_norm"] = norm(n)
+        if cross:
+            blk.update(cross_norm=norm(n), cross=attn_params(n=n))
+        if mlp is not None:
+            blk.update(mlp_norm=norm(n), mlp=mlp_params(n))
+            if arch.post_norm:
+                blk["mlp_post_norm"] = norm(n)
+        return blk
+
+    params = Params({"embed": normal((vp, d), 0.02), "final_norm": norm()})
     if not arch.tie_embeddings:
         params["lm_head"] = normal((d, vp), d ** -0.5)
 
@@ -210,27 +241,25 @@ def init_model(arch: ArchConfig, *, seed: int = 0,
     params["blocks"] = {}
     for pi, kind in enumerate(arch.layer_pattern):
         if kind == "ssd":
-            blk = {"norm": norm(),
+            blk = {"norm": norm(nsb),
                    "ssd": ssd_lib.init_ssd(d, arch.ssm, stacked_normal)}
         elif kind == "rglru":
-            blk = {"rglru_norm": norm(),
+            blk = {"rglru_norm": norm(nsb),
                    "rglru": rglru_lib.init_rglru(d, arch.rglru,
                                                  stacked_normal,
                                                  stacked_uniform)}
+            if mlp is not None:
+                blk.update(mlp_norm=norm(nsb), mlp=mlp_params())
         else:
-            blk = {"attn_norm": norm(),
-                   "attn": {"wq": dense(d, a.num_heads * a.head_dim),
-                            "wk": dense(d, a.num_kv_heads * a.head_dim),
-                            "wv": dense(d, a.num_kv_heads * a.head_dim),
-                            "wo": dense(a.num_heads * a.head_dim, d,
-                                        wo00[:, pi])}}
-            if arch.post_norm:
-                blk["attn_post_norm"] = norm()
-        if mlp is not None and kind != "ssd":
-            blk.update(mlp_norm=norm(), mlp=mlp_params())
-            if arch.post_norm and kind in _ATTN_KINDS:
-                blk["mlp_post_norm"] = norm()
+            blk = attn_block(nsb, wo00[:, pi], arch.cross_attention)
         params["blocks"][str(pi)] = blk
+    if arch.encoder_layers:
+        # the encoder: the pattern's attention blocks over encoder_layers /
+        # period superblocks, no cross-attention
+        ne = arch.encoder_layers // arch.pattern_period
+        params["enc_blocks"] = {str(pi): attn_block(ne)
+                                for pi in range(arch.pattern_period)}
+        params["enc_final_norm"] = norm()
     params.layer_salt = threefry.float_bits(wo00.reshape(-1))
     return params
 
@@ -285,13 +314,31 @@ def layer_noise(arch: ArchConfig, batch: int, seq: int,
             for _ in range(arch.num_layers)]
 
 
+def cross_kv(p: dict, enc_out: torch.Tensor, arch: ArchConfig):
+    """Cross-attention's K and V, (B, S, Hkv, Dh) each, projected from the
+    encoder output with the layer's ``cross`` weights in the compute dtype
+    (no RoPE)."""
+    dtype, a = torch_dtype(arch.dtype), arch.attn
+    b, s = enc_out.shape[:2]
+    e = enc_out.to(dtype)
+    return tuple((e @ p[w].to(dtype)).reshape(b, s, a.num_kv_heads,
+                                              a.head_dim)
+                 for w in ("wk", "wv"))
+
+
 def _apply_block(p: dict, x: torch.Tensor, arch: ArchConfig, kind: str, *,
-                 dtype, **attn_kw) -> Tuple[torch.Tensor, Dict[str, Any]]:
+                 dtype, causal: bool = True,
+                 enc_out: Optional[torch.Tensor] = None,
+                 **attn_kw) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One layer over the full sequence, as the reference's
     ``_apply_block_full``: an attention layer is pre-norm attention then
     MLP, each with its post-norm when ``arch.post_norm``; an RG-LRU layer
-    pre-norm RG-LRU then MLP; an SSD layer pre-norm SSD alone.  Returns
-    (x, aux): the attention's aux and the MLP's MoE aux."""
+    pre-norm RG-LRU then MLP; an SSD layer pre-norm SSD alone.  ``causal``
+    False makes the self-attention bidirectional (the encoder); with
+    ``enc_out`` a block that has ``cross`` weights attends over it (pre-norm
+    ``cross_norm``, the masked-softmax reference, no RoPE) between the
+    self-attention and the MLP.  Returns (x, aux): the attention's aux and
+    the MLP's MoE aux."""
     if kind == "ssd":
         s_out, _ = ssd_lib.ssd_forward(
             p["ssd"], norm_apply(p["norm"], x, arch.norm, arch.norm_eps), arch)
@@ -302,14 +349,24 @@ def _apply_block(p: dict, x: torch.Tensor, arch: ArchConfig, kind: str, *,
                                    arch.norm_eps), arch)
         x, aux = x + r_out, {}
     else:
+        acfg = (arch.attn if causal
+                else dataclasses.replace(arch.attn, causal=False))
         h = norm_apply(p["attn_norm"], x, arch.norm, arch.norm_eps)
         a_out, aux = attn_lib.full_attention(
-            p["attn"], h, arch.attn, arch,
+            p["attn"], h, acfg, arch,
             layer_window=_layer_window(arch, kind), **attn_kw)
         if arch.post_norm:
             a_out = norm_apply(p["attn_post_norm"], a_out, arch.norm,
                                arch.norm_eps)
         x = x + a_out
+        if enc_out is not None and "cross" in p:
+            h = norm_apply(p["cross_norm"], x, arch.norm, arch.norm_eps)
+            c_out, _ = attn_lib.full_attention(
+                p["cross"], h,
+                dataclasses.replace(acfg, causal=False, rope="none"), arch,
+                positions=attn_kw.get("positions"),
+                kv_override=cross_kv(p["cross"], enc_out, arch))
+            x = x + c_out
     if arch.mlp is None:
         return x, aux
     h = norm_apply(p["mlp_norm"], x, arch.norm, arch.norm_eps)
@@ -317,6 +374,38 @@ def _apply_block(p: dict, x: torch.Tensor, arch: ArchConfig, kind: str, *,
     if arch.post_norm and kind in _ATTN_KINDS:
         m_out = norm_apply(p["mlp_post_norm"], m_out, arch.norm, arch.norm_eps)
     return x + m_out, {**aux, **m_aux}
+
+
+def _columns(blocks: Dict[str, Any]) -> Dict[str, List[Tuple]]:
+    """Each position's leaves unbound over superblocks, once: a single
+    backward node then stacks every layer's gradient of a leaf."""
+    return {pi: [leaf.unbind(0) for leaf in tree_leaves(blk)]
+            for pi, blk in blocks.items()}
+
+
+def encode(params: dict, enc_embeds: torch.Tensor, arch: ArchConfig, *,
+           use_kernel: bool = False) -> torch.Tensor:
+    """The encoder stack over precomputed frame embeddings (B, S, D), as
+    the reference's ``encode``: ``enc_blocks`` in the pattern's order,
+    bidirectional unless ``arch.encoder_bidirectional`` is False, mode
+    ``vanilla`` (no DMS), positions ``0..S-1``, then ``enc_final_norm``.
+    ``use_kernel`` runs its self-attention through the flash kernels
+    (``causal=False``)."""
+    check_supported(arch)
+    dtype = torch_dtype(arch.dtype)
+    x = enc_embeds.to(dtype)
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    blocks = params["enc_blocks"]
+    columns = _columns(blocks)
+    for sb in range(arch.encoder_layers // arch.pattern_period):
+        for pi, kind in enumerate(arch.layer_pattern):
+            key = str(pi)
+            p = tree_unflatten(blocks[key], [c[sb] for c in columns[key]])
+            x, _ = _apply_block(p, x, arch, kind, dtype=dtype,
+                                causal=not arch.encoder_bidirectional,
+                                mode="vanilla", positions=positions,
+                                use_kernel=use_kernel)
+    return norm_apply(params["enc_final_norm"], x, arch.norm, arch.norm_eps)
 
 
 def model_forward(
@@ -333,12 +422,16 @@ def model_forward(
     collect_kv: bool = False,
     remat: bool = False,
     frontend_embeds: Optional[torch.Tensor] = None,   # (B, F, D)
+    enc_embeds: Optional[torch.Tensor] = None,        # (B, S_enc, D)
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Full forward.  Returns (logits (B, T, V_pad) fp32, aux) with aux
     ``alpha_sum`` (0-d fp32 tensor), ``alpha_count`` (float) and
     ``moe_aux_loss`` (0-d fp32) summed over layers, as the reference's
     ``_scan_blocks`` aggregates them.  ``frontend_embeds`` are prepended to
-    the token embeddings (T counts them).
+    the token embeddings (T counts them).  An encoder–decoder given
+    ``enc_embeds`` runs :func:`encode` first (through the flash kernels
+    under ``use_kernel``), its decoder layers cross-attend over the result,
+    and aux carries it as ``enc_out``.
 
     ``dms_train`` draws each layer's Gumbel noise from ``uniforms[layer]``
     (layer order: superblocks, then positions) if given (a test feeds the
@@ -350,6 +443,9 @@ def model_forward(
     leaf stacked over superblocks (nsb, B, Hkv, T, ...), as the
     reference's scan stacks them."""
     check_supported(arch)
+    enc_out = None
+    if arch.encoder_layers and enc_embeds is not None:
+        enc_out = encode(params, enc_embeds, arch, use_kernel=use_kernel)
     x = embed_tokens(params, tokens, arch, frontend_embeds)
     b, t = x.shape[:2]
     if positions is None:
@@ -357,22 +453,20 @@ def model_forward(
     if mode == "dms_train" and arch.dms.enabled and uniforms is None:
         uniforms = layer_noise(arch, b, t, generator, x.device)
     dtype = torch_dtype(arch.dtype)
-    # one unbind per leaf: a single backward node stacks every layer's grad
     blocks = params["blocks"]
-    columns = {pi: [leaf.unbind(0) for leaf in tree_leaves(blk)]
-               for pi, blk in blocks.items()}
+    columns = _columns(blocks)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     a_sum, moe_sum, a_cnt = zero, zero, 0.0
     kv_keys = ("k_rope", "v", "retained", "alpha_bin")
     layer_kv: Dict[str, List[Dict[str, torch.Tensor]]] = {
         str(pi): [] for pi in range(arch.pattern_period)}
 
-    def layer(x, sb, pi, kind, u):
+    def layer(x, sb, pi, kind, u, enc_out):
         key = str(pi)
         p = tree_unflatten(blocks[key], [c[sb] for c in columns[key]])
         x, aux = _apply_block(
-            p, x, arch, kind, dtype=dtype, mode=mode, dms_u=u,
-            positions=positions, neuron_scale=neuron_scale,
+            p, x, arch, kind, dtype=dtype, enc_out=enc_out, mode=mode,
+            dms_u=u, positions=positions, neuron_scale=neuron_scale,
             use_kernel=use_kernel, collect_kv=collect_kv)
         if collect_kv:
             layer_kv[key].append({k: aux[k] for k in kv_keys if k in aux})
@@ -383,12 +477,14 @@ def model_forward(
         u = uniforms[i] if uniforms is not None else None
         if remat:
             x, s, m, cnt = torch.utils.checkpoint.checkpoint(
-                layer, x, sb, pi, kind, u, use_reentrant=False)
+                layer, x, sb, pi, kind, u, enc_out, use_reentrant=False)
         else:
-            x, s, m, cnt = layer(x, sb, pi, kind, u)
+            x, s, m, cnt = layer(x, sb, pi, kind, u, enc_out)
         a_sum, moe_sum, a_cnt = a_sum + s, moe_sum + m, a_cnt + cnt
     logits = lm_logits(params, x, arch)
     out = {"alpha_sum": a_sum, "alpha_count": a_cnt, "moe_aux_loss": moe_sum}
+    if enc_out is not None:
+        out["enc_out"] = enc_out
     if collect_kv:
         out["layer_kv"] = {key: {k: torch.stack([d[k] for d in kvs])
                                  for k in kvs[0]}
@@ -622,6 +718,9 @@ def decode_step(
     pos_t,                            # int or per-lane (B,)
     *,
     use_kernel: bool = False,
+    enc_out: Optional[torch.Tensor] = None,      # (B, S_enc, D)
+    enc_valid: Optional[torch.Tensor] = None,    # (B, S_enc) bool
+    embed_override: Optional[torch.Tensor] = None,   # (B, 1, D)
     active: Optional[torch.Tensor] = None,   # (B,) bool lane mask
 ) -> Tuple[torch.Tensor, Dict[str, Any], Dict[str, Any]]:
     """One decode step.  Returns (logits (B, V_pad) fp32, state, aux).
@@ -632,9 +731,18 @@ def decode_step(
     what the step would have left, as the reference reports it.  Layers
     run in the reference's order (superblocks, then positions); each
     attention position's policy prepares the step once for its stacked
-    layers, with their salts."""
+    layers, with their salts.
+
+    With ``enc_out`` each decoder attention layer that has ``cross``
+    weights cross-attends over it after its self-attention: K/V projected
+    from ``enc_out`` in every layer of every step, as the reference does,
+    over the slots ``enc_valid`` leaves visible (default all), through the
+    decode kernel's dense mode under ``use_kernel``.  Its meters are not
+    added to the step's, as the reference discards them.
+    ``embed_override`` replaces the token's embedding."""
     check_supported(arch)
-    x = embed_tokens(params, token, arch)
+    x = (embed_override if embed_override is not None
+         else embed_tokens(params, token, arch))
     b = x.shape[0]
     live = torch.zeros((b,), dtype=torch.float32, device=x.device)
     reads = torch.zeros_like(live)
@@ -666,6 +774,9 @@ def decode_step(
         x = x + a_out
         live = live + aux["live_tokens"]
         reads = reads + aux["reads_tokens"]
+        if enc_out is not None and "cross" in p:
+            x = x + _cross_decode(p, x, arch, enc_out, enc_valid, pos_t,
+                                  use_kernel, impls)
         if arch.mlp is None:
             continue
         h = norm_apply(p["mlp_norm"], x, arch.norm, arch.norm_eps)
@@ -679,6 +790,26 @@ def decode_step(
     logits = lm_logits(params, x, arch)[:, 0]
     return logits, state, {"live_tokens": live, "reads_tokens": reads,
                            "attn_impl_kernel": int(impls == {"kernel"})}
+
+
+def _cross_decode(p: dict, x: torch.Tensor, arch: ArchConfig,
+                  enc_out: torch.Tensor, enc_valid: Optional[torch.Tensor],
+                  pos_t, use_kernel: bool, impls: set) -> torch.Tensor:
+    """One decoder layer's cross-attention output for the decode step
+    (pre-norm ``cross_norm``); adds its implementation to ``impls``."""
+    a = arch.attn
+    h = norm_apply(p["cross_norm"], x, arch.norm, arch.norm_eps)
+    ek, ev = cross_kv(p["cross"], enc_out, arch)
+    b, s = ek.shape[:2]
+    valid = (enc_valid if enc_valid is not None else
+             torch.ones((b, s), dtype=torch.bool, device=ek.device))
+    out, _, aux = attn_lib.decode_attention(
+        p["cross"], h, None, dataclasses.replace(a, causal=False, rope="none"),
+        arch, pos_t=pos_t, use_kernel=use_kernel,
+        cross_kv=(ek.transpose(1, 2), ev.transpose(1, 2),
+                  valid[:, None, :].expand(b, a.num_kv_heads, s)))
+    impls.add(aux["attn_impl"])
+    return out
 
 
 def _recurrent_layer(p: dict, x: torch.Tensor, cache: Any, arch: ArchConfig,

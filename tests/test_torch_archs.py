@@ -80,11 +80,12 @@ def _leaves(tree, prefix=""):
             yield path, tuple(v.shape)
 
 
-@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("name", NAMES + ("seamless-m4t-large-v2",))
 def test_init_model_layout_matches_reference(name):
     """The port's own init draws the reference's tree: the same leaves
-    (post-norms, per-position blocks, MoE router and experts) in the same
-    shapes, and one salt a layer."""
+    (post-norms, per-position blocks, MoE router and experts; seamless's
+    encoder blocks, cross-attention and LayerNorm biases) in the same
+    shapes, and one salt a decoder layer."""
     tarch = get_smoke(name)
     jparams = jtfm.init_model(jax.random.PRNGKey(0), jget_smoke(name))
     tparams = ttfm.init_model(tarch, seed=0, device="cpu")
@@ -92,12 +93,16 @@ def test_init_model_layout_matches_reference(name):
     assert tparams.layer_salt.shape == (tarch.num_layers,)
 
 
-@pytest.mark.parametrize("name", ["seamless-m4t-large-v2"])
-def test_other_families_still_raise(name):
-    """Encoders, cross-attention and LayerNorm are not ported: every entry
-    point refuses them, nothing falls back."""
-    tarch = bridge.arch_from_dict(dataclasses.asdict(jget_smoke(name)))
-    with pytest.raises(NotImplementedError, match="not ported"):
+def test_unknown_layer_kind_still_raises():
+    """A config the reference cannot build (a layer kind it does not know)
+    is refused by every entry point of the port, as the reference's
+    ``init_model`` refuses it; nothing falls back."""
+    jarch = dataclasses.replace(jget_smoke("gemma2-2b"),
+                                layer_pattern=("attn", "conv"))
+    with pytest.raises(ValueError):
+        jtfm.init_model(jax.random.PRNGKey(0), jarch)
+    tarch = bridge.arch_from_dict(dataclasses.asdict(jarch))
+    with pytest.raises(NotImplementedError, match="layer kinds"):
         ttfm.check_supported(tarch)
     with pytest.raises(NotImplementedError):
         ttfm.init_model(tarch, device="cpu")

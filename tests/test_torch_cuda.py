@@ -14,11 +14,12 @@ from repro_torch.kernels.dms_decode.ref import dms_decode_plain
 BP = 16
 BF16 = dict(rtol=2e-2, atol=2e-2)   # each side rounds its output to bf16
 # (G, Dh, P, cap) of gemma2-2b, chatglm3-6b, qwen2-vl-7b, granite-moe-3b,
-# granite-moe-1b and recurrentgemma-2b at their served arenas, and
-# recurrentgemma's window ring
+# granite-moe-1b and recurrentgemma-2b at their served arenas,
+# recurrentgemma's window ring, and seamless-m4t's decoder (G 1 at Dh 64)
 FAMILY_SHAPES = [(2, 256, 352, 50.0), (16, 128, 336, None),
                  (7, 128, 336, None), (3, 64, 336, None), (2, 64, 336, None),
-                 (10, 256, 352, None), (10, 256, 2064, None)]
+                 (10, 256, 352, None), (10, 256, 2064, None),
+                 (1, 64, 352, None)]
 
 
 @pytest.fixture
@@ -39,7 +40,8 @@ def test_decode_kernel_matches_plain(cuda_device, g, dh, p, cap):
     gemma2's G 2 at Dh 256 with the softcap 50 (its one-stage ring),
     chatglm3's G 16 (the kernel's largest), qwen2-vl's G 7, granite's G 3
     and G 2 at Dh 64, recurrentgemma's G 10 at Dh 256 (its arena and its
-    2049-slot window ring)."""
+    2049-slot window ring), seamless's G 1 at Dh 64 (the fewest query rows
+    a block)."""
     gen = torch.Generator(device=cuda_device).manual_seed(g * dh)
     bh = 8
     q = torch.randn((bh, g, dh), generator=gen, device=cuda_device).bfloat16()
@@ -86,6 +88,33 @@ def test_decode_dense_mode_edges(cuda_device, g, dh, p, block_p):
     torch.cuda.synchronize()
     assert ops.launches == before + 1
     assert torch.isfinite(got.float()).all() and not got[0, 0, g:2 * g].any()
+    torch.testing.assert_close(got.cpu().float(), want.float(), **BF16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tail", [0, 200], ids=["all-frames", "tail-hidden"])
+def test_decode_dense_mode_cross_shape(cuda_device, tail):
+    """Seamless's cross-attention: the dense mode at B 4, Hkv 16, G 1, Dh
+    64 over a 1024-frame encoder memory in the layout the decode step
+    passes (K/V transposed views, the valid mask expanded over the heads),
+    every frame visible or lane 1's last ``tail`` hidden (its last block
+    dropped from the derived table, the one before it masked within).  One
+    launch, within bf16 rounding of the same wrapper on the CPU."""
+    gen = torch.Generator().manual_seed(1024 + tail)
+    b, hkv, s, dh = 4, 16, 1024, 64
+    q = torch.randn((b, 1, hkv, dh), generator=gen).bfloat16()
+    ek, ev = (torch.randn((b, s, hkv, dh), generator=gen).bfloat16()
+              for _ in range(2))
+    valid = torch.ones((b, s), dtype=torch.bool)
+    valid[1, s - tail:] = False
+    args = (q, ek.transpose(1, 2), ev.transpose(1, 2),
+            valid[:, None, :].expand(b, hkv, s))
+    want = ops.dms_decode_attention(*args)
+    before = ops.launches
+    got = ops.dms_decode_attention(*(x.to(cuda_device) for x in args))
+    torch.cuda.synchronize()
+    assert ops.launches == before + 1
+    assert torch.isfinite(got.float()).all()
     torch.testing.assert_close(got.cpu().float(), want.float(), **BF16)
 
 
@@ -546,7 +575,9 @@ def test_decode_splits_match_plain(cuda_device, nb, front_only):
 
 
 def _flash_operands(device, dtype, b=2, t=200, hq=6, hkv=2, dh=64, delay=32,
-                    window=None, cap=None, skip=False, seed=0):
+                    window=None, cap=None, skip=False, seed=0, causal=True):
+    """Folded flash operands; ``delay`` 0 is vanilla (log-survival 0,
+    padding too, as ``dms_flash_attention`` builds it)."""
     from repro_torch.kernels.dms_attention import ops as fops
     from repro_torch.kernels.dms_attention.ref import FlashConfig
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -563,9 +594,10 @@ def _flash_operands(device, dtype, b=2, t=200, hq=6, hkv=2, dh=64, delay=32,
     if skip:                    # the first 128-key block holds no retained key
         alpha = (u < 0.8).float()
         alpha[:, :, :128] = 1.0
-    ls = fops.kernel_log_survival(alpha, tp)
+    ls = (fops.kernel_log_survival(alpha, tp) if delay else
+          torch.zeros((b * hkv, tp), device=device))
     cfg = FlashConfig(t=t, orig_dh=dh, hq=hq, hkv=hkv, window=window,
-                      dms_delay=delay, causal=True, logit_cap=cap,
+                      dms_delay=delay, causal=causal, logit_cap=cap,
                       block_k=bk, skip_blocks=skip)
     hr = fops.prep_tables(ls, cfg)
     do = rnd(*qf.shape)
@@ -592,6 +624,26 @@ def test_flash_kernels_match_plain(cuda_device, dtype, kw):
     """fwd, dq and dkv against their plain versions: each output within
     1e-2 (bf16: 8 significant bits) or 1e-5 (fp32: sums in another order)
     of the plain output's largest magnitude."""
+    _flash_vs_plain(cuda_device, dtype, kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,kw", [
+    # seamless's encoder: vanilla, G 1 at Dh 64 (dkv in clusters of 1),
+    # on the 64-row tile and off it (padded keys hidden by the guards alone)
+    (torch.bfloat16, dict(hq=16, hkv=16, t=1024, delay=0)),
+    (torch.bfloat16, dict(hq=16, hkv=16, t=1000, delay=0)),
+    (torch.float32, dict(hq=16, hkv=16, t=1000, delay=0)),
+    # a DMS mask without causality, G 3
+    (torch.bfloat16, dict(t=300)),
+], ids=["bf16-G1-T1024", "bf16-G1-T1000", "fp32-G1-T1000", "bf16-dms-T300"])
+def test_flash_kernels_noncausal_match_plain(cuda_device, dtype, kw):
+    """``causal=False`` (the bidirectional encoder): fwd, dq and dkv
+    against their plain versions, as above."""
+    _flash_vs_plain(cuda_device, dtype, dict(kw, causal=False))
+
+
+def _flash_vs_plain(cuda_device, dtype, kw):
     from repro_torch.kernels.dms_attention import ops as fops
     from repro_torch.kernels.dms_attention import ref as fref
     qf, kf, vf, ls, hr, cfg, do = _flash_operands(cuda_device, dtype, **kw)

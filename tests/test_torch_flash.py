@@ -96,6 +96,19 @@ def test_flash_vanilla_matches_reference():
         assert _rel(a.numpy(), b) < GRAD_REL, name
 
 
+@pytest.mark.parametrize("alpha", [False, True], ids=["vanilla", "dms"])
+def test_flash_noncausal_matches_reference(alpha):
+    """``causal=False`` (the encoder's bidirectional attention) at T 33,
+    off the 16-key blocks: the padded keys are hidden by the key-padding
+    mask alone.  Output and gradients against the reference's Pallas
+    kernels; vanilla is what the encoder runs (no α, log-survival 0)."""
+    kw = dict(causal=False, **(dict(dms_window=4) if alpha else {}))
+    out_j, g_j, out_t, g_t = _both((2, 33, 4, 4, 16), kw, alpha=alpha)
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), **F32)
+    for name, a, b in zip("q k v alpha".split(), g_t, g_j):
+        assert _rel(a.numpy(), b) < GRAD_REL, name
+
+
 def test_flash_bf16_matches_reference():
     q, k, v, a, _ = _inputs((2, 48, 4, 2, 16), seed=3)
     out_j = jops.dms_flash_attention(
@@ -135,11 +148,27 @@ def test_flash_prefill_skip_blocks_matches_reference():
 def test_plain_versions_match_reference_kernels(skip, window, cap, t):
     """Each plain version against its Pallas kernel (interpret mode) on the
     same folded operands: out and lse; dq; dk, dv and d(log_surv)."""
-    b, hq, hkv, dh, bq = 2, 4, 2, 16, 16
+    _plain_vs_reference_kernels(skip, window, cap, t)
+
+
+@pytest.mark.parametrize("delay,hkv,t", [(0, 4, 45), (4, 2, 40)],
+                         ids=["vanilla-G1-T45", "dms-G2-T40"])
+def test_plain_versions_match_reference_kernels_noncausal(delay, hkv, t):
+    """``causal=False``, T off the 16-row block: the encoder's vanilla case
+    (no DMS mask, log-survival 0 on the padded keys too, as the wrapper
+    pads it, G 1) and a DMS case; each plain version against its Pallas
+    kernel in interpret mode."""
+    _plain_vs_reference_kernels(False, None, None, t, causal=False,
+                                delay=delay, hkv=hkv)
+
+
+def _plain_vs_reference_kernels(skip, window, cap, t, causal=True, delay=4,
+                                hkv=2):
+    b, hq, dh, bq = 2, 4, 16, 16
     q, k, v, a, do = _inputs((b, t, hq, hkv, dh), seed=1, binary=skip)
     tp = -(-t // bq) * bq
-    kw = dict(t=t, orig_dh=dh, hq=hq, hkv=hkv, window=window, dms_delay=4,
-              causal=True, logit_cap=cap, block_k=bq, skip_blocks=skip)
+    kw = dict(t=t, orig_dh=dh, hq=hq, hkv=hkv, window=window, dms_delay=delay,
+              causal=causal, logit_cap=cap, block_k=bq, skip_blocks=skip)
     jcfg = jkern.FlashConfig(interpret=True, block_q=bq, **kw)
     tcfg = tref.FlashConfig(**kw)
 
@@ -148,10 +177,13 @@ def test_plain_versions_match_reference_kernels(skip, window, cap, t):
         return np.pad(x, ((0, 0), (0, tp - t), (0, 0)))
 
     qf, kf, vf, dof = fold(q), fold(k), fold(v), fold(do)
-    with np.errstate(divide="ignore"):
-        ls = np.maximum(np.log1p(-a), -1e30)
-    ls = np.pad(ls.reshape(b * hkv, t), ((0, 0), (0, tp - t)),
-                constant_values=-1e30)
+    if delay:
+        with np.errstate(divide="ignore"):
+            ls = np.maximum(np.log1p(-a), -1e30)
+        ls = np.pad(ls.reshape(b * hkv, t), ((0, 0), (0, tp - t)),
+                    constant_values=-1e30)
+    else:                       # vanilla: the wrapper's zeros, padding too
+        ls = np.zeros((b * hkv, tp), np.float32)
     hr_j, remap_j = jops._prep_tables(jnp.asarray(ls), jcfg)
     hr_t = ops.prep_tables(torch.tensor(ls), tcfg)
     if skip:

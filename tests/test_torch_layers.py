@@ -92,11 +92,12 @@ def test_swiglu_mlp_matches_reference(dtype):
 
 
 def test_unported_layer_kinds_raise():
-    """LayerNorm (seamless) is not ported yet; an unknown RoPE kind raises
-    rather than rotating as ``full``."""
+    """An unknown RoPE kind raises rather than rotating as ``full``, and an
+    unknown norm kind raises rather than normalising as LayerNorm (both
+    norms of the configs are ported)."""
     x = torch.zeros((1, 1, 2, 8))
     with pytest.raises(NotImplementedError):
         tlayers.apply_rope(x, torch.zeros((1, 1), dtype=torch.int32), 1e4,
                            kind="2d")
     with pytest.raises(NotImplementedError):
-        tlayers.norm_apply({"scale": torch.ones(8)}, x, "layernorm", 1e-6)
+        tlayers.norm_apply({"scale": torch.ones(8)}, x, "groupnorm", 1e-6)
