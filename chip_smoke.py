@@ -173,6 +173,19 @@ Phases (any failure raises, so the exit code is non-zero):
               through the kernel against the reference path's; (d) one
               ``make_train_step`` at 2 + 2 layers (B 2, 1024 tokens, 1024
               frames), kernel against reference path: loss within 1e-2.
+5i. Dh 256  — gemma2-2b and recurrentgemma-2b at full width, random bf16
+              weights from seed 0 and phase 4's DMS bias, on the flash
+              kernels at their head dim (256): (a) gemma2 at 4 layers:
+              ``phase_prefill_export`` with dms (4 x 512 tokens through
+              ``flash_fwd``, imported fixed and paged, 32 greedy tokens:
+              tokens equal, alpha flips and the last logits' gap against
+              the reference path within 0.05 x max |logit|, flash
+              launches); (b) recurrentgemma at 4 layers: the prefill
+              export's last logits against the reference path's; (c) one
+              retrofit step of each at one superblock (B 2, T 1024, fp32
+              weights) on the kernel path and on the reference path: loss
+              and gradient norm within 1e-2, the fwd/dq/dkv launches and
+              the step's seconds.
 6. train    — qwen-r1-1.5b at full width, fp32 weights from seed 0, DMS
               retrofit (one phase-1 step, three distillation steps) on the
               synthetic stream at (B 2, T 1024) through the flash kernels:
@@ -220,7 +233,17 @@ cases``), with the autograd Function against the dense oracle.  Phase 7
 also times ``flash_fwd`` at the prefill export's shapes and the decode
 kernel at 5f's serving shapes, at recurrentgemma's serving shapes and (b)'s
 window ring, and at 5h's (G 1, the cross-attention's dense mode), and the
-three flash kernels at 5h's encoder shape beside SDPA with no mask.  The last
+three flash kernels at 5h's encoder shape beside SDPA with no mask.  Phase
+3 also holds ``flash_fwd``, ``flash_dq`` and ``flash_dkv`` at Dh 256
+(``dh256_flash_cases``: gemma2's G 2 with the softcap 50, causal, with a
+64-token window and T 1000; recurrentgemma's G 10 over one kv head, causal
+and without causality; bf16 and fp32, each bit-equal on a second launch;
+gemma2's prefill export shape) and the decode kernel at every shape 5i
+launches (``dh256_decode_keys``); phase 7 times the three flash kernels at
+gemma2's and recurrentgemma's retrofit shapes and ``flash_fwd`` at gemma2's
+prefill export.  The decode kernel's split count follows ``ops.splits``
+(B*Hkv and the SM count); ``decode_split_sweep`` times it at every count on
+the shapes that lost to SDPA, beside an earlier kernel's source.  The last
 four lines are the script's total seconds, the ``kernels`` JSON line, the
 card's name and power limit (again) and the result line ``{"ok": true,
 "device": {...}}``.  Imports nothing of JAX.
@@ -371,7 +394,7 @@ def phase_kernels(torch, main_shape):
             raise AssertionError(f"kernel [{name}]: a second launch gave "
                                  "other bits")
         ref = dms_decode_plain(q, k, v, valid, tbl, n, kw["bp"], cap)
-        splits = ops.splits(tbl.shape[1])
+        splits = ops.launch_splits(q, tbl.shape[1])
         ref_split = dms_decode_plain_split(q, k, v, valid, tbl, n, kw["bp"],
                                            cap, splits=splits)
         if not bool(torch.isfinite(out.float()).all()):
@@ -498,7 +521,7 @@ def phase_pool_kernels(torch, main_shape):
         ref = dms_decode_plain_shared(*shared, bp, None)
         ref_split = dms_decode_plain_split(
             *shared, bp, None, shared_kv=True,
-            splits=ops.splits(shared[4].shape[1]))
+            splits=ops.launch_splits(shared[0], shared[4].shape[1]))
         if not bool(torch.isfinite(out.float()).all()):
             raise AssertionError(f"shared-pool kernel [{name}]: non-finite")
         err = (out.float() - ref.float()).abs().max().item()
@@ -587,8 +610,8 @@ def phase_weights_kernels(torch, main_shape, device="cuda"):
         if device == "cuda":
             torch.cuda.synchronize()
         want = dms_decode_plain_weights(*shared, bp, None, shared_kv=True)
-        # the CPU rehearsal has no kernel to ask its split count
-        splits = ops.splits(nb) if device == "cuda" else 1
+        # the CPU rehearsal's plain version takes the table whole
+        splits = ops.launch_splits(shared[0], nb) if device == "cuda" else 1
         weights_errors(torch, got, dms_decode_plain_split(
             *shared, bp, None, shared_kv=True, splits=splits,
             need_weights=True), fixed[5], fixed[4], nb)
@@ -955,7 +978,8 @@ def phase_quest_dmc_kernels(torch, arch, layouts, device="cuda"):
         shared = bool(ckw.get("shared_kv"))
         split = dms_decode_plain_split(
             *args[:7], None, shared_kv=shared,
-            splits=ops.splits(args[4].shape[1]) if device == "cuda" else 1)
+            splits=(ops.launch_splits(args[0], args[4].shape[1])
+                    if device == "cuda" else 1))
         if not bool(torch.isfinite(out.float()).all()):
             raise AssertionError(f"{name}: non-finite output")
         torch.testing.assert_close(out.float().cpu(), want.float(),
@@ -1036,10 +1060,6 @@ MAIN_FLASH = dict(b=2, t=1024, hq=12, hkv=2, dh=128, dtype="bfloat16")
 def phase_flash_kernels(torch):
     """fwd, dq and dkv against their plain versions on the same CUDA
     tensors; returns each kernel's max abs error at the main shape."""
-    from repro_torch.kernels.dms_attention import ops as fops
-    from repro_torch.kernels.dms_attention import ref as fref
-    torch.backends.cuda.matmul.allow_tf32 = False   # the plain version in fp32
-    torch.backends.cudnn.allow_tf32 = False
     variants = {
         "retrofit shape": {},
         "T = 1000 (padding)": dict(t=1000),
@@ -1059,20 +1079,66 @@ def phase_flash_kernels(torch):
         b=2, t=33, hq=6, hkv=3, dh=8, dtype="bfloat16", delay=4)
     cases["Dh 64, T = 300, bf16"] = dict(MAIN_FLASH, t=300, dh=64)
     cases["G = 4 (Hq 8, Hkv 2), bf16"] = dict(MAIN_FLASH, hq=8)
+    return flash_vs_plain(torch, cases)["retrofit shape, bf16"]
+
+
+# gemma2-2b's and recurrentgemma-2b's attention at full width: Dh 256, G 2
+# over 4 kv heads with the softcap 50, and G 10 over one kv head
+DH256_G2 = dict(hq=8, hkv=4, dh=256, cap=50.0)
+DH256_G10 = dict(hq=10, hkv=1, dh=256)
+DH256_FLASH = {
+    "gemma2-2b retrofit shape (B 2, T 1024)": dict(DH256_G2, b=2, t=1024),
+    "gemma2-2b, T 1000, window 64": dict(DH256_G2, b=2, t=1000, window=64),
+    "recurrentgemma-2b retrofit shape (B 2, T 1024)": dict(DH256_G10, b=2,
+                                                           t=1024),
+    "recurrentgemma-2b, T 1000, no causality": dict(DH256_G10, b=2, t=1000,
+                                                   causal=False),
+}
+# the prefill export's shape (EXPORT_LANES, EXPORT_PROMPT; bf16 only: the
+# export runs the model in bf16)
+DH256_EXPORT = {"gemma2-2b prefill export (B 4, T 512), binarised alpha, "
+                "skip": dict(DH256_G2, b=4, t=512, alpha="bin", skip=True,
+                             dtype="bfloat16")}
+
+
+def dh256_flash_cases():
+    """Phase 3's Dh-256 flash cases: each of DH256_FLASH in bf16 and fp32,
+    and the prefill export's shape in bf16."""
+    cases = {f"{name}, {short}": dict(kw, dtype=dtype)
+             for name, kw in DH256_FLASH.items()
+             for short, dtype in (("bf16", "bfloat16"), ("fp32", "float32"))}
+    return {**cases, **DH256_EXPORT}
+
+
+def flash_vs_plain(torch, cases, *, every_twice=False, device="cuda"):
+    """fwd, dq and dkv on each of ``cases`` (``flash_case`` keywords and a
+    dtype) against their plain versions on the same tensors, within
+    FLASH_REL_TOL of the plain output's largest magnitude; every bf16 case
+    (with ``every_twice`` every case) launched a second time for the same
+    bits.  Returns {case: {kernel: max abs err}}."""
+    from repro_torch.kernels.dms_attention import ops as fops
+    from repro_torch.kernels.dms_attention import ref as fref
+    torch.backends.cuda.matmul.allow_tf32 = False   # the plain version in fp32
+    torch.backends.cudnn.allow_tf32 = False
+    cuda = device == "cuda"
     before = dict(fops.launches)
-    main_err = {}
+    errs = {}
     repeats = 0
     for name, kw in cases.items():
+        kw = dict(kw)
         dtype = getattr(torch, kw.pop("dtype"))
-        qf, kf, vf, ls, hr, cfg, do = flash_case(torch, dtype=dtype, **kw)
+        qf, kf, vf, ls, hr, cfg, do = flash_case(torch, dtype=dtype,
+                                                 device=device, **kw)
         t = cfg.t
         out, lse = fops.flash_fwd(qf, kf, vf, ls, hr, cfg)
-        torch.cuda.synchronize()
+        if cuda:
+            torch.cuda.synchronize()
         out_p, lse_p = fref.flash_fwd_plain(qf, kf, vf, ls, hr, cfg)
         delta = (do.float() * out_p.float()).sum(-1)
         dq = fops.flash_dq(qf, kf, vf, ls, do, lse_p, delta, hr, cfg)
         dk, dv, dls = fops.flash_dkv(qf, kf, vf, ls, do, lse_p, delta, hr, cfg)
-        torch.cuda.synchronize()
+        if cuda:
+            torch.cuda.synchronize()
         dq_p = fref.flash_dq_plain(qf, kf, vf, ls, do, lse_p, delta, hr, cfg)
         dk_p, dv_p, dls_p = fref.flash_dkv_plain(qf, kf, vf, ls, do, lse_p,
                                                  delta, hr, cfg)
@@ -1080,7 +1146,7 @@ def phase_flash_kernels(torch):
         pairs = {"out": (out[:, :t], out_p[:, :t]),
                  "lse": (lse[:, :t], lse_p[:, :t]), "dq": (dq, dq_p),
                  "dk": (dk, dk_p), "dv": (dv, dv_p), "dls": (dls, dls_p)}
-        parts = []
+        parts, found = [], {}
         for key, (got, want) in pairs.items():
             got, want = got.float(), want.float()
             if not bool(torch.isfinite(got).all()):
@@ -1092,16 +1158,19 @@ def phase_flash_kernels(torch):
                 raise AssertionError(f"flash [{name}] {key}: max abs err {err:.3e}"
                                      f" > {tol} x max |plain| {scale:.3e}")
             parts.append(f"{key} {err:.2e}/{scale:.2e}")
-            if name == "retrofit shape, bf16":
-                main_err[key] = err
-        if dtype == torch.bfloat16:
+            found[key] = err
+        errs[name] = {"flash_fwd": max(found["out"], found["lse"]),
+                      "flash_dq": found["dq"],
+                      "flash_dkv": max(found["dk"], found["dv"], found["dls"])}
+        if dtype == torch.bfloat16 or every_twice:
             # no atomics anywhere: a second launch gives the same bits
             again = (fops.flash_fwd(qf, kf, vf, ls, hr, cfg)
                      + (fops.flash_dq(qf, kf, vf, ls, do, lse_p, delta, hr,
                                       cfg),)
                      + fops.flash_dkv(qf, kf, vf, ls, do, lse_p, delta, hr,
                                       cfg))
-            torch.cuda.synchronize()
+            if cuda:
+                torch.cuda.synchronize()
             repeats += 1
             if not all(torch.equal(a, b) for a, b in
                        zip(again, (out, lse, dq, dk, dv, dls))):
@@ -1113,15 +1182,13 @@ def phase_flash_kernels(torch):
                          "hold no retained key")
         log(f"flash vs plain [{name}]: max abs err / max |plain|: "
             + ", ".join(parts) + f" (tolerance {tol} relative: {dtype})")
-    n = len(cases)
+    n = len(cases) if cuda else 0
     got = {k: fops.launches[k] - before[k] for k in fops.launches}
-    want = {k: n + repeats for k in fops.launches}
+    want = {k: n + (repeats if cuda else 0) for k in fops.launches}
     if got != want:
         raise AssertionError(f"flash launch counters moved {got}, expected "
                              f"{want}")
-    return {"flash_fwd": max(main_err["out"], main_err["lse"]),
-            "flash_dq": main_err["dq"],
-            "flash_dkv": max(main_err["dk"], main_err["dv"], main_err["dls"])}
+    return errs
 
 
 def phase_flash_grads(torch):
@@ -2595,7 +2662,8 @@ def check_decode_keys(torch, keys, *, what, caps=None):
                                  "launch gave other bits")
         ref = plain(*args, bp, cap)
         split = dms_decode_plain_split(*args, bp, cap, shared_kv=shared,
-                                       splits=ops.splits(tbl.shape[1]))
+                                       splits=ops.launch_splits(
+                                           args[0], tbl.shape[1]))
         if not bool(torch.isfinite(out.float()).all()):
             raise AssertionError(f"kernel [{what} shape {key}]: non-finite "
                                  "output")
@@ -2703,7 +2771,8 @@ def unsynced(torch, fn, on):
 
 
 def phase_prefill_export(torch, setup, *, t=EXPORT_PROMPT,
-                         steps=EXPORT_DECODE, what="5e (a)"):
+                         steps=EXPORT_DECODE, what="5e (a)",
+                         kinds=("dms", "vanilla")):
     """(a) ``make_prefill_step`` through ``flash_fwd`` on EXPORT_LANES
     prompts of ``t`` tokens, ``dms`` (CR 8, delay 256) and ``vanilla``:
     one flash launch per layer, the last logits within 0.05 x max |logit|
@@ -2711,8 +2780,9 @@ def phase_prefill_export(torch, setup, *, t=EXPORT_PROMPT,
     ``prefill_import`` into fixed arenas and the pool and ``steps`` greedy
     decode steps through ``decode_fwd`` (one launch per layer per step, in
     the fixed or the shared mode): the pool's tokens equal the fixed
-    arenas', and dms imports fewer live tokens than vanilla.  Returns
-    flash_fwd's launches, per policy the imported live tokens and α
+    arenas', and dms imports fewer live tokens than vanilla (``kinds``: the
+    policies to run; a model with local layers has no vanilla import).
+    Returns flash_fwd's launches, per policy the imported live tokens and α
     flips."""
     from repro_torch.core import policy as policy_lib
     from repro_torch.core.config import KVPolicyConfig
@@ -2727,7 +2797,7 @@ def phase_prefill_export(torch, setup, *, t=EXPORT_PROMPT,
                            generator=rng, dtype=torch.int32).to(device)
     live_v = torch.arange(arch.padded_vocab, device=device) < arch.vocab_size
     out = {"flash": 0, "live": {}, "flips": {}}
-    for kind in ("dms", "vanilla"):
+    for kind in kinds:
         dms = kind == "dms"
         fops.launches["flash_fwd"] = 0
         t0 = time.perf_counter()
@@ -2804,7 +2874,7 @@ def phase_prefill_export(torch, setup, *, t=EXPORT_PROMPT,
             f"pool's ({pool_pages} pages mapped) equal to the fixed "
             "arenas'")
         del kv, logits, ref_logits
-    if not out["live"]["dms"] < out["live"]["vanilla"]:
+    if "vanilla" in kinds and not out["live"]["dms"] < out["live"]["vanilla"]:
         raise AssertionError(f"dms imported {out['live']['dms']} live tokens,"
                              f" vanilla {out['live']['vanilla']}")
     return out
@@ -4626,6 +4696,216 @@ def phase_encdec_timing(torch, out, errs, flash_errs):
 # -- phase 6 ---------------------------------------------------------------
 
 
+# -- phase 5i: Dh 256 on the flash kernels (gemma2, recurrentgemma) ----------
+
+DH256_ARCHS = ("gemma2-2b", "recurrentgemma-2b")
+DH256_LAYERS = 4                 # (a), (b): two superblocks of each
+DH256_TRAIN = dict(batch=2, tokens=1024)   # (c), at one superblock
+
+
+def dh256_decode_keys(arch=None, lanes=EXPORT_LANES,
+                      max_len=EXPORT_PROMPT + EXPORT_DECODE):
+    """{launch key: logit softcap} of every decode launch 5i (a) makes:
+    gemma2's prefill export imported into dms caches (CR 8; its local
+    layers have no vanilla import), fixed and paged, both pattern
+    positions."""
+    from repro_torch.configs import get_arch
+    arch = arch or get_arch(DH256_ARCHS[0])
+    return {key: arch.attn.logit_softcap for paged in (False, True)
+            for key in state_keys(arch, dict(kind="dms", cr=8.0, paged=paged),
+                                  lanes, max_len)}
+
+
+def dh256_export_logits(torch, setup, what):
+    """(b) ``make_prefill_step`` (dms) through ``flash_fwd`` on EXPORT_LANES
+    prompts against the reference attention path: the last logits within
+    0.05 x max |logit|; one flash launch per attention layer.  Returns the
+    launches and the gap."""
+    from repro_torch.kernels.dms_attention import ops as fops
+    from repro_torch.launch.steps import make_prefill_step
+    arch, params, device = setup["arch"], setup["params"], setup["device"]
+    rng = torch.Generator().manual_seed(11)
+    tokens = torch.randint(3, arch.vocab_size, (EXPORT_LANES, EXPORT_PROMPT),
+                           generator=rng, dtype=torch.int32).to(device)
+    live_v = torch.arange(arch.padded_vocab, device=device) < arch.vocab_size
+    fops.launches["flash_fwd"] = 0
+    logits, _ = make_prefill_step(arch, dms=True, use_kernel=True)(
+        params, {"tokens": tokens})
+    launched = fops.launches["flash_fwd"]
+    ref, _ = make_prefill_step(arch, dms=True, use_kernel=False)(
+        params, {"tokens": tokens})
+    attn = sum(k.startswith("attn") for k in arch.layer_pattern) * (
+        arch.num_layers // arch.pattern_period)
+    if launched != (attn if device == "cuda" else 0):
+        raise AssertionError(f"{what}: flash_fwd launched {launched} times, "
+                             f"want {attn}")
+    diff = (logits - ref)[:, live_v].abs().max().item()
+    scale = ref[:, live_v].abs().max().item()
+    if not bool(torch.isfinite(logits[:, live_v]).all()) or \
+            not diff <= 0.05 * scale:
+        raise AssertionError(f"{what}: kernel-path logits off by {diff:.4e} "
+                             f"(max |logit| {scale:.4e})")
+    log(f"{what}: {EXPORT_LANES} prompts of {EXPORT_PROMPT} tokens through "
+        f"flash_fwd ({launched} launches = {attn} attention layers); last "
+        f"logits vs the reference path: max abs diff {diff:.4e}, max |logit| "
+        f"{scale:.4e} (tolerance 0.05 x max |logit|); the recurrent layers "
+        "have no prefill import, in the reference as here")
+    return launched, diff
+
+
+def dh256_retrofit(torch, name, device, train=DH256_TRAIN, flag=None):
+    """(c) One ``make_retrofit_step`` (the main phase, step 3) of ``name``
+    at one superblock, full width, fp32 weights (the model computes in
+    bf16), B x T tokens: on the kernel path (fwd, dq and dkv launches
+    counted), then on the reference path from the same weights, teacher and
+    Gumbel noise (a step seeds its noise from its index).  Loss and
+    gradient norm within 1e-2 relative.  Returns (launches, metrics by
+    path, seconds of the kernel step's first and second calls)."""
+    from repro_torch.configs import get_arch, get_smoke
+    from repro_torch.core.tree import tree_map
+    from repro_torch.kernels.dms_attention import ops as fops
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw
+    arch = get_arch(name) if device == "cuda" else get_smoke(name)
+    arch = dataclasses.replace(arch, num_layers=arch.pattern_period)
+    params = tfm.init_model(arch, seed=0, device=device, dtype=torch.float32)
+    teacher = tree_map(torch.clone, params)
+    gen = torch.Generator().manual_seed(29)
+    batch = {k: torch.randint(0, arch.vocab_size,
+                              (train["batch"], train["tokens"]),
+                              generator=gen).to(device)
+             for k in ("tokens", "labels")}
+    opt = adamw.AdamWConfig(lr=1e-4, warmup_steps=1, total_steps=10)
+    metrics, launches, secs = {}, None, None
+    for use_kernel in (True, False):
+        if flag is not None:
+            flag["main"] = use_kernel
+        p = tree_map(torch.clone, params)
+        for k in fops.launches:
+            fops.launches[k] = 0
+        step = steps_lib.make_retrofit_step(arch, opt, use_kernel=use_kernel)
+        t0 = time.perf_counter()
+        _, _, m = step(p, teacher, adamw.init(p), batch, 3)
+        metrics[use_kernel] = {k: float(m[k]) for k in ("loss", "grad_norm")}
+        if use_kernel:
+            first = time.perf_counter() - t0
+            launches = dict(fops.launches)
+            # the same step again from a fresh copy: its time without the
+            # first call's set-up (metrics read to the host end each step)
+            p = tree_map(torch.clone, params)
+            t0 = time.perf_counter()
+            _, _, m = step(p, teacher, adamw.init(p), batch, 3)
+            float(m["loss"])
+            secs = (first, time.perf_counter() - t0)
+        del p, step
+    if flag is not None:
+        flag["main"] = True
+    attn = sum(k.startswith("attn") for k in arch.layer_pattern)
+    if device == "cuda" and min(launches.values()) < attn:
+        raise AssertionError(f"5i (c) {name}: flash launches {launches}, "
+                             f"want each >= {attn}")
+    k_, r_ = metrics[True], metrics[False]
+    rel = {key: abs(k_[key] - r_[key]) / max(abs(r_[key]), 1e-12)
+           for key in k_}
+    log(f"5i (c) {name} retrofit step at {arch.num_layers} layers "
+        f"({'/'.join(arch.layer_pattern)}), B={train['batch']} "
+        f"T={train['tokens']}, fp32 weights: kernel path loss "
+        f"{k_['loss']:.6e}, grad norm {k_['grad_norm']:.6e}; reference path "
+        f"loss {r_['loss']:.6e}, grad norm {r_['grad_norm']:.6e} (rel "
+        f"{rel['loss']:.2e}, {rel['grad_norm']:.2e}; tolerance 1e-2); flash "
+        f"launches {launches} (the first call); the kernel step in "
+        f"{secs[1]:.3f} s ({secs[0]:.3f} s at its first call)")
+    if not (rel["loss"] < 1e-2 and rel["grad_norm"] < 1e-2):
+        raise AssertionError(f"5i (c) {name}: the kernel path's retrofit "
+                             "step disagrees with the reference path")
+    return launches, metrics, secs
+
+
+def phase_dh256(torch, device="cuda", checked=None, layers=DH256_LAYERS,
+                train=DH256_TRAIN, decode_steps=EXPORT_DECODE):
+    """Phase 5i: the flash kernels at Dh 256 on the main path.  (a)
+    gemma2-2b at ``layers`` layers (random bf16 weights, phase 4's bias):
+    ``phase_prefill_export`` (4 x 512 tokens through ``flash_fwd``, imported
+    fixed and paged, greedy decode); every decode launch at a shape phase 3
+    checked (``checked``).  (b) recurrentgemma-2b at ``layers`` layers: the
+    prefill export's last logits against the reference path's.  (c) one
+    retrofit step of each at one superblock (``dh256_retrofit``).  Returns
+    the flash launches of (a) + (b) and of (c), and (c)'s seconds."""
+    import collections
+    from repro_torch.kernels.dms_decode import ops
+    seen = collections.Counter()
+    real_rows = ops.decode_rows
+    flag = {"main": True}
+
+    def counting(qf, kf, vf, valf, tblf, nf, block_p, *args, **kw):
+        if flag["main"]:
+            seen[launch_key(qf, kf, tblf, block_p, kw.get("shared_kv"))] += 1
+        return real_rows(qf, kf, vf, valf, tblf, nf, block_p, *args, **kw)
+
+    export = next(iter(DH256_EXPORT.values()))
+    assert (export["b"], export["t"]) == (EXPORT_LANES, EXPORT_PROMPT)
+    out = {"export_flash": 0, "train": {}}
+    ops.decode_rows = counting
+    try:
+        t0 = time.perf_counter()
+        setup = serving_setup(torch, device=device, arch_name=DH256_ARCHS[0],
+                              layers=layers)
+        exported = phase_prefill_export(torch, setup, steps=decode_steps,
+                                        what=f"5i (a) {DH256_ARCHS[0]}",
+                                        kinds=("dms",))
+        out["export_flash"] += exported["flash"]
+        del setup
+        setup = serving_setup(torch, device=device, arch_name=DH256_ARCHS[1],
+                              layers=layers)
+        launched, _ = dh256_export_logits(torch, setup,
+                                          f"5i (b) {DH256_ARCHS[1]}")
+        out["export_flash"] += launched
+        del setup
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        log(f"seconds: 5i (a)-(b) {time.perf_counter() - t0:.1f}")
+        for name in DH256_ARCHS:
+            t0 = time.perf_counter()
+            launches, _, secs = dh256_retrofit(torch, name, device, train,
+                                               flag)
+            out["train"][name] = {"launches": launches, "s_step": secs}
+            if device == "cuda":
+                torch.cuda.empty_cache()
+            log(f"seconds: 5i (c) {name} {time.perf_counter() - t0:.1f}")
+    finally:
+        ops.decode_rows = real_rows
+    if checked is not None and not set(seen) <= set(checked):
+        raise AssertionError(f"phase 5i launched the decode kernel at "
+                             f"{sorted(set(seen) - set(checked))}, not among "
+                             f"phase 3's checked {sorted(checked)}")
+    log(f"phase 5i's decode launch shapes {sorted(seen)}: each checked in "
+        "phase 3")
+    return out
+
+
+def phase_dh256_timing(torch, out, errs):
+    """Phase 7's Dh-256 flash rows: fwd, dq and dkv at gemma2's and
+    recurrentgemma's retrofit shapes (5i (c): B 2, T 1024, bf16), and
+    ``flash_fwd`` at gemma2's prefill export (5i (a): B 4, T 512, binarised
+    alpha), each beside its bound, plain version and SDPA."""
+    entries = []
+    for name, kw in (("gemma2-2b", DH256_G2), ("recurrentgemma-2b",
+                                                DH256_G10)):
+        case = f"{name} retrofit shape (B 2, T 1024), bf16"
+        entries += phase_flash_timing(
+            torch, out["train"][name]["launches"], errs[case],
+            kw=dict(kw, b=DH256_TRAIN["batch"], t=DH256_TRAIN["tokens"],
+                    dtype="bfloat16"),
+            label=f" ({name} retrofit, Dh 256)")
+    export = next(iter(DH256_EXPORT))
+    entries += phase_flash_timing(
+        torch, {"flash_fwd": out["export_flash"]}, errs[export],
+        kw=DH256_EXPORT[export], label=" (gemma2-2b prefill export, Dh 256)",
+        kernels=("flash_fwd",))
+    return entries
+
+
 def phase_train(torch, device="cuda", arch_name="qwen-r1-1.5b", seq_len=1024,
                 batch=2, steps=4):
     """DMS retrofit of the main path through the flash kernels; returns the
@@ -4783,6 +5063,99 @@ def time_cuda(torch, fn, *, iters=50):
     return statistics.median(times)
 
 
+# (name, B*Hkv, G, Dh, P, block_p, cap) of the decode shapes that lost to
+# SDPA before the tensor-core redesign, the main-path shape and granite's
+SWEEP_SHAPES = (("main path", 8, 6, 128, 416, 16, None),
+                ("recurrentgemma ring", 1, 10, 256, 2064, 16, None),
+                ("gemma2 local ring", 16, 2, 256, 4112, 16, 50.0),
+                ("seamless G 1", 64, 1, 64, 320, 16, None),
+                ("chatglm3 G 16", 4, 16, 128, 336, 16, None),
+                ("seamless dense mode", 64, 1, 64, 1024, 128, None),
+                ("granite-moe-3b G 3", 16, 3, 64, 336, 16, None))
+
+
+def decode_split_sweep(torch, parent=None, variants=None, shapes=SWEEP_SHAPES,
+                       counts=(1, 2, 4, 8, 16)):
+    """The decode kernel's time at each of ``shapes`` (every block listed)
+    at every split count of ``counts`` and at ``ops.splits``' choice; with
+    ``parent`` (the path of an earlier ``dms_decode.cu`` whose C interface
+    lacks the split argument) that kernel's time beside it, in turns
+    (parent, kernel, kernel, parent); with ``variants`` ({label: path of a
+    ``dms_decode.cu`` with this interface}) each one's time at the same
+    split count.  Prints one line a shape."""
+    import ctypes
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.dms_decode import ops
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fns = {}
+    if parent is not None:
+        fns["parent"] = _build.load(Path(parent)).dms_decode_fwd
+        fns["parent"].argtypes = [ptr] * 11 + [i32] * 6 + [f32, i32, f32, i32,
+                                                           ptr]
+    for label, path in (variants or {}).items():
+        fns[label] = _build.load(Path(path)).dms_decode_fwd
+        fns[label].argtypes = [ptr] * 11 + [i32] * 6 + [f32, i32, f32, i32,
+                                                        i32, ptr]
+    for fn in fns.values():
+        fn.restype = i32
+    for name, bh, g, dh, p, bp, cap in shapes:
+        gen = torch.Generator(device="cuda").manual_seed(bh * dh)
+        q, k, v, valid, tbl, n = make_case(torch, gen, bh=bh, g=g, dh=dh, p=p,
+                                           bp=bp, density=1.0)
+        nb = tbl.shape[1]
+        rule = ops.launch_splits(q, nb)
+
+        def new(s=None):
+            return ops._launch(q, k, v, valid, tbl, n, bp, cap, False,
+                               nsplit=s)
+
+        def other(label):
+            def call():
+                out = torch.empty_like(q)
+                split = () if label == "parent" else (rule,)
+                err = fns[label](
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    valid.data_ptr(), tbl.data_ptr(), n.data_ptr(),
+                    out.data_ptr(), None, None, None, None, bh, g, dh, p, nb,
+                    bp, float(dh ** -0.5), int(cap is not None),
+                    float(cap or 0.0), 0, *split,
+                    torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"{label} decode kernel: CUDA error "
+                                       f"{err}")
+                return out
+            return call
+
+        saved = ops.launches
+        parts = []
+        if "parent" in fns:
+            ref = other("parent")()
+            torch.cuda.synchronize()
+            err = (new().float() - ref.float()).abs().max().item()
+            t_old = [time_cuda(torch, other("parent"))]
+        t_rule = [time_cuda(torch, new), time_cuda(torch, new)]
+        if "parent" in fns:
+            t_old.append(time_cuda(torch, other("parent")))
+            parts.append(f"parent {t_old[0]:.4f}/{t_old[1]:.4f} ms (max abs "
+                         f"diff {err:.2e})")
+        n0 = torch.zeros_like(n)
+        floor = time_cuda(torch, lambda: ops._launch(q, k, v, valid, tbl, n0,
+                                                     bp, cap, False))
+        parts.append(f"rule S={rule} {t_rule[0]:.4f}/{t_rule[1]:.4f} ms "
+                     f"(floor, n = 0: {floor:.4f})")
+        for label in fns:
+            if label != "parent":
+                parts.append(f"{label} {time_cuda(torch, other(label)):.4f}")
+        for s_ in counts:
+            if s_ <= nb:
+                parts.append(f"S={s_} {time_cuda(torch, lambda: new(s_)):.4f}")
+        ops.launches = saved
+        log(f"sweep: decode {name} (BH={bh}, G={g}, Dh={dh}, P={p}, "
+            f"block_p={bp}, {nb} listed, ring "
+            f"{ops.stages(g, dh, bp, nb, rule)} "
+            f"stages): " + ", ".join(parts))
+
+
 def log_method_floor(torch):
     """Print what ``time_cuda`` reads for one tiny kernel (a 4-byte
     ``zero_``): the floor under every time it reports."""
@@ -4845,7 +5218,8 @@ def decode_entry(torch, name, mode, operands, shape, launches, max_abs_err,
     lib = " (over the dense view, gather not timed)" if shared else ""
     log(f"timing: {name} at (BH={bh}, G={g}, Dh={dh}, P={p}, block_p={bp}, "
         f"{n_blocks} listed blocks{pool}): kernel {ms:.4f} ms in clusters of "
-        f"{ops.splits(tbl.shape[1])} splits a row (floor, n = 0 on every row:"
+        f"{ops.launch_splits(q, tbl.shape[1])} splits a row (floor, n = 0 "
+        f"on every row:"
         f" {floor_ms:.4f} ms), bound {entry['bound_ms']:.5f} ms "
         f"({kv_bytes + other} B), plain {plain_ms:.4f} ms, SDPA "
         f"{library_ms:.4f} ms{lib}")
@@ -4896,7 +5270,8 @@ def weights_entry(torch, name, mode, operands, shape, launches, max_abs_err):
     pool = f", pool {k.shape[1] // bp} pages" if shared else ""
     log(f"timing: {name} at (BH={bh}, G={g}, Dh={dh}, P={p}, block_p={bp}, "
         f"{n_blocks} listed blocks{pool}): kernel {ms:.4f} ms in clusters of "
-        f"{ops.splits(tbl.shape[1])} splits a row (floor, n = 0 on every row:"
+        f"{ops.launch_splits(q, tbl.shape[1])} splits a row (floor, n = 0 "
+        f"on every row:"
         f" {floor_ms:.4f} ms), bound "
         f"{entry['bound_ms']:.5f} ms ({moved} B, of which {written} B "
         f"written weights and statistics), plain {plain_ms:.4f} ms; library: "
@@ -5020,13 +5395,16 @@ def sdpa_times(torch, qf, kf, vf, ls, do, cfg, *, b):
     return {"flash_fwd": fwd, "flash_dq": bwd, "flash_dkv": bwd}
 
 
-def phase_flash_timing(torch, launches, errs):
-    """fwd, dq and dkv at the retrofit shape (B 2, T 1024, Hq 12, Hkv 2,
-    Dh 128, bf16, relaxed α, delay 256): kernel, plain version, bound and
-    the SDPA yardstick."""
+def phase_flash_timing(torch, launches, errs, kw=MAIN_FLASH, label="",
+                       kernels=("flash_fwd", "flash_dq", "flash_dkv")):
+    """``kernels`` of fwd, dq and dkv at the shape ``kw`` (``flash_case``
+    keywords; by default the retrofit shape: B 2, T 1024, Hq 12, Hkv 2, Dh
+    128, bf16, relaxed α, delay 256): kernel, plain version, bound and the
+    SDPA yardstick (which takes no softcap, and none where its backend
+    refuses the shape).  ``label`` follows each row's kernel name."""
     from repro_torch.kernels.dms_attention import ops as fops
     from repro_torch.kernels.dms_attention import ref as fref
-    kw = dict(MAIN_FLASH)
+    kw = dict(kw, skip=False)                # the bound counts every pair
     dtype = getattr(torch, kw.pop("dtype"))
     qf, kf, vf, ls, hr, cfg, do = flash_case(torch, dtype=dtype, seed=99, **kw)
     b, t, hq, hkv, dh = kw["b"], kw["t"], kw["hq"], kw["hkv"], kw["dh"]
@@ -5036,18 +5414,22 @@ def phase_flash_timing(torch, launches, errs):
     dq = lambda: fops.flash_dq(qf, kf, vf, ls, do, lse, delta, hr, cfg)  # noqa: E731
     dkv = lambda: fops.flash_dkv(qf, kf, vf, ls, do, lse, delta, hr, cfg)  # noqa: E731
     saved = dict(fops.launches)
-    ms = {"flash_fwd": time_cuda(torch, fwd), "flash_dq": time_cuda(torch, dq),
-          "flash_dkv": time_cuda(torch, dkv)}
+    calls = {"flash_fwd": fwd, "flash_dq": dq, "flash_dkv": dkv}
+    ms = {k: time_cuda(torch, calls[k]) for k in kernels}
     fops.launches.update(saved)           # timing launches are not the path's
-    plain = {
-        "flash_fwd": time_cuda(torch, lambda: fref.flash_fwd_plain(
-            qf, kf, vf, ls, hr, cfg)),
-        "flash_dq": time_cuda(torch, lambda: fref.flash_dq_plain(
-            qf, kf, vf, ls, do, lse, delta, hr, cfg)),
-        "flash_dkv": time_cuda(torch, lambda: fref.flash_dkv_plain(
-            qf, kf, vf, ls, do, lse, delta, hr, cfg)),
+    plain_calls = {
+        "flash_fwd": lambda: fref.flash_fwd_plain(qf, kf, vf, ls, hr, cfg),
+        "flash_dq": lambda: fref.flash_dq_plain(qf, kf, vf, ls, do, lse,
+                                                delta, hr, cfg),
+        "flash_dkv": lambda: fref.flash_dkv_plain(qf, kf, vf, ls, do, lse,
+                                                  delta, hr, cfg),
     }
-    library = sdpa_times(torch, qf, kf, vf, ls, do, cfg, b=b)
+    plain = {k: time_cuda(torch, plain_calls[k]) for k in kernels}
+    try:
+        library = sdpa_times(torch, qf, kf, vf, ls, do, cfg, b=b)
+    except RuntimeError as e:                # no SDPA backend takes it
+        log(f"timing: SDPA at (B={b}, T={t}, Hq={hq}, Dh={dh}): {e}"[:300])
+        library = dict.fromkeys(fops.launches)
 
     # bounds: live (i, j) pairs of this causal mask, each input byte read and
     # each output byte written once, bf16 tensor-core peak for the products
@@ -5060,10 +5442,12 @@ def phase_flash_timing(torch, launches, errs):
             "flash_dkv": (8 * dh * pairs, grad_ins + nbytes(kf, vf, ls))}
     entries = []
     for name, (flops, moved) in work.items():
+        if name not in kernels:
+            continue
         ops_ms = flops / BF16_FLOPS_PER_S * 1e3
         bytes_ms = moved / HBM_BYTES_PER_S * 1e3
         entry = {
-            "name": name, "route": "cuda",
+            "name": name + label, "route": "cuda",
             "source": "src/repro_torch/kernels/dms_attention/csrc/dms_attention.cu",
             "replaces": {"flash_fwd": "src/repro/kernels/dms_attention/dms_attention.py:142",
                          "flash_dq": "src/repro/kernels/dms_attention/dms_attention.py:242",
@@ -5076,11 +5460,13 @@ def phase_flash_timing(torch, launches, errs):
             "library_ms": library[name],
         }
         entries.append(entry)
-        log(f"timing: {name} at (B={b}, T={t}, Hq={hq}, Hkv={hkv}, Dh={dh}, "
-            f"bf16): kernel {ms[name]:.4f} ms, bound {entry['bound_ms']:.5f} "
-            f"ms ({flops} flop, {moved} B), plain {plain[name]:.4f} ms, "
-            f"library {library[name]:.4f} ms "
-            f"({'SDPA forward' if name == 'flash_fwd' else 'SDPA backward'})")
+        lib = ("none" if library[name] is None else f"{library[name]:.4f} ms "
+               f"({'SDPA forward' if name == 'flash_fwd' else 'SDPA backward'}"
+               f"{', no softcap' if cfg.logit_cap else ''})")
+        log(f"timing: {name}{label} at (B={b}, T={t}, Hq={hq}, Hkv={hkv}, "
+            f"Dh={dh}, bf16): kernel {ms[name]:.4f} ms, bound "
+            f"{entry['bound_ms']:.5f} ms ({flops} flop, {moved} B), plain "
+            f"{plain[name]:.4f} ms, library {lib}")
     return entries
 
 
@@ -5135,6 +5521,10 @@ def main() -> int:
     encdec_errs[cross] = max(encdec_errs[cross], check_cross_dense(torch))
     flash_cases = encdec_flash_cases()
     encdec_flash_errs = check_encdec_flash(torch, flash_cases)
+    dh256_keys = dh256_decode_keys()
+    check_decode_keys(torch, dh256_keys, what="phase 5i", caps=dh256_keys)
+    dh256_flash_errs = flash_vs_plain(torch, dh256_flash_cases(),
+                                      every_twice=True)
     lap("phases 1-3")
     served = phase_serve(torch, shallow)
     lap("phase 4")
@@ -5179,6 +5569,8 @@ def main() -> int:
     encdec = phase_encdec(torch, checked=encdec_keys,
                           flash_checked=encdec_flash_keys(torch, flash_cases))
     lap("phase 5h")
+    dh256 = phase_dh256(torch, checked=set(dh256_keys))
+    lap("phase 5i")
     trained = phase_train(torch)
     lap("phase 6")
     kernels = phase_timing(torch, main_shape, {"fixed": served["launches"],
@@ -5195,6 +5587,7 @@ def main() -> int:
     kernels += phase_hybrid_timing(torch, hybrids, hybrid_errs)
     kernels += phase_encdec_timing(torch, encdec, encdec_errs,
                                    encdec_flash_errs)
+    kernels += phase_dh256_timing(torch, dh256, dh256_flash_errs)
     lap("phase 7")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

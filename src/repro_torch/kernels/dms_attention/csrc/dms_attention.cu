@@ -35,8 +35,9 @@
 //   other tile as a transposed (MN-major) B operand.  A producer warp
 //   streams the tiles by TMA (`cp.async.bulk.tensor`) into a two-stage ring
 //   guarded by mbarriers, so tile k+1 loads while tile k computes; TMA
-//   zero-fills rows past Tp.  The kernels take Dh 64 or 128 (the wrapper
-//   zero-pads a smaller Dh to 64 or 128).
+//   zero-fills rows past Tp.  The kernels take Dh 64, 128 or 256 (the
+//   wrapper zero-pads a smaller Dh to the next of these; 256 is gemma2's
+//   and recurrentgemma's, the largest of any config).
 //   - fwd and dq: one block per (q head, q tile), q tiles launched
 //     longest-first (the last has the most key tiles under the causal
 //     mask).  A block is one consumer warpgroup of 64 rows, two on an SM
@@ -44,7 +45,9 @@
 //     shape, PERF.md).  fwd keeps each row's online-softmax max and sum in
 //     the 4 threads that share the row; dq loads its Q and dO tiles once,
 //     reads each row's lse and delta once, and keeps dq in registers across
-//     the key tiles, so each row is written once by its own block.
+//     the key tiles, so each row is written once by its own block.  At Dh
+//     256 a block's shared memory (165 KB fwd, 198 KB dq) and its 128
+//     accumulator registers allow one block on an SM.
 //   - dkv: one block per (kv head, 64-key tile, slice of the G query heads),
 //     key tile 0 (the longest under causal) first.  The c blocks of one
 //     (kv head, key tile) form a thread-block cluster, c the largest divisor
@@ -52,13 +55,20 @@
 //     block summing G/c heads; at the end each writes its fp32 dk, dv and
 //     dls partials to its shared memory, and after a cluster barrier each
 //     sums a 1/c slice of the rows across the cluster's shared memory, in
-//     rank order: no atomics, the same bits on every launch.
+//     rank order: no atomics, the same bits on every launch.  At Dh 256 a
+//     second grid dimension of 2 gives each block one 128-column half of dk
+//     and dv: it computes K.Q^T and V.dO^T at the full Dh from whole tiles
+//     (~1.5x the fused version's products), its partials alias the Q/dO
+//     ring once the loop is done, and the first half writes dls.
 // * fp32 operands run the first design on the fp32 CUDA cores (67 TFLOP/s
 //   peak), the check of the bf16 route: each thread owns a 4 x 4 block of a
 //   64 x 64 score tile and a 4 x 8 block of the 64 x Dh accumulator, fed
 //   from fp32 tiles in shared memory padded by one word per row.  fp32
 //   products stay unrounded there (the tensor cores would round them to
 //   bf16), and their sums run in one FMA chain in the plain version's order.
+//   Up to Dh 256: above 128 a thread holds 16 accumulator columns, and dq
+//   (dkv) stages K and V (Q and dO) in 128-column panels, its Q and dO (K
+//   and V) whole, so a block fits the SM's 227 KB.
 //   - fwd and dq: one thread block per (q head, 64-row q tile) loops over
 //     the k tiles; the online-softmax state (fwd) or the dq sum (dq) stays
 //     in registers across the loop;
@@ -86,8 +96,11 @@ namespace {
 
 constexpr int kTile = 64;          // q rows and keys per tile
 constexpr int kThreads = 256;      // 16 x 16 threads, 4 x 4 scores each
-constexpr int kMaxDh = 128;
-constexpr int kAccCols = kMaxDh / 16;
+constexpr int kMaxDh = 256;
+// fp32 route: a thread's accumulator columns (tx + 16c, c < ACC): 8 up to
+// Dh 128, 16 above; tiles that do not fit whole are staged in panels of
+// kPanelCols columns
+constexpr int kPanelCols = 128;
 constexpr int kPStride = kTile + 1;
 constexpr float kNegInf = -1e30f;
 
@@ -122,6 +135,17 @@ __device__ void load_tile(float* dst, const float* __restrict__ src, int rows,
     const int r = e / dh;
     const int c = e - r * dh;
     dst[r * st + c] = r < rows ? src[(size_t)r * dh + c] : 0.f;
+  }
+}
+
+// columns [c0, c0 + w) of rows [0, rows) of a (rows, dh) slab into an fp32
+// panel of row stride st; rows beyond `rows` are zero
+__device__ void load_panel(float* dst, const float* __restrict__ src, int rows,
+                           int dh, int c0, int w, int st) {
+  for (int e = threadIdx.x; e < kTile * w; e += kThreads) {
+    const int r = e / w;
+    const int c = e - r * w;
+    dst[r * st + c] = r < rows ? src[(size_t)r * dh + c0 + c] : 0.f;
   }
 }
 
@@ -179,22 +203,26 @@ __device__ __forceinline__ float mask_score(const Params& p, float s, int i,
   return s;
 }
 
+// fwd holds Q, K and V whole; dq holds Q and dO whole and stages K and V
+// in column panels; dkv holds K and V whole and stages Q and dO in panels
+size_t panel_width(int dh) { return dh > kPanelCols ? kPanelCols : dh; }
 size_t fwd_smem(int dh) {
   return ((size_t)3 * kTile * (dh + 1) + kTile * kPStride + kTile) * sizeof(float);
 }
 size_t dq_smem(int dh) {
-  return ((size_t)4 * kTile * (dh + 1) + kTile * kPStride + 3 * kTile) *
-         sizeof(float);
+  return ((size_t)2 * kTile * (dh + 1) + 2 * kTile * (panel_width(dh) + 1) +
+          kTile * kPStride + 3 * kTile) * sizeof(float);
 }
 size_t dkv_smem(int dh) {
-  return ((size_t)4 * kTile * (dh + 1) + 2 * kTile * kPStride + 3 * kTile) *
-         sizeof(float);
+  return ((size_t)2 * kTile * (dh + 1) + 2 * kTile * (panel_width(dh) + 1) +
+          2 * kTile * kPStride + 3 * kTile) * sizeof(float);
 }
 
 // ---------------------------------------------------------------------------
 // forward: out, lse
 // ---------------------------------------------------------------------------
 
+template <int ACC>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(Params p, const float* __restrict__ q,
                  const float* __restrict__ k,
@@ -217,13 +245,13 @@ flash_fwd_kernel(Params p, const float* __restrict__ q,
   const int32_t* hr_row = p.skip ? hr + (size_t)row * p.nk_ref : nullptr;
 
   load_tile(q_s, q + ((size_t)h * p.tp + q0) * dh, rows_q, dh);
-  float m[4], l[4], acc[4][kAccCols];
+  float m[4], l[4], acc[4][ACC];
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     m[a] = kNegInf;
     l[a] = 0.f;
 #pragma unroll
-    for (int c = 0; c < kAccCols; ++c) acc[a][c] = 0.f;
+    for (int c = 0; c < ACC; ++c) acc[a][c] = 0.f;
   }
 
   int lo, hi;
@@ -283,14 +311,14 @@ flash_fwd_kernel(Params p, const float* __restrict__ q,
       l[a] = corr * l[a] + sum;
       m[a] = m_new;
 #pragma unroll
-      for (int c = 0; c < kAccCols; ++c) acc[a][c] *= corr;
+      for (int c = 0; c < ACC; ++c) acc[a][c] *= corr;
     }
     __syncthreads();
 
     for (int j = 0; j < kTile; ++j) {
-      float vj[kAccCols];
+      float vj[ACC];
 #pragma unroll
-      for (int c = 0; c < kAccCols; ++c) {
+      for (int c = 0; c < ACC; ++c) {
         const int d = tx + 16 * c;
         vj[c] = d < dh ? v_s[j * st + d] : 0.f;
       }
@@ -298,7 +326,7 @@ flash_fwd_kernel(Params p, const float* __restrict__ q,
       for (int a = 0; a < 4; ++a) {
         const float pa = p_s[(ty * 4 + a) * kPStride + j];
 #pragma unroll
-        for (int c = 0; c < kAccCols; ++c) acc[a][c] = fmaf(pa, vj[c], acc[a][c]);
+        for (int c = 0; c < ACC; ++c) acc[a][c] = fmaf(pa, vj[c], acc[a][c]);
       }
     }
   }
@@ -310,7 +338,7 @@ flash_fwd_kernel(Params p, const float* __restrict__ q,
     const float l_safe = l[a] <= 0.f ? 1.f : l[a];
     const size_t r = (size_t)h * p.tp + q0 + il;
 #pragma unroll
-    for (int c = 0; c < kAccCols; ++c) {
+    for (int c = 0; c < ACC; ++c) {
       const int d = tx + 16 * c;
       if (d < dh) out[r * dh + d] = acc[a][c] / l_safe;
     }
@@ -322,6 +350,10 @@ flash_fwd_kernel(Params p, const float* __restrict__ q,
 // backward: dq
 // ---------------------------------------------------------------------------
 
+// Q and dO stay whole in shared memory; K and V are staged in column panels
+// (one panel up to Dh 128): the scores' sums over d run panel after panel in
+// one chain, and dS.K then takes K's panels last-loaded first.
+template <int ACC>
 __global__ void __launch_bounds__(kThreads)
 flash_dq_kernel(Params p, const float* __restrict__ q,
                 const float* __restrict__ k,
@@ -331,11 +363,14 @@ flash_dq_kernel(Params p, const float* __restrict__ q,
                 const int32_t* __restrict__ hr, float* __restrict__ dq) {
   extern __shared__ float smem[];
   const int dh = p.dh, st = dh + 1;
+  // one panel up to Dh 128 (ACC 8), known to the compiler
+  const int pw = ACC > 8 ? kPanelCols : dh, pst = pw + 1;
+  const int np = ACC > 8 ? (dh + kPanelCols - 1) / kPanelCols : 1;
   float* q_s = smem;
   float* do_s = q_s + kTile * st;
   float* k_s = do_s + kTile * st;
-  float* v_s = k_s + kTile * st;
-  float* ds_s = v_s + kTile * st;
+  float* v_s = k_s + kTile * pst;
+  float* ds_s = v_s + kTile * pst;
   float* ls_s = ds_s + kTile * kPStride;
   float* lse_s = ls_s + kTile;
   float* delta_s = lse_s + kTile;
@@ -352,11 +387,11 @@ flash_dq_kernel(Params p, const float* __restrict__ q,
   load_tile(do_s, dout + qbase * dh, rows_q, dh);
   load_vec(lse_s, lse + qbase, rows_q);
   load_vec(delta_s, delta + qbase, rows_q);
-  float acc[4][kAccCols];
+  float acc[4][ACC];
 #pragma unroll
   for (int a = 0; a < 4; ++a)
 #pragma unroll
-    for (int c = 0; c < kAccCols; ++c) acc[a][c] = 0.f;
+    for (int c = 0; c < ACC; ++c) acc[a][c] = 0.f;
 
   int lo, hi;
   k_range(p, q0, kTile, kTile, lo, hi);
@@ -364,36 +399,41 @@ flash_dq_kernel(Params p, const float* __restrict__ q,
     const int k0 = kt * kTile;
     if (!tile_live(p, q0, k0, kTile, kTile, hr_row)) continue;
     const int rows_k = min(kTile, p.tp - k0);
-    __syncthreads();
-    load_tile(k_s, k + ((size_t)row * p.tp + k0) * dh, rows_k, dh);
-    load_tile(v_s, v + ((size_t)row * p.tp + k0) * dh, rows_k, dh);
-    load_vec(ls_s, ls + (size_t)row * p.tp + k0, rows_k);
-    __syncthreads();
+    const float* k_src = k + ((size_t)row * p.tp + k0) * dh;
+    const float* v_src = v + ((size_t)row * p.tp + k0) * dh;
 
     float s[4][4], dp[4][4];
 #pragma unroll
     for (int a = 0; a < 4; ++a)
 #pragma unroll
       for (int b = 0; b < 4; ++b) s[a][b] = dp[a][b] = 0.f;
-    for (int d = 0; d < dh; ++d) {
-      float qa[4], oa[4], kb[4], vb[4];
+    for (int pi = 0; pi < np; ++pi) {
+      const int c0 = pi * pw, w = min(pw, dh - c0);
+      __syncthreads();                                // last readers
+      load_panel(k_s, k_src, rows_k, dh, c0, w, pst);
+      load_panel(v_s, v_src, rows_k, dh, c0, w, pst);
+      if (pi == 0) load_vec(ls_s, ls + (size_t)row * p.tp + k0, rows_k);
+      __syncthreads();
+      for (int d = 0; d < w; ++d) {
+        float qa[4], oa[4], kb[4], vb[4];
 #pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        qa[a] = q_s[(ty * 4 + a) * st + d];
-        oa[a] = do_s[(ty * 4 + a) * st + d];
-      }
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        kb[b] = k_s[(tx + 16 * b) * st + d];
-        vb[b] = v_s[(tx + 16 * b) * st + d];
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
+        for (int a = 0; a < 4; ++a) {
+          qa[a] = q_s[(ty * 4 + a) * st + c0 + d];
+          oa[a] = do_s[(ty * 4 + a) * st + c0 + d];
+        }
 #pragma unroll
         for (int b = 0; b < 4; ++b) {
-          s[a][b] = fmaf(qa[a], kb[b], s[a][b]);
-          dp[a][b] = fmaf(oa[a], vb[b], dp[a][b]);
+          kb[b] = k_s[(tx + 16 * b) * pst + d];
+          vb[b] = v_s[(tx + 16 * b) * pst + d];
         }
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int b = 0; b < 4; ++b) {
+            s[a][b] = fmaf(qa[a], kb[b], s[a][b]);
+            dp[a][b] = fmaf(oa[a], vb[b], dp[a][b]);
+          }
+      }
     }
 
 #pragma unroll
@@ -417,18 +457,30 @@ flash_dq_kernel(Params p, const float* __restrict__ q,
     }
     __syncthreads();
 
-    for (int j = 0; j < kTile; ++j) {
-      float kj[kAccCols];
-#pragma unroll
-      for (int c = 0; c < kAccCols; ++c) {
-        const int d = tx + 16 * c;
-        kj[c] = d < dh ? k_s[j * st + d] : 0.f;
+    // dq += dS.K, K's panels last-loaded first
+    for (int pi = np - 1; pi >= 0; --pi) {
+      const int c0 = pi * pw, w = min(pw, dh - c0);
+      if (pi != np - 1) {
+        __syncthreads();
+        load_panel(k_s, k_src, rows_k, dh, c0, w, pst);
+        __syncthreads();
       }
+      for (int j = 0; j < kTile; ++j) {
+        float kj[ACC];
 #pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const float da = ds_s[(ty * 4 + a) * kPStride + j];
+        for (int c = 0; c < ACC; ++c) {
+          const int d = tx + 16 * c - c0;
+          kj[c] = d >= 0 && d < w ? k_s[j * pst + d] : 0.f;
+        }
 #pragma unroll
-        for (int c = 0; c < kAccCols; ++c) acc[a][c] = fmaf(da, kj[c], acc[a][c]);
+        for (int a = 0; a < 4; ++a) {
+          const float da = ds_s[(ty * 4 + a) * kPStride + j];
+#pragma unroll
+          for (int c = 0; c < ACC; ++c) {
+            const int d = tx + 16 * c - c0;
+            if (d >= 0 && d < w) acc[a][c] = fmaf(da, kj[c], acc[a][c]);
+          }
+        }
       }
     }
   }
@@ -438,7 +490,7 @@ flash_dq_kernel(Params p, const float* __restrict__ q,
     const int il = ty * 4 + a;
     if (il >= rows_q) continue;
 #pragma unroll
-    for (int c = 0; c < kAccCols; ++c) {
+    for (int c = 0; c < ACC; ++c) {
       const int d = tx + 16 * c;
       if (d < dh) dq[(qbase + il) * dh + d] = acc[a][c] * p.scale;
     }
@@ -449,6 +501,9 @@ flash_dq_kernel(Params p, const float* __restrict__ q,
 // backward: dk, dv, d(log_surv)
 // ---------------------------------------------------------------------------
 
+// K and V stay whole in shared memory; Q and dO are staged in column panels
+// as dq stages K and V.
+template <int ACC>
 __global__ void __launch_bounds__(kThreads)
 flash_dkv_kernel(Params p, const float* __restrict__ q,
                  const float* __restrict__ k,
@@ -459,11 +514,14 @@ flash_dkv_kernel(Params p, const float* __restrict__ q,
                  float* __restrict__ dv, float* __restrict__ dls) {
   extern __shared__ float smem[];
   const int dh = p.dh, st = dh + 1;
+  // one panel up to Dh 128 (ACC 8), known to the compiler
+  const int pw = ACC > 8 ? kPanelCols : dh, pst = pw + 1;
+  const int np = ACC > 8 ? (dh + kPanelCols - 1) / kPanelCols : 1;
   float* k_s = smem;
   float* v_s = k_s + kTile * st;
   float* q_s = v_s + kTile * st;
-  float* do_s = q_s + kTile * st;
-  float* p_s = do_s + kTile * st;
+  float* do_s = q_s + kTile * pst;
+  float* p_s = do_s + kTile * pst;
   float* ds_s = p_s + kTile * kPStride;
   float* ls_s = ds_s + kTile * kPStride;
   float* lse_s = ls_s + kTile;
@@ -482,12 +540,12 @@ flash_dkv_kernel(Params p, const float* __restrict__ q,
   load_vec(ls_s, ls + kbase, rows_k);
   // dk, dv: rows j = ty*4 + a of the tile, cols d = tx + 16c;
   // dls: this thread's partial sums for keys tx + 16b
-  float dk_acc[4][kAccCols], dv_acc[4][kAccCols], dls_part[4];
+  float dk_acc[4][ACC], dv_acc[4][ACC], dls_part[4];
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     dls_part[a] = 0.f;
 #pragma unroll
-    for (int c = 0; c < kAccCols; ++c) dk_acc[a][c] = dv_acc[a][c] = 0.f;
+    for (int c = 0; c < ACC; ++c) dk_acc[a][c] = dv_acc[a][c] = 0.f;
   }
 
   int lo, hi;
@@ -499,37 +557,42 @@ flash_dkv_kernel(Params p, const float* __restrict__ q,
       if (!tile_live(p, q0, k0, kTile, kTile, hr_row)) continue;
       const int rows_q = min(kTile, p.tp - q0);
       const size_t qbase = (size_t)h * p.tp + q0;
-      __syncthreads();
-      load_tile(q_s, q + qbase * dh, rows_q, dh);
-      load_tile(do_s, dout + qbase * dh, rows_q, dh);
-      load_vec(lse_s, lse + qbase, rows_q);
-      load_vec(delta_s, delta + qbase, rows_q);
-      __syncthreads();
 
       float s[4][4], dp[4][4];
 #pragma unroll
       for (int a = 0; a < 4; ++a)
 #pragma unroll
         for (int b = 0; b < 4; ++b) s[a][b] = dp[a][b] = 0.f;
-      for (int d = 0; d < dh; ++d) {
-        float qa[4], oa[4], kb[4], vb[4];
-#pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          qa[a] = q_s[(ty * 4 + a) * st + d];
-          oa[a] = do_s[(ty * 4 + a) * st + d];
+      for (int pi = 0; pi < np; ++pi) {
+        const int c0 = pi * pw, w = min(pw, dh - c0);
+        __syncthreads();                              // last readers
+        load_panel(q_s, q + qbase * dh, rows_q, dh, c0, w, pst);
+        load_panel(do_s, dout + qbase * dh, rows_q, dh, c0, w, pst);
+        if (pi == 0) {
+          load_vec(lse_s, lse + qbase, rows_q);
+          load_vec(delta_s, delta + qbase, rows_q);
         }
+        __syncthreads();
+        for (int d = 0; d < w; ++d) {
+          float qa[4], oa[4], kb[4], vb[4];
 #pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          kb[b] = k_s[(tx + 16 * b) * st + d];
-          vb[b] = v_s[(tx + 16 * b) * st + d];
-        }
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
+          for (int a = 0; a < 4; ++a) {
+            qa[a] = q_s[(ty * 4 + a) * pst + d];
+            oa[a] = do_s[(ty * 4 + a) * pst + d];
+          }
 #pragma unroll
           for (int b = 0; b < 4; ++b) {
-            s[a][b] = fmaf(qa[a], kb[b], s[a][b]);
-            dp[a][b] = fmaf(oa[a], vb[b], dp[a][b]);
+            kb[b] = k_s[(tx + 16 * b) * st + c0 + d];
+            vb[b] = v_s[(tx + 16 * b) * st + c0 + d];
           }
+#pragma unroll
+          for (int a = 0; a < 4; ++a)
+#pragma unroll
+            for (int b = 0; b < 4; ++b) {
+              s[a][b] = fmaf(qa[a], kb[b], s[a][b]);
+              dp[a][b] = fmaf(oa[a], vb[b], dp[a][b]);
+            }
+        }
       }
 
 #pragma unroll
@@ -555,22 +618,36 @@ flash_dkv_kernel(Params p, const float* __restrict__ q,
       }
       __syncthreads();
 
-      for (int i = 0; i < kTile; ++i) {
-        float qi[kAccCols], oi[kAccCols];
-#pragma unroll
-        for (int c = 0; c < kAccCols; ++c) {
-          const int d = tx + 16 * c;
-          qi[c] = d < dh ? q_s[i * st + d] : 0.f;
-          oi[c] = d < dh ? do_s[i * st + d] : 0.f;
+      // dv += P^T.dO and dk += dS^T.Q, the panels last-loaded first
+      for (int pi = np - 1; pi >= 0; --pi) {
+        const int c0 = pi * pw, w = min(pw, dh - c0);
+        if (pi != np - 1) {
+          __syncthreads();
+          load_panel(q_s, q + qbase * dh, rows_q, dh, c0, w, pst);
+          load_panel(do_s, dout + qbase * dh, rows_q, dh, c0, w, pst);
+          __syncthreads();
         }
+        for (int i = 0; i < kTile; ++i) {
+          float qi[ACC], oi[ACC];
 #pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          const float pa = p_s[i * kPStride + ty * 4 + a];
-          const float da = ds_s[i * kPStride + ty * 4 + a];
+          for (int c = 0; c < ACC; ++c) {
+            const int d = tx + 16 * c - c0;
+            const bool in = d >= 0 && d < w;
+            qi[c] = in ? q_s[i * pst + d] : 0.f;
+            oi[c] = in ? do_s[i * pst + d] : 0.f;
+          }
 #pragma unroll
-          for (int c = 0; c < kAccCols; ++c) {
-            dv_acc[a][c] = fmaf(pa, oi[c], dv_acc[a][c]);
-            dk_acc[a][c] = fmaf(da, qi[c], dk_acc[a][c]);
+          for (int a = 0; a < 4; ++a) {
+            const float pa = p_s[i * kPStride + ty * 4 + a];
+            const float da = ds_s[i * kPStride + ty * 4 + a];
+#pragma unroll
+            for (int c = 0; c < ACC; ++c) {
+              const int d = tx + 16 * c - c0;
+              if (d >= 0 && d < w) {
+                dv_acc[a][c] = fmaf(pa, oi[c], dv_acc[a][c]);
+                dk_acc[a][c] = fmaf(da, qi[c], dk_acc[a][c]);
+              }
+            }
           }
         }
       }
@@ -582,7 +659,7 @@ flash_dkv_kernel(Params p, const float* __restrict__ q,
     const int jl = ty * 4 + a;
     if (jl >= rows_k) continue;
 #pragma unroll
-    for (int c = 0; c < kAccCols; ++c) {
+    for (int c = 0; c < ACC; ++c) {
       const int d = tx + 16 * c;
       if (d < dh) {
         dk[(kbase + jl) * dh + d] = dk_acc[a][c] * p.scale;
@@ -611,7 +688,7 @@ bool bad_params(const Params& p, int rows) {
 
 // what the bf16 tensor-core kernels do not take
 bool bad_tc(const Params& p) {
-  return (p.dh != 64 && p.dh != 128) || p.tp % 8 != 0;
+  return (p.dh != 64 && p.dh != 128 && p.dh != 256) || p.tp % 8 != 0;
 }
 
 // Raise a kernel's dynamic shared-memory limit once, to what the largest
@@ -637,43 +714,47 @@ Params make_params(int tp, int dh, int hq, int hkv, int t, int nk_ref,
   return p;
 }
 
-cudaError_t launch_fwd(const Params& p, int bhq, const void* q, const void* k,
-                       const void* v, const void* ls, const void* hr, void* out,
-                       void* lse, cudaStream_t stream) {
-  const size_t smem = fwd_smem(p.dh);
-  cudaError_t e = allow_smem<flash_fwd_kernel>(fwd_smem(kMaxDh));
+// the fp32 kernels' instantiation: 8 accumulator columns a thread up to Dh
+// 128, 16 above
+template <int ACC>
+cudaError_t launch_fwd_f32(const Params& p, int bhq, const void* q,
+                           const void* k, const void* v, const void* ls,
+                           const void* hr, void* out, void* lse,
+                           cudaStream_t stream) {
+  cudaError_t e = allow_smem<flash_fwd_kernel<ACC>>(fwd_smem(16 * ACC));
   if (e != cudaSuccess) return e;
   dim3 grid((p.tp + kTile - 1) / kTile, bhq);
-  flash_fwd_kernel<<<grid, kThreads, smem, stream>>>(
+  flash_fwd_kernel<ACC><<<grid, kThreads, fwd_smem(p.dh), stream>>>(
       p, (const float*)q, (const float*)k, (const float*)v, (const float*)ls,
       (const int32_t*)hr, (float*)out, (float*)lse);
   return cudaGetLastError();
 }
 
-cudaError_t launch_dq(const Params& p, int bhq, const void* q, const void* k,
-                      const void* v, const void* ls, const void* dout,
-                      const void* lse, const void* delta, const void* hr,
-                      void* dq, cudaStream_t stream) {
-  const size_t smem = dq_smem(p.dh);
-  cudaError_t e = allow_smem<flash_dq_kernel>(dq_smem(kMaxDh));
+template <int ACC>
+cudaError_t launch_dq_f32(const Params& p, int bhq, const void* q,
+                          const void* k, const void* v, const void* ls,
+                          const void* dout, const void* lse, const void* delta,
+                          const void* hr, void* dq, cudaStream_t stream) {
+  cudaError_t e = allow_smem<flash_dq_kernel<ACC>>(dq_smem(16 * ACC));
   if (e != cudaSuccess) return e;
   dim3 grid((p.tp + kTile - 1) / kTile, bhq);
-  flash_dq_kernel<<<grid, kThreads, smem, stream>>>(
+  flash_dq_kernel<ACC><<<grid, kThreads, dq_smem(p.dh), stream>>>(
       p, (const float*)q, (const float*)k, (const float*)v, (const float*)ls,
       (const float*)dout, (const float*)lse, (const float*)delta,
       (const int32_t*)hr, (float*)dq);
   return cudaGetLastError();
 }
 
-cudaError_t launch_dkv(const Params& p, int bhkv, const void* q, const void* k,
-                       const void* v, const void* ls, const void* dout,
-                       const void* lse, const void* delta, const void* hr,
-                       void* dk, void* dv, void* dls, cudaStream_t stream) {
-  const size_t smem = dkv_smem(p.dh);
-  cudaError_t e = allow_smem<flash_dkv_kernel>(dkv_smem(kMaxDh));
+template <int ACC>
+cudaError_t launch_dkv_f32(const Params& p, int bhkv, const void* q,
+                           const void* k, const void* v, const void* ls,
+                           const void* dout, const void* lse,
+                           const void* delta, const void* hr, void* dk,
+                           void* dv, void* dls, cudaStream_t stream) {
+  cudaError_t e = allow_smem<flash_dkv_kernel<ACC>>(dkv_smem(16 * ACC));
   if (e != cudaSuccess) return e;
   dim3 grid((p.tp + kTile - 1) / kTile, bhkv);
-  flash_dkv_kernel<<<grid, kThreads, smem, stream>>>(
+  flash_dkv_kernel<ACC><<<grid, kThreads, dkv_smem(p.dh), stream>>>(
       p, (const float*)q, (const float*)k, (const float*)v, (const float*)ls,
       (const float*)dout, (const float*)lse, (const float*)delta,
       (const int32_t*)hr, (float*)dk, (float*)dv, (float*)dls);
@@ -891,9 +972,10 @@ struct FwdSmem {
   static constexpr int kBytes = kBar + (2 * kStages + 1) * 8 + 1024;
 };
 
-// one warpgroup a block: two blocks on an SM
+// one warpgroup a block: two blocks on an SM up to Dh 128; at Dh 256 the
+// 165 KB of FwdSmem fit one, whose O accumulator takes 128 registers
 template <int DH>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, DH > 128 ? 1 : 2)
 flash_fwd_tc(const __grid_constant__ CUtensorMap tm_q,
              const __grid_constant__ CUtensorMap tm_k,
              const __grid_constant__ CUtensorMap tm_v,
@@ -1066,9 +1148,10 @@ struct DqSmem {
   static constexpr int kBytes = kBar + (2 * kStages + 1) * 8 + 1024;
 };
 
-// one warpgroup a block, as fwd: two blocks on an SM
+// one warpgroup a block, as fwd: two blocks on an SM up to Dh 128, one at
+// Dh 256 (198 KB of DqSmem; the dq accumulator takes 128 registers)
 template <int DH>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, DH > 128 ? 1 : 2)
 flash_dq_tc(const __grid_constant__ CUtensorMap tm_q,
             const __grid_constant__ CUtensorMap tm_k,
             const __grid_constant__ CUtensorMap tm_v,
@@ -1232,10 +1315,21 @@ flash_dq_tc(const __grid_constant__ CUtensorMap tm_q,
 
 // -- dk, dv, d(log_surv) -----------------------------------------------------
 
+// dk and dv columns of one dkv block: all of them up to Dh 128; at Dh 256
+// each block owns one 128-column half (their fused accumulators would need
+// 256 fp32 registers a thread), and recomputes the tile's scores at the
+// full Dh: about 1.5x the fused version's products
+template <int DH>
+struct DkvCols {
+  static constexpr int kCols = DH > 128 ? 128 : DH;
+  static constexpr int kHalves = DH / kCols;
+};
+
 // Shared memory of a dkv block, in bytes from a 1024-aligned base: K, V,
 // kStages Q and dO tiles, ls, kStages lse and delta vectors, the fp32
-// partials the cluster sums (dk, dv: 64 rows of kRedStride floats; dls),
-// the barriers.
+// partials the cluster sums (dk, dv: 64 rows of kRedStride floats over the
+// block's columns; dls), the barriers.  At Dh 256 the partials alias the Q
+// and dO ring, free once the loop is done (334 KB otherwise, 199 KB so).
 template <int DH>
 struct DkvSmem {
   static constexpr int kTile = kBK * DH * 2;
@@ -1246,12 +1340,17 @@ struct DkvSmem {
   static constexpr int kLs = kDo + kStages * kTile;
   static constexpr int kLse = kLs + kBK * 4;
   static constexpr int kDelta = kLse + kStages * kDkvRows * 4;
-  static constexpr int kRedStride = DH + 8;       // floats; staggers the banks
-  static constexpr int kRedDk = kDelta + kStages * kDkvRows * 4;
+  static constexpr int kEnd = kDelta + kStages * kDkvRows * 4;
+  static constexpr int kRedStride = DkvCols<DH>::kCols + 8;  // staggers banks
+  static constexpr int kRedBytes = 2 * kBK * kRedStride * 4 + kBK * 4;
+  static constexpr bool kAlias = DkvCols<DH>::kHalves > 1;
+  static constexpr int kRedDk = kAlias ? kQ : kEnd;
   static constexpr int kRedDv = kRedDk + kBK * kRedStride * 4;
   static constexpr int kRedDls = kRedDv + kBK * kRedStride * 4;
-  static constexpr int kBar = kRedDls + kBK * 4;
+  static constexpr int kBar = kAlias ? kEnd : kEnd + kRedBytes;
   static constexpr int kBytes = kBar + (2 * kStages + 1) * 8 + 1024;
+  static_assert(!kAlias || kRedBytes <= 2 * kStages * kTile,
+                "the partials fit the ring they alias");
 };
 
 template <int DH>
@@ -1267,7 +1366,9 @@ flash_dkv_tc(const __grid_constant__ CUtensorMap tm_q,
              __nv_bfloat16* __restrict__ dv, float* __restrict__ dls) {
   namespace cg = cooperative_groups;
   using L = DkvSmem<DH>;
-  constexpr int kPanels = DH / kPanel;
+  constexpr int kCols = DkvCols<DH>::kCols;
+  constexpr int kHalves = DkvCols<DH>::kHalves;
+  constexpr int kAccPanels = kCols / kPanel;     // accumulator panels
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBar);
@@ -1278,7 +1379,8 @@ flash_dkv_tc(const __grid_constant__ CUtensorMap tm_q,
   cg::cluster_group cluster = cg::this_cluster();
   const int c = gridDim.x, rank = blockIdx.x;       // the cluster spans x
   const int tid = threadIdx.x;
-  const int row = blockIdx.y, k0 = blockIdx.z * kBK;  // key tile 0 first
+  const int row = blockIdx.y / kHalves, half = blockIdx.y % kHalves;
+  const int k0 = blockIdx.z * kBK;                  // key tile 0 first
   const int g = p.hq / p.hkv, per = g / c;
   const int qhead0 = (row / p.hkv) * p.hq + (row % p.hkv) * g + rank * per;
   const int32_t* hr_row = p.skip ? hr + (size_t)row * p.nk_ref : nullptr;
@@ -1327,9 +1429,10 @@ flash_dkv_tc(const __grid_constant__ CUtensorMap tm_q,
     // and the step's 64 q rows as columns; this thread keys j and j + 8
     const int w = tid / 32, lane = tid % 32;
     const int j_top = acc_row(w, lane, 0);
-    float dk_acc[kPanels][32], dv_acc[kPanels][32], dls_part[2] = {0.f, 0.f};
+    float dk_acc[kAccPanels][32], dv_acc[kAccPanels][32];
+    float dls_part[2] = {0.f, 0.f};
 #pragma unroll
-    for (int pn = 0; pn < kPanels; ++pn)
+    for (int pn = 0; pn < kAccPanels; ++pn)
 #pragma unroll
       for (int x = 0; x < 32; ++x) dk_acc[pn][x] = dv_acc[pn][x] = 0.f;
     mbar_wait(kv_full, 0);
@@ -1390,7 +1493,7 @@ flash_dkv_tc(const __grid_constant__ CUtensorMap tm_q,
         acc_to_a(st, pa);
         acc_to_a(dpt, da);
 #pragma unroll
-        for (int pn = 0; pn < kPanels; ++pn) {
+        for (int pn = 0; pn < kAccPanels; ++pn) {
           reg_fence(dk_acc[pn]);
           reg_fence(dv_acc[pn]);
         }
@@ -1398,15 +1501,16 @@ flash_dkv_tc(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-          for (int pn = 0; pn < kPanels; ++pn) {
-            const int off = pn * kDkvRows * 128 + kk * 16 * 128;
+          for (int pn = 0; pn < kAccPanels; ++pn) {
+            const int off = (half * kAccPanels + pn) * kDkvRows * 128 +
+                            kk * 16 * 128;
             wgmma_rs(dv_acc[pn], pa[kk], sw128_desc(do_s + off));
             wgmma_rs(dk_acc[pn], da[kk], sw128_desc(q_s + off));
           }
         wg_commit();
         wg_wait_all();
 #pragma unroll
-        for (int pn = 0; pn < kPanels; ++pn) {
+        for (int pn = 0; pn < kAccPanels; ++pn) {
           reg_fence(dk_acc[pn]);
           reg_fence(dv_acc[pn]);
         }
@@ -1415,7 +1519,10 @@ flash_dkv_tc(const __grid_constant__ CUtensorMap tm_q,
       }
     }
 
-    // this block's partials into its shared memory
+    // this block's partials into its shared memory; where they alias the
+    // ring, every consumer thread is past its last read of it first (the
+    // producer's loads have all been waited on)
+    if (L::kAlias) asm volatile("bar.sync 1, %0;" :: "n"(kWG) : "memory");
     float* red_dk = red;
     float* red_dv = red + kBK * L::kRedStride;
     float* red_dls = red + 2 * kBK * L::kRedStride;
@@ -1425,7 +1532,7 @@ flash_dkv_tc(const __grid_constant__ CUtensorMap tm_q,
       const float d = quad_sum(dls_part[hh]);
       if ((lane & 3) == 0) red_dls[j] = d;
 #pragma unroll
-      for (int pn = 0; pn < kPanels; ++pn)
+      for (int pn = 0; pn < kAccPanels; ++pn)
 #pragma unroll
         for (int x = 2 * hh; x < 32; x += 4) {
           const int o = j * L::kRedStride + pn * kPanel + acc_col(lane, x);
@@ -1443,7 +1550,8 @@ flash_dkv_tc(const __grid_constant__ CUtensorMap tm_q,
   const int r0 = rank * kBK / c, r1 = (rank + 1) * kBK / c;
   const int rows_k = min(kBK, p.tp - k0);
   const size_t kbase = (size_t)row * p.tp + k0;
-  constexpr int kQuads = DH / 4;
+  constexpr int kQuads = kCols / 4;
+  const int col0 = half * kCols;
   for (int e = tid; e < (r1 - r0) * kQuads; e += kThreads) {
     const int j = r0 + e / kQuads, c4 = 4 * (e % kQuads);
     float4 sk = make_float4(0.f, 0.f, 0.f, 0.f), sv = sk;
@@ -1456,15 +1564,18 @@ flash_dkv_tc(const __grid_constant__ CUtensorMap tm_q,
       sv.x += b.x; sv.y += b.y; sv.z += b.z; sv.w += b.w;
     }
     if (j < rows_k) {
-      __nv_bfloat162* pk = reinterpret_cast<__nv_bfloat162*>(dk + (kbase + j) * DH + c4);
-      __nv_bfloat162* pv = reinterpret_cast<__nv_bfloat162*>(dv + (kbase + j) * DH + c4);
+      const size_t o = (kbase + j) * DH + col0 + c4;
+      __nv_bfloat162* pk = reinterpret_cast<__nv_bfloat162*>(dk + o);
+      __nv_bfloat162* pv = reinterpret_cast<__nv_bfloat162*>(dv + o);
       pk[0] = __floats2bfloat162_rn(sk.x * p.scale, sk.y * p.scale);
       pk[1] = __floats2bfloat162_rn(sk.z * p.scale, sk.w * p.scale);
       pv[0] = __floats2bfloat162_rn(sv.x, sv.y);
       pv[1] = __floats2bfloat162_rn(sv.z, sv.w);
     }
   }
-  for (int j = r0 + tid; j < r1; j += kThreads) {
+  // d(log_surv) from the full scores, which both halves computed: the
+  // first half writes it
+  for (int j = r0 + tid; half == 0 && j < r1; j += kThreads) {
     float sum = 0.f;
     for (int rk = 0; rk < c; ++rk)
       sum += cluster.map_shared_rank(red, rk)[2 * kBK * L::kRedStride + j];
@@ -1594,7 +1705,7 @@ cudaError_t launch_dkv(const Params& p, int bhkv, const void* q, const void* k,
   cudaError_t e = allow_smem<flash_dkv_tc<DH>>(smem);
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(c, bhkv, (p.tp + kBK - 1) / kBK);
+  cfg.gridDim = dim3(c, bhkv * DkvCols<DH>::kHalves, (p.tp + kBK - 1) / kBK);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -1616,8 +1727,8 @@ cudaError_t launch_dkv(const Params& p, int bhkv, const void* q, const void* k,
 }  // namespace
 
 // `bf16`: 1 for bfloat16 q/k/v (and do, out, dq, dk, dv), 0 for float32.
-// `window` < 0 means no local window.  In bf16 every entry point takes dh 64
-// or 128 and tp a multiple of 8.
+// `window` < 0 means no local window.  In fp32 every entry point takes dh up
+// to 256; in bf16 dh 64, 128 or 256 and tp a multiple of 8.
 extern "C" int dms_flash_fwd(const void* q, const void* k, const void* v,
                              const void* ls, const void* hr, void* out,
                              void* lse, int bf16, int bhq, int tp, int dh,
@@ -1633,11 +1744,15 @@ extern "C" int dms_flash_fwd(const void* q, const void* k, const void* v,
   if (bhq == 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
   if (!bf16)
-    return (int)launch_fwd(p, bhq, q, k, v, ls, hr, out, lse, s);
-  return (int)(dh == 64 ? tc::launch_fwd<64>(p, bhq, q, k, v, ls, hr, out,
+    return (int)(dh <= 128 ? launch_fwd_f32<8>(p, bhq, q, k, v, ls, hr, out,
                                                lse, s)
-                        : tc::launch_fwd<128>(p, bhq, q, k, v, ls, hr, out,
-                                              lse, s));
+                           : launch_fwd_f32<16>(p, bhq, q, k, v, ls, hr, out,
+                                                lse, s));
+  switch (dh) {
+    case 64: return (int)tc::launch_fwd<64>(p, bhq, q, k, v, ls, hr, out, lse, s);
+    case 128: return (int)tc::launch_fwd<128>(p, bhq, q, k, v, ls, hr, out, lse, s);
+    default: return (int)tc::launch_fwd<256>(p, bhq, q, k, v, ls, hr, out, lse, s);
+  }
 }
 
 extern "C" int dms_flash_dq(const void* q, const void* k, const void* v,
@@ -1655,11 +1770,18 @@ extern "C" int dms_flash_dq(const void* q, const void* k, const void* v,
   if (bhq == 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
   if (!bf16)
-    return (int)launch_dq(p, bhq, q, k, v, ls, dout, lse, delta, hr, dq, s);
-  return (int)(dh == 64 ? tc::launch_dq<64>(p, bhq, q, k, v, ls, dout, lse,
+    return (int)(dh <= 128 ? launch_dq_f32<8>(p, bhq, q, k, v, ls, dout, lse,
                                               delta, hr, dq, s)
-                        : tc::launch_dq<128>(p, bhq, q, k, v, ls, dout, lse,
-                                             delta, hr, dq, s));
+                           : launch_dq_f32<16>(p, bhq, q, k, v, ls, dout, lse,
+                                               delta, hr, dq, s));
+  switch (dh) {
+    case 64: return (int)tc::launch_dq<64>(p, bhq, q, k, v, ls, dout, lse,
+                                           delta, hr, dq, s);
+    case 128: return (int)tc::launch_dq<128>(p, bhq, q, k, v, ls, dout, lse,
+                                             delta, hr, dq, s);
+    default: return (int)tc::launch_dq<256>(p, bhq, q, k, v, ls, dout, lse,
+                                            delta, hr, dq, s);
+  }
 }
 
 extern "C" int dms_flash_dkv(const void* q, const void* k, const void* v,
@@ -1678,11 +1800,17 @@ extern "C" int dms_flash_dkv(const void* q, const void* k, const void* v,
   if (bhkv == 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
   if (!bf16)
-    return (int)launch_dkv(p, bhkv, q, k, v, ls, dout, lse, delta, hr, dk, dv,
-                           dls, s);
-  return (int)(dh == 64
-                   ? tc::launch_dkv<64>(p, bhkv, q, k, v, ls, dout, lse, delta,
-                                        hr, dk, dv, dls, s)
-                   : tc::launch_dkv<128>(p, bhkv, q, k, v, ls, dout, lse, delta,
-                                         hr, dk, dv, dls, s));
+    return (int)(dh <= 128
+                     ? launch_dkv_f32<8>(p, bhkv, q, k, v, ls, dout, lse,
+                                         delta, hr, dk, dv, dls, s)
+                     : launch_dkv_f32<16>(p, bhkv, q, k, v, ls, dout, lse,
+                                          delta, hr, dk, dv, dls, s));
+  switch (dh) {
+    case 64: return (int)tc::launch_dkv<64>(p, bhkv, q, k, v, ls, dout, lse,
+                                            delta, hr, dk, dv, dls, s);
+    case 128: return (int)tc::launch_dkv<128>(p, bhkv, q, k, v, ls, dout, lse,
+                                              delta, hr, dk, dv, dls, s);
+    default: return (int)tc::launch_dkv<256>(p, bhkv, q, k, v, ls, dout, lse,
+                                             delta, hr, dk, dv, dls, s);
+  }
 }

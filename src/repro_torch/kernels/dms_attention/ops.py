@@ -11,9 +11,9 @@ backward (``csrc/dms_attention.cu``).
 CUDA tensors go to the kernels or the call raises; CPU tensors go to the
 plain versions (:mod:`.ref`).  Nothing else picks the path.  On the card
 the dtype picks the kernel: the bf16 kernels run on the tensor cores and
-take a head dim of 64 or 128, so their wrappers zero-pad a smaller one
-(:func:`pad_head_dim`) and slice the outputs back; fp32 runs on the CUDA
-cores at any head dim up to 128.
+take a head dim of 64, 128 or 256, so their wrappers zero-pad a smaller one
+to the next of these (:func:`pad_head_dim`) and slice the outputs back;
+fp32 runs on the CUDA cores at any head dim up to 256.
 """
 from __future__ import annotations
 
@@ -30,7 +30,7 @@ from repro_torch.kernels.dms_attention.ref import (NEG_INF, FlashConfig,
                                                    flash_fwd_plain)
 
 DEFAULT_BLOCK_K = 128
-MAX_DH = 128
+MAX_DH = 256
 SOURCE = Path(__file__).resolve().parent / "csrc" / "dms_attention.cu"
 
 #: kernel launches since the last reset, per kernel (the CPU path never counts)
@@ -120,8 +120,9 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 
 def tensor_core_dh(dh: int) -> int:
-    """The head dim at which the bf16 tensor-core kernels run a ``dh``."""
-    return 64 if dh <= 64 else 128
+    """The head dim at which the bf16 tensor-core kernels run a ``dh``
+    (``dh <= MAX_DH``)."""
+    return 64 if dh <= 64 else 128 if dh <= 128 else 256
 
 
 def pad_head_dim(x: torch.Tensor, dh: int) -> torch.Tensor:

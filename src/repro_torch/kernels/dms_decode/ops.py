@@ -44,6 +44,8 @@ from repro_torch.kernels.dms_decode.ref import (dms_decode_plain,
 
 DEFAULT_BLOCK_P = 128
 MAX_G, MAX_DH, MAX_BLOCK_P = 16, 256, 128
+#: the most splits (thread blocks of one cluster) of a row's table
+MAX_SPLITS = 16
 SOURCE = Path(__file__).resolve().parent / "csrc" / "dms_decode.cu"
 
 #: kernel launches since the last reset (the CPU path never counts), in
@@ -64,10 +66,10 @@ def _library() -> ctypes.CDLL:
     if fn.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [ptr] * 11 + [i32] * 6 + [ctypes.c_float, i32,
-                                                ctypes.c_float, i32, ptr]
+                                                ctypes.c_float, i32, i32, ptr]
         fn.restype = i32
-        lib.dms_decode_splits.argtypes = [i32]
-        lib.dms_decode_splits.restype = i32
+        lib.dms_decode_stages.argtypes = [i32] * 5
+        lib.dms_decode_stages.restype = i32
     return lib
 
 
@@ -76,11 +78,37 @@ def build() -> None:
     _library()
 
 
-def splits(nb_tbl: int) -> int:
+def splits(nb_tbl: int, bh: int, sms: int) -> int:
     """The thread blocks (one cluster) the kernel gives each row's table of
-    capacity ``nb_tbl``: the constant of the CUDA source, asked of the
-    built kernel (card only)."""
-    return int(_library().dms_decode_splits(nb_tbl))
+    capacity ``nb_tbl`` when ``bh`` rows share a card of ``sms`` SMs: as
+    many as fill the SMs, ``sms // bh``, at most ``MAX_SPLITS`` and
+    ``nb_tbl`` (a split takes at least one entry), at least 1.  From shapes
+    alone, never from ``block_n``, so a step stays free of host syncs;
+    non-increasing in B*Hkv."""
+    return max(1, min(MAX_SPLITS, nb_tbl, sms // max(bh, 1)))
+
+
+_SMS: dict = {}
+
+
+def sm_count(device) -> int:
+    """The SM count of a CUDA ``device`` (asked once)."""
+    idx = torch.device(device).index
+    if idx is None:
+        idx = torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
+def launch_splits(qf: torch.Tensor, nb_tbl: int) -> int:
+    """:func:`splits` for a launch on ``qf`` (BH, G, Dh) on its card."""
+    return splits(nb_tbl, qf.shape[0], sm_count(qf.device))
+
+
+def stages(g: int, dh: int, block_p: int, nb_tbl: int, nsplit: int) -> int:
+    """The kernel's ring depth at a shape (asked of the built kernel)."""
+    return int(_library().dms_decode_stages(g, dh, block_p, nb_tbl, nsplit))
 
 
 def modeled_hbm_bytes(block_n: torch.Tensor, block_p: int, head_dim: int,
@@ -93,10 +121,11 @@ def modeled_hbm_bytes(block_n: torch.Tensor, block_p: int, head_dim: int,
 
 
 def _launch(qf, kf, vf, valf, tblf, nf, block_p, logit_cap, shared_kv,
-            need_weights=False):
+            need_weights=False, nsplit=None):
     """The kernel on CUDA tensors of the flattened layout; raises on what it
     does not take.  With ``need_weights`` returns the five outputs of the
-    weights-out mode."""
+    weights-out mode.  ``nsplit`` overrides :func:`launch_splits` (a sweep
+    of the split count)."""
     global launches, shared_launches, weights_launches
     bh, g, dh = qf.shape
     p = kf.shape[1]
@@ -136,6 +165,8 @@ def _launch(qf, kf, vf, valf, tblf, nf, block_p, logit_cap, shared_kv,
         return (out,) + extra if need_weights else out
     lib = _library()
     w_ptrs = [t.data_ptr() for t in extra] if need_weights else [None] * 4
+    if nsplit is None:
+        nsplit = launch_splits(qf, nbt)
     with torch.cuda.device(qf.device):
         stream = torch.cuda.current_stream(qf.device).cuda_stream
         err = lib.dms_decode_fwd(
@@ -144,7 +175,7 @@ def _launch(qf, kf, vf, valf, tblf, nf, block_p, logit_cap, shared_kv,
             bh, g, dh, p, nbt, block_p, float(dh ** -0.5),
             int(logit_cap is not None),
             float(logit_cap if logit_cap is not None else 0.0),
-            int(shared_kv), stream)
+            int(shared_kv), int(nsplit), stream)
     if err != 0:
         raise RuntimeError(f"dms_decode kernel launch failed: CUDA error {err}")
     if need_weights:

@@ -477,17 +477,18 @@ def test_weights_out_kernel_matches_plain(cuda_device, g, dh, nb, cap):
 # -- decode, the table split across a cluster ---------------------------------
 
 
-def _split_case(device, g, dh, nb, seed, front_only):
+def _split_case(device, g, dh, nb, seed, front_only, bh=8):
     """Both layouts of the same logical contents, with rows of n = 0, n = 1
-    and n = nb (every block listed) and random n elsewhere; blocks listed in
-    shuffled order, table tails past n naming other blocks, NaN in every
-    unlisted block and unlisted page.  ``front_only``: every slot of a
-    listed entry past the first split's range (``[0, n // S)``, at least one
-    entry) is hidden, so the later splits see no slot.  Returns (fixed,
-    shared) operands for ``ops.decode_rows``."""
+    and n = nb (every block listed) and random n elsewhere (one row: n =
+    nb); blocks listed in shuffled order, table tails past n naming other
+    blocks, NaN in every unlisted block and unlisted page.  ``front_only``:
+    every slot of a listed entry past the first split's range (``[0, n //
+    S)``, at least one entry) is hidden, so the later splits see no slot.
+    Returns (fixed, shared) operands for ``ops.decode_rows``."""
     gen = torch.Generator().manual_seed(seed)
-    bh, splits = 8, ops.splits(nb)
-    counts = [0, 1, nb] + torch.randint(2, nb, (bh - 3,), generator=gen).tolist()
+    splits = ops.splits(nb, bh, ops.sm_count(device))
+    counts = ([0, 1, nb] + torch.randint(2, nb, (bh - 3,), generator=gen)
+              .tolist() if bh >= 3 else [nb] * bh)
     valid = torch.rand((bh, nb * BP), generator=gen) < 0.6
     valid.reshape(bh, nb, BP)[..., 0] = True           # every block holds a slot
     tbl = torch.stack([torch.randperm(nb, generator=gen) for _ in range(bh)])
@@ -536,7 +537,7 @@ def test_decode_splits_match_plain(cuda_device, nb, front_only):
                                                     dms_decode_plain_weights)
     g, dh = 6, 128
     fixed, shared = _split_case(cuda_device, g, dh, nb, seed=nb, front_only=front_only)
-    splits = ops.splits(nb)
+    splits = ops.launch_splits(fixed[0], nb)
     assert splits > 1
     n = fixed[5]
     listed = torch.arange(nb, device=cuda_device)[None, :] < n[:, None]
@@ -569,6 +570,36 @@ def test_decode_splits_match_plain(cuda_device, nb, front_only):
         torch.testing.assert_close(out_f.float(), ref[0].float(), **BF16)
         for a, b in zip(raw(got_f)[1:], raw(ref)[1:]):
             torch.testing.assert_close(a, b, **F32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,g,dh,nb", [(1, 10, 256, 129), (64, 1, 64, 20)],
+                         ids=["one row: recurrentgemma's ring",
+                              "64 rows: seamless's G 1"])
+def test_decode_split_rule_shapes(cuda_device, bh, g, dh, nb):
+    """The split count follows B*Hkv: one row (recurrentgemma's 2064-slot
+    ring, G 10 at Dh 256) takes 16 splits, a non-portable cluster; 64 rows
+    (seamless's G 1 at Dh 64) fewer than 8.  Fixed and shared layouts give
+    the same bits, a second launch too, and both agree with the plain
+    version and with the plain version of the split."""
+    from repro_torch.kernels.dms_decode.ref import dms_decode_plain_split
+    fixed, shared = _split_case(cuda_device, g, dh, nb, seed=bh, front_only=False,
+                                bh=bh)
+    splits = ops.launch_splits(fixed[0], nb)
+    if ops.sm_count(cuda_device) >= 128:
+        assert splits == 16 if bh == 1 else splits < 8
+    runs = [(ops.decode_rows(*fixed, BP), ops.decode_rows(*shared, BP,
+                                                          shared_kv=True))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    (out_f, out_s), (again_f, again_s) = runs
+    assert torch.equal(out_f, out_s)
+    assert torch.equal(out_f, again_f) and torch.equal(out_s, again_s)
+    assert torch.isfinite(out_f.float()).all()
+    torch.testing.assert_close(out_f.float(), dms_decode_plain(
+        *fixed, BP).float(), **BF16)
+    torch.testing.assert_close(out_f.float(), dms_decode_plain_split(
+        *fixed, BP, splits=splits).float(), **BF16)
 
 
 # -- flash attention: fwd, dq, dkv -------------------------------------------
@@ -643,19 +674,24 @@ def test_flash_kernels_noncausal_match_plain(cuda_device, dtype, kw):
     _flash_vs_plain(cuda_device, dtype, dict(kw, causal=False))
 
 
-def _flash_vs_plain(cuda_device, dtype, kw):
+def _flash_vs_plain(cuda_device, dtype, kw, twice=False):
     from repro_torch.kernels.dms_attention import ops as fops
     from repro_torch.kernels.dms_attention import ref as fref
     qf, kf, vf, ls, hr, cfg, do = _flash_operands(cuda_device, dtype, **kw)
-    before = dict(fops.launches)
-    out, lse = fops.flash_fwd(qf, kf, vf, ls, hr, cfg)
     out_p, lse_p = fref.flash_fwd_plain(qf, kf, vf, ls, hr, cfg)
     delta = (do.float() * out_p.float()).sum(-1)
-    dq = fops.flash_dq(qf, kf, vf, ls, do, lse_p, delta, hr, cfg)
-    dk, dv, dls = fops.flash_dkv(qf, kf, vf, ls, do, lse_p, delta, hr, cfg)
+    before = dict(fops.launches)
+    runs = []
+    for _ in range(2 if twice else 1):
+        runs.append(fops.flash_fwd(qf, kf, vf, ls, hr, cfg)
+                    + (fops.flash_dq(qf, kf, vf, ls, do, lse_p, delta, hr, cfg),)
+                    + fops.flash_dkv(qf, kf, vf, ls, do, lse_p, delta, hr, cfg))
     torch.cuda.synchronize()
     assert {k: fops.launches[k] - before[k] for k in before} == {
-        "flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
+        "flash_fwd": len(runs), "flash_dq": len(runs), "flash_dkv": len(runs)}
+    for a, b in zip(runs[0], runs[-1]):
+        assert torch.equal(a, b)
+    out, lse, dq, dk, dv, dls = runs[0]
     dq_p = fref.flash_dq_plain(qf, kf, vf, ls, do, lse_p, delta, hr, cfg)
     dk_p, dv_p, dls_p = fref.flash_dkv_plain(qf, kf, vf, ls, do, lse_p, delta,
                                              hr, cfg)
@@ -716,67 +752,107 @@ def test_flash_bf16_kernels_are_deterministic(cuda_device):
 
 
 @pytest.mark.cuda
-def test_flash_bf16_rejects_head_dim_above_128(cuda_device):
+@pytest.mark.parametrize("dtype,kw", [
+    # gemma2: G 2, a local window (4096, cut to 48) and the softcap 50
+    (torch.bfloat16, dict(hq=4, hkv=2, dh=256, t=300, window=48, cap=50.0)),
+    (torch.float32, dict(hq=4, hkv=2, dh=256, t=300, window=48, cap=50.0)),
+    # recurrentgemma: G 10 over one kv head (dkv in clusters of 2)
+    (torch.bfloat16, dict(hq=10, hkv=1, dh=256, t=200)),
+    (torch.float32, dict(hq=10, hkv=1, dh=256, t=200)),
+    # T off the 64-row tile with the DMS delay; without causality
+    (torch.bfloat16, dict(hq=4, hkv=2, dh=256, t=1000, delay=256)),
+    (torch.bfloat16, dict(hq=4, hkv=2, dh=256, t=300, causal=False)),
+    (torch.float32, dict(hq=4, hkv=2, dh=256, t=300, causal=False)),
+    # Dh 160: padded to 256 in bf16; in fp32 two panels, the second narrower
+    (torch.bfloat16, dict(hq=4, hkv=2, dh=160, t=100)),
+    (torch.float32, dict(hq=4, hkv=2, dh=160, t=100)),
+])
+def test_flash_kernels_at_head_dim_256_match_plain(cuda_device, dtype, kw):
+    """gemma2's and recurrentgemma's head dim: fwd, dq and dkv against
+    their plain versions as above (bf16 on the tensor cores, dkv in two
+    128-column halves; fp32 with K/V or Q/dO in column panels), each the
+    same bits on a second launch."""
+    _flash_vs_plain(cuda_device, dtype, kw, twice=True)
+
+
+def _kernel_and_reference(arch, params, batch, make):
+    """``make(use_kernel)``'s step on ``batch`` both ways; the flash
+    launches the kernel path made."""
     from repro_torch.kernels.dms_attention import ops as fops
-    qf, kf, vf, ls, hr, cfg, do = _flash_operands(cuda_device, torch.bfloat16,
-                                                  dh=256)
-    lse = delta = torch.zeros(qf.shape[:2], device=cuda_device)
-    with pytest.raises(ValueError, match="head_dim"):
-        fops.flash_fwd(qf, kf, vf, ls, hr, cfg)
-    with pytest.raises(ValueError, match="head_dim"):
-        fops.flash_dq(qf, kf, vf, ls, do, lse, delta, hr, cfg)
-    with pytest.raises(ValueError, match="head_dim"):
-        fops.flash_dkv(qf, kf, vf, ls, do, lse, delta, hr, cfg)
+    before = dict(fops.launches)
+    got = make(True)(params, batch)
+    launched = {k: fops.launches[k] - before[k] for k in before}
+    return got, make(False)(params, batch), launched
 
 
 @pytest.mark.cuda
-def test_gemma2_prefill_export_raises_at_head_dim_256(cuda_device):
-    """gemma2's head dim (256) is beyond the flash kernels: the prefill
-    export through the kernel raises on the card, and never takes the
-    reference attention instead."""
+def test_gemma2_prefill_export_at_head_dim_256(cuda_device):
+    """gemma2's head dim (256) on the flash kernels: the prefill export
+    through the kernel launches ``flash_fwd`` once per attention layer and
+    its last logits come within 0.05 x max |logit| of the reference
+    attention path's (bf16 weights)."""
     import dataclasses
     from repro_torch.configs import get_smoke
-    from repro_torch.kernels.dms_attention import ops as fops
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models import transformer as tfm
     arch = get_smoke("gemma2-2b")
     arch = dataclasses.replace(arch, attn=dataclasses.replace(arch.attn,
                                                               head_dim=256))
     params = tfm.init_model(arch, seed=0, device=cuda_device)
-    tokens = torch.zeros((2, 64), dtype=torch.int32, device=cuda_device)
-    before = dict(fops.launches)
-    with pytest.raises(ValueError, match="head_dim"):
-        make_prefill_step(arch, dms=True, use_kernel=True)(
-            params, {"tokens": tokens})
-    assert fops.launches == before
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    tokens = torch.randint(0, arch.vocab_size, (2, 64), generator=gen,
+                           device=cuda_device, dtype=torch.int32)
+    (got, _), (want, _), launched = _kernel_and_reference(
+        arch, params, {"tokens": tokens},
+        lambda k: make_prefill_step(arch, dms=True, use_kernel=k))
+    torch.cuda.synchronize()
+    assert launched == {"flash_fwd": arch.num_layers, "flash_dq": 0,
+                        "flash_dkv": 0}
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max() <= 0.05 * want.abs().max()
 
 
 @pytest.mark.cuda
-def test_recurrentgemma_kernel_path_raises_at_head_dim_256(cuda_device):
-    """recurrentgemma's local layers have gemma2's head dim (256): its
-    prefill export and its retrofit through the flash kernels raise on the
-    card, and never take the reference attention instead."""
+def test_recurrentgemma_kernel_path_at_head_dim_256(cuda_device):
+    """recurrentgemma's local layers at Dh 256, G 4 over one kv head: the
+    prefill export's last logits and one retrofit step's metrics through
+    the flash kernels against the reference attention path (fp32 weights
+    and compute: the fp32 kernels, sums in another order), with fwd, dq
+    and dkv launched."""
     import dataclasses
     from repro_torch.configs import get_smoke
-    from repro_torch.kernels.dms_attention import ops as fops
+    from repro_torch.core.tree import tree_map
     from repro_torch.launch.steps import make_prefill_step, make_retrofit_step
     from repro_torch.models import transformer as tfm
     from repro_torch.optim import adamw
     arch = get_smoke("recurrentgemma-2b")
-    arch = dataclasses.replace(arch, attn=dataclasses.replace(arch.attn,
-                                                              head_dim=256))
+    arch = dataclasses.replace(arch, dtype="float32", attn=dataclasses.replace(
+        arch.attn, head_dim=256))
     params = tfm.init_model(arch, seed=0, device=cuda_device,
                             dtype=torch.float32)
-    tokens = torch.zeros((2, 64), dtype=torch.int32, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    tokens = torch.randint(0, arch.vocab_size, (2, 64), generator=gen,
+                           device=cuda_device, dtype=torch.int32)
     batch = {"tokens": tokens, "labels": tokens}
-    before = dict(fops.launches)
-    with pytest.raises(ValueError, match="head_dim"):
-        make_prefill_step(arch, dms=True, use_kernel=True)(params, batch)
-    step = make_retrofit_step(arch, adamw.AdamWConfig(), use_kernel=True,
-                              remat=False)
-    with pytest.raises(ValueError, match="head_dim"):
-        step(params, params, adamw.init(params), batch, 3)
-    assert fops.launches == before
+    (got, _), (want, _), launched = _kernel_and_reference(
+        arch, params, batch,
+        lambda k: make_prefill_step(arch, dms=True, use_kernel=k))
+    assert launched["flash_fwd"] > 0
+    assert (got - want).abs().max() <= 1e-3 * want.abs().max()
+
+    def retrofit(k):
+        step = make_retrofit_step(arch, adamw.AdamWConfig(), use_kernel=k,
+                                  remat=False)
+        return lambda p, b: step(tree_map(torch.clone, p), p, adamw.init(p),
+                                 b, 3)[2]
+
+    got, want, launched = _kernel_and_reference(arch, params, batch, retrofit)
+    torch.cuda.synchronize()
+    assert min(launched.values()) > 0
+    for key in want:
+        assert float(got[key]) == pytest.approx(float(want[key]), rel=1e-3,
+                                                abs=1e-6), key
 
 
 @pytest.mark.cuda
@@ -788,10 +864,10 @@ def test_flash_wrapper_rejects_what_the_kernels_cannot_take(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         fops.flash_fwd(qf.transpose(1, 2).contiguous().transpose(1, 2), kf,
                        vf, ls, hr, cfg)
-    big = torch.zeros((qf.shape[0], qf.shape[1], 256), device=cuda_device)
+    big = torch.zeros((qf.shape[0], qf.shape[1], 320), device=cuda_device)
     with pytest.raises(ValueError, match="head_dim"):
         fops.flash_fwd(big, big[:kf.shape[0]], big[:kf.shape[0]], ls, hr,
-                       cfg._replace(orig_dh=256))
+                       cfg._replace(orig_dh=320))
 
 
 # -- the prefill export's shapes and the prefix cache's slab ------------------

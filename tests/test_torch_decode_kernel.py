@@ -146,3 +146,48 @@ def test_cpu_path_never_counts_a_launch():
                               block_p=BP)
     assert tops.launches == before
 
+
+
+@pytest.mark.parametrize("sms", [132, 114, 16])
+def test_split_rule_fills_the_card(sms):
+    """``ops.splits``: non-increasing in B*Hkv, never above NB_tbl or 16,
+    never below 1; 16 splits for one row and fewer than 8 for 64 rows on a
+    132-SM card."""
+    for nb in (0, 1, 3, 20, 129, 257):
+        got = [tops.splits(nb, bh, sms) for bh in range(1, 300)]
+        assert all(1 <= s <= min(max(nb, 1), tops.MAX_SPLITS) for s in got)
+        assert all(a >= b for a, b in zip(got, got[1:]))
+    if sms == 132:
+        assert tops.splits(129, 1, sms) == 16 and tops.splits(20, 64, sms) < 8
+
+
+@pytest.mark.parametrize("bh,g,dh,nb", [(1, 10, 64, 40), (4, 16, 32, 21),
+                                        (64, 1, 16, 5), (16, 2, 32, 9)])
+def test_plain_split_at_the_rule_matches_unsplit(bh, g, dh, nb):
+    """The plain version of the kernel's split (``dms_decode_plain_split``)
+    at the split count ``ops.splits`` picks on a 132-SM card equals the
+    unsplit plain version on a seeded arena: rows of n = 0, 1 and NB_tbl,
+    tables in shuffled order, NaN in every unlisted block."""
+    from repro_torch.kernels.dms_decode.ref import (dms_decode_plain,
+                                                    dms_decode_plain_split)
+    r = np.random.default_rng(bh * nb)
+    p = nb * BP
+    counts = [nb] * bh if bh < 3 else [0, 1, nb] + list(
+        r.integers(0, nb + 1, bh - 3))
+    tbl = np.stack([r.permutation(nb) for _ in range(bh)]).astype(np.int32)
+    listed = np.zeros((bh, nb), bool)
+    for row, c in enumerate(counts):
+        listed[row, tbl[row, :c]] = True
+    q = torch.tensor(r.normal(size=(bh, g, dh)), dtype=torch.float32)
+    k = torch.tensor(r.normal(size=(bh, p, dh)), dtype=torch.float32)
+    v = torch.tensor(r.normal(size=(bh, p, dh)), dtype=torch.float32)
+    dead = torch.tensor(~listed.repeat(BP, axis=1))
+    k[dead], v[dead] = float("nan"), float("nan")
+    valid = torch.tensor(r.random((bh, p)) < 0.6)
+    args = (q, k, v, valid, torch.tensor(tbl),
+            torch.tensor(counts, dtype=torch.int32), BP)
+    splits = tops.splits(nb, bh, 132)
+    want = dms_decode_plain(*args)
+    got = dms_decode_plain_split(*args, splits=splits)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **F32)

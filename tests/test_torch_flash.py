@@ -208,16 +208,17 @@ def _plain_vs_reference_kernels(skip, window, cap, t, causal=True, delay=4,
                                    atol=1e-5, err_msg=name)
 
 
-@pytest.mark.parametrize("dh", [8, 40, 72])
+@pytest.mark.parametrize("dh", [8, 40, 72, 160, 256])
 def test_head_dim_padding_matches_unpadded_and_reference(dh):
-    """The bf16 kernels run at Dh 64 or 128: the wrapper zero-pads q, k, v
-    and dO (``pad_head_dim``) and slices out, dk and dv back.  The plain
-    versions on padded operands, sliced back, equal the unpadded plain
-    versions and the reference's Pallas kernels (interpret mode) on the
-    unpadded operands; the padded columns come out zero."""
+    """The bf16 kernels run at Dh 64, 128 or 256: the wrapper zero-pads q,
+    k, v and dO (``pad_head_dim``) to the next of these and slices out, dk
+    and dv back (256, gemma2's and recurrentgemma's, is not padded).  The
+    plain versions on padded operands, sliced back, equal the unpadded
+    plain versions and the reference's Pallas kernels (interpret mode) on
+    the unpadded operands; the padded columns come out zero."""
     b, hq, hkv, t, bq = 1, 4, 2, 40, 16
     kdh = ops.tensor_core_dh(dh)
-    assert kdh == (64 if dh <= 64 else 128)
+    assert kdh == (64 if dh <= 64 else 128 if dh <= 128 else 256)
     q, k, v, a, do = _inputs((b, t, hq, hkv, dh), seed=6)
     tp = -(-t // bq) * bq
     kw = dict(t=t, orig_dh=dh, hq=hq, hkv=hkv, window=None, dms_delay=4,

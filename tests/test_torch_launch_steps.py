@@ -1,8 +1,10 @@
 """The port's launch steps on the families beyond the tiny Qwen model,
 against the reference's ``repro.launch.steps``: the prefill, train and
 retrofit steps of qwen2-vl-7b with prepended patch embeddings (the batch's
-``frontend_embeds``, which every step passes to ``model_forward``), and
-one train step of granite-moe-1b, gemma2 and chatglm3.
+``frontend_embeds``, which every step passes to ``model_forward``), one
+train step of granite-moe-1b, gemma2 and chatglm3, and gemma2's and
+recurrentgemma's prefill and retrofit steps on the kernel path at their
+head dim, 256 (Pallas in interpret mode against the plain flash versions).
 
 All in fp32 on the smoke configs with the reference's seeded weights
 copied through numpy.  Tolerances: the train step's loss and gradient
@@ -35,11 +37,14 @@ OPT = dict(lr=1e-3, warmup_steps=2, total_steps=10)
 B, T_TEXT = 2, 12
 
 
-def _setup(name, bias=None):
+def _setup(name, bias=None, head_dim=None):
     jarch = dataclasses.replace(jget_smoke(name), dtype="float32")
     if bias is not None:
         jarch = dataclasses.replace(jarch, dms=dataclasses.replace(
             jarch.dms, logit_bias=bias))
+    if head_dim is not None:
+        jarch = dataclasses.replace(jarch, attn=dataclasses.replace(
+            jarch.attn, head_dim=head_dim))
     tarch = bridge.arch_from_dict(dataclasses.asdict(jarch))
     jparams = jtfm.init_model(jax.random.PRNGKey(0), jarch)
     tparams = bridge.params_from_numpy(
@@ -134,4 +139,62 @@ def test_qwen2_vl_retrofit_step_reads_patches(phase1, step):
     assert sorted(tm) == sorted(jm)
     for key in jm:
         assert float(tm[key]) == pytest.approx(float(jm[key]), rel=1e-4,
+                                               abs=1e-6), key
+
+
+DH256 = ["gemma2-2b", "recurrentgemma-2b"]
+T_DH256 = 64
+
+
+def _tokens_batch(arch, t, seed):
+    r = np.random.default_rng(seed)
+    return {k: r.integers(0, arch.vocab_size, (B, t)).astype(np.int32)
+            for k in ("tokens", "labels")}
+
+
+@pytest.mark.parametrize("name", DH256)
+def test_dh256_prefill_step_on_the_kernel_path(name):
+    """gemma2 (a local and a global layer, softcap 50) and recurrentgemma
+    (an RG-LRU and a local layer, G 4 over one kv head) at one superblock
+    with head_dim 256, B 2, T 64: ``make_prefill_step(dms=True,
+    use_kernel=True)``'s last logits and every layer's prefill outputs
+    against the reference's kernel path."""
+    jarch, tarch, jparams, tparams = _setup(name, head_dim=256)
+    assert len(jarch.layer_pattern) == jarch.num_layers
+    jb, tb = _both(_tokens_batch(jarch, T_DH256, seed=3))
+    jl, jkv = jsteps.make_prefill_step(jarch, dms=True, use_kernel=True)(
+        jparams, jb)
+    tl, tkv = tsteps.make_prefill_step(tarch, dms=True, use_kernel=True)(
+        tparams, tb)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **F32)
+    assert sorted(tkv) == sorted(jkv)
+    for pi, kv in tkv.items():
+        for key, val in kv.items():
+            np.testing.assert_allclose(
+                np.asarray(val.float() if torch.is_tensor(val) else val),
+                np.asarray(jkv[pi][key], dtype=np.float32),
+                err_msg=f"{pi} {key}", **F32)
+
+
+@pytest.mark.parametrize("name", DH256)
+def test_dh256_retrofit_step_on_the_kernel_path(name):
+    """One retrofit step (the main phase, the reference's per-layer Gumbel
+    uniforms) at head_dim 256 through the flash kernels' plain versions
+    against the reference's Pallas kernels: loss and gradient norm within
+    1e-5 relative, every other metric within 1e-4."""
+    jarch, tarch, jparams, tparams = _setup(name, head_dim=256)
+    jb, tb = _both(_tokens_batch(jarch, T_DH256, seed=4))
+    jstep = jsteps.make_retrofit_step(jarch, jadamw.AdamWConfig(**OPT),
+                                      remat=False, use_kernel=True)
+    _, _, jm = jstep(jparams, jparams, jadamw.init(jparams), jb,
+                     jnp.int32(3))
+    teacher = tree_map(lambda a: a.clone(), tparams)
+    tstep = tsteps.make_retrofit_step(tarch, tadamw.AdamWConfig(**OPT),
+                                      remat=False, use_kernel=True)
+    _, _, tm = tstep(tparams, teacher, tadamw.init(tparams), tb, 3,
+                     uniforms=_layer_uniforms(3, jarch, B, T_DH256))
+    assert sorted(tm) == sorted(jm)
+    for key in jm:
+        rel = 1e-5 if key in ("loss", "grad_norm") else 1e-4
+        assert float(tm[key]) == pytest.approx(float(jm[key]), rel=rel,
                                                abs=1e-6), key
