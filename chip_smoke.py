@@ -186,6 +186,24 @@ Phases (any failure raises, so the exit code is non-zero):
               weights) on the kernel path and on the reference path: loss
               and gradient norm within 1e-2, the fwd/dq/dkv launches and
               the step's seconds.
+5j. audit   — run right after 5e on phase 4's model (full width, 4
+              layers, random bf16 weights from seed 0, phase 4's bias):
+              ``repro_torch.analysis.audit``'s sweep, every registered
+              policy x {ref, kernel} x {fixed, paged} on phase 4's 4 lanes
+              (64 tokens a lane, blocks of 16): the traffic lints over the
+              op trace of a decode step (and in ref mode of the fork,
+              reclaim, export and import programs), tree invariance, the
+              lifecycle contracts, then the scheduler, preempt and SLO
+              traces, fixed and paged, on 4 lanes under the retrace
+              sentinel (one chunk signature) and the host-sync tripwire
+              (CUDA's sync debug mode at error outside sanctioned tags).
+              A line a combo; in kernel mode the kernel events must equal
+              the launch counters' growth, one per attention layer; any
+              gating finding fails.  Three planted faults must each be
+              caught: a ``torch.cat`` of the arena, an ``.item()`` in a
+              chunk step, the ref path forced in kernel mode.  Every decode
+              launch shape of the sweep is then held against the plain
+              version (weights-out mode included).
 6. train    — qwen-r1-1.5b at full width, fp32 weights from seed 0, DMS
               retrofit (one phase-1 step, three distillation steps) on the
               synthetic stream at (B 2, T 1024) through the flash kernels:
@@ -584,21 +602,42 @@ def weights_errors(torch, got, want, n, ltbl, nb):
     return errs, weights
 
 
-def phase_weights_kernels(torch, main_shape, device="cuda"):
+def weights_cases(main_shape):
+    """``phase_weights_kernels``' cases at phase 3's main shape: (name,
+    (rows, G, Dh, P, block_p), ``make_pool_case`` keywords) for each of
+    WEIGHTS_CASES."""
+    return [(name, main_shape, kw) for name, kw in WEIGHTS_CASES.items()]
+
+
+def weights_key_cases(keys, what):
+    """``phase_weights_kernels``' cases at the weights-out launch shapes
+    ``keys`` lists (``launch_key``): NaN in every unlisted page; a shared-
+    pool key's table width and pool slots as launched."""
+    cases = []
+    for key in sorted(keys):
+        kw = dict(density=0.5, nan=True)
+        if len(key) == 7:
+            kw.update(nb=key[5], pages=key[3] // key[4])
+        mode = "shared-pool" if len(key) == 7 else "fixed-arena"
+        cases.append((f"{what}'s {mode} launch {key[:6]}", key[:5], kw))
+    return cases
+
+
+def phase_weights_kernels(torch, cases, device="cuda"):
     """The weights-out mode in both layouts against its plain version on
     the same tensors (output within KERNEL_TOL, the fp32 raw outputs and the
     group-summed weights within WEIGHTS_TOL), the shared-pool layout bitwise
     equal to the fixed one, zero weight off the visible listed slots, every
-    row that sees a slot summing to G; returns the main case's max abs
-    error over all outputs."""
+    row that sees a slot summing to G, for each of ``cases``
+    (``weights_cases``, ``weights_key_cases``); returns each case's max abs
+    error over all outputs, by name."""
     from repro_torch.kernels.dms_decode import ops
     from repro_torch.kernels.dms_decode.ref import (dms_decode_plain_split,
                                                     dms_decode_plain_weights)
     gen = torch.Generator(device=device).manual_seed(2468)
-    bh, g, dh, p, bp = main_shape
     before = (ops.launches, ops.shared_launches, ops.weights_launches)
-    main_err = None
-    for name, kw in WEIGHTS_CASES.items():
+    worst = {}
+    for name, (bh, g, dh, p, bp), kw in cases:
         kw = dict(kw)
         nb = kw.pop("nb", p // bp)
         case = make_pool_case(torch, gen, bh=bh, g=g, dh=dh, nb=nb, bp=bp,
@@ -641,8 +680,7 @@ def phase_weights_kernels(torch, main_shape, device="cuda"):
             if got[1][r, 0].any():
                 raise AssertionError(f"weights-out [{name}]: a hidden block "
                                      "emitted weight")
-        if name == "main-path shape":
-            main_err = max(errs.values())
+        worst[name] = max(errs.values())
         log(f"weights-out kernel vs plain [{name}] (both layouts, "
             f"{int(n.sum())} listed blocks, {splits} splits a row; within "
             "tolerance of the plain split too): max abs err "
@@ -652,9 +690,9 @@ def phase_weights_kernels(torch, main_shape, device="cuda"):
     moved = (ops.launches - before[0], ops.shared_launches - before[1],
              ops.weights_launches - before[2])
     # the CPU rehearsal runs the plain version, which launches nothing
-    if moved != (0, 0, 2 * len(WEIGHTS_CASES) if device == "cuda" else 0):
+    if moved != (0, 0, 2 * len(cases) if device == "cuda" else 0):
         raise AssertionError(f"launch counters moved {moved}")
-    return main_err
+    return worst
 
 
 # (G, Dh) of the decode shapes the vanilla cache's prefix tables are checked
@@ -868,8 +906,9 @@ def qd_case(torch, arch, kw, lanes, max_len, gen, device):
     ``top_pages + 1`` pages tie at the best score, so the row lists more
     than ``top_pages`` pages; every unselected page is NaN (in the arena,
     or every pool page the table does not list).  DMC: the prefix table
-    over the bf16 cast of the fp32 accumulators, NaN past the listed
-    blocks.  Returns (q, k, v, visible, the wrapper's keywords, the dense
+    over the bf16 cast of the fp32 accumulators (paged: of the pool's
+    pages), NaN past the listed blocks (paged: in every page the table
+    does not list).  Returns (q, k, v, visible, the wrapper's keywords, the dense
     (k, v, visible) the spec reads, a note)."""
     from repro_torch.core import block_pool
     cache, pol = filled_cache(torch, arch, kw, lanes, max_len, gen, device)
@@ -909,12 +948,23 @@ def qd_case(torch, arch, kw, lanes, max_len, gen, device):
     else:
         spec = pol.attend_spec(cache, torch.bfloat16)
         n = spec.block_n
-        p = spec.k.shape[2]
-        dead = (torch.arange(p, device=device)
-                >= (n * spec.block_p)[..., None])
-        k, v = spec.k.clone(), spec.v.clone()
-        k[dead] = float("nan")
-        v[dead] = float("nan")
+        p = spec.visible.shape[2]
+        if spec.pool is None:
+            dead = (torch.arange(p, device=device)
+                    >= (n * spec.block_p)[..., None])
+            k, v = spec.k.clone(), spec.v.clone()
+            k[dead] = float("nan")
+            v[dead] = float("nan")
+        else:
+            k = v = None
+            listed = (torch.arange(spec.block_tbl.shape[-1], device=device)
+                      < n[..., None])
+            keep = torch.zeros(spec.pool.k_buf.shape[0], dtype=torch.bool,
+                               device=device)
+            keep[spec.phys.gather(2, spec.block_tbl.long())[listed]
+                 .long()] = True
+            spec.pool.k_buf[~keep] = float("nan")     # the spec's own cast
+            spec.pool.v_buf[~keep] = float("nan")
         note = (f"block_p {spec.block_p}, count per row "
                 f"{sorted(set(cache.count.flatten().tolist()))} of {p} slots, "
                 "bf16 cast of fp32 accumulators, NaN past the listed blocks")
@@ -1006,8 +1056,7 @@ def phase_quest_dmc_kernels(torch, arch, layouts, device="cuda"):
             f"{KERNEL_TOL['atol']}, rtol {KERNEL_TOL['rtol']}; the plain "
             "split too); bit-equal on a second launch")
     moved = (ops.launches - before[0], ops.shared_launches - before[1])
-    n_shared = sum(2 for kw, _, _ in layouts.values()
-                   if kw.get("paged") and kw["kind"] == "quest")
+    n_shared = sum(2 for kw, _, _ in layouts.values() if kw.get("paged"))
     want = ((2 * len(layouts) - n_shared, n_shared) if device == "cuda"
             else (0, 0))
     if moved != want:
@@ -1914,9 +1963,9 @@ def serve_layouts(torch, setup, layouts, *, uid=3, what="layouts (b)"):
     """Request ``uid`` of phase 4's trace, greedy, on each of ``layouts``
     (name -> policy config) on one lane.  Each ok with its full token
     count; the decode kernel launches once per layer per decode step, in
-    the shared-pool mode where the layout streams pool pages (paged, but
-    not ``dmc``, whose pool holds fp32 accumulators: its kernel reads a
-    dense cast), else the fixed-arena mode; a paged layout has every page
+    the shared-pool mode where the layout streams pool pages (paged; for
+    ``dmc``, whose pool holds fp32 accumulators, a bf16 cast of its
+    pages), else the fixed-arena mode; a paged layout has every page
     back in the pool at the end.  Returns each layout's tokens, launches
     (fixed, shared, weights-out) and launch shapes (``launch_key``)."""
     from repro_torch.core import policy as policy_lib
@@ -1952,9 +2001,8 @@ def serve_layouts(torch, setup, layouts, *, uid=3, what="layouts (b)"):
         steps = engine.chunk_fn.steps
         want = arch.num_layers * steps if cuda else 0
         paged = kw.get("paged", False)
-        streams = paged and kw["kind"] != "dmc"
         got = (ops.launches, ops.shared_launches, ops.weights_launches)
-        if got != ((0, want, 0) if streams else (want, 0, 0)):
+        if got != ((0, want, 0) if paged else (want, 0, 0)):
             raise AssertionError(f"{what}: {name}: launches (fixed, shared, "
                                  f"weights-out) {got} for {steps} steps")
         if res.status != "ok" or int(res.lengths[0]) != new:
@@ -2346,7 +2394,7 @@ def phase_quest_dmc_serve(torch, setup, base, layouts, *, prompt_len=288,
     return {"quest": out["quest"]["launches"] + launched["quest fixed"][0],
             "quest_shared": launched["quest paged"][1],
             "dmc": out["dmc"]["launches"] + launched["dmc fixed"][0]
-            + launched["dmc paged"][0],
+            + launched["dmc paged"][1],
             "shapes": shapes}
 
 
@@ -2415,6 +2463,7 @@ def phase_profile(torch, params, arch, policies, *, lanes, max_len, device,
     decoder's ``enc_out``).  Returns per policy the median wall ms, the
     ATen ops and the device ms of a step (0 where not measured)."""
     from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.analysis.hostsync import HostSyncTripwire
     from repro_torch.models import transformer as tfm
     tok = torch.full((lanes, 1), 7, dtype=torch.int32, device=device)
     pos = torch.zeros((lanes,), dtype=torch.int32, device=device)
@@ -2460,13 +2509,15 @@ def phase_profile(torch, params, arch, policies, *, lanes, max_len, device,
         result[name] = {"wall_ms": wall_ms, "ops": ops[name], "device_ms": 0.0}
         if device == "cuda":
             # a step that syncs the host could not be captured in a CUDA
-            # graph (ROADMAP E1); the debug mode raises on the syncs it sees
-            torch.cuda.set_sync_debug_mode("error")
-            try:
+            # graph (ROADMAP E1): the tripwire's hooks record a host read,
+            # and its sync debug mode raises on the syncs the card sees
+            with HostSyncTripwire(allow=()) as tw:
                 tfm.decode_step(params, tok, states[name], arch, pos,
                                 use_kernel=True, active=act, **step_kw)
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
+            if tw.violations():
+                raise AssertionError(f"profile: {name}: host reads in a "
+                                     f"decode step: "
+                                     f"{[str(f) for f in tw.violations()]}")
             torch.cuda.synchronize()
             acts = [torch.profiler.ProfilerActivity.CPU,
                     torch.profiler.ProfilerActivity.CUDA]
@@ -2482,7 +2533,7 @@ def phase_profile(torch, params, arch, policies, *, lanes, max_len, device,
                 busy = (f"{dev_us / 1e3 / steps:.3f} ms device time per step,"
                         f" busy share {dev_us / 1e3 / steps / wall_ms:.4f}, "
                         f"{launched / steps:.0f} kernel launches per step; no "
-                        "host sync seen in a step (sync debug mode)")
+                        "host sync seen in a step (the host-sync tripwire)")
         log(f"profile: {name}, {lanes} lanes, one decode step = {ops[name]} "
             f"ATen ops dispatched from the host ({ops[name] / arch.num_layers:.1f}"
             f" per layer); {wall_ms:.2f} ms wall per step (median of "
@@ -2743,27 +2794,18 @@ def phase_export_kernels(torch, keys):
     return worst, set(errs), check_flash_cases(torch, PREFILL_FLASH)
 
 
-class NoSync:
-    """While active (on the card), a synchronising CUDA call raises
-    (``torch.cuda.set_sync_debug_mode("error")``)."""
+def tripwired(fn, seen):
+    """``fn`` run under a ``HostSyncTripwire`` that allows no tag (on the
+    card also CUDA's sync debug mode at error, so a sync the hooks miss
+    raises); each call's findings go to ``seen``."""
+    from repro_torch.analysis.hostsync import HostSyncTripwire
 
-    def __init__(self, torch, on):
-        self.torch, self.on = torch, on
-
-    def __enter__(self):
-        if self.on:
-            self.torch.cuda.set_sync_debug_mode("error")
-
-    def __exit__(self, *exc):
-        if self.on:
-            self.torch.cuda.set_sync_debug_mode(0)
-
-
-def unsynced(torch, fn, on):
-    """``fn`` run under :class:`NoSync`."""
     def wrapped(*args, **kw):
-        with NoSync(torch, on):
-            return fn(*args, **kw)
+        with HostSyncTripwire(allow=()) as tw:
+            try:
+                return fn(*args, **kw)
+            finally:
+                seen.append(tw.findings())
     for attr in ("steps", "temperature"):
         if hasattr(fn, attr):
             setattr(wrapped, attr, getattr(fn, attr))
@@ -2906,14 +2948,15 @@ def prefix_traces(arch, vocab_seed=12):
 def serve_prefix_trace(torch, engine, trace, *, sync_check=False):
     """A trace on two lanes of PREFIX_MAX_LEN; with ``sync_check`` the chunk
     step, the lane export and import and the slab's store and fetch run
-    under :class:`NoSync` (a host sync in any of them raises).  The decode
-    kernel must launch once per layer per decode step, in the shared-pool
-    mode when the engine is paged.  Returns (results by uid, scheduler,
-    wall s, each request's first-token logits by uid)."""
+    under ``tripwired`` (a host read in any of them fails the trace).  The
+    decode kernel must launch once per layer per decode step, in the
+    shared-pool mode when the engine is paged.  Returns (results by uid,
+    scheduler, wall s, each request's first-token logits by uid)."""
     from repro_torch.kernels.dms_decode import ops
     from repro_torch.models import transformer as tfm
     from repro_torch.serving.scheduler import Request
     cuda = engine.device.type == "cuda"
+    seen = []
     names = ("import_lane_state", "export_lane_state", "store_lane_snapshot",
              "fetch_lane_snapshot")
     real = {n: getattr(tfm, n) for n in names}
@@ -2928,9 +2971,9 @@ def serve_prefix_trace(torch, engine, trace, *, sync_check=False):
         start(r)
     sched._start_decode = start_decode
     if sync_check:
-        sched._chunk_fn = unsynced(torch, sched._chunk_fn, cuda)
+        sched._chunk_fn = tripwired(sched._chunk_fn, seen)
         for n in names:
-            setattr(tfm, n, unsynced(torch, real[n], cuda))
+            setattr(tfm, n, tripwired(real[n], seen))
     engine.chunk_fn.steps = 0
     ops.launches = ops.shared_launches = 0
     t0 = time.perf_counter()
@@ -2942,6 +2985,10 @@ def serve_prefix_trace(torch, engine, trace, *, sync_check=False):
     if cuda:
         torch.cuda.synchronize()
     del sched._start_decode          # the hook refers to the scheduler
+    reads = [str(f) for calls in seen for f in calls]
+    if sync_check and (not seen or reads):
+        raise AssertionError(f"host reads in {len(seen)} tripwired calls: "
+                             f"{reads}")
     want = attn_layers(engine.arch) * engine.chunk_fn.steps if cuda else 0
     got = (ops.launches, ops.shared_launches)
     if got != ((0, want) if engine.policy.paged else (want, 0)):
@@ -3028,7 +3075,9 @@ def phase_shared_prefix(torch, setup):
                                          f"empty at the end: {st}")
                 pages = "; every page back at the end"
             sync = ("; no host sync in a chunk, an import, an export or the "
-                    "slab (sync debug mode)" if name == "shared prefix" else "")
+                    "slab (the host-sync tripwire and the sync debug mode; "
+                    "the wall includes the tripwire's hooks)"
+                    if name == "shared prefix" else "")
             log(f"5e (b) {layout}, {name} ({len(trace)} requests, prompts "
                 f"{sorted(len(p) for p, _, _ in trace)}, {trace[0][1]} new "
                 f"each): all ok, tokens equal to the cold serve's (first-token"
@@ -3772,7 +3821,8 @@ def hybrid_prefix(torch, setup, *, prefix_len=PREFIX_LEN,
         f"{pc.hot_hits} hot hits; the snapshot carries the RG-LRU state "
         f"({snapshot_parts(sched)}); {eng.chunk_fn.steps} decode steps "
         f"in {wall:.2f} s (cold {cold_wall:.2f} s); no host sync in a chunk,"
-        " an import, an export or the slab (sync debug mode)")
+        " an import, an export or the slab (the host-sync tripwire and the "
+        "sync debug mode; the warm wall includes the tripwire's hooks)")
 
 
 def snapshot_parts(sched):
@@ -4906,6 +4956,157 @@ def phase_dh256_timing(torch, out, errs):
     return entries
 
 
+# -- phase 5j: the decode-path auditor ---------------------------------------
+
+# the blocks of 5j's combos (the main path's block size); a lane holds
+# phase 4's max_len tokens, and the traces keep the audit's own 32
+AUDIT_BLOCK_P = 16
+
+
+def audit_planted(torch, arch, params, device, lanes, max_len):
+    """Three planted faults, each of which the auditor must catch: a step
+    that ``torch.cat``s a layer's K arena (arena-pad), a chunk step that
+    reads a logit with ``.item()`` (the tripwire's hook, and on the card
+    the sync debug mode, which raises), and a step that forces the
+    reference path where the kernel was asked for (ref-fallback, and no
+    kernel launch).  Returns a line each."""
+    import numpy as np
+    from repro_torch.analysis import audit
+    from repro_torch.analysis.hostsync import HostSyncTripwire
+    from repro_torch.analysis.passes import gating
+    from repro_torch.core import policy as policy_lib
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.scheduler import Request
+    kw = dict(lanes=lanes, max_len=max_len, block_p=AUDIT_BLOCK_P,
+              device=device)
+
+    def cat_step(params, tok, state, arch, pos, **kw):
+        out = tfm.decode_step(params, tok, state, arch, pos, **kw)
+        k = next(policy_lib.iter_policy_caches(state)).cache.k[0]
+        torch.cat([k, k[:, :, :1]], dim=2)
+        return out
+
+    def forced_step(*args, use_kernel=False, **kw):
+        return tfm.decode_step(*args, use_kernel=False, **kw)
+
+    lines = []
+    for what, step, want in (("torch.cat of the arena", cat_step,
+                              {"arena-pad"}),
+                             ("the ref path forced in kernel mode",
+                              forced_step, {"ref-fallback",
+                                            "kernel-launch"})):
+        rep = audit.audit_combo(arch, params, "dms", False, True, step=step,
+                                **kw)
+        rules = {f.rule for f in gating(rep.findings)}
+        if not want <= rules:
+            raise AssertionError(f"planted {what}: rules {sorted(rules)}, "
+                                 f"want {sorted(want)}")
+        lines.append(f"{what}: caught ({', '.join(sorted(rules))})")
+
+    eng = Engine(arch, params, audit.policy_cfg("dms", False), chunk=4,
+                 use_kernel=True, device=device)
+    sched = eng.scheduler(num_lanes=lanes, max_len=32)
+    real = sched._chunk_fn
+
+    def item_chunk(*args):
+        out = real(*args)
+        out[6][0, 0].item()                 # a host read inside the step
+        return out
+    sched._chunk_fn = item_chunk
+    sched.submit(Request(uid=0, prompt=np.arange(3, 10, dtype=np.int32),
+                         max_new=3))
+    raised = None
+    with HostSyncTripwire() as tw:
+        try:
+            sched.run()
+        except RuntimeError as e:           # the card's sync debug mode
+            raised = e
+    items = [f for f in tw.violations() if ".item()" in f.message]
+    if not items or (device == "cuda") != (raised is not None):
+        raise AssertionError(f"planted .item(): violations "
+                             f"{[str(f) for f in tw.violations()]}, raised "
+                             f"{raised!r}")
+    lines.append(f".item() in a chunk step: caught (host-sync at "
+                 f"{items[0].path}" + (f"; the sync debug mode raised "
+                                       f"{type(raised).__name__}" if raised
+                                       else "") + ")")
+    return lines
+
+
+def phase_audit(torch, setup):
+    """Phase 5j: ``repro_torch.analysis.audit``'s sweep on phase 4's model
+    (``setup``: full width, ``SERVE_LAYERS`` layers, random bf16 weights
+    from seed 0, phase 4's bias): every registered policy x {ref, kernel} x
+    {fixed, paged} on phase 4's lanes (phase 4's max_len tokens a lane,
+    blocks of AUDIT_BLOCK_P), the lifecycle contracts, then the scheduler,
+    preempt and SLO traces, fixed and paged, on phase 4's lanes under the
+    retrace sentinel and the host-sync tripwire (with CUDA's sync debug
+    mode at error).  A line a combo (gating, allowlisted and info counts,
+    ops recorded per step; in kernel mode the kernel events against the
+    launch counters' growth); any gating finding raises.  Then the three
+    planted faults of ``audit_planted``, each caught.  On the card every
+    decode launch shape of the sweep is then checked against the plain
+    version: fixed and shared modes with ``check_decode_keys``, the
+    weights-out mode with ``phase_weights_kernels``.  Returns (the sweep's
+    combo reports, the launch shapes by mode, the planted lines)."""
+    from repro_torch.analysis import audit
+    from repro_torch.analysis.passes import gating
+    from repro_torch.kernels.dms_decode import ops
+    arch, params, device = setup["arch"], setup["params"], setup["device"]
+    lanes = len(setup["prompts"])
+    real = ops.decode_rows
+    shapes = {"decode": set(), "weights": set()}
+
+    def recording(qf, kf, vf, valf, tblf, nf, block_p, *args, **kw):
+        key = launch_key(qf, kf, tblf, block_p, kw.get("shared_kv"))
+        shapes["weights" if kw.get("need_weights") else "decode"].add(key)
+        return real(qf, kf, vf, valf, tblf, nf, block_p, *args, **kw)
+
+    t0 = time.perf_counter()
+    ops.decode_rows = recording
+    try:
+        findings, reports = audit.sweep(
+            arch, params, device=device, lanes=lanes,
+            max_len=setup["max_len"], block_p=AUDIT_BLOCK_P, trace_lanes=lanes,
+            log=lambda s: log(f"audit (5j):{s}"))
+    finally:
+        ops.decode_rows = real
+    bad = gating(findings)
+    n_info = sum(f.severity == "info" for f in findings)
+    kinds = sorted({(f.rule, f.path.split("/")[-1].split(" ")[0])
+                    for f in findings if f.severity == "info"})
+    log(f"audit (5j): {len(bad)} gating finding(s), {n_info} allowlisted "
+        f"(by rule and entry point: {kinds}), {len(reports)} combos (9 "
+        f"policies x {{ref,kernel}} x {{fixed,paged}}) and 6 traces at "
+        f"{arch.name} d={arch.d_model} {widths(arch)}, {arch.num_layers} "
+        f"layers, {lanes} lanes of {setup['max_len']} tokens; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if bad:
+        raise AssertionError("phase 5j: gating findings:\n"
+                             + "\n".join(str(f) for f in bad))
+    if device == "cuda":
+        gap = [r.tag for r in reports if r.tag.endswith("/kernel")
+               and not r.kernel_events == r.launches == r.attn_layers]
+        if gap:
+            raise AssertionError(f"phase 5j: kernel events and launch "
+                                 f"counters disagree in {gap}")
+    planted = audit_planted(torch, arch, params, device, lanes,
+                            setup["max_len"])
+    for line in planted:
+        log(f"audit (5j) planted fault: {line}")
+    if device == "cuda":
+        worst, _ = check_decode_keys(torch, shapes["decode"],
+                                     what="phase 5j")
+        wworst = max(phase_weights_kernels(torch, weights_key_cases(
+            shapes["weights"], "phase 5j")).values(), default=0.0)
+        log(f"phase 5j's decode launch shapes {sorted(shapes['decode'])} and "
+            f"weights-out shapes {sorted(shapes['weights'])}: each checked "
+            f"against the plain version here (largest max abs err {worst:.3e}"
+            f", weights-out {wworst:.3e})")
+    return reports, shapes, planted
+
+
 def phase_train(torch, device="cuda", arch_name="qwen-r1-1.5b", seq_len=1024,
                 batch=2, steps=4):
     """DMS retrofit of the main path through the flash kernels; returns the
@@ -5497,7 +5698,8 @@ def main() -> int:
     weights_shape = main_shape[:3] + ((int(max_len / 8.0) + bp) // bp * bp, bp)
     errs = {"fixed": phase_kernels(torch, main_shape),
             "shared": phase_pool_kernels(torch, main_shape),
-            "weights": phase_weights_kernels(torch, weights_shape)}
+            "weights": phase_weights_kernels(
+                torch, weights_cases(weights_shape))["main-path shape"]}
     errs["prefix"], prefix_checked = phase_prefix_kernels(torch, main_shape)
     layouts = qd_layouts(eval_len=320, req_len=(len(setup["prompts"][3])
                                                 + setup["news"][3]),
@@ -5560,6 +5762,8 @@ def main() -> int:
     lap("phase 5d")
     prefixed = phase_prefix_serve(torch, shallow, export_checked)
     lap("phase 5e")
+    phase_audit(torch, shallow)
+    lap("phase 5j")
     del shallow, setup["params"]
     torch.cuda.empty_cache()
     archs = phase_archs(torch, checked=set(arch_keys))

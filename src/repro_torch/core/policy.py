@@ -723,7 +723,9 @@ class DMCPolicy(KVPolicy):
     """Dynamic Memory Compression: α = 1 merges into the newest entry.  The
     kernel reads the fp32 accumulators cast to the model dtype, a dense cast
     of the whole arena a layer a step, as in the reference; paged, the
-    dense view is gathered first and the kernel runs in fixed-arena mode."""
+    whole pool (every page and the dump page) is cast a layer a step, and
+    the kernel streams the listed pages through the page map in shared-pool
+    mode, as for every other paged policy."""
 
     alpha_mode = "always"
 
@@ -746,15 +748,22 @@ class DMCPolicy(KVPolicy):
     @staticmethod
     def attend_spec(cache, dtype) -> AttendSpec:
         """The step's operands: the prefix table over ``count`` and the
-        accumulators cast to ``dtype`` (paged: the dense view first)."""
+        accumulators cast to ``dtype`` (paged: the whole pool cast, read
+        through the page map, for the same values as a dense view: the
+        table lists written blocks only, which are mapped, and a write an
+        exhausted pool dropped fails its request).  The pool-sized cast
+        still reads every page and writes a copy, a layer a step."""
         tbl, n, bp = cache.block_spec()
         if cache.pool is None:
-            k, v = cache.k, cache.v
-        else:
-            k, v = block_pool.dense_kv(cache.pool, cache.phys)
-        return AttendSpec(k.to(dtype), v.to(dtype), cache.valid_mask(),
-                          cache.positions(), block_tbl=tbl, block_n=n,
-                          block_p=bp)
+            return AttendSpec(cache.k.to(dtype), cache.v.to(dtype),
+                              cache.valid_mask(), cache.positions(),
+                              block_tbl=tbl, block_n=n, block_p=bp)
+        pool = dataclasses.replace(cache.pool,
+                                   k_buf=cache.pool.k_buf.to(dtype),
+                                   v_buf=cache.pool.v_buf.to(dtype))
+        return AttendSpec(None, None, cache.valid_mask(), cache.positions(),
+                          block_tbl=tbl, block_n=n, block_p=bp, pool=pool,
+                          phys=cache.phys)
 
 
 # policies that live in their own modules register themselves on import

@@ -38,6 +38,7 @@ stacked state, updated in place by the step.
 from __future__ import annotations
 
 import dataclasses
+import struct
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -269,6 +270,22 @@ def init_model(arch: ArchConfig, *, seed: int = 0,
 # ---------------------------------------------------------------------------
 
 
+def round_to_dtype(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype`` as ``torch.tensor(value, dtype=dtype)``
+    rounds it (to fp32 first, then to nearest even), in host arithmetic: a
+    step reads no tensor's value for a constant."""
+    f32 = struct.unpack("<f", struct.pack("<f", value))[0]
+    if dtype == torch.float32:
+        return f32
+    if dtype == torch.float16:
+        return struct.unpack("<e", struct.pack("<e", f32))[0]
+    if dtype != torch.bfloat16:
+        raise ValueError(f"no host rounding to {dtype}")
+    bits = struct.unpack("<I", struct.pack("<f", f32))[0]
+    bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & 0xFFFF0000
+    return struct.unpack("<f", struct.pack("<I", bits))[0]
+
+
 def embed_tokens(params: dict, tokens: torch.Tensor, arch: ArchConfig,
                  frontend_embeds: Optional[torch.Tensor] = None
                  ) -> torch.Tensor:
@@ -277,7 +294,7 @@ def embed_tokens(params: dict, tokens: torch.Tensor, arch: ArchConfig,
     ``frontend_embeds`` (B, F, D), if given, prepended."""
     x = params["embed"][tokens.long()].to(torch_dtype(arch.dtype))
     if arch.embedding_multiplier != 1.0:
-        x = x * torch.tensor(arch.embedding_multiplier, dtype=x.dtype).item()
+        x = x * round_to_dtype(arch.embedding_multiplier, x.dtype)
     if frontend_embeds is not None:
         x = torch.cat([frontend_embeds.to(x.dtype), x], dim=1)
     return x

@@ -16,10 +16,11 @@ hurts a live serving trace at chosen ticks:
 
 A plan is a list of :class:`Fault` records; :meth:`FaultPlan.random` draws
 one from a seed with numpy in the reference's order, so a seeded plan
-replays the same faults in both packages.  The reference wraps the
-injector's device readbacks in ``sanctioned("fault-inject")`` tags for its
-JAX host-sync auditor; the port has no auditor yet (ROADMAP A13) and drops
-them.
+replays the same faults in both packages.  The injector's own device
+readbacks (and its uploads of ghost refs) run under
+``sanctioned("fault-inject")``, a tag the host-sync tripwire
+(:mod:`repro_torch.analysis.hostsync`) deliberately does not allow by
+default: injection is a test-harness act, never a serving path.
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.analysis.hostsync import sanctioned
 from repro_torch.core import policy as policy_lib
 
 KINDS = ("pool_shrink", "cow_storm", "nan_logits", "stall", "preempt")
@@ -190,20 +192,24 @@ class FaultPlan:
             if d is None or not int(np.abs(d).sum()):
                 return cache
             pool = cache.pool
-            pool.ref.add_(sign * torch.from_numpy(d).to(pool.ref))
+            with sanctioned("fault-inject"):
+                delta = torch.from_numpy(d).to(pool.ref)
+            pool.ref.add_(sign * delta)
             return cache
         return policy_lib.map_pooled_caches(state, fn)
 
     @staticmethod
     def _pooled_host(sched, want_phys: bool):
-        """Host copies of every pooled cache's (ref[, phys])."""
+        """Host copies of every pooled cache's (ref[, phys]) — the
+        injector's sanctioned readback."""
         out = []
-        for pc in policy_lib.iter_policy_caches(sched.state):
-            pool = getattr(pc.cache, "pool", None)
-            if pool is None:
-                continue
-            phys = pc.cache.phys.cpu().numpy() if want_phys else None
-            out.append((pool.ref.cpu().numpy(), phys))
+        with sanctioned("fault-inject"):
+            for pc in policy_lib.iter_policy_caches(sched.state):
+                pool = getattr(pc.cache, "pool", None)
+                if pool is None:
+                    continue
+                phys = pc.cache.phys.cpu().numpy() if want_phys else None
+                out.append((pool.ref.cpu().numpy(), phys))
         return out
 
     def _bump(self, sched, deltas: Dict[int, np.ndarray], sign: int) -> None:

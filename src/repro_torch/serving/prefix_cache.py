@@ -48,6 +48,7 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.analysis.hostsync import sanctioned
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.models import transformer as tfm
 
@@ -64,11 +65,15 @@ def snapshot_nbytes(snapshot: Any) -> int:
     return sum(a.numel() * a.element_size() for a in tree_leaves(snapshot))
 
 
-def to_host(tree: Any) -> Any:
+def to_host(tree: Any, tag: str = "prefix-demote") -> Any:
     """Device -> host: every leaf copied to a CPU tensor of its own.  The
     serving loop's one snapshot copy to the host: a hot entry's demotion,
-    a cold-tier insert, a preemption snapshot."""
-    return tree_map(lambda a: a.to("cpu", copy=True), tree)
+    a cold-tier insert, and — under ``tag="preempt-snapshot"`` — a
+    preemption snapshot.  It is the one sanctioned snapshot read inside the
+    serving loop; everything else stays on the device (the host-sync
+    tripwire of :mod:`repro_torch.analysis.hostsync` enforces this)."""
+    with sanctioned(tag):
+        return tree_map(lambda a: a.to("cpu", copy=True), tree)
 
 
 @dataclass
@@ -391,7 +396,8 @@ class PrefixCache:
         if hot is None:
             return
         slot = self._acquire_slot(entry.signature, hot)
-        hot.slab = tfm.store_lane_snapshot(hot.slab, entry.snapshot, slot)
+        with sanctioned("prefix-demote"):      # the same funnel, upwards
+            hot.slab = tfm.store_lane_snapshot(hot.slab, entry.snapshot, slot)
         self.h2d_bytes += entry.snap_nbytes
         self.total_bytes -= entry.nbytes       # leaves the host tier
         entry.tier, entry.slot, entry.snapshot = "hot", slot, None

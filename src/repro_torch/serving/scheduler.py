@@ -71,6 +71,13 @@ do a hot prefix hit's import, the deferred export's store into the slab and
 the exported boundary logits row; a whole-prompt hit reads its logits row
 once, at admission.  The pool's pages are read back only when pressure is
 possible (``oversub > 1`` or faults), so sound admission adds no sync.
+Every such transfer runs under the reference's
+:func:`~repro_torch.analysis.hostsync.sanctioned` tags, which the host-sync
+tripwire allows: ``tick-boundary`` (the chunk's inputs up and its outputs
+back, the lane masks of a fork or reclaim, a whole-prompt hit's logits
+row, the first tokens), ``pool-pressure`` (the free-page readback),
+``preempt-snapshot`` (a preempted lane's state down and back up) and
+``prefix-demote`` (a cold prefix hit's snapshot up).
 """
 from __future__ import annotations
 
@@ -81,10 +88,12 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.analysis.hostsync import sanctioned
 from repro_torch.core import block_pool
 from repro_torch.core import policy as policy_lib
 from repro_torch.core import threefry
 from repro_torch.core.hyperscale import BudgetMeter
+from repro_torch.core.tree import tree_map
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer as tfm
 from repro_torch.serving import prefix_cache as prefix_cache_lib
@@ -682,13 +691,16 @@ class Scheduler:
 
     def _free_blocks(self) -> List[int]:
         """Free pages per pooled cache, in its scarcest layer (each layer's
-        pool allocates on its own).  Reads the device."""
+        pool allocates on its own).  Reads the device: a
+        ``sanctioned("pool-pressure")`` readback, taken only when
+        :meth:`_pressure_possible`."""
         out = []
-        for pc in policy_lib.iter_policy_caches(self.state):
-            pool = getattr(pc.cache, "pool", None)
-            if pool is not None:
-                ref = pool.ref.reshape(-1, pool.num_blocks)
-                out.append(int((ref == 0).sum(dim=-1).min()))
+        with sanctioned("pool-pressure"):
+            for pc in policy_lib.iter_policy_caches(self.state):
+                pool = getattr(pc.cache, "pool", None)
+                if pool is not None:
+                    ref = pool.ref.reshape(-1, pool.num_blocks)
+                    out.append(int((ref == 0).sum(dim=-1).min()))
         return out
 
     def _ghost_rows(self) -> List[int]:
@@ -737,7 +749,8 @@ class Scheduler:
         give_up = r.preempt_count > r.req.max_preempts
         if not give_up:
             r.snaps = [prefix_cache_lib.to_host(
-                tfm.export_lane_state(self.state, lane)) for lane in lanes]
+                tfm.export_lane_state(self.state, lane),
+                tag="preempt-snapshot") for lane in lanes]
             r.saved = {
                 "pos": self.pos[lanes].copy(),
                 "cur_tok": self.cur_tok[lanes].copy(),
@@ -761,7 +774,9 @@ class Scheduler:
         continues where it stopped with no prompt re-prefill."""
         lanes = idle[:len(r.snaps)]
         for j, lane in enumerate(lanes):
-            self.state = tfm.import_lane_state(self.state, r.snaps[j], lane)
+            with sanctioned("preempt-snapshot"):       # the snapshot goes up
+                snap = tree_map(lambda a: a.to(self.device), r.snaps[j])
+            self.state = tfm.import_lane_state(self.state, snap, lane)
             self._reapply_ghosts()
             self.owner[lane] = r
             self.chain_of[lane] = j
@@ -853,13 +868,18 @@ class Scheduler:
             if any(free[i] < need[i] for i in range(len(need))):
                 self.prefix_import_degrades += 1
                 return
-        self.state = tfm.import_lane_state(self.state, hit.snapshot, lane)
+        snap = hit.snapshot
+        if hit.tier == "cold":
+            with sanctioned("prefix-demote"):   # the cold tier's one upload
+                snap = tree_map(lambda a: a.to(self.device), snap)
+        self.state = tfm.import_lane_state(self.state, snap, lane)
         self._reapply_ghosts()
         self.pos[lane] = hit.length
         r.consumed = hit.length
         r.prefill_meter.observe_saved_reads(hit.reads_cum)
         if hit.length == len(r.req.prompt):
-            r.hold_logits = hit.logits.cpu().numpy().copy()
+            with sanctioned("tick-boundary"):   # once per admission
+                r.hold_logits = hit.logits.cpu().numpy().copy()
 
     def _want_prefix_export(self, r: _ReqState) -> bool:
         """Host checks only (no cache, a snapshot too large for any tier,
@@ -901,7 +921,9 @@ class Scheduler:
                 self.owner[lane] = r
                 self.chain_of[lane] = len(r.lanes)
                 r.lanes.append(lane)
-            self.state = tfm.gather_lanes(self.state, torch.from_numpy(src))
+            with sanctioned("tick-boundary"):
+                src_dev = torch.from_numpy(src).to(self.device)
+            self.state = tfm.gather_lanes(self.state, src_dev)
             self._reapply_ghosts()
             self.pos[r.lanes] = self.pos[r.lanes[0]]
             self.lane_eos[r.lanes] = self.lane_eos[r.lanes[0]]
@@ -919,9 +941,11 @@ class Scheduler:
         w = len(r.lanes)
         if self.temperature > 0.0:
             self._host_rng, sub = threefry.split(self._host_rng)
-            logits = torch.from_numpy(r.hold_logits).to(self.device)
+            with sanctioned("tick-boundary"):
+                logits = torch.from_numpy(r.hold_logits).to(self.device)
             first = sample(sub, logits[None].expand(w, -1), self.temperature)
-            first = first.cpu().numpy().astype(np.int32)
+            with sanctioned("tick-boundary"):  # once per request, not per step
+                first = first.cpu().numpy().astype(np.int32)
         else:
             first = np.full((w,), np.argmax(r.hold_logits), np.int32)
         if r.first_token_tick < 0:
@@ -970,31 +994,30 @@ class Scheduler:
                   if self.faults is not None else None)
 
         dev = self.device
-        out = self._chunk_fn(
-            self.params, self.state, torch.from_numpy(feed).to(dev),
-            torch.from_numpy(feed_valid).to(dev),
-            torch.from_numpy(self.cur_tok).to(dev),
-            torch.from_numpy(self.pos).to(dev),
-            torch.from_numpy(self.decoding).to(dev),
-            torch.from_numpy(self.finished).to(dev),
-            torch.from_numpy(self.lane_eos).to(dev),
-            torch.from_numpy(budget_left).to(dev), self.rng,
-            None if poison is None else torch.from_numpy(poison).to(dev))
+        with sanctioned("tick-boundary"):      # the chunk's inputs go up
+            ins = [torch.from_numpy(a).to(dev) for a in (
+                feed, feed_valid, self.cur_tok, self.pos, self.decoding,
+                self.finished, self.lane_eos, budget_left)]
+            pois = None if poison is None else torch.from_numpy(poison).to(dev)
+        out = self._chunk_fn(self.params, self.state, *ins, self.rng, pois)
         (self.state, cur_tok, pos, finished, _, self.rng, last_logits,
          emitted, live, reads, act, bad) = out
-        # the one host sync of the chunk; the pool's exhausted latch is read
-        # with it
-        self.cur_tok = cur_tok.cpu().numpy().copy()
-        self.pos = pos.cpu().numpy().copy()
-        self.finished = finished.cpu().numpy().copy()
-        emitted = emitted.cpu().numpy()             # (C, B)
-        live = live.cpu().numpy()
-        reads = reads.cpu().numpy()
-        act = act.cpu().numpy()
-        bad = bad.cpu().numpy()
-        exhausted = (self._pools_exhausted()
-                     if self._pool_descs and self.on_pressure != "ignore"
-                     else False)
+        # the scheduler's ONE sanctioned host sync: once per chunk, never
+        # per step (the host-sync tripwire of repro_torch.analysis enforces
+        # this).  The failure tripwires ride the same boundary: the chunk's
+        # bad-logit mask and the pool's exhausted latch
+        with sanctioned("tick-boundary"):
+            self.cur_tok = cur_tok.cpu().numpy().copy()
+            self.pos = pos.cpu().numpy().copy()
+            self.finished = finished.cpu().numpy().copy()
+            emitted = emitted.cpu().numpy()             # (C, B)
+            live = live.cpu().numpy()
+            reads = reads.cpu().numpy()
+            act = act.cpu().numpy()
+            bad = bad.cpu().numpy()
+            exhausted = (self._pools_exhausted()
+                         if self._pool_descs and self.on_pressure != "ignore"
+                         else False)
         self.ticks += 1
         self.steps += c
 
@@ -1036,7 +1059,8 @@ class Scheduler:
             r.prefill_chunks += 1
             if r.consumed == len(r.req.prompt):
                 if ll is None:
-                    ll = last_logits.cpu().numpy()
+                    with sanctioned("tick-boundary"):   # prefill completion
+                        ll = last_logits.cpu().numpy()
                 r.hold_logits = ll[lane].copy()
             if self._want_prefix_export(r):
                 # deferred: the snapshot and its logits row stay on the device
@@ -1100,8 +1124,9 @@ class Scheduler:
         return self.peak_bytes * n_lanes / self.num_lanes
 
     def _reset(self, mask: np.ndarray) -> None:
-        self.state = tfm.reclaim_lanes(
-            self.state, torch.from_numpy(mask).to(self.device), self._fresh)
+        with sanctioned("tick-boundary"):
+            mask_dev = torch.from_numpy(mask).to(self.device)
+        self.state = tfm.reclaim_lanes(self.state, mask_dev, self._fresh)
         self._reapply_ghosts()
 
 

@@ -1,5 +1,7 @@
 """Card-only tests of the port: each CUDA kernel against its plain PyTorch
-version on the same CUDA tensors.  They carry the ``cuda`` marker and skip
+version on the same CUDA tensors, and the decode-path auditor's card side
+(the sync debug mode behind the host-sync tripwire, a kernel combo's
+launch counters).  They carry the ``cuda`` marker and skip
 where no GPU is present.  This file imports no JAX, so on a machine without
 it they run alone:
 
@@ -229,9 +231,11 @@ def test_decode_quest_page_tables_match_plain(cuda_device, page, paged):
 def test_decode_dmc_cast_prefix_table_matches_plain(cuda_device, block_p,
                                                     paged):
     """DMC's operands on the card: fp32 accumulators merged by the port's
-    ``DMCCache`` (paged: in an fp32 pool, gathered densely), cast to bf16,
-    the prefix table over ``count``; NaN past the listed blocks; the
-    kernel in fixed-arena mode equals the same wrapper on the CPU."""
+    ``DMCCache`` (paged: in an fp32 pool, whose pages are cast), cast to
+    bf16, the prefix table over ``count``; NaN past the listed blocks
+    (paged: in every page the table does not list); the kernel in
+    fixed-arena mode (paged: shared-pool mode) equals the same wrapper on
+    the CPU."""
     from repro_torch.core.baselines import DMCCache
     from repro_torch.core.policy import DMCPolicy
     gen = torch.Generator(device=cuda_device).manual_seed(block_p + paged)
@@ -246,22 +250,36 @@ def test_decode_dmc_cast_prefix_table_matches_plain(cuda_device, block_p,
         cache.step(k, v, alpha, active=t < lengths)
     assert int(cache.count.min()) > 0 and int(cache.count.max()) <= 64
     spec = DMCPolicy.attend_spec(cache, torch.bfloat16)
-    assert spec.k.dtype == torch.bfloat16 and spec.pool is None
-    k, v = spec.k.clone(), spec.v.clone()
-    dead = torch.arange(k.shape[2], device=cuda_device) >= (
-        spec.block_n * block_p)[..., None]
-    k[dead] = float("nan")
-    v[dead] = float("nan")
+    assert (spec.pool is None) == (not paged)
+    kw = dict(block_tbl=spec.block_tbl, block_n=spec.block_n, block_p=block_p)
+    if paged:
+        assert spec.pool.k.dtype == torch.bfloat16
+        k = v = None
+        listed = (torch.arange(spec.block_tbl.shape[-1], device=cuda_device)
+                  < spec.block_n[..., None])
+        keep = torch.zeros(spec.pool.k_buf.shape[0], dtype=torch.bool,
+                           device=cuda_device)
+        keep[spec.phys.gather(2, spec.block_tbl.long())[listed].long()] = True
+        spec.pool.k_buf[~keep] = float("nan")
+        spec.pool.v_buf[~keep] = float("nan")
+        kw.update(pool_k=spec.pool_k, pool_v=spec.pool_v, phys=spec.phys)
+    else:
+        assert spec.k.dtype == torch.bfloat16
+        k, v = spec.k.clone(), spec.v.clone()
+        dead = torch.arange(k.shape[2], device=cuda_device) >= (
+            spec.block_n * block_p)[..., None]
+        k[dead] = float("nan")
+        v[dead] = float("nan")
     q = torch.randn((b, 1, hkv * g, dh), generator=gen,
                     device=cuda_device).bfloat16()
-    kw = dict(block_tbl=spec.block_tbl, block_n=spec.block_n, block_p=block_p)
     want = ops.dms_decode_attention(
-        *(x.cpu() for x in (q, k, v, spec.visible)),
+        *(None if x is None else x.cpu() for x in (q, k, v, spec.visible)),
         **{key: x.cpu() if torch.is_tensor(x) else x for key, x in kw.items()})
-    before = ops.launches
+    before = (ops.launches, ops.shared_launches)
     got = ops.dms_decode_attention(q, k, v, spec.visible, **kw)
     torch.cuda.synchronize()
-    assert ops.launches == before + 1
+    assert (ops.launches, ops.shared_launches) == (
+        (before[0], before[1] + 1) if paged else (before[0] + 1, before[1]))
     assert torch.isfinite(got.float()).all()
     torch.testing.assert_close(got.cpu().float(), want.float(), **BF16)
 
@@ -954,3 +972,59 @@ def test_prefix_cache_slab_roundtrip_on_card(cuda_device):
     assert got[1].prefill_meter.kv_reads_saved > 0
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.tokens, w.tokens)
+
+
+# -- the decode-path auditor: the sync debug mode behind the tripwire -------
+
+
+@pytest.mark.cuda
+def test_tripwire_arms_the_sync_debug_mode(cuda_device):
+    """Armed, the tripwire sets CUDA's sync debug mode to error: a read of
+    a device value outside a sanctioned region is recorded and then
+    raises; inside one the mode is lowered and the read goes through; the
+    mode comes back on exit."""
+    from repro_torch.analysis.hostsync import HostSyncTripwire, sanctioned
+    x = torch.arange(4, device=cuda_device)
+    torch.cuda.synchronize()
+    assert torch.cuda.get_sync_debug_mode() == 0
+    with HostSyncTripwire() as tw:
+        assert torch.cuda.get_sync_debug_mode() == 2
+        with pytest.raises(RuntimeError):
+            x[0].item()
+        with sanctioned("tick-boundary"):
+            assert torch.cuda.get_sync_debug_mode() == 0
+            assert x.cpu().tolist() == [0, 1, 2, 3]
+        assert torch.cuda.get_sync_debug_mode() == 2
+    assert torch.cuda.get_sync_debug_mode() == 0
+    assert [e[:2] for e in tw.events] == [(".item()", None),
+                                          (".cpu()", "tick-boundary"),
+                                          (".tolist()", "tick-boundary")]
+
+
+@pytest.mark.cuda
+def test_tripwire_catches_a_blocking_upload_on_the_card(cuda_device):
+    """A blocking host-to-device copy inside an armed region is a sync the
+    Python hooks do not see; the card's own check raises on it."""
+    from repro_torch.analysis.hostsync import HostSyncTripwire, sanctioned
+    host = torch.arange(4)
+    with HostSyncTripwire():
+        with pytest.raises(RuntimeError):
+            host.to(cuda_device)
+        with sanctioned("tick-boundary"):
+            host.to(cuda_device)
+
+
+@pytest.mark.cuda
+def test_audit_kernel_combo_on_the_card(cuda_device):
+    """A kernel-mode combo on the card: its kernel events equal the growth
+    of the decode kernel's launch counters, one per attention layer."""
+    from repro_torch.analysis import audit
+    from repro_torch.analysis.passes import gating
+    from repro_torch.models import transformer as tfm
+    arch = audit.tiny_arch()
+    params = tfm.init_model(arch, seed=0, device=cuda_device)
+    for paged in (False, True):
+        rep = audit.audit_combo(arch, params, "dms", paged, True,
+                                device=cuda_device)
+        assert not gating(rep.findings), [str(f) for f in rep.findings]
+        assert rep.kernel_events == rep.launches == rep.attn_layers

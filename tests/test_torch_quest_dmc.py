@@ -190,8 +190,12 @@ def test_cache_matches_reference_every_step(arches, kind, paged):
             np.testing.assert_array_equal(x.numpy()[on], np.asarray(y)[on])
         if kind == "dmc":
             # the kernel's operands: the fp32 accumulators cast to bf16
-            assert tspec.k.dtype == torch.bfloat16 and tspec.pool is None
-            np.testing.assert_array_equal(_np(tspec.k)[on],
+            # (paged: the pool's pages cast, read through the page map,
+            # whose dense view is the reference's operand)
+            assert (tspec.pool is None) == (not paged)
+            tk, _ = tspec.kv()
+            assert tk.dtype == torch.bfloat16
+            np.testing.assert_array_equal(_np(tk)[on],
                                           np.asarray(jspec.k, np.float32)[on])
             merged.append(int((tc.count == count0).sum()))
         else:

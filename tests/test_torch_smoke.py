@@ -100,14 +100,24 @@ def test_smoke_weights_cases_on_the_cpu(name):
     """Phase 3's weights-out cases on the CPU: the checks the card runs on
     the kernel hold for the plain version in both layouts."""
     shape = (8, 6, 128, 80, 16)
-    cases = chip_smoke.WEIGHTS_CASES
-    try:
-        chip_smoke.WEIGHTS_CASES = {name: cases[name]}
-        err = chip_smoke.phase_weights_kernels(torch, shape, device="cpu")
-        # the main case's error is returned (plain against itself: 0)
-        assert err == (0.0 if name == "main-path shape" else None)
-    finally:
-        chip_smoke.WEIGHTS_CASES = cases
+    case = [c for c in chip_smoke.weights_cases(shape) if c[0] == name]
+    errs = chip_smoke.phase_weights_kernels(torch, case, device="cpu")
+    # each case's error is returned (plain against itself: 0)
+    assert errs == {name: 0.0}
+
+
+@pytest.mark.parametrize("key", [(8, 6, 128, 80, 16),
+                                 (8, 6, 128, 640, 16, 5, "shared")],
+                         ids=["fixed", "shared"])
+def test_smoke_weights_launch_keys_on_the_cpu(key):
+    """Phase 5j's weights-out check at a recorded launch shape runs phase
+    3's checks there: a shared-pool key at its table width and pool."""
+    (name, shape, kw), = chip_smoke.weights_key_cases({key}, "phase 5j")
+    assert shape == key[:5] and kw["nan"]
+    assert (kw.get("nb"), kw.get("pages")) == (
+        (5, 40) if len(key) == 7 else (None, None))
+    assert chip_smoke.phase_weights_kernels(
+        torch, [(name, shape, kw)], device="cpu") == {name: 0.0}
 
 
 def test_cut_depth_serves_the_first_layers():
