@@ -204,6 +204,27 @@ Phases (any failure raises, so the exit code is non-zero):
               chunk step, the ref path forced in kernel mode.  Every decode
               launch shape of the sweep is then held against the plain
               version (weights-out mode included).
+5k. mesh    — the multi-device modules on the card.  (a) A process group
+              of world size 1 (NCCL) and ``make_local_mesh()``, a 1x1
+              ``DeviceMesh("cuda")``: qwen-r1-1.5b at full width and 4
+              layers placed with ``sharding.distribute``; one dms prefill
+              (4 x 512, ``use_kernel``) launches ``flash_fwd`` once a layer
+              through the attention core's ``local_map`` region, and its
+              logits and per-layer KV equal the unsharded call's bit for
+              bit; a checkpoint of the placed params restored onto the mesh
+              through ``restore(..., shardings=)`` gives equal leaves; one
+              retrofit step's gradients (B 2, T 1024, fp32) through
+              ``all_reduce_compressed`` equal ``dequantize_int8(q, s)``
+              bitwise, with ``x == dequantize(q) + residual`` exactly,
+              beside the payload bytes (int8 + scales) and bf16's, and the
+              time.  (b) One dry-run cell for real, in a subprocess (its own
+              fake process group of 256): ``python -m
+              repro_torch.launch.dryrun --arch qwen-r1-1.5b --shape
+              prefill_32k --device cuda --memory-only`` runs rank 0's shard
+              on the card; its measured peak (``max_memory_allocated``)
+              must lie within ``MESH_PEAK_TOL`` of ``MemTracker``'s
+              prediction; the roofline's compute, memory and collective
+              terms of that run are printed beside them.
 6. train    — qwen-r1-1.5b at full width, fp32 weights from seed 0, DMS
               retrofit (one phase-1 step, three distillation steps) on the
               synthetic stream at (B 2, T 1024) through the flash kernels:
@@ -5107,6 +5128,192 @@ def phase_audit(torch, setup):
     return reports, shapes, planted
 
 
+# -- phase 5k: the mesh, the checkpoint re-shard, int8 gradients, a dry-run
+# cell for real ---------------------------------------------------------------
+
+MESH_PREFILL = (4, 512)            # lanes x tokens of (a)'s prefill
+MESH_TRAIN = (2, 1024)             # batch x tokens of (a)'s gradients
+# (b): the card's measured peak over MemTracker's prediction, stated before
+# the first run: the caching allocator rounds blocks up and keeps cuBLAS
+# workspaces the tracker does not see, and nothing else should differ
+MESH_PEAK_TOL = (0.9, 1.25)
+MESH_CELL = ("qwen-r1-1.5b", "prefill_32k")
+
+
+def phase_mesh(torch, card="", device="cuda", layers=SERVE_LAYERS,
+               prefill=MESH_PREFILL, train=MESH_TRAIN, dry_run=True):
+    """Phase 5k (see the module docstring).  On the CPU (``device="cpu"``:
+    a gloo group, the smoke config, the plain flash version) it rehearses
+    (a); (b) runs on the card only.  Returns (a)'s launch counts."""
+    import shutil
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_arch, get_smoke
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels.dms_attention import ops as fops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import compress
+    from repro_torch.parallel import sharding
+
+    cuda = device == "cuda"
+    name = MESH_CELL[0]
+    arch = get_arch(name) if cuda else get_smoke(name)
+    arch = dataclasses.replace(arch, num_layers=layers)
+    dist.init_process_group("nccl" if cuda else "gloo",
+                            store=dist.HashStore(), rank=0, world_size=1)
+    ckpt = ROOT / "artifacts" / "phase5k_checkpoint"
+    try:
+        mesh = mesh_lib.make_local_mesh(device=device)
+        params = tfm.init_model(arch, seed=0, device=device)
+        placed = sharding.distribute(
+            params, sharding.param_shardings(params, arch, mesh), mesh)
+        gen = torch.Generator().manual_seed(53)
+        lanes, t = prefill
+        batch = {"tokens": torch.randint(3, arch.vocab_size, (lanes, t),
+                                         generator=gen,
+                                         dtype=torch.int32).to(device)}
+        step = steps_lib.make_prefill_step(arch, dms=True, use_kernel=True)
+        want_logits, want_kv = step(params, batch)
+        for k in fops.launches:
+            fops.launches[k] = 0
+        t0 = time.perf_counter()
+        with implicit_replication():
+            got_logits, got_kv = step(placed, batch)
+        if cuda:
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dict(fops.launches)
+        want = layers if cuda else 0
+        if launches["flash_fwd"] != want:
+            raise AssertionError(f"phase 5k (a): prefill on the mesh launched "
+                                 f"flash_fwd {launches['flash_fwd']} times, "
+                                 f"want one a layer ({want})")
+        if not isinstance(got_logits, DTensor):
+            raise AssertionError("phase 5k (a): the placed prefill returned "
+                                 "no DTensor")
+        pairs = [(got_logits, want_logits)] + list(zip(
+            tree_leaves(got_kv), tree_leaves(want_kv)))
+        for got, ref in pairs:
+            if not torch.equal(got.full_tensor(), ref):
+                raise AssertionError("phase 5k (a): prefill on the mesh "
+                                     "differs from the unsharded call")
+        log(f"phase 5k (a): {arch.name} L={layers} d={arch.d_model} on a "
+            f"{'x'.join(str(mesh.size(i)) for i in range(mesh.ndim))} "
+            f"DeviceMesh({mesh.device_type!r}); dms prefill {lanes} x {t} "
+            f"through distribute + local_map: {secs:.3f} s, flash_fwd "
+            f"{launches['flash_fwd']} launches ({layers} layers); logits and "
+            f"{len(pairs) - 1} KV leaves equal to the unsharded call bit for "
+            f"bit; {card}")
+
+        shutil.rmtree(ckpt, ignore_errors=True)
+        mgr = CheckpointManager(ckpt, keep_last=1)
+        t0 = time.perf_counter()
+        mgr.save(0, placed)
+        specs = sharding.map_with_path(
+            lambda _, x: (x.device_mesh, tuple(x.placements)), placed)
+        restored, _, _ = mgr.restore(placed, shardings=specs)
+        secs = time.perf_counter() - t0
+        n = 0
+        for (path, got), (_, ref) in zip(sharding.leaves_with_path(restored),
+                                         sharding.leaves_with_path(params)):
+            if not (isinstance(got, DTensor)
+                    and tuple(got.placements) == dict(
+                        sharding.leaves_with_path(specs))[path][1]
+                    and torch.equal(got.full_tensor(), ref)):
+                raise AssertionError(f"phase 5k (a): restored leaf {path} "
+                                     "differs")
+            n += 1
+        log(f"phase 5k (a): checkpoint of the placed params saved and "
+            f"restored onto the mesh (restore(..., shardings=)) in "
+            f"{secs:.2f} s: {n} leaves equal; {card}")
+        del restored, placed, params, got_kv, want_kv
+
+        b, t = train
+        p32 = tfm.init_model(arch, seed=0, device=device,
+                             dtype=torch.float32)
+        toks = torch.randint(3, arch.vocab_size, (b, t + 1), generator=gen,
+                             dtype=torch.int32).to(device)
+        _, _, grads = steps_lib.retrofit_loss_and_grads(
+            arch, p32, p32, {"tokens": toks[:, :-1], "labels": toks[:, 1:]},
+            0, use_kernel=True)
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mean, res = compress.all_reduce_compressed(grads)
+        if cuda:
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        q, sc, _ = compress.compress_grads(grads, None)
+        numel = 0
+        for g, m, r, qi, si in zip(*(tree_leaves(x) for x in
+                                     (grads, mean, res, q, sc))):
+            deq = compress.dequantize_int8(qi, si)
+            if not torch.equal(m, deq):
+                raise AssertionError("phase 5k (a): the compressed mean is "
+                                     "not dequantize(q, s)")
+            if not torch.equal(g.float(), deq + r):
+                raise AssertionError("phase 5k (a): x != dequantize(q) + "
+                                     "residual")
+            numel += g.numel()
+        log(f"phase 5k (a): all_reduce_compressed of one retrofit step's "
+            f"gradients ({b} x {t}, {len(tree_leaves(grads))} tensors, "
+            f"{numel} values) over the world-1 group: {secs * 1e3:.2f} ms; "
+            f"payload {compress.payload_bytes(q)} B (int8 + one fp32 scale a "
+            f"tensor) vs {2 * numel} B in bf16; equal to dequantize(q, s) "
+            f"bitwise, x == dequantize(q) + residual exactly; {card}")
+        del grads, mean, res, q, p32
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(ckpt, ignore_errors=True)
+    if cuda:
+        torch.cuda.empty_cache()
+    if dry_run:
+        phase_mesh_dryrun(torch, card)
+    return launches
+
+
+def phase_mesh_dryrun(torch, card=""):
+    """Phase 5k (b): one dry-run cell for real on the card, in a
+    subprocess; its measured peak against MemTracker's within
+    ``MESH_PEAK_TOL``."""
+    import os
+    arch, shape = MESH_CELL
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+           "--shape", shape, "--device", "cuda", "--memory-only"]
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=300)
+    secs = time.perf_counter() - t0
+    for line in run.stdout.splitlines():
+        log(f"phase 5k (b): {line}")
+    if run.returncode != 0:
+        log(run.stderr[-4000:])
+        raise AssertionError(f"phase 5k (b): the dry-run exited "
+                             f"{run.returncode}")
+    rec = json.loads((ROOT / "artifacts" / "dryrun_torch"
+                      / f"{arch}__{shape}__16x16.json").read_text())
+    fit = rec["memory_fit"]
+    ratio = fit["measured_peak_bytes"] / fit["peak_bytes"]
+    log(f"phase 5k (b): {arch} x {shape} on 16x16, rank 0's shard on the "
+        f"card ({secs:.1f} s with the process): measured peak "
+        f"{fit['measured_peak_bytes']:.0f} B, MemTracker {fit['peak_bytes']:.0f}"
+        f" B (ratio {ratio:.4f}, tolerance {MESH_PEAK_TOL}); argument bytes "
+        f"{fit['argument_bytes']:.0f}; roofline ({rec['roofline_from']}): "
+        f"compute {rec['compute_s']:.6f} s, memory {rec['memory_model_s']:.6f}"
+        f" s, collective {rec['collective_s']:.6f} s, {rec['flops_per_device']:.4e}"
+        f" FLOPs/card, {rec['collectives_recorded']} collectives -> "
+        f"{rec['bottleneck']}-bound; {card}")
+    if not MESH_PEAK_TOL[0] <= ratio <= MESH_PEAK_TOL[1]:
+        raise AssertionError(f"phase 5k (b): measured peak / MemTracker = "
+                             f"{ratio:.4f}, outside {MESH_PEAK_TOL}")
+    return rec
+
+
 def phase_train(torch, device="cuda", arch_name="qwen-r1-1.5b", seq_len=1024,
                 batch=2, steps=4):
     """DMS retrofit of the main path through the flash kernels; returns the
@@ -5775,6 +5982,8 @@ def main() -> int:
     lap("phase 5h")
     dh256 = phase_dh256(torch, checked=set(dh256_keys))
     lap("phase 5i")
+    phase_mesh(torch, card)
+    lap("phase 5k")
     trained = phase_train(torch)
     lap("phase 6")
     kernels = phase_timing(torch, main_shape, {"fixed": served["launches"],

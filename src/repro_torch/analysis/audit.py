@@ -13,7 +13,8 @@ Sweeps every registered KV policy × {ref, kernel} × {fixed, paged}:
   kernel's launch counters;
 * tree invariance of ``decode_step`` (leaf shapes, dtypes and devices
   stable across a step);
-* the KVPolicy lifecycle contract per policy.
+* the KVPolicy lifecycle contract per policy, and sharding-rule coverage
+  of every decode-state leaf.
 
 Then drives real mini scheduler traces under the retrace sentinel (exactly
 one chunk signature) and the host-sync tripwire (no unsanctioned host
@@ -51,6 +52,7 @@ from repro_torch.core.config import KVPolicyConfig
 from repro_torch.core.tree import tree_map
 from repro_torch.device import resolve_device
 from repro_torch.kernels.dms_decode import ops as dkops
+from repro_torch.launch.mesh import MeshAxes
 from repro_torch.models import transformer as tfm
 
 B, MAX_LEN, BLOCK_P = 2, 32, 8
@@ -72,6 +74,9 @@ ALLOW: Dict[str, Tuple[str, ...]] = {
     "export": (),
     "import": (),
 }
+
+#: leaf names where the sharding fallback is an explicit decision.
+SHARDING_ALLOW: Tuple[str, ...] = ()
 
 #: allowances of one kind on one path ("ref" | "kernel"), with the reason.
 #: The kernel path keeps none.
@@ -219,9 +224,14 @@ def audit_contracts(arch, policy: str, paged: bool, *,
                     lanes: int = B, max_len: int = MAX_LEN,
                     block_p: int = BLOCK_P, device=None) -> List[Finding]:
     cfg = policy_cfg(policy, paged, block_p)
+    device = resolve_device(device)
     findings = contracts.check_policy_lifecycle(
-        policy, arch, cfg, batch=lanes, max_len=max_len,
-        device=resolve_device(device))
+        policy, arch, cfg, batch=lanes, max_len=max_len, device=device)
+    # the rules read axis names and sizes only: a 1×1 mesh, no devices
+    state = tfm.init_decode_state(arch, lanes, max_len, cfg, device=device)
+    findings += contracts.check_sharding_coverage(
+        state, MeshAxes((1, 1), ("data", "model")), lanes, arch,
+        allow=SHARDING_ALLOW)
     return [dataclasses.replace(
         f, path=f"{policy}/{'paged' if paged else 'fixed'} {f.path}")
         for f in findings]

@@ -11,13 +11,13 @@ changes structure breaks every caller that carries the state.
 The reference evaluates shapes abstractly (``jax.eval_shape``); the port
 has no abstract evaluation, so the checkers run the hooks for real, on a
 copy of the state: the port's hooks write in place, and the caller's state
-must not change.  The reference's third checker, sharding coverage, needs
-the multi-device modules and waits for them.
+must not change.  The third checker, sharding coverage, reads the decode
+state's leaves against the rules of :mod:`repro_torch.parallel.sharding`.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, List
+from typing import Any, Callable, List, Tuple
 
 import torch
 
@@ -199,4 +199,35 @@ def check_policy_lifecycle(name: str, arch, cfg, *, batch: int = 2,
                 path=path))
     except Exception as e:  # noqa: BLE001
         bad("peak_bytes", e)
+    return findings
+
+
+# ---------------------------------------------------------------------------
+# sharding coverage
+# ---------------------------------------------------------------------------
+
+
+def check_sharding_coverage(state: Any, mesh, batch: int, arch,
+                            allow: Tuple[str, ...] = ()) -> List[Finding]:
+    """Every decode-state leaf must hit a *named* rule of
+    :func:`repro_torch.parallel.sharding.cache_spec_with_rule`: a leaf
+    answered by the generic fallback means someone added cache state
+    without deciding how it shards (it would silently batch-shard dim 1).
+    ``allow`` lists leaf names for which the fallback is an explicit,
+    commented decision.  ``mesh`` is a DeviceMesh or a
+    :class:`~repro_torch.launch.mesh.MeshAxes`."""
+    from repro_torch.parallel import sharding
+    findings: List[Finding] = []
+    for keys, leaf in sharding.leaves_with_path(state):
+        if not hasattr(leaf, "shape"):
+            continue
+        rule, _ = sharding.cache_spec_with_rule(keys, tuple(leaf.shape), mesh,
+                                                batch, arch)
+        name = keys[-1] if keys else ""
+        if rule == "fallback" and name not in allow:
+            findings.append(Finding(
+                "error", "sharding-coverage",
+                f"leaf {name!r} {list(leaf.shape)} has no explicit sharding "
+                "rule (generic fallback would silently batch-shard dim 1)",
+                path="".join(f"[{k!r}]" for k in keys)))
     return findings

@@ -10,7 +10,10 @@ The reference's ``repro.checkpoint.manager`` on torch tensors:
 * ``save(..., blocking=False)`` copies the tensors to the host, then hands
   them to a writer thread so the train loop continues;
 * keep-last-k (+ optional keep-every) retention; ``latest_step`` and
-  ``restore`` pick up after preemption.
+  ``restore`` pick up after preemption;
+* a DTensor leaf is saved whole (its ``full_tensor``), and ``restore(...,
+  shardings=)`` places each leaf on a mesh again — on any mesh and
+  placements: the elastic re-shard.
 """
 from __future__ import annotations
 
@@ -60,8 +63,35 @@ def _rebuild(like: Any, leaves: Dict[str, torch.Tensor],
                       for i, v in enumerate(like))
 
 
+def _is_sharding(x: Any) -> bool:
+    return (isinstance(x, tuple) and len(x) == 2
+            and hasattr(x[0], "mesh_dim_names"))
+
+
+def _named_shardings(tree: Any, prefix: Tuple[str, ...] = ()
+                     ) -> Dict[str, Any]:
+    """Leaf name → (mesh, placements) of a shardings tree shaped as the
+    restored tree."""
+    if _is_sharding(tree):
+        return {_SEP.join(prefix): tree}
+    if tree is None:
+        return {}
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        items = zip(tree._fields, tree)
+    else:
+        items = enumerate(tree)
+    out: Dict[str, Any] = {}
+    for k, v in items:
+        out.update(_named_shardings(v, prefix + (str(k),)))
+    return out
+
+
 def _to_numpy(x: torch.Tensor) -> np.ndarray:
     x = x.detach()
+    if hasattr(x, "full_tensor"):          # a DTensor: its whole value
+        x = x.full_tensor()
     if x.dtype == torch.bfloat16:
         x = x.float()
     return x.cpu().numpy()
@@ -142,10 +172,14 @@ class CheckpointManager:
         s = self.steps()
         return s[-1] if s else None
 
-    def restore(self, like: Any, step: Optional[int] = None
-                ) -> Tuple[Any, int, Dict]:
+    def restore(self, like: Any, step: Optional[int] = None,
+                shardings: Any = None) -> Tuple[Any, int, Dict]:
         """Restore into the structure of ``like``; each leaf takes the
-        device and dtype of the matching leaf of ``like``."""
+        device and dtype of the matching leaf of ``like``.  ``shardings``
+        (a tree shaped as ``like`` of ``(mesh, placements)`` leaves, e.g.
+        from :func:`repro_torch.parallel.sharding.placements`) places each
+        restored leaf on its mesh with ``distribute_tensor``: the elastic
+        re-shard, onto whatever mesh the run now has."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -160,4 +194,8 @@ class CheckpointManager:
                                  f"{arr.shape} vs {tuple(leaf.shape)}")
             leaves[name] = torch.from_numpy(arr).to(device=leaf.device,
                                                     dtype=leaf.dtype)
+        if shardings is not None:
+            from torch.distributed.tensor import distribute_tensor
+            for name, (mesh, pl) in _named_shardings(shardings).items():
+                leaves[name] = distribute_tensor(leaves[name], mesh, pl)
         return _rebuild(like, leaves), step, manifest.get("extra", {})

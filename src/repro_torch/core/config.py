@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Literal, Optional, Tuple
+from typing import Literal, Optional, Sequence, Tuple
 
 # ---------------------------------------------------------------------------
 # DMS (the paper's technique)
@@ -249,3 +249,89 @@ class ArchConfig:
                 new, dms=dataclasses.replace(self.dms,
                                              window=min(self.dms.window, 8)))
         return new
+
+    # -- parameter counting (the roofline's MODEL_FLOPS = 6·N·D) -------------
+
+    def param_count(self, active_only: bool = False) -> int:
+        n = 0
+        embed = self.vocab_size * self.d_model
+        n += embed
+        if not self.tie_embeddings:
+            n += embed
+        for kind in _expand_pattern(self.layer_pattern, self.num_layers):
+            n += self._layer_params(kind, active_only)
+        if self.encoder_layers:
+            for kind in _expand_pattern(self.layer_pattern,
+                                        self.encoder_layers):
+                n += self._layer_params(kind, active_only)
+            if self.cross_attention and self.attn is not None:
+                a = self.attn
+                per_cross = (self.d_model * a.num_heads * a.head_dim * 2
+                             + self.d_model * a.num_kv_heads * a.head_dim * 2)
+                n += self.num_layers * per_cross   # one per decoder layer
+        return n
+
+    def _layer_params(self, kind: str, active_only: bool) -> int:
+        d = self.d_model
+        n = 0
+        if kind in ("attn", "attn_local"):
+            a = self.attn
+            n += d * a.num_heads * a.head_dim          # Wq
+            n += 2 * d * a.num_kv_heads * a.head_dim   # Wk, Wv
+            n += a.num_heads * a.head_dim * d          # Wo
+            n += self._mlp_params(active_only)
+        elif kind == "ssd":
+            s = self.ssm
+            di = s.d_inner(d)
+            nh = s.num_heads(d)
+            # in_proj: z, x, B, C, dt
+            n += d * (2 * di + 2 * s.n_groups * s.d_state + nh)
+            n += di * s.conv_kernel                    # depthwise conv (x path)
+            n += 2 * nh                                # A_log, D
+            n += di * d                                # out_proj
+        elif kind == "rglru":
+            r = self.rglru
+            w = r.lru_width or d
+            n += 2 * d * w + w * d                     # in (x, y branches) + out
+            n += w * r.conv_kernel
+            n += 2 * w * w          # input and recurrence gates (as counted)
+            n += self._mlp_params(active_only)
+        return n
+
+    def _mlp_params(self, active_only: bool) -> int:
+        if self.mlp is None:
+            return 0
+        d, f = self.d_model, self.mlp.d_ff
+        per_expert = (3 if self.mlp.kind in ("swiglu", "geglu") else 2) * d * f
+        if self.mlp.moe is None:
+            return per_expert
+        moe = self.mlp.moe
+        n_experts = moe.top_k if active_only else moe.num_experts
+        return n_experts * per_expert + d * moe.num_experts  # + router
+
+
+def _expand_pattern(pattern: Sequence[str], n: int) -> Sequence[str]:
+    return [pattern[i % len(pattern)] for i in range(n)]
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (the shape grid of the dry-run and the roofline)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: Literal["train", "prefill", "decode"]
+
+
+SHAPE_GRID: Tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", 4096, 256, "train"),
+    ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    ShapeConfig("decode_32k", 32768, 128, "decode"),
+    ShapeConfig("long_500k", 524288, 1, "decode"),
+)
+
+SHAPES = {s.name: s for s in SHAPE_GRID}

@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.core import dms as dms_lib
 from repro_torch.core.config import DMSConfig
+from repro_torch.parallel import spmd
 
 
 def _masked_mean(x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
@@ -43,10 +44,10 @@ def lm_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                      mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Next-token cross entropy, ``logsumexp - logit[label]``.  The label's
     logit is gathered, which gives the reference's one-hot contraction's
-    values without a (B, T, V) bool tensor.  logits: (B, T, V)."""
-    logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    label_logit = logits.gather(-1, labels.long()[..., None])[..., 0]
+    values without a (B, T, V) bool tensor (over vocab-sharded DTensor
+    logits, vocab-parallel: :func:`repro_torch.parallel.spmd.
+    logsumexp_and_pick`).  logits: (B, T, V)."""
+    lse, label_logit = spmd.logsumexp_and_pick(logits.float(), labels)
     return _masked_mean(lse - label_logit, mask)
 
 

@@ -43,9 +43,11 @@ event back.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 
@@ -82,6 +84,36 @@ def commit(cache, meta: Dict[str, torch.Tensor],
             cur.copy_(_lane_where(active, getattr(blocks, name), cur))
 
 
+# ---------------------------------------------------------------------------
+# Slot-sharded arenas (multi-device decode)
+# ---------------------------------------------------------------------------
+
+#: (offset, total) while a decode step runs on one slot shard of its arenas
+#: (:mod:`repro_torch.parallel.spmd`): the local arena holds slots
+#: ``[offset, offset + P_local)`` of ``total``; the slot metadata is whole.
+_ARENA_SHARD: contextvars.ContextVar[Optional[Tuple[int, int]]] = \
+    contextvars.ContextVar("arena_shard", default=None)
+
+
+@contextlib.contextmanager
+def arena_shard(offset: int, total: int) -> Iterator[None]:
+    """Within the block, arenas are slot shards: slot indices stay global,
+    :func:`write_rows` writes only the rows whose slot this shard owns, and
+    :func:`arena_slots` gives the whole arena's slot count."""
+    tok = _ARENA_SHARD.set((int(offset), int(total)))
+    try:
+        yield
+    finally:
+        _ARENA_SHARD.reset(tok)
+
+
+def arena_slots(arena: torch.Tensor) -> int:
+    """Slot count of the whole arena of which ``arena`` (.., P, Dh) is the
+    local part (its own count outside :func:`arena_shard`)."""
+    shard = _ARENA_SHARD.get()
+    return arena.shape[-2] if shard is None else shard[1]
+
+
 def write_rows(k_arena: torch.Tensor, v_arena: torch.Tensor,
                slot: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
                active: Optional[torch.Tensor]) -> None:
@@ -97,6 +129,12 @@ def write_rows(k_arena: torch.Tensor, v_arena: torch.Tensor,
     if active is not None:
         active = (active if active.dim() == 2 else active[:, None])[
             ..., None, None]
+    shard = _ARENA_SHARD.get()
+    if shard is not None:           # a slot shard: only the owner writes
+        local = si - shard[0]
+        own = ((local >= 0) & (local < k_arena.shape[2]))[..., None]
+        si = local.clamp(0, k_arena.shape[2] - 1)
+        active = own if active is None else active & own
     for arena, new in ((k_arena, k_new), (v_arena, v_new)):
         rows = new.to(arena.dtype)
         if active is not None:
@@ -359,7 +397,7 @@ class VanillaCache:
         in the reference the write start is clamped so that the T rows fit
         the arena."""
         b, h, t = k_new.shape[:3]
-        s = self.k.shape[2]
+        s = arena_slots(self.k)
         start = torch.clamp(self.length, 0, max(s - t, 0))
         slot = start[:, None, None] + torch.arange(t, device=start.device)
         slot = slot.expand(b, h, t)
@@ -377,12 +415,12 @@ class VanillaCache:
 
     def valid_mask(self) -> torch.Tensor:
         """Lazy (..., B, 1, S): the consumer broadcasts it over heads."""
-        s = self.k.shape[-2]
+        s = arena_slots(self.k)
         return (torch.arange(s, device=self.length.device)
                 < self.length[..., None, None])
 
     def positions(self) -> torch.Tensor:
-        s = self.k.shape[-2]
+        s = arena_slots(self.k)
         return torch.arange(s, dtype=_I32, device=self.length.device)[None, None]
 
     def retained_tokens(self) -> torch.Tensor:

@@ -32,7 +32,7 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
-from repro_torch.core import block_pool
+from repro_torch.core import block_pool, kv_cache
 from repro_torch.core.baselines import (DMCCache, H2OCache, QuestCache,
                                        TOVACache)
 from repro_torch.core.config import ArchConfig, KVPolicyConfig
@@ -522,7 +522,7 @@ class VanillaPolicy(_SlotRingMixin, KVPolicy):
         length = stacked.length[0]                            # (B,)
         act = aux.get("active")
         new_len = length + (1 if act is None else act.to(length.dtype))
-        h, s = stacked.k.shape[-3], stacked.k.shape[-2]
+        h, s = stacked.k.shape[-3], kv_cache.arena_slots(stacked.k)
         vis = (torch.arange(s, device=length.device)
                < new_len[:, None, None]).expand(length.shape[0], h, s)
         tbl, n = prefix_block_spec(new_len, s, stacked.block_p, h)

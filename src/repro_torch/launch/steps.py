@@ -1,5 +1,5 @@
 """Steps: the LM train step, the DMS retrofit step, the prefill step and
-the serve step.
+the serve step, and the input specs the dry-run places on a mesh.
 
 The reference's ``repro.launch.steps`` (``make_train_step``,
 ``make_retrofit_step``, ``make_prefill_step``, ``make_serve_step``)
@@ -17,7 +17,16 @@ reference's own draws.
 
 Every full-forward step passes the batch's ``frontend_embeds`` (prepended
 patch embeddings) and ``enc_embeds`` (an encoder–decoder's frame
-embeddings) to ``model_forward``, when the batch has them.
+embeddings) to ``model_forward``, when the batch has them, and its
+``attn_impl`` (``"chunked"`` on the dry-run's fake tensors).
+
+The specs (:func:`params_spec`, :func:`opt_state_spec`,
+:func:`train_input_specs`, :func:`prefill_input_specs`,
+:func:`decode_input_specs`) are the reference's ``jax.eval_shape`` trees:
+fake tensors (:class:`torch._subclasses.fake_tensor.FakeTensorMode`) of
+the same leaf paths, shapes and dtypes, on the CPU, with no weight drawn
+and nothing allocated.  They are made in the caller's active fake mode, or
+else in one shared mode (:func:`fake_mode`), so trees from two calls mix.
 """
 from __future__ import annotations
 
@@ -27,10 +36,115 @@ import torch
 
 from repro_torch.core import distill as distill_lib
 from repro_torch.core import dms as dms_lib
-from repro_torch.core.config import ArchConfig
+from repro_torch.core.config import ArchConfig, KVPolicyConfig, ShapeConfig
 from repro_torch.core.tree import tree_leaves, tree_map, tree_unflatten
+from repro_torch.device import torch_dtype
 from repro_torch.models import transformer as tfm
 from repro_torch.optim import adamw
+from repro_torch.parallel import spmd
+
+
+# enc-dec shape convention: the encoder's frames are capped at 4K; the
+# decoder carries the cell's full sequence length
+ENC_LEN_CAP = 4096
+
+_FAKE_MODE = None
+
+
+def fake_mode():
+    """The active :class:`FakeTensorMode`, else the module's shared one."""
+    global _FAKE_MODE
+    from torch._guards import active_fake_mode
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    mode = active_fake_mode()
+    if mode is None:
+        if _FAKE_MODE is None:
+            _FAKE_MODE = FakeTensorMode(allow_non_fake_inputs=True)
+        mode = _FAKE_MODE
+    return mode
+
+
+def _frontend_split(arch: ArchConfig, seq_len: int) -> Tuple[int, int]:
+    """(frontend_tokens, text_tokens) summing to seq_len."""
+    if arch.frontend == "vision_patches" and arch.frontend_tokens:
+        f = min(arch.frontend_tokens, seq_len // 2)
+        return f, seq_len - f
+    return 0, seq_len
+
+
+def enc_len_for(arch: ArchConfig, seq_len: int) -> int:
+    return min(ENC_LEN_CAP, seq_len) if arch.encoder_layers else 0
+
+
+def _empty(shape, dtype) -> torch.Tensor:
+    with fake_mode():
+        return torch.empty(shape, dtype=dtype)
+
+
+def train_input_specs(arch: ArchConfig, shape: ShapeConfig,
+                      accum_steps: int = 1) -> Dict[str, Any]:
+    """With ``accum_steps > 1`` the inputs are microbatched, (K, B/K, ...),
+    and the train step loops over K, accumulating grads."""
+    b, s = shape.global_batch, shape.seq_len
+    if b % accum_steps:
+        raise ValueError(f"batch {b} does not split into {accum_steps}")
+    f, t_text = _frontend_split(arch, s)
+    lead = (accum_steps, b // accum_steps) if accum_steps > 1 else (b,)
+    dt = torch_dtype(arch.dtype)
+    specs = {"tokens": _empty(lead + (t_text,), torch.int32),
+             "labels": _empty(lead + (s,), torch.int32)}
+    if f:
+        specs["frontend_embeds"] = _empty(lead + (f, arch.d_model), dt)
+    e = enc_len_for(arch, s)
+    if e:
+        specs["enc_embeds"] = _empty(lead + (e, arch.d_model), dt)
+    return specs
+
+
+def prefill_input_specs(arch: ArchConfig, shape: ShapeConfig
+                        ) -> Dict[str, Any]:
+    specs = train_input_specs(arch, shape)
+    specs.pop("labels")
+    return specs
+
+
+def decode_input_specs(arch: ArchConfig, shape: ShapeConfig,
+                       policy: KVPolicyConfig) -> Dict[str, Any]:
+    """The serve step's batch and its decode state (``"cache"``), made for
+    ``shape.global_batch`` lanes of ``shape.seq_len`` tokens."""
+    b, s = shape.global_batch, shape.seq_len
+    with fake_mode():
+        cache = tfm.init_decode_state(arch, b, s, policy, device="cpu")
+    specs: Dict[str, Any] = {
+        "token": _empty((b, 1), torch.int32),
+        # per-lane positions: production decode is continuous-batched
+        "pos": _empty((b,), torch.int32),
+        "cache": cache,
+    }
+    e = enc_len_for(arch, s)
+    if e:
+        specs["enc_out"] = _empty((b, e, arch.d_model), torch_dtype(arch.dtype))
+    return specs
+
+
+def params_spec(arch: ArchConfig, dtype: Optional[str] = None) -> Any:
+    """The params tree: the reference's fp32 leaves, or every leaf in
+    ``dtype`` when given."""
+    with fake_mode():
+        params = tfm.init_model(arch, device="cpu", dtype=torch.float32)
+        if dtype is not None:
+            dt = torch_dtype(dtype)
+            cast = tfm.Params(tree_map(lambda x: x.to(dt), params))
+            cast.layer_salt = params.layer_salt     # the fp32 draws' salts
+            params = cast
+    return params
+
+
+def opt_state_spec(params: Any) -> adamw.AdamWState:
+    """AdamW's state for ``params`` (with an fp32 master when they are not
+    fp32, as :func:`repro_torch.optim.adamw.init` keeps one)."""
+    with fake_mode():
+        return adamw.init(params)
 
 
 def step_generator(key: int, step: int, device) -> torch.Generator:
@@ -54,7 +168,8 @@ def _grads(loss_fn, params: Dict[str, Any]):
 
 def make_train_step(arch: ArchConfig, opt_cfg: adamw.AdamWConfig, *,
                     dms_train: bool = False, remat: bool = True,
-                    use_kernel: bool = False, accum_steps: int = 1):
+                    use_kernel: bool = False, accum_steps: int = 1,
+                    attn_impl: Optional[str] = None):
     """LM training step: CE (+ DMS aux), grads, AdamW.
 
     ``accum_steps > 1`` expects microbatched inputs (K, B/K, ...) and
@@ -68,7 +183,7 @@ def make_train_step(arch: ArchConfig, opt_cfg: adamw.AdamWConfig, *,
         logits, aux = tfm.model_forward(
             p, batch["tokens"], arch, mode=mode, uniforms=uniforms,
             generator=step_generator(17, step, batch["tokens"].device),
-            remat=remat, use_kernel=use_kernel,
+            remat=remat, use_kernel=use_kernel, attn_impl=attn_impl,
             frontend_embeds=batch.get("frontend_embeds"),
             enc_embeds=batch.get("enc_embeds"))
         ce = distill_lib.lm_cross_entropy(logits, batch["labels"])
@@ -109,6 +224,7 @@ def retrofit_loss_and_grads(
     arch: ArchConfig, params, teacher, batch, step: int, *,
     use_kernel: bool = False, phase1: bool = False, remat: bool = False,
     uniforms: Optional[Sequence[torch.Tensor]] = None,
+    attn_impl: Optional[str] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Dict[str, Any]]:
     """The retrofit objective's (loss, metrics, grads) at ``params``: logit
     distillation from the frozen vanilla teacher + the one-sided L1
@@ -116,7 +232,7 @@ def retrofit_loss_and_grads(
     schedule (App. B) instead of the DMS mask."""
     tokens = batch["tokens"]
     inputs = dict(frontend_embeds=batch.get("frontend_embeds"),
-                  enc_embeds=batch.get("enc_embeds"))
+                  enc_embeds=batch.get("enc_embeds"), attn_impl=attn_impl)
     with torch.no_grad():
         teacher_logits, _ = tfm.model_forward(
             teacher, tokens, arch, mode="vanilla", use_kernel=use_kernel,
@@ -148,7 +264,7 @@ def retrofit_loss_and_grads(
 
 def make_retrofit_step(arch: ArchConfig, opt_cfg: adamw.AdamWConfig, *,
                        remat: bool = True, use_kernel: bool = False,
-                       phase1: bool = False):
+                       phase1: bool = False, attn_impl: Optional[str] = None):
     """Paper-faithful DMS retrofit step.  Returns ``retrofit_step(params,
     teacher_params, opt_state, batch, step, uniforms=None) -> (params,
     opt_state, metrics)``; the teacher's logits carry no gradient."""
@@ -157,7 +273,8 @@ def make_retrofit_step(arch: ArchConfig, opt_cfg: adamw.AdamWConfig, *,
                       uniforms: Optional[List[torch.Tensor]] = None):
         _, metrics, grads = retrofit_loss_and_grads(
             arch, params, teacher_params, batch, step, use_kernel=use_kernel,
-            phase1=phase1, remat=remat, uniforms=uniforms)
+            phase1=phase1, remat=remat, uniforms=uniforms,
+            attn_impl=attn_impl)
         params, opt_state, om = adamw.apply_updates(params, grads, opt_state,
                                                     opt_cfg)
         return params, opt_state, {**metrics, **om}
@@ -166,21 +283,25 @@ def make_retrofit_step(arch: ArchConfig, opt_cfg: adamw.AdamWConfig, *,
 
 
 def make_prefill_step(arch: ArchConfig, *, dms: bool = False,
-                      use_kernel: bool = False):
+                      use_kernel: bool = False,
+                      attn_impl: Optional[str] = None):
     """Prefill: the full forward (``dms_eval`` when ``dms`` and DMS is on,
     else ``vanilla``), returning the last position's logits (B, V_pad) fp32
     and the per-layer KV (``model_forward``'s ``layer_kv``), which
     :meth:`~repro_torch.core.policy.KVPolicy.prefill_import` turns into a
     cache.  ``use_kernel`` attends through the flash kernel's forward.  It
-    runs under :func:`torch.inference_mode`, so the kernel's autograd
-    Function saves nothing for a backward."""
+    runs under :func:`torch.inference_mode` (:func:`torch.no_grad` over
+    DTensor params, whose views set version counters that inference tensors
+    refuse), so the kernel's autograd Function saves nothing for a
+    backward."""
     mode = "dms_eval" if (dms and arch.dms.enabled) else "vanilla"
 
     def prefill_step(params, batch):
-        with torch.inference_mode():
+        sharded = spmd.first_dtensor(params) is not None
+        with torch.no_grad() if sharded else torch.inference_mode():
             logits, aux = tfm.model_forward(
                 params, batch["tokens"], arch, mode=mode, collect_kv=True,
-                use_kernel=use_kernel,
+                use_kernel=use_kernel, attn_impl=attn_impl,
                 frontend_embeds=batch.get("frontend_embeds"),
                 enc_embeds=batch.get("enc_embeds"))
         return logits[:, -1], aux["layer_kv"]

@@ -14,6 +14,10 @@
   A policy that evicts by attention weights (TOVA, H2O, Keyformer) gets
   them back: the kernel in its weights-out mode, or the reference softmax.
 * :func:`attention_ref` — the O(T²) masked-softmax oracle.
+* :func:`attention_chunked` — flash-style chunked attention in plain
+  PyTorch (online softmax): the dry-run's lowering path
+  (``attn_impl="chunked"``), which fake tensors can run where the CUDA
+  kernels cannot.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ from repro_torch.device import torch_dtype
 from repro_torch.kernels.dms_attention import ops as fkops
 from repro_torch.kernels.dms_decode import ops as dkops
 from repro_torch.models.layers import apply_rope, softcap
+from repro_torch.parallel import spmd
 
 NEG_INF = dms_lib.NEG_INF
 
@@ -37,9 +42,11 @@ def project_qkv(p: dict, x: torch.Tensor, cfg: AttentionConfig,
                 dtype: torch.dtype):
     b, t, _ = x.shape
     xd = x.to(dtype)
-    q = (xd @ p["wq"].to(dtype)).reshape(b, t, cfg.num_heads, cfg.head_dim)
-    k = (xd @ p["wk"].to(dtype)).reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
-    v = (xd @ p["wv"].to(dtype)).reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
+    q = spmd.split_heads(xd @ p["wq"].to(dtype), cfg.num_heads, cfg.head_dim)
+    k = spmd.split_heads(xd @ p["wk"].to(dtype), cfg.num_kv_heads,
+                         cfg.head_dim)
+    v = spmd.split_heads(xd @ p["wv"].to(dtype), cfg.num_kv_heads,
+                         cfg.head_dim)
     return q, k, v
 
 
@@ -60,6 +67,97 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, tq, hq, dh).to(q.dtype)
 
 
+def attention_chunked(
+    q: torch.Tensor,                 # (B, Tq, Hq, Dh)
+    k: torch.Tensor,                 # (B, Tk, Hkv, Dh)
+    v: torch.Tensor,
+    alpha: Optional[torch.Tensor],   # (B, Hkv, Tk) or None
+    *,
+    dms_delay: int = 0,
+    causal: bool = True,
+    window: Optional[int] = None,
+    logit_cap: Optional[float] = None,
+    chunk_q: int = 2048,
+    chunk_k: int = 2048,
+) -> torch.Tensor:
+    """Flash-style chunked attention (online softmax over ``chunk_q`` ×
+    ``chunk_k`` tiles).  Never materialises T×T: the live intermediate is
+    one tile's scores.  Chunk pairs dead by causality or the window are
+    skipped statically.  Products take the operands in their dtype and sum
+    in fp32 (the reference's ``preferred_element_type``): the products of
+    bf16 values are exact in fp32, so fp32 einsums of the upcast operands
+    give the same sums.  The DMS delayed-eviction mask adds the keys' log
+    survival where ``q - k >= dms_delay``.
+
+    The reference has a second form, ``attention_chunked_scan``, whose
+    ``lax.scan`` makes XLA's buffer liveness sequential for its memory
+    pass; an eager loop already runs one tile at a time, so
+    ``attn_impl="chunked_scan"`` takes this same function."""
+    b, tq, hq, dh = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    cq, ck = min(chunk_q, tq), min(chunk_k, tk)
+    nq, nk = -(-tq // cq), -(-tk // ck)
+    scale = dh ** -0.5
+    qg = q.reshape(b, tq, hkv, g, dh)
+    log_surv = (dms_lib.eviction_log_survival(alpha) if alpha is not None
+                else None)
+    dev = q.device
+
+    out_rows = []
+    for qi in range(nq):
+        q0, q1 = qi * cq, min((qi + 1) * cq, tq)
+        # (B, Hkv, G, cq, Dh) in the key dtype, then fp32
+        qc = qg[:, q0:q1].to(k.dtype).permute(0, 2, 3, 1, 4).float()
+        m = torch.full((b, hkv, g, q1 - q0), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((b, hkv, g, q1 - q0), dtype=torch.float32, device=dev)
+        acc = torch.zeros((b, hkv, g, q1 - q0, dh), dtype=torch.float32,
+                          device=dev)
+        for ki in range(nk):
+            k0, k1 = ki * ck, min((ki + 1) * ck, tk)
+            if causal and k0 > q1 - 1:
+                continue                                   # static causal skip
+            if window is not None and k1 - 1 < q0 - window + 1:
+                continue                                   # static window skip
+            kc = k[:, k0:k1].permute(0, 2, 3, 1).float()[:, :, None]
+            vc = v[:, k0:k1]
+            s = torch.matmul(qc, kc) * scale             # (B, Hkv, G, cq, ck)
+            if logit_cap is not None:
+                s = logit_cap * torch.tanh(s / logit_cap)
+            # masks only where a tile straddles a boundary (static ranges)
+            near, far = q0 - (k1 - 1), (q1 - 1) - k0        # min / max q - k
+            ids = None
+            if ((log_surv is not None and dms_delay > 0 and far >= dms_delay)
+                    or (causal and near < 0)
+                    or (window is not None and far >= window)):
+                ids = (torch.arange(q0, q1, device=dev)[:, None]
+                       - torch.arange(k0, k1, device=dev)[None, :])
+            if log_surv is not None and dms_delay > 0 and far >= dms_delay:
+                ls = log_surv[:, :, None, None, k0:k1]
+                s = s + (ls if near >= dms_delay
+                         else torch.where(ids >= dms_delay, ls, 0.0))
+            dead = None
+            if causal and near < 0:
+                dead = ids < 0
+            if window is not None and far >= window:
+                dead = (ids >= window) if dead is None else dead | (ids >= window)
+            if dead is not None:
+                s = torch.where(dead, NEG_INF, s)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = corr * l + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.matmul(
+                p.to(vc.dtype).float(),
+                vc.permute(0, 2, 1, 3).float()[:, :, None])
+            m = m_new
+        l = torch.where(l <= 0.0, 1.0, l)
+        out_rows.append((acc / l[..., None]).permute(0, 3, 1, 2, 4))
+    out = torch.cat(out_rows, dim=1)                     # (B, Tq, Hkv, G, Dh)
+    return out.reshape(b, tq, hq, dh).to(q.dtype)
+
+
 def full_attention(
     p: dict,
     x: torch.Tensor,                 # (B, T, D)
@@ -72,6 +170,7 @@ def full_attention(
     positions: Optional[torch.Tensor] = None,
     neuron_scale=0.0,
     use_kernel: bool = False,
+    attn_impl: Optional[str] = None,   # ref | chunked | chunked_scan | kernel
     collect_kv: bool = False,
     kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
@@ -81,8 +180,11 @@ def full_attention(
     modes, ``alpha_bin`` in ``dms_eval``.  ``dms_train`` takes its Gumbel
     noise from the uniforms ``dms_u``; without them it uses the
     deterministic relaxation, as the reference does without ``dms_rng``.
-    ``use_kernel`` routes attention through the flash kernels, else the
-    masked-softmax reference.  ``collect_kv`` adds the prefill export:
+    ``attn_impl`` picks the attention core: ``"kernel"`` the flash kernels,
+    ``"chunked"`` (or ``"chunked_scan"``, the same loop here)
+    :func:`attention_chunked` with ``max(2048, T // 8)`` chunks, ``"ref"``
+    the masked-softmax reference; None takes ``"kernel"`` under
+    ``use_kernel``, else ``"ref"``.  ``collect_kv`` adds the prefill export:
     ``k_rope`` and ``v`` (B, Hkv, T, Dh) post-RoPE, and in ``dms_eval``
     ``retained`` (:func:`~repro_torch.core.dms.retained_after_prefill`).
 
@@ -97,8 +199,8 @@ def full_attention(
     if kv_override is None:
         q_raw, k, v = project_qkv(p, x, cfg, dtype)
     else:
-        q_raw = (x.to(dtype) @ p["wq"].to(dtype)).reshape(
-            b, t, cfg.num_heads, cfg.head_dim)
+        q_raw = spmd.split_heads(x.to(dtype) @ p["wq"].to(dtype),
+                                 cfg.num_heads, cfg.head_dim)
         k, v = kv_override
 
     aux: Dict[str, Any] = {}
@@ -129,13 +231,24 @@ def full_attention(
         k = apply_rope(k, rope_pos, cfg.rope_theta, cfg.rope,
                        cfg.mrope_sections)
     window = layer_window if layer_window is not None else cfg.window
+    impl = attn_impl or ("kernel" if use_kernel else "ref")
+    if impl not in ("ref", "chunked", "chunked_scan", "kernel"):
+        raise ValueError(f"unknown attn_impl {impl!r}")
 
-    if use_kernel and kv_override is None:
-        out = fkops.dms_flash_attention(
-            q, k, v, alpha, window=window,
+    if impl == "kernel" and kv_override is None:
+        out = spmd.local_attention(
+            fkops.dms_flash_attention, q, k, v, alpha, window=window,
             dms_window=dms.window if alpha is not None else 0,
             causal=cfg.causal, logit_cap=cfg.logit_softcap,
             immediate=dms.immediate_eviction)
+    elif impl in ("chunked", "chunked_scan") and kv_override is None:
+        delay = ((1 if dms.immediate_eviction else dms.window)
+                 if alpha is not None else 0)
+        chunk = max(2048, t // 8)    # the reference's bound on chunk pairs
+        out = spmd.local_attention(
+            attention_chunked, q, k, v, alpha, dms_delay=delay,
+            causal=cfg.causal, window=window, logit_cap=cfg.logit_softcap,
+            chunk_q=chunk, chunk_k=chunk)
     else:
         tk = k.shape[1]
         i = torch.arange(t, device=x.device)[:, None]
@@ -157,7 +270,7 @@ def full_attention(
             mask = dmask if mask is None else mask + dmask
         out = attention_ref(q, k, v, mask, cfg.logit_softcap)
 
-    y = out.reshape(b, t, cfg.num_heads * cfg.head_dim) @ p["wo"].to(dtype)
+    y = spmd.merge_heads(out) @ p["wo"].to(dtype)
     if collect_kv:
         aux["k_rope"] = k.transpose(1, 2)
         aux["v"] = v.transpose(1, 2)
@@ -201,13 +314,13 @@ def decode_attention(
     b = x_t.shape[0]
     dms = arch.dms
     if cross_kv is not None:
-        q = (x_t.to(dtype) @ p["wq"].to(dtype)).reshape(
-            b, 1, cfg.num_heads, cfg.head_dim)            # no RoPE
+        q = spmd.split_heads(x_t.to(dtype) @ p["wq"].to(dtype),
+                             cfg.num_heads, cfg.head_dim)  # no RoPE
         k_all, v_all, valid = cross_kv
         out, _, impl = _masked_decode(
             q, policy_lib.AttendSpec(k_all, v_all, valid), None, cfg,
             use_kernel)
-        y = out.reshape(b, 1, cfg.num_heads * cfg.head_dim) @ p["wo"].to(dtype)
+        y = spmd.merge_heads(out) @ p["wo"].to(dtype)
         live = valid.sum(dim=-1).float().mean(dim=-1)
         return y.to(x_t.dtype), cache, {"live_tokens": live,
                                         "reads_tokens": live,
@@ -242,16 +355,24 @@ def decode_attention(
     pol_aux = {"alpha_bin": alpha_bin, "pos_t": pos_lane, "attn_cfg": cfg,
                "arch": arch, "dtype": dtype, "active": active,
                "layer_salt": layer_salt, **(step_aux or {})}
-    inner, spec, meters = pol.decode_update(cache.cache, q, k_new_c, v_new_c,
-                                            pol_aux)
-    out, w_group, impl = _masked_decode(
-        q, spec, window if spec.positions is not None else None, cfg,
-        use_kernel, pos_lane, need_weights=spec.needs_weights)
-    if spec.needs_weights:
-        inner, meters = pol.post_attend(inner, w_group, active=active,
-                                        aux=pol_aux)
+
+    def core(inner, q, k_new_c, v_new_c, pol_aux, attend):
+        inner, spec, meters = pol.decode_update(inner, q, k_new_c, v_new_c,
+                                                pol_aux)
+        out, w_group, impl = attend(
+            q, spec, window if spec.positions is not None else None, cfg,
+            use_kernel, pol_aux["pos_t"], need_weights=spec.needs_weights)
+        if spec.needs_weights:
+            inner, meters = pol.post_attend(inner, w_group,
+                                            active=pol_aux["active"],
+                                            aux=pol_aux)
+        return inner, out, meters, impl
+
+    inner, out, meters, impl = spmd.local_decode(
+        core, cache.policy, cache.cache, q, k_new_c, v_new_c, pol_aux,
+        _masked_decode, _split_decode)
     cache = dataclasses.replace(cache, cache=inner)
-    y = out.reshape(b, 1, cfg.num_heads * cfg.head_dim) @ p["wo"].to(dtype)
+    y = spmd.merge_heads(out) @ p["wo"].to(dtype)
     aux = dict(meters, attn_impl=impl)
     return y.to(x_t.dtype), cache, aux
 
@@ -294,3 +415,45 @@ def _masked_decode(q, spec, window, cfg, use_kernel, pos_t=None,
     out = torch.einsum("bhgp,bhpd->bhgd", w.to(v.dtype).float(), v.float())
     return (out.reshape(b, 1, hq, dh).to(q.dtype),
             w.sum(dim=2) if need_weights else None, "ref")
+
+
+def _split_decode(groups, offset: int):
+    """The attention of :func:`_masked_decode` on one slot shard of a
+    split arena (:func:`repro_torch.parallel.spmd.local_decode`): ``spec``
+    holds the local K/V and the whole slot mask and positions, of which
+    this shard reads ``[offset, offset + P_local)``; the partial maxima,
+    denominators and outputs are reduced over ``groups``.  The reference
+    path only (the kernel returns no partials); no weights out."""
+
+    def attend(q, spec, window, cfg, use_kernel, pos_t=None,
+               need_weights=False):
+        if use_kernel or need_weights or spec.pool is not None:
+            raise NotImplementedError(
+                "a slot-split arena attends on the reference path, with no "
+                "weights out and no pool")
+        k, v = spec.k, spec.v
+        p_loc = k.shape[2]
+        vis, pos = spec.visible, spec.positions
+        b, _, hq, dh = q.shape
+        hkv = k.shape[1]
+        g = hq // hkv
+        vis = vis[..., offset:offset + p_loc]
+        if window is not None and pos is not None and pos_t is not None:
+            pos = pos[..., offset:offset + p_loc]
+            ptl = torch.as_tensor(pos_t, dtype=torch.int32,
+                                  device=q.device).expand(b)
+            vis = vis & (pos > (ptl[:, None, None] - window))
+        vis = vis.expand(b, hkv, p_loc)
+        qg = q[:, 0].reshape(b, hkv, g, dh).to(k.dtype)
+        scores = torch.einsum("bhgd,bhpd->bhgp", qg.float(), k.float())
+        scores = softcap(scores * (dh ** -0.5), cfg.logit_softcap)
+        scores = torch.where(vis[:, :, None, :], scores, NEG_INF)
+        m = spmd.all_reduce(scores.amax(dim=-1), "max", groups)
+        p = torch.exp(scores - m[..., None])
+        den = spmd.all_reduce(p.sum(dim=-1), "sum", groups)
+        num = spmd.all_reduce(
+            torch.einsum("bhgp,bhpd->bhgd", p, v.float()), "sum", groups)
+        out = num / den[..., None]
+        return out.reshape(b, 1, hq, dh).to(q.dtype), None, "ref"
+
+    return attend

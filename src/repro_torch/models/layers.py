@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.config import MLPConfig
+from repro_torch.parallel import spmd
 
 
 def norm_apply(p: dict, x: torch.Tensor, kind: str, eps: float) -> torch.Tensor:
@@ -149,6 +150,27 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: MLPConfig, dtype: torch.dtype,
     scatter-add does, so the result does not depend on the order of
     atomics.  Returns (y, aux) with
     ``moe_aux_loss`` (the Switch load-balance loss) and ``moe_drop_frac``."""
+    if spmd.first_dtensor(x, p) is not None:
+        return spmd.local_moe(_moe_tokens, p, x, cfg, dtype, capacity_factor)
+    moe = cfg.moe
+    b, t = x.shape[:2]
+    e = moe.num_experts
+    y, probs, onehot, keep = _moe_tokens(p, x, cfg, dtype, capacity_factor)
+    frac_tokens = onehot.sum(dim=2).reshape(b * t, e).float().mean(dim=0)
+    frac_probs = probs.reshape(b * t, e).mean(dim=0)
+    aux = {"moe_aux_loss": moe.aux_loss_weight * e
+           * torch.sum(frac_tokens * frac_probs),
+           "moe_drop_frac": 1.0 - keep.float().mean()}
+    return y, aux
+
+
+def _moe_tokens(p: dict, x: torch.Tensor, cfg: MLPConfig, dtype: torch.dtype,
+                capacity_factor: float,
+                experts: Optional[Tuple[int, int]] = None):
+    """:func:`moe_apply`'s routing, dispatch, experts and combine: (y,
+    router probs (B, T, E), one-hot choices (B, T, k, E), keep (B, T, k)).
+    ``experts`` (offset, count): the expert weights hold only these experts
+    (expert parallelism), and y is their part of the sum."""
     moe = cfg.moe
     b, t, d = x.shape
     e, k = moe.num_experts, moe.top_k
@@ -171,6 +193,13 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: MLPConfig, dtype: torch.dtype,
     buf = xt.new_zeros((b, e, capacity, d))
     buf.index_put_((bi, top_e, ci), xt[:, :, None, :] * w_disp,
                    accumulate=True)
+    ei = top_e
+    if experts is not None:
+        off, cnt = experts
+        ei = top_e - off
+        w_disp = w_disp * ((ei >= 0) & (ei < cnt)).to(dtype)[..., None]
+        ei = ei.clamp(0, cnt - 1)
+        buf = buf[:, off:off + cnt]
     wd = lambda name: p[name].to(dtype)                             # noqa: E731
     if cfg.kind in ("swiglu", "geglu"):
         h = _act(torch.einsum("becd,edf->becf", buf, wd("w_gate")), cfg.kind)
@@ -181,14 +210,8 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: MLPConfig, dtype: torch.dtype,
 
     # combine: each (token, slot)'s expert output times its weight, summed
     # slot after slot from zero in the compute dtype
-    contrib = out_buf[bi, top_e, ci] * (top_p.to(dtype)[..., None] * w_disp)
+    contrib = out_buf[bi, ei, ci] * (top_p.to(dtype)[..., None] * w_disp)
     y = xt.new_zeros((b, t, d))
     for j in range(k):
         y = y + contrib[:, :, j]
-
-    frac_tokens = onehot.sum(dim=2).reshape(b * t, e).float().mean(dim=0)
-    frac_probs = probs.reshape(b * t, e).mean(dim=0)
-    aux = {"moe_aux_loss": moe.aux_loss_weight * e
-           * torch.sum(frac_tokens * frac_probs),
-           "moe_drop_frac": 1.0 - keep.float().mean()}
-    return y.to(x.dtype), aux
+    return y.to(x.dtype), probs, onehot, keep

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from repro_torch.core.config import ArchConfig, SSMConfig
 from repro_torch.device import torch_dtype
 from repro_torch.models.rglru import causal_conv, softplus
+from repro_torch.parallel import spmd
 
 
 @dataclass
@@ -128,8 +129,8 @@ def ssd_forward(p: dict, xin: torch.Tensor, arch: ArchConfig,
     a = -torch.exp(p["a_log"])                                # (H,)
 
     init = None if state is None else state.ssm
-    y, final = ssd_chunked_ref(x, dt, a, bmat, cmat, cfg.chunk_size,
-                               init_state=init)
+    y, final = spmd.local_ssd(ssd_chunked_ref, x, dt, a, bmat, cmat,
+                              cfg.chunk_size, init_state=init)
     y = y + x.float() * p["d_skip"][None, None, :, None]
     y = _gated_norm(y.reshape(bsz, t, di).to(dtype), z, p["norm_scale"])
     out = (y.to(dtype) @ p["w_out"].to(dtype)).to(xin.dtype)

@@ -55,6 +55,7 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssd as ssd_lib
 from repro_torch.models.layers import mlp_apply, norm_apply, softcap
+from repro_torch.parallel import spmd
 
 _ATTN_KINDS = ("attn", "attn_local")
 _KINDS = _ATTN_KINDS + ("rglru", "ssd")
@@ -292,7 +293,8 @@ def embed_tokens(params: dict, tokens: torch.Tensor, arch: ArchConfig,
     """Token embeddings in the compute dtype, times the embedding multiplier
     rounded to that dtype first (as the reference multiplies), with
     ``frontend_embeds`` (B, F, D), if given, prepended."""
-    x = params["embed"][tokens.long()].to(torch_dtype(arch.dtype))
+    x = spmd.embedding(tokens.long(), params["embed"]).to(
+        torch_dtype(arch.dtype))
     if arch.embedding_multiplier != 1.0:
         x = x * round_to_dtype(arch.embedding_multiplier, x.dtype)
     if frontend_embeds is not None:
@@ -338,9 +340,19 @@ def cross_kv(p: dict, enc_out: torch.Tensor, arch: ArchConfig):
     dtype, a = torch_dtype(arch.dtype), arch.attn
     b, s = enc_out.shape[:2]
     e = enc_out.to(dtype)
-    return tuple((e @ p[w].to(dtype)).reshape(b, s, a.num_kv_heads,
-                                              a.head_dim)
+    return tuple(spmd.split_heads(e @ p[w].to(dtype), a.num_kv_heads,
+                                  a.head_dim)
                  for w in ("wk", "wv"))
+
+
+def _residual(x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """``x + out``: a sublayer's output joins the residual stream.  On a
+    mesh its pending sums are done first (the one all-reduce per sublayer
+    of Megatron's tensor parallelism), so the stream stays replicated over
+    ``model`` and the next norm and projections see whole rows; the sum is
+    anchored (:func:`repro_torch.parallel.spmd.anchor`), so its gradient
+    keeps the stream's placements too."""
+    return spmd.anchor(x + spmd.reduce_partial(out))
 
 
 def _apply_block(p: dict, x: torch.Tensor, arch: ArchConfig, kind: str, *,
@@ -359,12 +371,12 @@ def _apply_block(p: dict, x: torch.Tensor, arch: ArchConfig, kind: str, *,
     if kind == "ssd":
         s_out, _ = ssd_lib.ssd_forward(
             p["ssd"], norm_apply(p["norm"], x, arch.norm, arch.norm_eps), arch)
-        return x + s_out, {}
+        return _residual(x, s_out), {}
     if kind == "rglru":
         r_out, _ = rglru_lib.rglru_forward(
             p["rglru"], norm_apply(p["rglru_norm"], x, arch.norm,
                                    arch.norm_eps), arch)
-        x, aux = x + r_out, {}
+        x, aux = _residual(x, r_out), {}
     else:
         acfg = (arch.attn if causal
                 else dataclasses.replace(arch.attn, causal=False))
@@ -375,7 +387,7 @@ def _apply_block(p: dict, x: torch.Tensor, arch: ArchConfig, kind: str, *,
         if arch.post_norm:
             a_out = norm_apply(p["attn_post_norm"], a_out, arch.norm,
                                arch.norm_eps)
-        x = x + a_out
+        x = _residual(x, a_out)
         if enc_out is not None and "cross" in p:
             h = norm_apply(p["cross_norm"], x, arch.norm, arch.norm_eps)
             c_out, _ = attn_lib.full_attention(
@@ -383,14 +395,14 @@ def _apply_block(p: dict, x: torch.Tensor, arch: ArchConfig, kind: str, *,
                 dataclasses.replace(acfg, causal=False, rope="none"), arch,
                 positions=attn_kw.get("positions"),
                 kv_override=cross_kv(p["cross"], enc_out, arch))
-            x = x + c_out
+            x = _residual(x, c_out)
     if arch.mlp is None:
         return x, aux
     h = norm_apply(p["mlp_norm"], x, arch.norm, arch.norm_eps)
     m_out, m_aux = mlp_apply(p["mlp"], h, arch.mlp, dtype)
     if arch.post_norm and kind in _ATTN_KINDS:
         m_out = norm_apply(p["mlp_post_norm"], m_out, arch.norm, arch.norm_eps)
-    return x + m_out, {**aux, **m_aux}
+    return _residual(x, m_out), {**aux, **m_aux}
 
 
 def _columns(blocks: Dict[str, Any]) -> Dict[str, List[Tuple]]:
@@ -401,13 +413,14 @@ def _columns(blocks: Dict[str, Any]) -> Dict[str, List[Tuple]]:
 
 
 def encode(params: dict, enc_embeds: torch.Tensor, arch: ArchConfig, *,
-           use_kernel: bool = False) -> torch.Tensor:
+           use_kernel: bool = False,
+           attn_impl: Optional[str] = None) -> torch.Tensor:
     """The encoder stack over precomputed frame embeddings (B, S, D), as
     the reference's ``encode``: ``enc_blocks`` in the pattern's order,
     bidirectional unless ``arch.encoder_bidirectional`` is False, mode
     ``vanilla`` (no DMS), positions ``0..S-1``, then ``enc_final_norm``.
     ``use_kernel`` runs its self-attention through the flash kernels
-    (``causal=False``)."""
+    (``causal=False``); ``attn_impl`` as :func:`model_forward`'s."""
     check_supported(arch)
     dtype = torch_dtype(arch.dtype)
     x = enc_embeds.to(dtype)
@@ -421,7 +434,7 @@ def encode(params: dict, enc_embeds: torch.Tensor, arch: ArchConfig, *,
             x, _ = _apply_block(p, x, arch, kind, dtype=dtype,
                                 causal=not arch.encoder_bidirectional,
                                 mode="vanilla", positions=positions,
-                                use_kernel=use_kernel)
+                                use_kernel=use_kernel, attn_impl=attn_impl)
     return norm_apply(params["enc_final_norm"], x, arch.norm, arch.norm_eps)
 
 
@@ -436,6 +449,7 @@ def model_forward(
     positions: Optional[torch.Tensor] = None,
     neuron_scale=0.0,
     use_kernel: bool = False,
+    attn_impl: Optional[str] = None,           # ref | chunked | chunked_scan | kernel
     collect_kv: bool = False,
     remat: bool = False,
     frontend_embeds: Optional[torch.Tensor] = None,   # (B, F, D)
@@ -454,7 +468,10 @@ def model_forward(
     (layer order: superblocks, then positions) if given (a test feeds the
     reference's draws), else from ``generator`` (seed 0 when None).
     ``remat`` recomputes each layer in the backward pass
-    (:func:`torch.utils.checkpoint.checkpoint`).  ``collect_kv`` adds the
+    (:func:`torch.utils.checkpoint.checkpoint`).  ``attn_impl`` picks each
+    self-attention's core (:func:`~repro_torch.models.attention.
+    full_attention`): ``"chunked"`` is the dry-run's path, which runs on
+    fake tensors.  ``collect_kv`` adds the
     prefill export ``aux["layer_kv"]``: ``{"0": {"k_rope", "v"[,
     "retained", "alpha_bin"]}, ...}``, one entry per pattern position, each
     leaf stacked over superblocks (nsb, B, Hkv, T, ...), as the
@@ -462,7 +479,8 @@ def model_forward(
     check_supported(arch)
     enc_out = None
     if arch.encoder_layers and enc_embeds is not None:
-        enc_out = encode(params, enc_embeds, arch, use_kernel=use_kernel)
+        enc_out = encode(params, enc_embeds, arch, use_kernel=use_kernel,
+                         attn_impl=attn_impl)
     x = embed_tokens(params, tokens, arch, frontend_embeds)
     b, t = x.shape[:2]
     if positions is None:
@@ -484,7 +502,7 @@ def model_forward(
         x, aux = _apply_block(
             p, x, arch, kind, dtype=dtype, enc_out=enc_out, mode=mode,
             dms_u=u, positions=positions, neuron_scale=neuron_scale,
-            use_kernel=use_kernel, collect_kv=collect_kv)
+            use_kernel=use_kernel, attn_impl=attn_impl, collect_kv=collect_kv)
         if collect_kv:
             layer_kv[key].append({k: aux[k] for k in kv_keys if k in aux})
         return (x, aux.get("alpha_sum", zero), aux.get("moe_aux_loss", zero),
@@ -769,7 +787,8 @@ def decode_step(
     prepared = {}
     for pi in _attn_positions(arch):
         stacked = state[str(pi)]
-        prepared[pi] = policy_lib.get_policy(stacked.policy).prepare_step(
+        prepared[pi] = spmd.local_prepare(
+            policy_lib.get_policy(stacked.policy).prepare_step,
             stacked.cache, {"layer_salt": salts[:, pi], "active": active})
     impls = set()
     for _, sb, pi, kind in _layers(arch):
@@ -788,12 +807,12 @@ def decode_step(
         if arch.post_norm:
             a_out = norm_apply(p["attn_post_norm"], a_out, arch.norm,
                                arch.norm_eps)
-        x = x + a_out
+        x = _residual(x, a_out)
         live = live + aux["live_tokens"]
         reads = reads + aux["reads_tokens"]
         if enc_out is not None and "cross" in p:
-            x = x + _cross_decode(p, x, arch, enc_out, enc_valid, pos_t,
-                                  use_kernel, impls)
+            x = _residual(x, _cross_decode(
+                p, x, arch, enc_out, enc_valid, pos_t, use_kernel, impls))
         if arch.mlp is None:
             continue
         h = norm_apply(p["mlp_norm"], x, arch.norm, arch.norm_eps)
@@ -801,7 +820,7 @@ def decode_step(
         if arch.post_norm:
             m_out = norm_apply(p["mlp_post_norm"], m_out, arch.norm,
                                arch.norm_eps)
-        x = x + m_out
+        x = _residual(x, m_out)
     if active is not None:
         reads = reads * active.to(reads.dtype)
     logits = lm_logits(params, x, arch)[:, 0]
@@ -844,13 +863,13 @@ def _recurrent_layer(p: dict, x: torch.Tensor, cache: Any, arch: ArchConfig,
             p["rglru"], norm_apply(p["rglru_norm"], x, arch.norm,
                                    arch.norm_eps), cache, arch)
     for old, val in zip(tree_leaves(cache), tree_leaves(new)):
-        old.copy_(val if active is None else
-                  torch.where(active.reshape((-1,) + (1,) * (old.dim() - 1)),
-                              val.to(old.dtype), old))
-    x = x + out
+        spmd.assign(old, val if active is None else
+                    torch.where(active.reshape((-1,) + (1,) * (old.dim() - 1)),
+                                val.to(old.dtype), old))
+    x = _residual(x, out)
     if kind == "rglru" and arch.mlp is not None:
         m_out, _ = mlp_apply(p["mlp"], norm_apply(p["mlp_norm"], x, arch.norm,
                                                   arch.norm_eps),
                              arch.mlp, dtype)
-        x = x + m_out
+        x = _residual(x, m_out)
     return x
