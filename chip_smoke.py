@@ -41,8 +41,9 @@ Phases (any failure raises, so the exit code is non-zero):
               zero off the visible listed slots and summing to G, the
               shared-pool layout bitwise equal to the fixed one.
 4. serve    — qwen-r1-1.5b at full width (d_model 1536, 12/2 heads of 128,
-              random weights from a seed, bf16) and a quarter of its depth
-              (the first 4 of its 28 layers: the script's time limit) served
+              random weights from a seed, bf16) and the first 2 of its 28
+              layers (``SERVE_LAYERS``: the script's time limit; 5l serves
+              the paper's models at full depth) served
               by ``Engine`` with the ``dms`` policy at CR 8 on fixed
               arenas: four staggered requests (prompts 512/384/256/128,
               new 64/48/32/64), then one width-4
@@ -58,7 +59,7 @@ Phases (any failure raises, so the exit code is non-zero):
               oversubscribe a pool of 1.5x one lane's worst case
               (``oversub`` 2, preemption): all ``ok``, preemptions equal
               resumes and are > 0, the pool never exhausted, tokens equal.
-5b. weights — the same model at ``SERVE_LAYERS`` (4) layers serving
+5b. weights — the same model at ``SERVE_LAYERS`` (2) layers serving
               requests 2 and 3 of the trace with the weight-driven
               policies at CR 8 (budget 72, 80-slot arenas):
               TOVA on fixed arenas and on the pool, H2O and Keyformer on
@@ -68,7 +69,7 @@ Phases (any failure raises, so the exit code is non-zero):
               trace per policy holds the kernel path's logits against the
               reference path's and every weights-out call against the
               plain version; then a profiled step of each beside dms.
-5c. hyperscale — the same model at 4 layers: (a) the
+5c. hyperscale — the same model at 2 layers: (a) the
               paper's
               comparison through ``evaluate_hyperscale`` at temperature 0.7
               on one 288-token needle problem: ``vanilla`` at L-W-CR
@@ -81,7 +82,7 @@ Phases (any failure raises, so the exit code is non-zero):
               reference path's, teacher-forced, for ``vanilla``, ``window``
               and ``dms_masked`` (delay 16: holed tables); (d)
               ``threefry.categorical`` on the card against the CPU.
-5d. quest/dmc — the same model at 4 layers, as 5c: (a) ``quest`` and
+5d. quest/dmc — the same model at 2 layers, as 5c: (a) ``quest`` and
               ``dmc`` at 320-4-8 through ``evaluate_hyperscale`` at
               temperature 0.7 on 5c's problem, beside 5c's vanilla and dms:
               Quest's ``kv_reads`` equal to the count by hand and below
@@ -93,7 +94,7 @@ Phases (any failure raises, so the exit code is non-zero):
               (Quest with 8- and 4-slot pages, DMC with 16- and 8-slot
               blocks); a profiled step of each beside dms, with the device
               time of Quest's page scoring and of DMC's cast a layer.
-5e. prefix/slo — the same model at 4 layers: (a) ``make_prefill_step``
+5e. prefix/slo — the same model at 2 layers: (a) ``make_prefill_step``
               through ``flash_fwd`` on 4 prompts of 512 tokens, ``dms`` (CR
               8, delay 256) and ``vanilla``: one flash launch per layer,
               last logits within 0.05 x max |logit| of the reference
@@ -186,7 +187,7 @@ Phases (any failure raises, so the exit code is non-zero):
               weights) on the kernel path and on the reference path: loss
               and gradient norm within 1e-2, the fwd/dq/dkv launches and
               the step's seconds.
-5j. audit   — run right after 5e on phase 4's model (full width, 4
+5j. audit   — run right after 5e on phase 4's model (full width, 2
               layers, random bf16 weights from seed 0, phase 4's bias):
               ``repro_torch.analysis.audit``'s sweep, every registered
               policy x {ref, kernel} x {fixed, paged} on phase 4's 4 lanes
@@ -225,6 +226,28 @@ Phases (any failure raises, so the exit code is non-zero):
               must lie within ``MESH_PEAK_TOL`` of ``MemTracker``'s
               prediction; the roofline's compute, memory and collective
               terms of that run are printed beside them.
+5l. paper   — the paper's own models at their published widths and full
+              depth, random bf16 weights from seed 0 drawn on the card,
+              each freed before the next loads: llama32-1b (16 layers,
+              32/8 heads of 64, G 4, tied embeddings), qwen-r1-7b (28, 28/4
+              of 128, G 7) and qwen-r1-32b (64, 40/8 of 128, G 5; 65.5 GB of
+              weights).  ``dms`` at each config's target CR (llama 4, Qwen-R1
+              8) with the bias Phi^-1(1 - 1/CR), delay window 16 (llama's
+              own; the Qwen-R1 configs' 256 cut so that DMS evicts within
+              the trace).  (a) Four staggered requests on four lanes
+              (prompts 48/40/32/24; new 24/16/16/24, the 32B 16/8/8/16),
+              greedy, through ``Engine.scheduler(...).run()`` with the
+              kernel: every request ok, one launch a layer a decode step,
+              every step on the kernel in every layer; (d) llama and the 7B
+              again on the paged pool: tokens equal to the fixed arenas';
+              (e) each request's peak live tokens below vanilla's count;
+              (c) 16 teacher-forced steps, kernel path against reference
+              path, logits within 0.05 x max |logit|; a profiled step of the
+              7B and the 32B beside the weight-read floor; at the 32B the
+              memory line: free memory after the load, the trace's peak,
+              dms's decode state (CR 8, window 256) at 4 lanes x 32768
+              tokens allocated beside the weights, vanilla's counted.
+              Every launch shape must be one phase 3 checked.
 6. train    — qwen-r1-1.5b at full width, fp32 weights from seed 0, DMS
               retrofit (one phase-1 step, three distillation steps) on the
               synthetic stream at (B 2, T 1024) through the flash kernels:
@@ -280,8 +303,10 @@ and without causality; bf16 and fp32, each bit-equal on a second launch;
 gemma2's prefill export shape) and the decode kernel at every shape 5i
 launches (``dh256_decode_keys``); phase 7 times the three flash kernels at
 gemma2's and recurrentgemma's retrofit shapes and ``flash_fwd`` at gemma2's
-prefill export.  The decode kernel's split count follows ``ops.splits``
-(B*Hkv and the SM count); ``decode_split_sweep`` times it at every count on
+prefill export.  Phase 3 holds both decode modes at every shape 5l
+launches (``paper_decode_keys``: G 4 at Dh 64, G 7 and G 5 at Dh 128), and
+phase 7 times the kernel at 5l's serving shapes.  The decode kernel's split
+count follows ``ops.splits`` (B*Hkv and the SM count); ``decode_split_sweep`` times it at every count on
 the shapes that lost to SDPA, beside an earlier kernel's source.  The last
 four lines are the script's total seconds, the ``kernels`` JSON line, the
 card's name and power limit (again) and the result line ``{"ok": true,
@@ -1319,21 +1344,23 @@ def phase_flash_grads(torch):
 
 def serving_setup(torch, device="cuda", arch_name="qwen-r1-1.5b",
                   lens=(512, 384, 256, 128), news=(64, 48, 32, 64),
-                  hs=(256, 64, 4), layers=None):
+                  hs=(256, 64, 4), layers=None, cr=8.0, dms_window=None):
     """The served model (random weights from seed 0; its first ``layers``
-    layers if given) and the trace phases 4 and 7 share: staggered requests
-    and one width-W hyperscale prompt."""
+    layers if given; its DMS delay window cut to ``dms_window`` if given)
+    and the trace phases 4 and 7 share: staggered requests and one width-W
+    hyperscale prompt."""
     from repro_torch.configs import get_arch, get_smoke
     from repro_torch.models import transformer as tfm
     arch = get_arch(arch_name) if device == "cuda" else get_smoke(arch_name)
     if layers is not None:
         arch = dataclasses.replace(arch, num_layers=layers)
     # random weights almost never evict at the trained bias of -5; a bias of
-    # Phi^-1(7/8) makes P(alpha = 1) = 7/8 for an N(0, 1) neuron, the
-    # eviction rate of an 8x-trained model
-    bias = statistics.NormalDist().inv_cdf(7 / 8)
-    arch = dataclasses.replace(arch, dms=dataclasses.replace(arch.dms,
-                                                             logit_bias=bias))
+    # Phi^-1(1 - 1/CR) makes P(alpha = 1) = 1 - 1/CR for an N(0, 1) neuron,
+    # the eviction rate of a CR-x-trained model (7/8 at CR 8)
+    bias = statistics.NormalDist().inv_cdf(1 - 1 / cr)
+    arch = dataclasses.replace(arch, dms=dataclasses.replace(
+        arch.dms, logit_bias=bias,
+        window=arch.dms.window if dms_window is None else dms_window))
     t0 = time.perf_counter()
     params = tfm.init_model(arch, seed=0, device=device)
     if device == "cuda":
@@ -1379,11 +1406,10 @@ def attn_layers(arch):
                                       for kind in arch.layer_pattern)
 
 
-# phases 4-5e serve the first SERVE_LAYERS layers of the model: the
+# phases 4-5e and 5j serve the first SERVE_LAYERS layers of the model: the
 # script's time limit (the eager decode step costs 3.5-7 ms of host time a
-# layer, by the host; phases 4 and 5 served 14 and 5b-5e 7 until phase 5f
-# came)
-SERVE_LAYERS = 4
+# layer, by the host); phase 5l serves the paper's models at full depth
+SERVE_LAYERS = 2
 
 
 def cut_depth(setup, layers):
@@ -3426,13 +3452,13 @@ def arch_serve(torch, setup, what, kw=None, uids=None,
     attention layer a decode step (fixed-arena, then shared-pool mode), the
     pool's tokens equal the fixed arenas' and every page back at the end.
     A model with no attention layer (mamba2) launches nothing and builds no
-    pool."""
+    pool.  Returns the first layout's results by uid."""
     from repro_torch.core.config import KVPolicyConfig
     from repro_torch.kernels.dms_decode import ops
     from repro_torch.serving.engine import Engine
     arch, params, device = setup["arch"], setup["params"], setup["device"]
     kw, uids = kw or arch_policy(arch), uids or arch_uids(arch)
-    fixed = None
+    fixed = fixed_results = None
     for paged in layouts:
         engine = Engine(arch, params, KVPolicyConfig(**dict(kw, paged=paged)),
                         use_kernel=True, device=device)
@@ -3465,6 +3491,7 @@ def arch_serve(torch, setup, what, kw=None, uids=None,
                 note = (f"; tokens equal to the fixed arenas'; pool high "
                         f"water {st['high_water_blocks']} blocks, every page "
                         "back")
+        fixed_results = fixed_results or results
         fixed = fixed or tokens
         generated = sum(int(r.lengths.sum()) for r in results.values())
         pols = {key: getattr(node, "policy", type(node).__name__)
@@ -3477,6 +3504,7 @@ def arch_serve(torch, setup, what, kw=None, uids=None,
             f"ok; {generated} tokens in {wall:.2f} s, {steps} decode steps, "
             f"{1e3 * wall / steps:.2f} ms/step; decode launches {want} = "
             f"{attn_layers(arch)} x {steps}{note}")
+    return fixed_results
 
 
 def gemma2_window_check(arch, snap, prompt_len, kw):
@@ -3699,6 +3727,41 @@ def phase_archs(torch, device="cuda", checked=None, *,
     return out
 
 
+def layout_rows(torch, gen, arch, layouts, launches, errs, tag=""):
+    """``decode_entry`` rows for the decode kernel at every launch shape of
+    ``layouts`` ((policy keywords, lanes, max_len) of ``arch``): fixed-
+    arena and shared-pool, on random operands at slot density 0.85, each
+    with its launches and its phase-3 error; ``tag`` ends each name."""
+    cap, hkv = arch.attn.logit_softcap, arch.attn.num_kv_heads
+    rows = []
+    for pol, lanes, max_len in layouts:
+        for pi, key in enumerate(state_keys(arch, pol, lanes, max_len)):
+            kind = (pol.get("layer_map") or {}).get(
+                arch.layer_pattern[pi], pol["kind"])
+            shared = len(key) == 7
+            bh, g, dh = key[:3]
+            bp = key[4]
+            if shared:
+                nb = key[5]
+                case = make_pool_case(torch, gen, bh=bh, g=g, dh=dh, nb=nb,
+                                      bp=bp, density=0.85, pages=key[3] // bp)
+                operands = {"kernel": case["shared"],
+                            "dense": case["fixed"][1:4]}
+                shape = (bh, g, dh, nb * bp, bp)
+            else:
+                args = make_case(torch, gen, bh=bh, g=g, dh=dh, p=key[3],
+                                 bp=bp, density=0.85)
+                operands = {"kernel": args, "dense": args[1:4]}
+                shape = key
+            rows.append(decode_entry(
+                torch, f"dms_decode{'_shared_kv' if shared else ''} "
+                f"({arch.name} {kind}, G {g}, Dh {dh}"
+                f"{f', cap {cap:g}' if cap else ''}{tag})",
+                "shared" if shared else "fixed", operands, shape,
+                launches.get(key, 0), errs.get(key, 0.0), hkv=hkv, cap=cap))
+    return rows
+
+
 def phase_arch_timing(torch, launches, errs, flash_launches, flash_err):
     """Phase 7's rows for 5f's serving shapes: the decode kernel at each
     family's fixed-arena and shared-pool serving shapes (``arch_layouts``'
@@ -3709,34 +3772,8 @@ def phase_arch_timing(torch, launches, errs, flash_launches, flash_err):
     rows = []
     for name in (*ARCH_LAYERS, *ARCH_CHECKED):
         arch = get_arch(name)
-        cap, hkv = arch.attn.logit_softcap, arch.attn.num_kv_heads
-        for pol, lanes, max_len in arch_layouts(arch, (512, 384, 256, 128))[:2]:
-            for pi, key in enumerate(state_keys(arch, pol, lanes, max_len)):
-                kind = (pol.get("layer_map") or {}).get(
-                    arch.layer_pattern[pi], pol["kind"])
-                shared = len(key) == 7
-                bh, g, dh = key[:3]
-                bp = key[4]
-                if shared:
-                    nb = key[5]
-                    case = make_pool_case(torch, gen, bh=bh, g=g, dh=dh,
-                                          nb=nb, bp=bp, density=0.85,
-                                          pages=key[3] // bp)
-                    operands = {"kernel": case["shared"],
-                                "dense": case["fixed"][1:4]}
-                    shape = (bh, g, dh, nb * bp, bp)
-                else:
-                    args = make_case(torch, gen, bh=bh, g=g, dh=dh, p=key[3],
-                                     bp=bp, density=0.85)
-                    operands = {"kernel": args, "dense": args[1:4]}
-                    shape = key
-                mode = "shared" if shared else "fixed"
-                rows.append(decode_entry(
-                    torch, f"dms_decode{'_shared_kv' if shared else ''} "
-                    f"({name} {kind}, G {g}, Dh {dh}"
-                    f"{f', cap {cap:g}' if cap else ''})", mode, operands,
-                    shape, launches.get(key, 0), errs.get(key, 0.0), hkv=hkv,
-                    cap=cap))
+        rows += layout_rows(torch, gen, arch, arch_layouts(
+            arch, (512, 384, 256, 128))[:2], launches, errs)
     rows.append(phase_prefill_timing(
         torch, flash_launches, flash_err, case=next(iter(ARCH_FLASH)),
         name="flash_fwd (chatglm3-6b prefill export)"))
@@ -5138,9 +5175,10 @@ MESH_TRAIN = (2, 1024)             # batch x tokens of (a)'s gradients
 # workspaces the tracker does not see, and nothing else should differ
 MESH_PEAK_TOL = (0.9, 1.25)
 MESH_CELL = ("qwen-r1-1.5b", "prefill_32k")
+MESH_LAYERS = 4                    # (a)'s depth
 
 
-def phase_mesh(torch, card="", device="cuda", layers=SERVE_LAYERS,
+def phase_mesh(torch, card="", device="cuda", layers=MESH_LAYERS,
                prefill=MESH_PREFILL, train=MESH_TRAIN, dry_run=True):
     """Phase 5k (see the module docstring).  On the CPU (``device="cpu"``:
     a gloo group, the smoke config, the plain flash version) it rehearses
@@ -5312,6 +5350,287 @@ def phase_mesh_dryrun(torch, card=""):
         raise AssertionError(f"phase 5k (b): measured peak / MemTracker = "
                              f"{ratio:.4f}, outside {MESH_PEAK_TOL}")
     return rec
+
+
+# -- phase 5l: the paper's own models at full depth ---------------------------
+
+# the paper's models 5l serves at their published widths and full depth, in
+# this order (each freed before the next loads)
+PAPER_SERVED = ("llama32-1b", "qwen-r1-7b", "qwen-r1-32b")
+# the DMS delay window 5l serves at: llama's own 16; the Qwen-R1 configs'
+# 256 cut to 16, so that DMS evicts within a trace the time limit allows
+PAPER_WINDOW = 16
+# (prompts, new tokens) of the four staggered requests on four lanes, one
+# decode step a token: 72 decode steps for llama and the 7B, 64 for the
+# 32B (the script's time: a 32B step costs ~0.35 s of host time)
+PAPER_TRACE = {"llama32-1b": ((48, 40, 32, 24), (24, 16, 16, 24)),
+               "qwen-r1-7b": ((48, 40, 32, 24), (24, 16, 16, 24)),
+               "qwen-r1-32b": ((48, 40, 32, 24), (16, 8, 8, 16))}
+PAPER_PAGED = ("llama32-1b", "qwen-r1-7b")      # (d): the 32B fixed only
+PAPER_TF = 16             # (c): teacher-forced kernel-vs-reference steps
+PAPER_PROFILED = ("qwen-r1-7b", "qwen-r1-32b")
+# steps a profiled run: the profiler's cost grows with the ops, ~24 000 a
+# step at the 32B
+PAPER_PROFILE_STEPS = 1
+# the memory line: dms's decode state at the config's own CR and window on
+# 4 lanes of 32768 tokens, allocated beside the 32B's weights
+PAPER_MEMORY = ("qwen-r1-32b", 4, 32768)
+# what may stay allocated on the card when a model of 5l loads
+PAPER_HELD = 1 << 30
+
+
+def paper_arch(arch):
+    """``arch`` with the DMS delay window 5l serves at."""
+    return dataclasses.replace(arch, dms=dataclasses.replace(
+        arch.dms, window=min(arch.dms.window, PAPER_WINDOW)))
+
+
+def paper_policy(arch):
+    """5l's policy keywords: ``dms`` at the config's target CR."""
+    return dict(kind="dms", cr=arch.dms.target_cr)
+
+
+def paper_layouts(arch, trace=None, tf=PAPER_TF):
+    """Every (policy keywords, lanes, max_len) 5l builds a decode state for
+    with ``arch`` (its served window): serving fixed (the profile's too)
+    and, for ``PAPER_PAGED``, paged; the kernel-vs-reference trace."""
+    lens, news = (trace or PAPER_TRACE)[arch.name]
+    kw, max_len = paper_policy(arch), max(a + b for a, b in zip(lens, news))
+    out = [(kw, len(lens), max_len)]
+    if arch.name in PAPER_PAGED:
+        out.append((dict(kw, paged=True), len(lens), max_len))
+    return out + [(kw, 2, tf + 16)]
+
+
+def paper_decode_keys(archs=None, **kw):
+    """Every decode launch shape 5l makes (``paper_layouts`` of each model
+    at full width, or of ``archs``)."""
+    from repro_torch.configs import get_arch
+    keys = set()
+    for arch in archs or [paper_arch(get_arch(n)) for n in PAPER_SERVED]:
+        for pol, lanes, max_len in paper_layouts(arch, **kw):
+            keys.update(state_keys(arch, pol, lanes, max_len))
+    return keys
+
+
+def tree_bytes(tree):
+    """(bytes, elements) of every tensor leaf of ``tree``."""
+    from repro_torch.core.tree import tree_leaves
+    leaves = tree_leaves(tree)
+    return (sum(a.numel() * a.element_size() for a in leaves),
+            sum(a.numel() for a in leaves))
+
+
+def paper_memory(torch, setup, lanes, tokens, own_window, weight_bytes,
+                 free_after_load):
+    """The paper's memory axis beside the weights: ``dms`` at the config's
+    CR and own delay window (``own_window``) on ``lanes`` lanes of
+    ``tokens`` tokens, its decode state allocated with ``init_decode_state``
+    next to the served weights; vanilla's arena for the same lanes and
+    length counted on one layer and one lane of host memory, not
+    allocated on the card."""
+    from repro_torch.core import policy as policy_lib
+    from repro_torch.core.config import KVPolicyConfig
+    from repro_torch.core.kv_cache import SlotDMSCache
+    from repro_torch.models import transformer as tfm
+    arch, device = setup["arch"], setup["device"]
+    cuda = device == "cuda"
+    own = dataclasses.replace(arch, dms=dataclasses.replace(
+        arch.dms, window=own_window))
+    cfg = KVPolicyConfig(**paper_policy(own))
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    before = torch.cuda.memory_allocated() if cuda else 0
+    state = tfm.init_decode_state(own, lanes, tokens, cfg, device=device)
+    grew = (torch.cuda.memory_allocated() - before) if cuda else 0
+    free = torch.cuda.mem_get_info()[0] if cuda else 0
+    dms_bytes = policy_lib.state_peak_bytes(state)
+    del state
+    one = tfm.init_decode_state(dataclasses.replace(own, num_layers=1), 1,
+                                tokens, KVPolicyConfig(kind="vanilla"),
+                                device="cpu")
+    vanilla_bytes = (policy_lib.state_peak_bytes(one) * own.num_layers
+                     * lanes)
+    slots = SlotDMSCache.provision_slots(tokens, cfg.cr, own_window)
+
+    def gb(x):
+        return f"{x / 1e9:.2f} GB" if cuda else "not measured (CPU)"
+    room = (f"; {'more' if vanilla_bytes > free_after_load else 'less'} than"
+            f" the {gb(free_after_load)} free beside the weights"
+            if cuda else "")
+    log(f"5l memory ({arch.name}, {arch.num_layers} layers): bf16 weights "
+        f"{weight_bytes / 1e9:.2f} GB; free after the weights loaded "
+        f"{gb(free_after_load)} (mem_get_info); peak allocated since the "
+        f"load {gb(peak)} (max_memory_allocated); dms decode state at CR "
+        f"{cfg.cr:g}, delay window {own_window}, {lanes} lanes x {tokens} "
+        f"tokens: {slots} slots a kv head, {dms_bytes / 1e9:.2f} GB "
+        f"(state_peak_bytes; the allocator grew {gb(grew)}) allocated beside "
+        f"the weights, {gb(free)} still free; vanilla at the same lanes and "
+        f"length: {vanilla_bytes / 1e9:.2f} GB (counted, not allocated)"
+        f"{room}")
+    if not dms_bytes < vanilla_bytes:
+        raise AssertionError(f"5l memory: dms's state {dms_bytes} B is not "
+                             f"below vanilla's {vanilla_bytes} B")
+    return {"dms_bytes": dms_bytes, "vanilla_bytes": vanilla_bytes,
+            "slots": slots}
+
+
+def phase_paper(torch, device="cuda", checked=None, *, trace=None,
+                tf=PAPER_TF, memory=PAPER_MEMORY):
+    """Phase 5l: llama32-1b, qwen-r1-7b and qwen-r1-32b at their published
+    widths and full depth, random bf16 weights from seed 0 drawn on the
+    device, ``dms`` at each config's target CR with the bias that evicts at
+    that rate and the delay window ``paper_arch`` serves.  Each model: (a)
+    ``arch_serve`` of four staggered requests (``trace``) on four lanes,
+    greedy, through the decode kernel, fixed and, for ``PAPER_PAGED``,
+    paged ((d): tokens equal); (e) each request's peak live tokens below
+    vanilla's count; (c) a ``policy_paths`` trace of ``tf`` steps; a
+    profiled step for ``PAPER_PROFILED``; the memory line for
+    ``memory``'s model.  Every decode step must run the kernel in every
+    layer (``attn_impl_kernel``), and every decode launch must be at a
+    shape phase 3 checked (``checked``; on the CPU, the shapes
+    ``paper_layouts`` predicts).  Each model is freed before the next
+    loads.  Returns the main path's decode launches by shape and the
+    profiles."""
+    import collections
+    import gc
+    from repro_torch.configs import get_arch, get_smoke
+    from repro_torch.core.config import KVPolicyConfig
+    from repro_torch.kernels.dms_decode import ops
+    from repro_torch.models import transformer as tfm
+    cuda = device == "cuda"
+    trace = trace or PAPER_TRACE
+    main = collections.Counter()
+    seen, flag = set(), {"main": True}
+    real_rows, real_step = ops.decode_rows, tfm.decode_step
+
+    def counting(qf, kf, vf, valf, tblf, nf, block_p, *args, **kw):
+        key = launch_key(qf, kf, tblf, block_p, kw.get("shared_kv"))
+        seen.add(key)
+        if flag["main"]:
+            main[key] += 1
+        return real_rows(qf, kf, vf, valf, tblf, nf, block_p, *args, **kw)
+
+    def kernel_step(*args, **kw):
+        out = real_step(*args, **kw)
+        if kw.get("use_kernel") and out[2]["attn_impl_kernel"] != 1:
+            raise AssertionError("phase 5l: a decode step left the kernel")
+        return out
+
+    out = {"launches": main, "profiles": {}}
+    expected = set()
+    t_lap = [time.perf_counter()]
+
+    def lap(what):
+        now = time.perf_counter()
+        log(f"seconds: {what} {now - t_lap[0]:.1f}")
+        t_lap[0] = now
+
+    ops.decode_rows, tfm.decode_step = counting, kernel_step
+    try:
+        for name in PAPER_SERVED:
+            t0 = time.perf_counter()
+            full = (get_arch if cuda else get_smoke)(name)
+            held = 0
+            if cuda:
+                gc.collect()
+                torch.cuda.empty_cache()
+                held = torch.cuda.memory_allocated()
+                if held > PAPER_HELD:
+                    raise AssertionError(f"5l: {held} B still allocated on "
+                                         f"the card before {name} loads")
+            lens, news = trace[name]
+            setup = serving_setup(
+                torch, device=device, arch_name=name, lens=lens, news=news,
+                cr=full.dms.target_cr,
+                dms_window=paper_arch(full).dms.window)
+            arch, params = setup["arch"], setup["params"]
+            weight_bytes, n_params = tree_bytes(params)
+            free = torch.cuda.mem_get_info()[0] if cuda else 0
+            floor_ms = 1e3 * weight_bytes / HBM_BYTES_PER_S
+            log(f"5l {name}: full depth, {arch.num_layers} of its "
+                f"{full.num_layers} layers; {n_params / 1e9:.2f} B params, "
+                f"{weight_bytes / 1e9:.2f} GB of weights (a read of them "
+                f"all {floor_ms:.2f} ms at 3.35 TB/s); "
+                + (f"{held} B allocated before the load, {free / 1e9:.2f} "
+                   "GB free on the card after it (mem_get_info); "
+                   if cuda else "")
+                + f"dms at CR {arch.dms.target_cr:g}, delay window "
+                f"{arch.dms.window} (the config's {full.dms.window})")
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            else:
+                expected |= paper_decode_keys([arch], trace=trace, tf=tf)
+            kw = paper_policy(arch)
+            flag["main"] = True
+            results = arch_serve(
+                torch, setup, f"5l (a) {name}", kw=kw, uids=(0, 1, 2, 3),
+                layouts=(False, True) if name in PAPER_PAGED else (False,))
+            peaks = [results[u].meter.peak_tokens for u in range(len(lens))]
+            vanillas = [arch.num_layers * (a + b) for a, b in zip(lens, news)]
+            if not all(p < v for p, v in zip(peaks, vanillas)):
+                raise AssertionError(f"5l (e) {name}: peak live tokens "
+                                     f"{peaks}, vanilla's {vanillas}")
+            log(f"5l (e) {name}: peak live tokens a request (summed over "
+                f"layers, mean over kv heads) {peaks}, below the "
+                f"{vanillas} vanilla would hold (fractions "
+                f"{[round(p / v, 4) for p, v in zip(peaks, vanillas)]})")
+            lap(f"5l load, (a), (d), (e) {name}")
+            flag["main"] = False
+            policy_paths(torch, setup, {f"{name} ({arch.num_layers} "
+                                        "layers)": (arch, kw)},
+                         steps=tf, what="5l (c)")
+            lap(f"5l (c) {name}")
+            if name in PAPER_PROFILED:
+                key = f"{name} 5l"
+                prof = phase_profile(
+                    torch, params, arch, {key: KVPolicyConfig(**kw)},
+                    lanes=len(lens), max_len=setup["max_len"],
+                    device=device, steps=PAPER_PROFILE_STEPS)[key]
+                busy = (f"{prof['device_ms']:.3f} ms device time, busy "
+                        f"share {prof['device_ms'] / prof['wall_ms']:.4f}"
+                        if prof["device_ms"] else "device time not measured")
+                log(f"5l profile: {name} at {arch.num_layers} layers, "
+                    f"{len(lens)} lanes: {prof['wall_ms']:.2f} ms a decode "
+                    f"step = {prof['wall_ms'] / arch.num_layers:.3f} ms a "
+                    f"layer; {prof['ops'] / arch.num_layers:.1f} ATen ops a "
+                    f"layer; {busy}; beside the weight-read floor "
+                    f"{floor_ms:.2f} ms")
+                out["profiles"][name] = dict(prof, floor_ms=floor_ms)
+                lap(f"5l profile {name}")
+            if name == memory[0]:
+                out["memory"] = paper_memory(torch, setup, *memory[1:],
+                                             full.dms.window, weight_bytes,
+                                             free)
+            del setup, params, results
+            t_lap[0] = time.perf_counter()
+            log(f"seconds: 5l {name} {t_lap[0] - t0:.1f}")
+    finally:
+        ops.decode_rows, tfm.decode_step = real_rows, real_step
+    if cuda:
+        gc.collect()
+        torch.cuda.empty_cache()
+    checked = checked if checked is not None else expected
+    if not seen <= set(checked):
+        raise AssertionError(f"phase 5l launched the decode kernel at "
+                             f"{sorted(seen - set(checked))}, not among phase"
+                             f" 3's checked {sorted(checked)}")
+    log(f"phase 5l's decode launch shapes {sorted(seen)}: each checked in "
+        "phase 3")
+    return out
+
+
+def phase_paper_timing(torch, launches, errs):
+    """Phase 7's rows for 5l: the decode kernel at each model's serving
+    shapes (``paper_layouts``' serving layouts: fixed, and shared-pool for
+    ``PAPER_PAGED``), each with its launches in 5l."""
+    from repro_torch.configs import get_arch
+    gen = torch.Generator(device="cuda").manual_seed(96)
+    rows = []
+    for name in PAPER_SERVED:
+        arch = paper_arch(get_arch(name))
+        rows += layout_rows(torch, gen, arch, paper_layouts(arch)[:-1],
+                            launches, errs, tag=", 5l full depth")
+    return rows
 
 
 def phase_train(torch, device="cuda", arch_name="qwen-r1-1.5b", seq_len=1024,
@@ -5934,6 +6253,8 @@ def main() -> int:
     check_decode_keys(torch, dh256_keys, what="phase 5i", caps=dh256_keys)
     dh256_flash_errs = flash_vs_plain(torch, dh256_flash_cases(),
                                       every_twice=True)
+    paper_keys = paper_decode_keys()
+    _, paper_errs = check_decode_keys(torch, paper_keys, what="phase 5l")
     lap("phases 1-3")
     served = phase_serve(torch, shallow)
     lap("phase 4")
@@ -5984,6 +6305,8 @@ def main() -> int:
     lap("phase 5i")
     phase_mesh(torch, card)
     lap("phase 5k")
+    paper = phase_paper(torch, checked=paper_keys)
+    lap("phase 5l")
     trained = phase_train(torch)
     lap("phase 6")
     kernels = phase_timing(torch, main_shape, {"fixed": served["launches"],
@@ -6001,6 +6324,7 @@ def main() -> int:
     kernels += phase_encdec_timing(torch, encdec, encdec_errs,
                                    encdec_flash_errs)
     kernels += phase_dh256_timing(torch, dh256, dh256_flash_errs)
+    kernels += phase_paper_timing(torch, paper["launches"], paper_errs)
     lap("phase 7")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

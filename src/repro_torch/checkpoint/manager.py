@@ -13,7 +13,17 @@ The reference's ``repro.checkpoint.manager`` on torch tensors:
   ``restore`` pick up after preemption;
 * a DTensor leaf is saved whole (its ``full_tensor``), and ``restore(...,
   shardings=)`` places each leaf on a mesh again — on any mesh and
-  placements: the elastic re-shard.
+  placements: the elastic re-shard;
+* under an initialised process group of more than one rank, one writer:
+  every rank takes part in each leaf's gather (``full_tensor`` is a
+  collective), rank 0 alone writes ``step_N.tmp/``, renames it and prunes
+  old steps, and every rank meets at a barrier before ``save`` returns
+  (``blocking=False``: before ``wait`` returns), so no rank reads a
+  half-written step.  ``restore`` reads the one manifest on every rank.
+
+The reference plans per-host shards at scale, each host writing only the
+shards it owns under the same manifest; this port, like the reference,
+writes whole leaves from one process.
 """
 from __future__ import annotations
 
@@ -26,6 +36,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 _SEP = "\x1d"
 
@@ -88,10 +99,23 @@ def _named_shardings(tree: Any, prefix: Tuple[str, ...] = ()
     return out
 
 
-def _to_numpy(x: torch.Tensor) -> np.ndarray:
+def _world() -> Tuple[int, int]:
+    """(rank, world size) of the default process group; (0, 1) without
+    one."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def _whole(x: torch.Tensor) -> torch.Tensor:
     x = x.detach()
     if hasattr(x, "full_tensor"):          # a DTensor: its whole value
-        x = x.full_tensor()
+        x = x.full_tensor()                # (a collective: every rank calls)
+    return x
+
+
+def _to_numpy(x: torch.Tensor) -> np.ndarray:
+    x = _whole(x)
     if x.dtype == torch.bfloat16:
         x = x.float()
     return x.cpu().numpy()
@@ -105,12 +129,23 @@ class CheckpointManager:
         self.keep_last = keep_last
         self.keep_every = keep_every
         self._thread: Optional[threading.Thread] = None
+        self._pending = False          # a non-blocking save not yet met
 
     # -- writing -------------------------------------------------------------
 
     def save(self, step: int, tree: Any, extra: Optional[Dict] = None,
              blocking: bool = True) -> None:
         named = _named_leaves(tree)
+        rank, world = _world()
+        if rank != 0:                      # the gathers only: rank 0 writes
+            for _, x in named:
+                _whole(x)
+            self.wait()
+            if blocking:
+                dist.barrier()
+            else:
+                self._pending = True
+            return
         # device -> host before handing to the writer thread
         host = [(n, str(x.dtype).removeprefix("torch."), _to_numpy(x))
                 for n, x in named]
@@ -137,14 +172,23 @@ class CheckpointManager:
 
         if blocking:
             write()
+            if world > 1:
+                dist.barrier()
         else:
             self._thread = threading.Thread(target=write, daemon=True)
             self._thread.start()
+            self._pending = world > 1
 
     def wait(self) -> None:
+        """Until the last non-blocking save is on disk; under more than one
+        rank every rank calls it, and it returns once rank 0's write is
+        done."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._pending:
+            self._pending = False
+            dist.barrier()
 
     def _gc(self) -> None:
         steps = self.steps()

@@ -620,6 +620,45 @@ def test_decode_split_rule_shapes(cuda_device, bh, g, dh, nb):
         *fixed, BP, splits=splits).float(), **BF16)
 
 
+# (B·Hkv, G, Dh, table entries) of phase 5l: qwen-r1-32b's G 5 at Dh 128 and
+# llama32-1b's G 4 at Dh 64 on 4 lanes of 8 kv heads, at their served
+# arenas (48 and 64 slots) and over a 40-entry table
+PAPER_SHAPES = [(32, 5, 128, 3), (32, 4, 64, 4), (32, 5, 128, 40),
+                (32, 4, 64, 40)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,g,dh,nb", PAPER_SHAPES,
+                         ids=[f"G{g}-Dh{dh}-nb{nb}"
+                              for _, g, dh, nb in PAPER_SHAPES])
+def test_decode_paper_groupings_match_plain(cuda_device, bh, g, dh, nb):
+    """The paper's models' head groupings, served in phase 5l: G 5 leaves
+    11 of the tensor-core tile's 16 rows empty, G 4 runs at Dh 64.  Fixed
+    arenas and the shared pool (NaN in every unlisted block and page, rows
+    of n = 0, 1 and NB_tbl) give the same bits, on a second launch too,
+    and agree with the plain version and with the plain version of the
+    kernel's split."""
+    from repro_torch.kernels.dms_decode.ref import dms_decode_plain_split
+    fixed, shared = _split_case(cuda_device, g, dh, nb, seed=g * nb,
+                                front_only=False, bh=bh)
+    splits = ops.launch_splits(fixed[0], nb)
+    before = (ops.launches, ops.shared_launches)
+    runs = [(ops.decode_rows(*fixed, BP), ops.decode_rows(*shared, BP,
+                                                          shared_kv=True))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert (ops.launches, ops.shared_launches) == (before[0] + 2,
+                                                   before[1] + 2)
+    (out_f, out_s), (again_f, again_s) = runs
+    assert torch.equal(out_f, out_s)
+    assert torch.equal(out_f, again_f) and torch.equal(out_s, again_s)
+    assert torch.isfinite(out_f.float()).all() and not out_f[0].float().any()
+    torch.testing.assert_close(out_f.float(), dms_decode_plain(
+        *fixed, BP).float(), **BF16)
+    torch.testing.assert_close(out_f.float(), dms_decode_plain_split(
+        *fixed, BP, splits=splits).float(), **BF16)
+
+
 # -- flash attention: fwd, dq, dkv -------------------------------------------
 
 

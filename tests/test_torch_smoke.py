@@ -138,3 +138,39 @@ def test_cut_depth_serves_the_first_layers():
     logits, _, _ = tfm.decode_step(cut["params"], torch.tensor([[5], [9]]),
                                    state, cut["arch"], 0)
     assert torch.isfinite(logits).all()
+
+
+def test_smoke_paper_phase_on_the_cpu(capsys):
+    """Phase 5l on the smoke configs of llama32-1b, qwen-r1-7b and
+    qwen-r1-32b (plain kernel versions, a short trace): every request ok,
+    the pool's tokens equal the fixed arenas' for llama and the 7B (the
+    32B fixed only), live tokens below vanilla's, the kernel-vs-reference
+    trace, the profiles of the 7B and the 32B, the memory line, and every
+    launch at a shape ``paper_layouts`` predicts."""
+    trace = {name: ((24, 18, 12, 8), (6, 4, 3, 6))
+             for name in chip_smoke.PAPER_SERVED}
+    out = chip_smoke.phase_paper(torch, device="cpu", trace=trace, tf=4,
+                                 memory=("qwen-r1-32b", 4, 256))
+    printed = capsys.readouterr().out
+    for name in chip_smoke.PAPER_SERVED:
+        assert f"5l (a) {name}: requests [0, 1, 2, 3]" in printed
+        assert f"5l (e) {name}: peak live tokens" in printed
+        assert f"5l (c): {name} (2 layers) kernel vs reference" in printed
+    assert printed.count("tokens equal to the fixed arenas'") == 2
+    assert sorted(out["profiles"]) == ["qwen-r1-32b", "qwen-r1-7b"]
+    assert 0 < out["memory"]["dms_bytes"] < out["memory"]["vanilla_bytes"]
+    assert "phase 5l's decode launch shapes" in printed
+    # the plain versions launch nothing; the wrapper was called on the path
+    assert sum(out["launches"].values()) > 0
+
+
+def test_paper_launch_keys_keep_each_models_head_grouping():
+    """The shapes phase 3 checks for 5l at full width: llama32-1b's G 4 at
+    Dh 64, qwen-r1-7b's G 7 and qwen-r1-32b's G 5 at Dh 128, over B·Hkv
+    of 4 lanes (and 2 for the teacher-forced trace); shared-pool shapes for
+    llama and the 7B only."""
+    keys = chip_smoke.paper_decode_keys()
+    groups = {(k[1], k[2]) for k in keys}
+    assert groups == {(4, 64), (7, 128), (5, 128)}
+    assert {k[:3] for k in keys if len(k) == 7} == {(32, 4, 64), (16, 7, 128)}
+    assert (32, 5, 128, 48, 16) in keys and (16, 5, 128, 48, 16) in keys
