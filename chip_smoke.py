@@ -121,12 +121,13 @@ Phases (any failure raises, so the exit code is non-zero):
               smoke config with the prefix cache: every request ok.
 5f. families — gemma2-2b, chatglm3-6b, qwen2-vl-7b (its text path) and
               granite-moe-3b-a800m at full width, random bf16 weights from
-              seed 0 and phase 4's DMS bias: (a) gemma2 at 4 layers (two
-              superblocks of a local and a global layer) serving phase 4's
+              seed 0 and phase 4's DMS bias: (a) gemma2 at 2 layers (one
+              superblock of a local and a global layer: the script's
+              time) serving phase 4's
               prompts with 32/24/16/32 new tokens on 4 lanes under
               ``layer_map={"attn_local": "window", "attn": "dms"}`` (a
               4097-slot ring at its 4096-token window, dms at CR 8), fixed
-              then paged: tokens equal, 4 launches a step; a 48-step
+              then paged: tokens equal, 2 launches a step; a 48-step
               kernel-vs-reference trace; (b) gemma2 at one superblock, one
               lane: a 4160-token prompt and 16 new tokens, the lane
               snapshot after the prompt (the local layer at its ring, the
@@ -142,17 +143,18 @@ Phases (any failure raises, so the exit code is non-zero):
 5g. hybrids — recurrentgemma-2b (RG-LRU and local attention, G 10 at Dh
               256, a 2048-token window) and mamba2-2.7b (SSD, no
               attention) at full width, random bf16 weights from seed 0 and
-              phase 4's DMS bias: (a) recurrentgemma at 4 layers (two
-              superblocks of an RG-LRU and a local layer) serving phase 4's
+              phase 4's DMS bias: (a) recurrentgemma at 2 layers (one
+              superblock of an RG-LRU and a local layer: the script's
+              time) serving phase 4's
               prompts with 32/24/16/32 new tokens on 4 lanes, dms at CR 8
-              on the local layers, fixed then paged (tokens equal, 2
-              launches a step), and requests 3 and 1 on its 2049-slot
+              on the local layers, fixed then paged (tokens equal, 1
+              launch a step), and requests 3 and 1 on its 2049-slot
               window rings; a 48-step kernel-vs-reference trace; (b)
               recurrentgemma at one superblock, one lane: a 2112-token
               prompt and 16 new under dms and under window (the RG-LRU
               state carried through the prompt, the ring recycled), then
               16 teacher-forced steps from the snapshot on both paths; (c)
-              mamba2 at 4 layers: requests 3 and 1 with vanilla, fixed and
+              mamba2 at 2 layers: requests 3 and 1 with vanilla, fixed and
               paged, tokens equal, no pool, no decode launch; (d) three
               requests sharing a 256-token prefix through one prefix cache
               on recurrentgemma at one superblock: warm tokens and
@@ -167,9 +169,10 @@ Phases (any failure raises, so the exit code is non-zero):
               through ``make_serve_step`` with the encoder output, dms at CR
               8: two decode launches a decoder layer a step (self-attention
               on fixed arenas, the cross-attention through the wrapper's
-              dense mode); a profiled step; (b) the same trace at 4 decoder
-              layers (the encoder whole), fixed then paged: tokens equal; (c)
-              48 teacher-forced steps at 4 layers, kernel against reference
+              dense mode); a profiled step; (b) the same trace at 2 decoder
+              layers (the encoder whole), fixed then paged: tokens equal;
+              (c)
+              48 teacher-forced steps at 2 layers, kernel against reference
               path, lane 1's last 200 frames hidden, and the encoder's output
               through the kernel against the reference path's; (d) one
               ``make_train_step`` at 2 + 2 layers (B 2, 1024 tokens, 1024
@@ -248,6 +251,26 @@ Phases (any failure raises, so the exit code is non-zero):
               dms's decode state (CR 8, window 256) at 4 lanes x 32768
               tokens allocated beside the weights, vanilla's counted.
               Every launch shape must be one phase 3 checked.
+5m. reasoner — ``python -m repro_torch.examples.hyperscale_serve``'s path
+              with trained weights, at the demo's own width (the smoke
+              qwen-r1-1.5b at vocab 64: 2 layers, d 64, 4/2 heads of 16).
+              (b) ``trained_reasoner(200)`` on chain_arith (B 32, T 32)
+              through the flash kernels: 200 pretrain and 100 DMS retrofit
+              steps, every step's attention on the kernels (the launch
+              counts), the first 10 losses of each stage within 2e-2 of
+              the CPU plain path's from the same params and Gumbel draws.
+              (c) The demo's evaluations at temperature 0.7 on 16 problems
+              (vanilla 40-1-1, dms 40-4-4 under the model's learned α):
+              every request ok, one decode launch a layer a step, dms's
+              peak tokens a chain below vanilla's, the 4 chains' prefill
+              reads equal to one chain's (one forked prefill), 40
+              teacher-forced steps of each within 0.05 x max |logit| of
+              the reference path.  (d) Reported: accuracies, kv_reads and
+              peak tokens, the trained eviction rate per layer against
+              1 - 1/CR, the same evaluations on the CPU's plain path, the
+              seconds of each part.  Phase 3 checks the decode kernel at
+              every shape 5m launches (G 2, Dh 16) and fwd, dq and dkv at
+              T 32, Dh 16 (run at 64), vanilla and dms_train, before.
 6. train    — qwen-r1-1.5b at full width, fp32 weights from seed 0, DMS
               retrofit (one phase-1 step, three distillation steps) on the
               synthetic stream at (B 2, T 1024) through the flash kernels:
@@ -305,8 +328,9 @@ launches (``dh256_decode_keys``); phase 7 times the three flash kernels at
 gemma2's and recurrentgemma's retrofit shapes and ``flash_fwd`` at gemma2's
 prefill export.  Phase 3 holds both decode modes at every shape 5l
 launches (``paper_decode_keys``: G 4 at Dh 64, G 7 and G 5 at Dh 128), and
-phase 7 times the kernel at 5l's serving shapes.  The decode kernel's split
-count follows ``ops.splits`` (B*Hkv and the SM count); ``decode_split_sweep`` times it at every count on
+phase 7 times the kernel at 5l's serving shapes, and at 5m's (G 2, Dh
+16) beside the three flash kernels at its retrofit shape.  The decode
+kernel's split count follows ``ops.splits`` (B*Hkv and the SM count); ``decode_split_sweep`` times it at every count on
 the shapes that lost to SDPA, beside an earlier kernel's source.  The last
 four lines are the script's total seconds, the ``kernels`` JSON line, the
 card's name and power limit (again) and the result line ``{"ok": true,
@@ -317,9 +341,12 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -3350,8 +3377,8 @@ def phase_prefill_timing(torch, launches, err,
 # -- phase 5f: gemma2, chatglm3, qwen2-vl and granite ------------------------
 
 # the families 5f serves and the layers it serves of each (the time limit):
-# two superblocks of gemma2's local and global layers, two layers else
-ARCH_LAYERS = {"gemma2-2b": 4, "chatglm3-6b": 2, "qwen2-vl-7b": 2,
+# one superblock of gemma2's local and global layers, two layers else
+ARCH_LAYERS = {"gemma2-2b": 2, "chatglm3-6b": 2, "qwen2-vl-7b": 2,
                "granite-moe-3b-a800m": 2}
 # checked in phase 3 and timed in phase 7, not served: granite-1b's G 2 at
 # Dh 64 (granite-3b's G 3 serves)
@@ -3783,9 +3810,9 @@ def phase_arch_timing(torch, launches, errs, flash_launches, flash_err):
 # -- phase 5g: the hybrids recurrentgemma-2b and mamba2-2.7b -----------------
 
 # the hybrids 5g serves and the layers it serves of each (the script's time;
-# both fit one card whole): two superblocks of recurrentgemma's (rglru,
-# attn_local), four of mamba2's 64 SSD layers
-HYBRID_LAYERS = {"recurrentgemma-2b": 4, "mamba2-2.7b": 4}
+# both fit one card whole): one superblock of recurrentgemma's (rglru,
+# attn_local), two of mamba2's 64 SSD layers
+HYBRID_LAYERS = {"recurrentgemma-2b": 2, "mamba2-2.7b": 2}
 # (b): a prompt past recurrentgemma's 2048-token local window, then new tokens
 HYBRID_WINDOW = (2048 + 64, 16)
 # (d): three requests sharing a PREFIX_LEN-token prefix, PREFIX_NEW new each
@@ -4105,8 +4132,9 @@ ENCDEC = "seamless-m4t-large-v2"
 # (a) lanes, encoder frames a lane, teacher-forced prompt tokens and greedy
 # new tokens a lane (dms evicts past its 256-token delay)
 ENCDEC_LANES, ENCDEC_FRAMES, ENCDEC_PROMPT, ENCDEC_NEW = 4, 1024, 320, 32
-# (b) and (c): the decoder layers served (the encoder stays whole)
-ENCDEC_SHALLOW = 4
+# (b) and (c): the decoder layers served (the encoder stays whole; the
+# script's time)
+ENCDEC_SHALLOW = 2
 # (c): teacher-forced kernel-vs-reference steps; lane 1's hidden tail frames
 ENCDEC_TRACE, ENCDEC_TAIL = 48, 200
 # (d): one train step: encoder and decoder layers each, batch, decoder
@@ -5633,6 +5661,452 @@ def phase_paper_timing(torch, launches, errs):
     return rows
 
 
+# -- phase 5m: the hyper-scaling demo with trained weights --------------------
+
+# `python -m repro_torch.examples.hyperscale_serve`'s run: the recipe's
+# steps (and half as many retrofit steps), its eval problems, and L = the
+# prompt + REASONER_NEW tokens
+REASONER_STEPS = 200
+REASONER_EVAL = 16
+REASONER_NEW = 8
+REASONER_HELD = 10       # (b): the first steps of each stage held on the CPU
+REASONER_TF = 40         # (c): teacher-forced kernel-vs-reference steps
+# (b): a loss within this of the CPU plain path's, relative to the larger of
+# |loss| and REASONER_LOSS_FLOOR: the first retrofit steps distil a student
+# that still equals its teacher (loss ~1e-5), whose bf16 noise is absolute
+REASONER_LOSS_TOL = 2e-2
+REASONER_LOSS_FLOOR = 5e-3
+
+
+def reasoner_setup(steps=REASONER_STEPS):
+    """The demo's (arch, task, max_len)."""
+    from repro_torch.examples.reasoner import reasoner_config
+    arch, task = reasoner_config(steps)
+    return arch, task, task.prompt_len + REASONER_NEW
+
+
+def reasoner_runs(arch):
+    """The demo's two evaluations: name -> (policy keywords, W, CR)."""
+    return {"vanilla": (dict(kind="vanilla"), 1, 1.0),
+            "dms": (dict(kind="dms", cr=arch.dms.target_cr,
+                         window=arch.dms.window), 4, arch.dms.target_cr)}
+
+
+def reasoner_layouts(arch, max_len, tf=REASONER_TF):
+    """Every (policy keywords, lanes, max_len) 5m builds a decode state
+    for: each evaluation on W lanes, dms's one-chain prefill check, and the
+    teacher-forced trace (two lanes of ``tf + 16``)."""
+    runs = reasoner_runs(arch)
+    return ([(kw, width, max_len) for kw, width, _ in runs.values()]
+            + [(runs["dms"][0], 1, max_len)]
+            + [(kw, 2, tf + 16) for kw, _, _ in runs.values()])
+
+
+def reasoner_decode_keys(tf=REASONER_TF):
+    """Every decode launch shape 5m makes (fixed arenas, G 2, Dh 16)."""
+    arch, _, max_len = reasoner_setup()
+    return {key for pol, lanes, ml in reasoner_layouts(arch, max_len, tf)
+            for key in state_keys(arch, pol, lanes, ml)}
+
+
+def reasoner_flash_cases():
+    """{name: ``flash_case`` keywords} of every flash launch shape 5m's
+    training makes (B 32, T 32, Hq 4, Hkv 2, Dh 16, bf16, causal): the
+    pretrain's and the teacher's vanilla attention, and the retrofit
+    student's ``dms_train`` (relaxed α, delay = the DMS window 4)."""
+    from repro_torch.examples.reasoner import BATCH
+    arch, task, _ = reasoner_setup()
+    a = arch.attn
+    head = dict(b=BATCH, t=task.prompt_len, hq=a.num_heads,
+                hkv=a.num_kv_heads, dh=a.head_dim, dtype=arch.dtype)
+    return {"5m vanilla (pretrain, teacher)": dict(head, alpha=None),
+            "5m dms_train (retrofit student)": dict(
+                head, alpha="relaxed", delay=arch.dms.window)}
+
+
+def reasoner_cpu_evals(path, steps, n_eval):
+    """(d)'s CPU side, in a process of its own: the demo's two evaluations
+    through the port's plain path on the CPU with the params saved at
+    ``path``.  Returns {name: ``evaluate_hyperscale``'s dict}."""
+    import torch
+    from repro_torch.core.config import KVPolicyConfig
+    from repro_torch.core.hyperscale import ScalingConfig
+    from repro_torch.data import tasks
+    from repro_torch.serving.engine import Engine, evaluate_hyperscale
+    torch.set_num_threads(1)
+    params = torch.load(path)
+    arch, task, max_len = reasoner_setup(steps)
+    prompts, answers = tasks.make_eval_set(task, n_eval)
+    return {name: evaluate_hyperscale(
+        Engine(arch, params, KVPolicyConfig(**kw), use_kernel=False,
+               temperature=0.7, device="cpu"),
+        prompts, answers, ScalingConfig(max_len, width, cr))
+        for name, (kw, width, cr) in reasoner_runs(arch).items()}
+
+
+def start_cpu_evals(torch, params, steps, n_eval, tmp):
+    """Start ``reasoner_cpu_evals`` in a child process on the CPU alone (the
+    card hidden from it), on a copy of ``params`` saved under ``tmp``, so
+    that it runs while the card serves.  Returns the process; its stdout's
+    last line is the JSON of the results."""
+    from repro_torch.core.tree import tree_map
+    path = Path(tmp) / "reasoner_params.pt"
+    torch.save(tree_map(lambda x: x.detach().cpu(), params), path)
+    code = ("import json, sys; sys.path[:0] = [sys.argv[1], sys.argv[2]]; "
+            "import chip_smoke; print(json.dumps(chip_smoke.reasoner_cpu_evals("
+            "sys.argv[3], int(sys.argv[4]), int(sys.argv[5]))))")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    return subprocess.Popen(
+        [sys.executable, "-c", code, str(ROOT), str(SRC), str(path),
+         str(steps), str(n_eval)], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env)
+
+
+def finish_cpu_evals(proc, timeout=300):
+    """The results of ``start_cpu_evals``' process, once it has ended."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        raise AssertionError(f"5m (d): the CPU evaluations failed: "
+                             f"{err[-2000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def held_losses(what, card, cpu):
+    """(b)'s check: each step's loss on the card against the CPU plain
+    path's, within REASONER_LOSS_TOL relative (floor REASONER_LOSS_FLOOR).
+    Returns the largest relative gap."""
+    worst = 0.0
+    for s, (got, want) in enumerate(zip(card, cpu)):
+        gap = abs(got - want) / max(abs(want), REASONER_LOSS_FLOOR)
+        if not (math.isfinite(got) and gap <= REASONER_LOSS_TOL):
+            raise AssertionError(f"5m (b) {what} step {s}: card loss {got!r}, "
+                                 f"CPU plain path {want!r}")
+        worst = max(worst, gap)
+    return worst
+
+
+def phase_reasoner(torch, device="cuda", checked=None, flash_checked=None, *,
+                   steps=REASONER_STEPS, n_eval=REASONER_EVAL,
+                   held=REASONER_HELD, tf=REASONER_TF):
+    """Phase 5m: ``examples/hyperscale_serve.py``'s path with trained
+    weights.  (b) ``trained_reasoner(steps)`` on ``device`` (the flash
+    kernels on the card): each kernel launched as often as the steps'
+    layers call it (fwd twice a layer a student step, the forward and
+    remat's recompute, and once for the retrofit's teacher; dq and dkv
+    once), and the first ``held`` steps of each stage against the port's
+    plain path on the CPU from the same params (the card's pretrained ones
+    for the retrofit) and Gumbel draws.  (c) The demo's two evaluations
+    (``evaluate_hyperscale`` at temperature 0.7 on ``n_eval`` problems:
+    vanilla L-W-CR 40-1-1, dms 40-4-4): every request ok, one decode
+    launch a layer a decode step, dms's peak tokens a chain below
+    vanilla's; the 4-chain request's prefill reads equal a 1-chain
+    request's on the same prompt; a ``policy_paths`` trace of ``tf`` steps
+    for each.  (d) Reported: the evaluations' meters, the eviction rate
+    (decoded tokens whose α_bin is 1, per layer, against 1 − 1/CR), the
+    same evaluations on the CPU's plain path with the card-trained params
+    (``start_cpu_evals``: a child process that runs while the card
+    serves), the seconds of each part.  Every decode and flash launch must
+    be at a shape phase 3 checked (``checked``, ``flash_checked``; on the
+    CPU the shapes ``reasoner_layouts`` and ``reasoner_flash_cases``
+    predict).  Returns the main path's decode launches by shape, the
+    training's flash launches by kernel, the evaluations, the eviction rate
+    by layer and the last ``alpha_mean``."""
+    import collections
+    import itertools
+    from repro_torch.core import dms as dms_lib
+    from repro_torch.core.config import KVPolicyConfig
+    from repro_torch.core.hyperscale import ScalingConfig
+    from repro_torch.core.tree import tree_map
+    from repro_torch.data import tasks
+    from repro_torch.examples import reasoner
+    from repro_torch.kernels.dms_attention import ops as fops
+    from repro_torch.kernels.dms_decode import ops
+    from repro_torch.launch.steps import step_generator
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving.engine import Engine, evaluate_hyperscale
+    cuda = device == "cuda"
+    arch, task, max_len = reasoner_setup(steps)
+    n_layers = arch.num_layers
+    main, flash_calls = collections.Counter(), collections.Counter()
+    seen, flash_seen, flag = set(), set(), {"main": True}
+    real_rows, real_step = ops.decode_rows, tfm.decode_step
+    real_flash = {k: getattr(fops, k) for k in fops.launches}
+    real_infer, real_retrofit = dms_lib.infer_alphas, reasoner.retrofit_steps
+    # (d)'s eviction count: α_bin of the active lanes, a layer at a time
+    evicted = torch.zeros(n_layers, device=device)
+    decoded = torch.zeros(n_layers, device=device)
+    ctx = {"count": False, "layer": 0, "active": None}
+    pretrained = {}
+    t_lap = [time.perf_counter()]
+
+    def lap(what):
+        now = time.perf_counter()
+        log(f"seconds: 5m {what} {now - t_lap[0]:.1f}")
+        t_lap[0] = now
+
+    def counting(qf, kf, vf, valf, tblf, nf, block_p, *args, **kw):
+        key = launch_key(qf, kf, tblf, block_p, kw.get("shared_kv"))
+        seen.add(key)
+        if flag["main"]:
+            main[key] += 1
+        return real_rows(qf, kf, vf, valf, tblf, nf, block_p, *args, **kw)
+
+    def kernel_step(*args, **kw):
+        ctx["layer"], ctx["active"] = 0, kw.get("active")
+        out = real_step(*args, **kw)
+        if kw.get("use_kernel") and out[2]["attn_impl_kernel"] != 1:
+            raise AssertionError("phase 5m: a decode step left the kernel")
+        return out
+
+    def infer_counting(q_raw, num_kv_heads, cfg):
+        alpha_bin, q = real_infer(q_raw, num_kv_heads, cfg)
+        if ctx["count"]:
+            a = alpha_bin[..., 0].float()                  # (B, Hkv)
+            act = ctx["active"]
+            act = (torch.ones(a.shape[0], device=a.device) if act is None
+                   else act.float())
+            layer = ctx["layer"]
+            evicted[layer] += (a * act[:, None]).sum()
+            decoded[layer] += act.sum() * a.shape[1]
+            ctx["layer"] = layer + 1
+        return alpha_bin, q
+
+    def flash_recording(name):
+        def run(q, *args):
+            flash_seen.add(flash_key(q, args[-1]))
+            flash_calls[name] += 1
+            return real_flash[name](q, *args)
+        return run
+
+    def snapshotting(*args, **kw):
+        # the pretrained params, before the retrofit updates them in place
+        pretrained["params"] = tree_map(
+            lambda x: x.detach().to("cpu", copy=True), args[2])
+        yield from real_retrofit(*args, **kw)
+
+    ops.decode_rows, tfm.decode_step = counting, kernel_step
+    dms_lib.infer_alphas = infer_counting
+    reasoner.retrofit_steps = snapshotting
+    for k in real_flash:
+        setattr(fops, k, flash_recording(k))
+    cpu_evals = None
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_5m_")
+    try:
+        # (b) train, the flash launches counted from 0
+        for k in fops.launches:
+            fops.launches[k] = 0
+        # the card's default; on the CPU the kernels' plain versions
+        _, params, _, alpha, hist = reasoner.trained_reasoner(
+            steps, device=device, use_kernel=True)
+        if cuda:
+            torch.cuda.synchronize()
+        flash = dict(fops.launches)
+        lap(f"(b) train {steps} + {steps // 2} steps")
+        for k in real_flash:
+            setattr(fops, k, real_flash[k])
+        reasoner.retrofit_steps = real_retrofit
+        pre, ret = steps, steps // 2
+        want = {"flash_fwd": n_layers * (2 * pre + 3 * ret),
+                "flash_dq": n_layers * (pre + ret),
+                "flash_dkv": n_layers * (pre + ret)}
+        if dict(flash_calls) != want or flash != (
+                want if cuda else dict.fromkeys(want, 0)):
+            raise AssertionError(f"5m (b): flash calls {dict(flash_calls)}, "
+                                 f"launches {flash}; want {want} of each")
+        base = reasoner.pretrain_arch(arch)
+        init = tree_map(lambda x: x.cpu(), tfm.init_model(
+            base, seed=0, device=device, dtype=torch.float32))
+        cpu = {"pretrain": [m for _, m in itertools.islice(
+            reasoner.pretrain_steps(base, task, init, pre), held)]}
+
+        def card_uniforms(s):
+            # the draws the card's retrofit step s made (its generator)
+            return [u.cpu() for u in tfm.layer_noise(
+                arch, reasoner.BATCH, task.prompt_len,
+                step_generator(23, s, device), device)]
+        cpu["retrofit"] = [m for _, m in itertools.islice(
+            reasoner.retrofit_steps(arch, task, pretrained["params"], ret,
+                                    uniforms_fn=card_uniforms), held)]
+        gaps = {}
+        for stage in ("pretrain", "retrofit"):
+            card_l = [m["loss"] for m in hist[stage][:held]]
+            cpu_l = [float(m["loss"]) for m in cpu[stage]]
+            gaps[stage] = held_losses(stage, card_l, cpu_l)
+        last_pre, last_ret = hist["pretrain"][-1], hist["retrofit"][-1]
+        cpu_pre, cpu_ret = cpu["pretrain"][-1], cpu["retrofit"][-1]
+        log(f"5m (b) trained_reasoner({steps}) on {device}: {arch.name} at "
+            f"vocab {arch.vocab_size}, {n_layers} layers, d {arch.d_model}, "
+            f"{arch.attn.num_heads}/{arch.attn.num_kv_heads} heads of "
+            f"{arch.attn.head_dim}; chain_arith B {reasoner.BATCH} x T "
+            f"{task.prompt_len}; flash launches {flash} = fwd {n_layers} x (2"
+            f" x {pre} + 3 x {ret}), dq and dkv {n_layers} x {pre + ret} "
+            f"(remat recomputes each student forward; the retrofit's teacher "
+            f"forward too); the first {held} losses of each stage against the"
+            f" CPU plain path from the same params and draws: largest gap "
+            f"{gaps['pretrain']:.3e} (pretrain), {gaps['retrofit']:.3e} "
+            f"(retrofit) (tolerance {REASONER_LOSS_TOL} relative, floor "
+            f"{REASONER_LOSS_FLOOR}); card vs CPU at step {held - 1}: CE "
+            f"{hist['pretrain'][held - 1]['ce']:.6f} vs "
+            f"{float(cpu_pre['ce']):.6f}, alpha_mean "
+            f"{hist['retrofit'][held - 1]['alpha_mean']:.6f} vs "
+            f"{float(cpu_ret['alpha_mean']):.6f}; last steps on the card "
+            f"(reported): pretrain CE {last_pre['ce']:.6f}, retrofit loss "
+            f"{last_ret['loss']:.6f}, alpha_mean {alpha:.6f} (the target "
+            f"{1 - 1 / arch.dms.target_cr:.2f} at CR "
+            f"{last_ret['cr_schedule']:g})")
+        lap("(b) CPU plain path")
+        # (d)'s CPU evaluations run in a child process while the card serves
+        cpu_evals = start_cpu_evals(torch, params, steps, n_eval, tmp)
+
+        # (c) the demo's two evaluations on the card
+        prompts, answers = tasks.make_eval_set(task, n_eval)
+        runs = reasoner_runs(arch)
+        evals, engines = {}, {}
+        for name, (kw, width, cr) in runs.items():
+            engine = Engine(arch, params, KVPolicyConfig(**kw),
+                            temperature=0.7, device=device)
+            engines[name] = engine
+            results = []
+
+            def record(prompt, cfg, seed=0, _real=engine.hyperscale_generate):
+                results.append(_real(prompt, cfg, seed=seed))
+                return results[-1]
+            engine.hyperscale_generate = record
+            engine.chunk_fn.steps = 0
+            ops.launches = ops.shared_launches = ops.weights_launches = 0
+            ctx["count"] = name == "dms"
+            t0 = time.perf_counter()
+            res = evaluate_hyperscale(engine, prompts, answers,
+                                      ScalingConfig(max_len, width, cr))
+            if cuda:
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            ctx["count"] = False
+            del engine.hyperscale_generate
+            n_steps = engine.chunk_fn.steps
+            got = (ops.launches, ops.shared_launches, ops.weights_launches)
+            if got != ((n_layers * n_steps if cuda else 0), 0, 0):
+                raise AssertionError(f"5m (c) {name}: launches (fixed, "
+                                     f"shared, weights-out) {got} for "
+                                     f"{n_steps} decode steps")
+            for r in results:
+                req = r.requests[0]
+                if req.status != "ok" or not (
+                        req.lengths == max_len - task.prompt_len).all():
+                    raise AssertionError(f"5m (c) {name}: status "
+                                         f"{req.status}, lengths "
+                                         f"{req.lengths}")
+            if width > 1 and all(len({tuple(c) for c in r.tokens.tolist()}) < 2
+                                 for r in results):
+                raise AssertionError(f"5m (c) {name}: every problem's "
+                                     f"{width} chains are identical")
+            evals[name] = dict(res=res, width=width, steps=n_steps,
+                               launches=got[0], wall=wall)
+            log(f"5m (c) {name} at {max_len}-{width}-{cr:g}, {n_eval} "
+                f"problems, temperature 0.7: all ok; accuracy "
+                f"{res['accuracy']:.4f}, kv_reads {res['kv_reads']:.1f}, "
+                f"peak_tokens {res['peak_tokens']:.1f}, peak_bytes "
+                f"{res['peak_bytes']:.0f}; {n_steps} decode steps in "
+                f"{wall:.2f} s = {1e3 * wall / max(n_steps, 1):.2f} ms/step; "
+                f"fixed-arena launches {got[0]} = {n_layers} x {n_steps}")
+        per_chain = {k: v["res"]["peak_tokens"] / v["width"]
+                     for k, v in evals.items()}
+        if not per_chain["dms"] < per_chain["vanilla"]:
+            raise AssertionError(f"5m (c): dms peak tokens a chain "
+                                 f"{per_chain['dms']} not below vanilla's "
+                                 f"{per_chain['vanilla']}")
+        _, width, cr = runs["dms"]
+        forked = engines["dms"].hyperscale_generate(
+            prompts[0], ScalingConfig(max_len, width, cr)).requests[0]
+        flag["main"] = False
+        single = engines["dms"].hyperscale_generate(
+            prompts[0], ScalingConfig(max_len, 1, cr)).requests[0]
+        p4, p1 = forked.prefill_meter.kv_reads, single.prefill_meter.kv_reads
+        if not (forked.status == single.status == "ok" and p4 == p1 > 0):
+            raise AssertionError(f"5m (c): the {width} chains' prefill reads "
+                                 f"{p4} are not one prefill's {p1}")
+        log(f"5m (c): peak tokens a chain: vanilla {per_chain['vanilla']:.1f},"
+            f" dms {per_chain['dms']:.1f}; shared prefill: {p4:.0f} prefill "
+            f"reads for {width} chains = one chain's {p1:.0f} (one prefill, "
+            f"forked), {forked.decode_meter.kv_reads:.0f} decode reads")
+        lap("(c) serve")
+        policy_paths(torch, dict(arch=arch, params=params, device=device),
+                     {f"{name} (trained)": (arch, kw)
+                      for name, (kw, _, _) in runs.items()},
+                     steps=tf, what="5m (c)")
+        lap("(c) teacher-forced trace")
+
+        # (d) reported: the eviction rate, the CPU's evaluations
+        rate = (evicted / decoded.clamp_min(1)).tolist()
+        n_dec = decoded.tolist()
+        log(f"5m (d) trained eviction rate (decoded tokens whose alpha_bin is"
+            f" 1, active lanes, over the dms evaluation): "
+            + ", ".join(f"layer {i} {r:.4f} of {n:.0f} (token, kv head) "
+                        "pairs" for i, (r, n) in enumerate(zip(rate, n_dec)))
+            + f"; the retrofit aimed at 1 - 1/CR = "
+            f"{1 - 1 / arch.dms.target_cr:.2f}")
+        on_cpu = finish_cpu_evals(cpu_evals)
+        side = [f"{name} accuracy {evals[name]['res']['accuracy']:.4f} (CPU "
+                f"{res['accuracy']:.4f}), kv_reads "
+                f"{evals[name]['res']['kv_reads']:.1f} (CPU "
+                f"{res['kv_reads']:.1f}), peak_tokens "
+                f"{evals[name]['res']['peak_tokens']:.1f} (CPU "
+                f"{res['peak_tokens']:.1f})" for name, res in on_cpu.items()]
+        log(f"5m (d) the card's evaluations beside the CPU plain path's with "
+            f"the card-trained params, run in a child process while the card "
+            f"served (reported: sampled tokens may part where bf16 rounds "
+            f"apart): " + "; ".join(side))
+        lap("(d) the CPU evaluations' wait")
+    finally:
+        ops.decode_rows, tfm.decode_step = real_rows, real_step
+        dms_lib.infer_alphas = real_infer
+        reasoner.retrofit_steps = real_retrofit
+        for k, fn in real_flash.items():
+            setattr(fops, k, fn)
+        if cpu_evals is not None and cpu_evals.poll() is None:
+            cpu_evals.kill()
+            cpu_evals.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    if checked is None:
+        checked = reasoner_decode_keys(tf)
+    if flash_checked is None:
+        flash_checked = encdec_flash_keys(torch, reasoner_flash_cases(),
+                                          device)
+    if not seen <= set(checked):
+        raise AssertionError(f"phase 5m launched the decode kernel at "
+                             f"{sorted(seen - set(checked))}, not among phase"
+                             f" 3's checked {sorted(checked)}")
+    if not flash_seen <= set(flash_checked):
+        raise AssertionError(f"phase 5m launched the flash kernels at "
+                             f"{sorted(flash_seen - set(flash_checked))}, not "
+                             "among phase 3's checked "
+                             f"{sorted(flash_checked)}")
+    log(f"phase 5m's decode launch shapes {sorted(seen)} and flash launch "
+        f"shapes {sorted(flash_seen)}: each checked in phase 3")
+    return {"launches": main, "flash": flash, "evals": evals, "rate": rate,
+            "alpha": alpha}
+
+
+def phase_reasoner_timing(torch, out, errs, flash_errs):
+    """Phase 7's rows for 5m: the decode kernel at each evaluation's arena
+    (vanilla's one lane, dms's four; G 2, Dh 16) with its launches in 5m,
+    and fwd, dq and dkv at the retrofit student's shape (B 32, T 32, Dh 16
+    run at 64; bound at Dh 16) with all of 5m's flash launches."""
+    arch, _, max_len = reasoner_setup()
+    gen = torch.Generator(device="cuda").manual_seed(95)
+    rows = layout_rows(torch, gen, arch, reasoner_layouts(arch, max_len)[:2],
+                       out["launches"], errs, tag=", 5m trained reasoner")
+    name, kw = list(reasoner_flash_cases().items())[1]
+    return rows + phase_flash_timing(
+        torch, out["flash"], flash_errs[name], kw=kw,
+        label=" (5m reasoner retrofit, T 32, Dh 16)")
+
+
 def phase_train(torch, device="cuda", arch_name="qwen-r1-1.5b", seq_len=1024,
                 batch=2, steps=4):
     """DMS retrofit of the main path through the flash kernels; returns the
@@ -6255,6 +6729,11 @@ def main() -> int:
                                       every_twice=True)
     paper_keys = paper_decode_keys()
     _, paper_errs = check_decode_keys(torch, paper_keys, what="phase 5l")
+    reasoner_keys = reasoner_decode_keys()
+    _, reasoner_errs = check_decode_keys(torch, reasoner_keys,
+                                         what="phase 5m")
+    reasoner_flash = reasoner_flash_cases()
+    reasoner_flash_errs = flash_vs_plain(torch, reasoner_flash)
     lap("phases 1-3")
     served = phase_serve(torch, shallow)
     lap("phase 4")
@@ -6307,6 +6786,10 @@ def main() -> int:
     lap("phase 5k")
     paper = phase_paper(torch, checked=paper_keys)
     lap("phase 5l")
+    reasoned = phase_reasoner(torch, checked=reasoner_keys,
+                              flash_checked=encdec_flash_keys(torch,
+                                                              reasoner_flash))
+    lap("phase 5m")
     trained = phase_train(torch)
     lap("phase 6")
     kernels = phase_timing(torch, main_shape, {"fixed": served["launches"],
@@ -6325,6 +6808,8 @@ def main() -> int:
                                    encdec_flash_errs)
     kernels += phase_dh256_timing(torch, dh256, dh256_flash_errs)
     kernels += phase_paper_timing(torch, paper["launches"], paper_errs)
+    kernels += phase_reasoner_timing(torch, reasoned, reasoner_errs,
+                                     reasoner_flash_errs)
     lap("phase 7")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

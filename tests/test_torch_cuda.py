@@ -659,6 +659,53 @@ def test_decode_paper_groupings_match_plain(cuda_device, bh, g, dh, nb):
         *fixed, BP, splits=splits).float(), **BF16)
 
 
+# (B·Hkv, table entries) of phase 5m's trained reasoner, G 2 at Dh 16:
+# vanilla's one lane (48 slots), dms's four chains (32) and the
+# teacher-forced trace's two lanes (32)
+REASONER_SHAPES = [(2, 3), (8, 2), (4, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,nb", REASONER_SHAPES,
+                         ids=[f"BH{bh}-nb{nb}" for bh, nb in REASONER_SHAPES])
+def test_decode_reasoner_shapes_match_plain(cuda_device, bh, nb):
+    """The demo's reasoner (qwen-r1-1.5b's smoke width at vocab 64): G 2
+    at Dh 16, one k-step of the ``mma.sync`` tile, on 5m's fixed arenas of
+    ``nb`` blocks: row 0 lists no block and comes out zero, row 1 every
+    block, the others a random count, in shuffled order, NaN in every
+    unlisted block; bit-equal on a second launch and within bf16 rounding
+    of the plain version and of the plain version of the kernel's split."""
+    from repro_torch.kernels.dms_decode.ref import dms_decode_plain_split
+    g, dh, p = 2, 16, nb * BP
+    gen = torch.Generator().manual_seed(bh * nb)
+    q = torch.randn((bh, g, dh), generator=gen).bfloat16()
+    k = torch.randn((bh, p, dh), generator=gen).bfloat16()
+    v = torch.randn((bh, p, dh), generator=gen).bfloat16()
+    valid = torch.rand((bh, p), generator=gen) < 0.6
+    valid[:, ::BP] = True                        # every block holds a slot
+    counts = [0, nb] + torch.randint(1, nb + 1, (bh - 2,),
+                                     generator=gen).tolist()
+    tbl = torch.stack([torch.randperm(nb, generator=gen) for _ in range(bh)])
+    listed = torch.zeros((bh, nb), dtype=torch.bool)
+    for r in range(bh):
+        listed[r, tbl[r, :counts[r]]] = True
+    dead = ~listed.repeat_interleave(BP, dim=1)
+    k[dead] = float("nan")
+    v[dead] = float("nan")
+    args = [x.to(cuda_device) for x in (q, k, v, valid, tbl.int(),
+                                        torch.tensor(counts).int())]
+    before = ops.launches
+    out, again = (ops.decode_rows(*args, BP) for _ in range(2))
+    torch.cuda.synchronize()
+    assert ops.launches == before + 2
+    assert torch.equal(out, again)
+    assert torch.isfinite(out.float()).all() and not out[0].float().any()
+    torch.testing.assert_close(out.float(), dms_decode_plain(
+        *args, BP).float(), **BF16)
+    torch.testing.assert_close(out.float(), dms_decode_plain_split(
+        *args, BP, splits=ops.launch_splits(args[0], nb)).float(), **BF16)
+
+
 # -- flash attention: fwd, dq, dkv -------------------------------------------
 
 
@@ -760,6 +807,18 @@ def _flash_vs_plain(cuda_device, dtype, kw, twice=False):
         assert torch.isfinite(got).all()
         assert (got - want).abs().max() <= tol * want.abs().max() + 1e-30
     assert (lse[:, :t] - lse_p[:, :t]).abs().max() <= tol * 10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("delay", [0, 4], ids=["vanilla", "dms_train"])
+def test_flash_kernels_at_the_reasoner_shape_match_plain(cuda_device, delay):
+    """Phase 5m's training shape: B 32, T 32 (shorter than one 64-row tile
+    and one key block), Hq 4, Hkv 2, Dh 16 padded to 64, bf16; vanilla (the
+    pretrain and the teacher) and relaxed α with the DMS window 4 (the
+    retrofit student): fwd, dq and dkv against their plain versions within
+    1e-2 of the largest plain output, bit-equal on a second launch."""
+    _flash_vs_plain(cuda_device, torch.bfloat16, dict(
+        b=32, t=32, hq=4, hkv=2, dh=16, delay=delay), twice=True)
 
 
 @pytest.mark.cuda

@@ -174,3 +174,40 @@ def test_paper_launch_keys_keep_each_models_head_grouping():
     assert groups == {(4, 64), (7, 128), (5, 128)}
     assert {k[:3] for k in keys if len(k) == 7} == {(32, 4, 64), (16, 7, 128)}
     assert (32, 5, 128, 48, 16) in keys and (16, 5, 128, 48, 16) in keys
+
+
+def test_smoke_reasoner_phase_on_the_cpu(capsys):
+    """Phase 5m at the demo's own width on the CPU (the kernels' plain
+    versions), its steps, problems and traces cut: the training's flash
+    wrapper calls as the formula counts them, the held losses, every
+    request ok, dms's peak below vanilla's, the forked prefill, the
+    eviction count, the child process's CPU evaluations, and every launch
+    at a shape ``reasoner_layouts`` and ``reasoner_flash_cases``
+    predict."""
+    out = chip_smoke.phase_reasoner(torch, device="cpu", steps=8, n_eval=2,
+                                    held=2, tf=4)
+    printed = capsys.readouterr().out
+    assert "5m (b) trained_reasoner(8) on cpu" in printed
+    for name in ("vanilla at 40-1-1", "dms at 40-4-4"):
+        assert f"5m (c) {name}, 2 problems, temperature 0.7: all ok" in printed
+    assert "(one prefill, forked)" in printed
+    assert "5m (d) the card's evaluations beside the CPU plain path's" in printed
+    assert "phase 5m's decode launch shapes" in printed
+    assert len(out["rate"]) == 2 and all(0.0 <= r <= 1.0 for r in out["rate"])
+    # the plain versions launch nothing; the wrapper was called on the path
+    assert sum(out["launches"].values()) > 0
+
+
+def test_reasoner_launch_keys_are_the_demos_arenas():
+    """The decode shapes phase 3 checks for 5m: G 2 at Dh 16 on the
+    evaluations' arenas (vanilla's one lane of 48 slots, dms's four chains
+    and one chain of 32), the trace's two lanes; the flash cases at B 32,
+    T 32, Dh 16, vanilla and the DMS window 4."""
+    keys = chip_smoke.reasoner_decode_keys()
+    assert {k[1:3] for k in keys} == {(2, 16)}
+    assert {(2, 2, 16, 48, 16), (8, 2, 16, 32, 16),
+            (2, 2, 16, 32, 16)} <= keys
+    cases = chip_smoke.reasoner_flash_cases()
+    assert sorted((kw["b"], kw["t"], kw["dh"], kw.get("delay", 0))
+                  for kw in cases.values()) == [(32, 32, 16, 0),
+                                                (32, 32, 16, 4)]
