@@ -135,8 +135,8 @@ Phases (any failure raises, so the exit code is non-zero):
               the snapshot on both paths; (c) chatglm3, qwen2-vl and
               granite at 2 layers: requests 3 and 1 with dms at CR 8,
               fixed and paged, tokens equal, a 48-step trace (granite's
-              steps that send a token to another expert on the two paths
-              not held), chatglm3's prefill export (4 x 512 tokens through
+              reference path routes each token to the experts its kernel
+              path chose), chatglm3's prefill export (4 x 512 tokens through
               ``flash_fwd``, 15 decode steps); a profiled step of each.
               Every decode step runs the kernel in every layer, and every
               launch shape must be one phase 3 checked.
@@ -165,9 +165,11 @@ Phases (any failure raises, so the exit code is non-zero):
               heads of 64, LayerNorm), random bf16 weights from seed 0 and
               phase 4's DMS bias: (a) 4 lanes of 1024 frames encoded once
               through ``flash_fwd`` with ``causal=False`` (24 launches), a
-              320-token prompt a lane teacher-forced and 32 greedy tokens
+              64-token prompt a lane teacher-forced and 32 greedy tokens
               through ``make_serve_step`` with the encoder output, dms at CR
-              8: two decode launches a decoder layer a step (self-attention
+              8 with the delay window cut to 16 (the config's 256: the
+              script's time): two decode launches a decoder layer a step
+              (self-attention
               on fixed arenas, the cross-attention through the wrapper's
               dense mode); a profiled step; (b) the same trace at 2 decoder
               layers (the encoder whole), fixed then paged: tokens equal;
@@ -238,8 +240,9 @@ Phases (any failure raises, so the exit code is non-zero):
               8) with the bias Phi^-1(1 - 1/CR), delay window 16 (llama's
               own; the Qwen-R1 configs' 256 cut so that DMS evicts within
               the trace).  (a) Four staggered requests on four lanes
-              (prompts 48/40/32/24; new 24/16/16/24, the 32B 16/8/8/16),
-              greedy, through ``Engine.scheduler(...).run()`` with the
+              (``FULL_DEPTH``: prompts 20/16/12/8 and 12 new tokens each, a
+              tick of 4 decode steps apart, 32 steps), greedy, through
+              ``Engine.scheduler(...).run()`` with the
               kernel: every request ok, one launch a layer a decode step,
               every step on the kernel in every layer; (d) llama and the 7B
               again on the paged pool: tokens equal to the fixed arenas';
@@ -271,6 +274,24 @@ Phases (any failure raises, so the exit code is non-zero):
               seconds of each part.  Phase 3 checks the decode kernel at
               every shape 5m launches (G 2, Dh 16) and fwd, dq and dkv at
               T 32, Dh 16 (run at 64), vanilla and dms_train, before.
+5n. catalog — the catalog's last three configurations, served as 5l
+              serves the paper's (``phase_full_depth``; the same trace,
+              window 16, dms at the target CR 8): phi3-mini-3.8b (32
+              layers, MHA: 32/32 heads of 96, G 1), minitron-4b (32, 24/8
+              of 128, G 3, vocab 256 000, untied) and granite-moe-1b-a400m
+              (24, 16/8 of 64, G 2, 32 experts top-8, tied).  (a) the four
+              requests on fixed arenas; (b) granite-1b on the paged pool
+              too, tokens equal; (c) 16 teacher-forced steps (granite's
+              reference routed as its kernel path did); (d) peak live
+              tokens below vanilla's; (e) a profiled step of phi3 and
+              minitron; (f) phi3's memory line at 8 lanes x 32768 tokens
+              (dms's state must fit beside the weights, vanilla's must
+              not); (g) phi3's prefill export (4 x 512 tokens through
+              ``flash_fwd`` at Dh 96, run at 128; α flips against the
+              reference path), imported into dms caches fixed and paged,
+              then 7 decode steps.  Phase 3 checks both decode modes at
+              every model's arenas and fwd, dq and dkv at phi3's Dh 96
+              (its retrofit shape and (g)'s), before; phase 7 times them.
 6. train    — qwen-r1-1.5b at full width, fp32 weights from seed 0, DMS
               retrofit (one phase-1 step, three distillation steps) on the
               synthetic stream at (B 2, T 1024) through the flash kernels:
@@ -329,9 +350,12 @@ gemma2's and recurrentgemma's retrofit shapes and ``flash_fwd`` at gemma2's
 prefill export.  Phase 3 holds both decode modes at every shape 5l
 launches (``paper_decode_keys``: G 4 at Dh 64, G 7 and G 5 at Dh 128), and
 phase 7 times the kernel at 5l's serving shapes, and at 5m's (G 2, Dh
-16) beside the three flash kernels at its retrofit shape.  The decode
-kernel's split count follows ``ops.splits`` (B*Hkv and the SM count); ``decode_split_sweep`` times it at every count on
-the shapes that lost to SDPA, beside an earlier kernel's source.  The last
+16) beside the three flash kernels at its retrofit shape; likewise at 5n's
+(``catalog_decode_keys``: G 1 at Dh 96, G 3 at Dh 128, G 2 at Dh 64) and
+the three flash kernels at phi3-mini's Dh 96 (``catalog_flash_cases``).
+The decode kernel's split count follows ``ops.splits`` (B*Hkv and the SM
+count); ``decode_split_sweep`` times it at every count on the shapes that
+lost to SDPA, beside an earlier kernel's source.  The last
 four lines are the script's total seconds, the ``kernels`` JSON line, the
 card's name and power limit (again) and the result line ``{"ok": true,
 "device": {...}}``.  Imports nothing of JAX.
@@ -2164,6 +2188,43 @@ def route_spy(layers_lib, routes):
     return moe_apply, real
 
 
+def route_forcer(torch, layers_lib, routes, rerouted):
+    """``layers_lib.moe_route`` that hands its calls the expert ids of
+    ``routes``, in order, in place of its own top-k (the probabilities
+    renormalised over them), and appends to ``rerouted`` whether its own
+    choice of experts differed.  Returns (the wrapper, the real
+    function)."""
+    real = layers_lib.moe_route
+
+    def moe_route(p, xt, k):
+        probs, _, own = real(p, xt, k)
+        top_e = routes[len(rerouted)]
+        rerouted.append(not torch.equal(own.sort(dim=-1)[0],
+                                        top_e.sort(dim=-1)[0]))
+        top_p = probs.gather(-1, top_e)
+        return (probs, top_p / torch.clamp(top_p.sum(dim=-1, keepdim=True),
+                                           min=1e-9), top_e)
+    return moe_route, real
+
+
+def alpha_forcer(dms_lib, alphas, flips=None):
+    """``dms_lib.infer_alphas`` that appends each call's α^bin to ``alphas``,
+    or, given ``flips``, hands its calls the α^bin of ``alphas`` in order in
+    place of its own and appends to ``flips`` how many of its own
+    decisions differed.  Returns (the wrapper, the real function)."""
+    real = dms_lib.infer_alphas
+
+    def infer_alphas(q_raw, num_kv_heads, cfg):
+        own, q = real(q_raw, num_kv_heads, cfg)
+        if flips is None:
+            alphas.append(own)
+            return own, q
+        forced = alphas[len(flips)]
+        flips.append(int((own != forced).sum()))
+        return forced, q
+    return infer_alphas, real
+
+
 def policy_paths(torch, setup, traces, *, steps=48, what="paths (c)"):
     """Kernel path against reference path, teacher-forced: each step runs
     both paths from the same cache (a copy), so the logits differ only by
@@ -2174,9 +2235,13 @@ def policy_paths(torch, setup, traces, *, steps=48, what="paths (c)"):
     flips a near tie, the two paths attend over other pages or send a
     token to another expert.  So for Quest and for a MoE model every
     layer's kernel output is also held against the reference attention on
-    the same operands (``KERNEL_TOL``), a step whose block tables or
-    expert ids differ between the paths in any layer is counted and its
-    logits not held, and at least half of the steps must be held.
+    the same operands (``KERNEL_TOL``), a step whose block tables differ
+    between the paths in any layer is counted and its logits not held, and
+    at least half of the steps must be held.  A MoE model's reference path
+    routes every token to the experts the kernel path chose
+    (``route_forcer``; at full depth nearly every step meets a near tie in
+    some layer), so that its logits differ only by the attention; the
+    steps whose reference would have routed otherwise are counted.
     Returns the launch
     shapes of the kernel path (``launch_key``) by trace.  Launches here are
     not the main path's."""
@@ -2202,16 +2267,20 @@ def policy_paths(torch, setup, traces, *, steps=48, what="paths (c)"):
         pooled.clear()
         gap = scale = 0.0
         agree = flips = 0
-        tables, routes, worst = [], [], [0.0]
+        tables, routes, rerouted, worst = [], [], [], [0.0]
         quest = kw["kind"] == "quest"
         moe = a.mlp is not None and a.mlp.moe is not None
+        rerouted_steps = 0
         spy, real_attn = quest_spy(torch, attn_lib, tables, worst)
         routed, real_moe = route_spy(layers_lib, routes)
+        forcing, real_route = route_forcer(torch, layers_lib, routes,
+                                           rerouted)
         for t in range(steps):
             tok = tokens[:, t:t + 1].to(device)
             ref_state = tree_map(torch.clone, state)
             tables.clear()
             routes.clear()
+            rerouted.clear()
             ops.decode_rows = recording
             if quest or moe:
                 attn_lib._masked_decode = spy
@@ -2220,20 +2289,23 @@ def policy_paths(torch, setup, traces, *, steps=48, what="paths (c)"):
             try:
                 lk, _, aux = tfm.decode_step(params, tok, state, a, t,
                                              use_kernel=True)
+                if moe:
+                    layers_lib.moe_apply = real_moe
+                    layers_lib.moe_route = forcing
                 lr, _, _ = tfm.decode_step(params, tok, ref_state, a, t,
                                            use_kernel=False)
             finally:
                 ops.decode_rows = real
                 attn_lib._masked_decode = real_attn
                 layers_lib.moe_apply = real_moe
+                layers_lib.moe_route = real_route
             if not bool(torch.isfinite(lk[:, live]).all()):
                 raise AssertionError(f"{name}: non-finite kernel-path logits "
                                      f"at step {t}")
-            half, rhalf = len(tables) // 2, len(routes) // 2
+            rerouted_steps += any(rerouted)
+            half = len(tables) // 2
             if any(not (torch.equal(x[0], y[0]) and torch.equal(x[1], y[1]))
-                   for x, y in zip(tables[:half], tables[half:])) \
-                    or any(not torch.equal(x, y) for x, y in
-                           zip(routes[:rhalf], routes[rhalf:])):
+                   for x, y in zip(tables[:half], tables[half:])):
                 flips += 1
                 continue
             gap = max(gap, (lk - lr)[:, live].abs().max().item())
@@ -2274,14 +2346,15 @@ def policy_paths(torch, setup, traces, *, steps=48, what="paths (c)"):
         if moe:
             if 2 * flips > steps:
                 raise AssertionError(f"{name}: {flips} of {steps} steps "
-                                     "routed or attended otherwise on the "
-                                     "two paths")
+                                     "listed other blocks on the two paths")
             note = (f"; every layer's kernel output within {worst[0]:.3e} "
-                    f"of the reference attention on the same operands; "
-                    f"{flips} of {steps} steps sent a token to another "
-                    "expert or listed other blocks on the two paths (a near"
-                    " tie after the layers below rounded apart): their "
-                    "logits not held")
+                    f"of the reference attention on the same operands; the "
+                    f"reference path routed as the kernel path did (in "
+                    f"{rerouted_steps} of {steps} steps its own router "
+                    "would have sent a token to another expert in some "
+                    f"layer: a near tie after the layers below rounded "
+                    f"apart); {flips} of {steps} steps listed other blocks "
+                    "on the two paths: their logits not held")
         if kw["kind"] == "dmc":
             count = cache.count
             full = int((count > cache.z.shape[-1]).sum())
@@ -2517,11 +2590,12 @@ def qd_profile(torch, setup, layouts, *, width, max_len):
             f"step, {share}")
 
 
-def device_events(torch, prof):
-    """The profiler's device-side entries (kernels, copies, memsets).  A
-    host op's own entry carries the device time of the kernels it launched
-    as well, so summing every entry would count each kernel twice."""
-    return [e for e in prof.key_averages()
+def device_events(torch, averages):
+    """The device-side entries (kernels, copies, memsets) of a profile's
+    ``key_averages()``.  A host op's own entry carries the device time of
+    the kernels it launched as well, so summing every entry would count
+    each kernel twice."""
+    return [e for e in averages
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
@@ -2597,9 +2671,10 @@ def phase_profile(torch, params, arch, policies, *, lanes, max_len, device,
                     torch.profiler.ProfilerActivity.CUDA]
             with torch.profiler.profile(activities=acts) as prof:
                 run(name, steps)
+            averages = prof.key_averages()      # a pass over every event
             dev_us = sum(e.self_device_time_total
-                         for e in device_events(torch, prof))
-            launched = sum(e.count for e in prof.key_averages()
+                         for e in device_events(torch, averages))
+            launched = sum(e.count for e in averages
                            if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
                                         "cuLaunchKernelEx"))
             result[name]["device_ms"] = dev_us / 1e3 / steps
@@ -2888,7 +2963,7 @@ def tripwired(fn, seen):
 
 def phase_prefill_export(torch, setup, *, t=EXPORT_PROMPT,
                          steps=EXPORT_DECODE, what="5e (a)",
-                         kinds=("dms", "vanilla")):
+                         kinds=("dms", "vanilla"), force_alpha=False):
     """(a) ``make_prefill_step`` through ``flash_fwd`` on EXPORT_LANES
     prompts of ``t`` tokens, ``dms`` (CR 8, delay 256) and ``vanilla``:
     one flash launch per layer, the last logits within 0.05 x max |logit|
@@ -2898,8 +2973,14 @@ def phase_prefill_export(torch, setup, *, t=EXPORT_PROMPT,
     the fixed or the shared mode): the pool's tokens equal the fixed
     arenas', and dms imports fewer live tokens than vanilla (``kinds``: the
     policies to run; a model with local layers has no vanilla import).
-    Returns flash_fwd's launches, per policy the imported live tokens and α
-    flips."""
+    With ``force_alpha`` the dms logits are held on a reference path that
+    takes the kernel path's α^bin in every layer (``alpha_forcer``): deep
+    in a model the flips compound, each changing a token's eviction for
+    every later query, so the free reference path's gap and α flips per
+    layer are reported beside it, and the flips of the reference's own
+    decisions under the forced α counted.  Returns flash_fwd's launches,
+    per policy the imported live tokens and α flips."""
+    from repro_torch.core import dms as dms_lib
     from repro_torch.core import policy as policy_lib
     from repro_torch.core.config import KVPolicyConfig
     from repro_torch.kernels.dms_attention import ops as fops
@@ -2915,10 +2996,18 @@ def phase_prefill_export(torch, setup, *, t=EXPORT_PROMPT,
     out = {"flash": 0, "live": {}, "flips": {}}
     for kind in kinds:
         dms = kind == "dms"
+        forced = force_alpha and dms
+        alphas = []
+        recording, real_alphas = alpha_forcer(dms_lib, alphas)
         fops.launches["flash_fwd"] = 0
         t0 = time.perf_counter()
-        logits, kv = make_prefill_step(arch, dms=dms, use_kernel=True)(
-            params, {"tokens": tokens})
+        if forced:
+            dms_lib.infer_alphas = recording
+        try:
+            logits, kv = make_prefill_step(arch, dms=dms, use_kernel=True)(
+                params, {"tokens": tokens})
+        finally:
+            dms_lib.infer_alphas = real_alphas
         if cuda:
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -2930,13 +3019,10 @@ def phase_prefill_export(torch, setup, *, t=EXPORT_PROMPT,
         ref_logits, ref_kv = make_prefill_step(arch, dms=dms,
                                                use_kernel=False)(
             params, {"tokens": tokens})
-        diff = (logits - ref_logits)[:, live_v].abs().max().item()
-        scale = ref_logits[:, live_v].abs().max().item()
-        if not bool(torch.isfinite(logits[:, live_v]).all()) \
-                or not diff <= 0.05 * scale:
-            raise AssertionError(f"prefill export ({kind}): kernel-path "
-                                 f"logits off by {diff:.4e} (max |logit| "
-                                 f"{scale:.4e})")
+
+        def gap(ref):
+            return ((logits - ref)[:, live_v].abs().max().item(),
+                    ref[:, live_v].abs().max().item())
         flips = 0
         if dms:
             a_k, a_r = kv["0"]["alpha_bin"], ref_kv["0"]["alpha_bin"]
@@ -2947,6 +3033,30 @@ def phase_prefill_export(torch, setup, *, t=EXPORT_PROMPT,
                     "the import")
         else:
             note = "no alpha"
+        if forced:
+            free = gap(ref_logits)
+            per_layer = [int(x) for x in (a_k != a_r).reshape(
+                a_k.shape[0], -1).sum(-1)]
+            own = []
+            dms_lib.infer_alphas = alpha_forcer(dms_lib, alphas, own)[0]
+            try:
+                ref_logits = make_prefill_step(arch, dms=True,
+                                               use_kernel=False)(
+                    params, {"tokens": tokens})[0]
+            finally:
+                dms_lib.infer_alphas = real_alphas
+            note += (f" (a layer: {per_layer}); the free reference path's "
+                     f"logits {free[0]:.4e} apart (max |logit| {free[1]:.4e}"
+                     f", not held: the flips compound through the layers); "
+                     f"the held reference path takes the kernel path's "
+                     f"alpha in every layer, where its own would flip "
+                     f"{own} of {a_k[0].numel()} a layer")
+        diff, scale = gap(ref_logits)
+        if not bool(torch.isfinite(logits[:, live_v]).all()) \
+                or not diff <= 0.05 * scale:
+            raise AssertionError(f"prefill export ({kind}): kernel-path "
+                                 f"logits off by {diff:.4e} (max |logit| "
+                                 f"{scale:.4e})")
         out["flips"][kind] = flips
         del ref_kv
         tokens_by = {}
@@ -2982,7 +3092,8 @@ def phase_prefill_export(torch, setup, *, t=EXPORT_PROMPT,
         log(f"{what} prefill export, {kind}: {EXPORT_LANES} prompts of {t} "
             f"tokens through flash_fwd ({launched} launches = "
             f"{arch.num_layers} layers) in {wall:.3f} s; last logits vs the "
-            f"reference path: max abs diff {diff:.4e}, max |logit| "
+            f"reference path{' on the kernel path alpha' if forced else ''}: "
+            f"max abs diff {diff:.4e}, max |logit| "
             f"{scale:.4e} (tolerance 0.05 x max |logit|); {note}; imported "
             f"live tokens {live:.1f} (summed over layers and lanes, mean "
             f"over heads); {steps} greedy tokens a lane ({steps - 1} decode "
@@ -3380,8 +3491,9 @@ def phase_prefill_timing(torch, launches, err,
 # one superblock of gemma2's local and global layers, two layers else
 ARCH_LAYERS = {"gemma2-2b": 2, "chatglm3-6b": 2, "qwen2-vl-7b": 2,
                "granite-moe-3b-a800m": 2}
-# checked in phase 3 and timed in phase 7, not served: granite-1b's G 2 at
-# Dh 64 (granite-3b's G 3 serves)
+# checked in phase 3 and timed in phase 7 at 5f's arenas, not served in 5f:
+# granite-1b's G 2 at Dh 64 (granite-3b's G 3 serves; 5n serves granite-1b
+# at full depth on arenas of its own)
 ARCH_CHECKED = ("granite-moe-1b-a400m",)
 ARCH_NEWS = (32, 24, 16, 32)     # new tokens of phase 4's four prompts
 ARCH_PAIR = (3, 1)               # (c): phase 4's requests 3 and 1
@@ -3447,14 +3559,15 @@ def arch_decode_keys(archs=None, lens=(512, 384, 256, 128), **kw):
 
 def serve_requests(torch, engine, setup, uids):
     """Requests ``uids`` of the setup's trace, one tick apart, on one lane
-    each: every request ok with its full token count.  Returns (results by
-    uid, wall s, decode steps, scheduler)."""
+    each, in chunks of ``setup["chunk"]`` decode steps a tick (the engine's
+    own where not given): every request ok with its full token count.
+    Returns (results by uid, wall s, decode steps, scheduler)."""
     from repro_torch.serving.scheduler import Request
     arch, prompts, news = setup["arch"], setup["prompts"], setup["news"]
     engine.chunk_fn.steps = 0
     t0 = time.perf_counter()
     sched = engine.scheduler(num_lanes=len(uids), max_len=max(
-        len(prompts[u]) + news[u] for u in uids))
+        len(prompts[u]) + news[u] for u in uids), chunk=setup.get("chunk"))
     for i, u in enumerate(uids):
         sched.submit(Request(uid=u, prompt=prompts[u], max_new=news[u],
                              arrival=i))
@@ -4130,8 +4243,9 @@ def phase_hybrid_timing(torch, launches, errs):
 
 ENCDEC = "seamless-m4t-large-v2"
 # (a) lanes, encoder frames a lane, teacher-forced prompt tokens and greedy
-# new tokens a lane (dms evicts past its 256-token delay)
-ENCDEC_LANES, ENCDEC_FRAMES, ENCDEC_PROMPT, ENCDEC_NEW = 4, 1024, 320, 32
+# new tokens a lane (dms evicts past its delay window, cut to
+# FULL_DEPTH_WINDOW by ``full_depth_arch``: the script's time)
+ENCDEC_LANES, ENCDEC_FRAMES, ENCDEC_PROMPT, ENCDEC_NEW = 4, 1024, 64, 32
 # (b) and (c): the decoder layers served (the encoder stays whole; the
 # script's time)
 ENCDEC_SHALLOW = 2
@@ -4165,7 +4279,7 @@ def encdec_decode_keys(arch=None, lanes=ENCDEC_LANES, frames=ENCDEC_FRAMES,
     and shared-pool keys of its layout (the trace's and the profile's too)
     and the cross-attention's dense-mode key."""
     from repro_torch.configs import get_arch
-    arch = arch or get_arch(ENCDEC)
+    arch = full_depth_arch(arch or get_arch(ENCDEC))
     kw = dataclasses.asdict(encdec_policy(arch))
     return {*state_keys(arch, kw, lanes, max_len),
             *state_keys(arch, dict(kw, paged=True), lanes, max_len),
@@ -4354,11 +4468,13 @@ def check_cross_dense(torch, arch=None, lanes=ENCDEC_LANES,
 
 def encdec_setup(torch, device="cuda", layers=None, dtype=None):
     """seamless at full width (the smoke config on the CPU), random weights
-    from seed 0 (matmul weights in ``dtype``, default bf16) and phase 4's
-    DMS bias, at ``layers`` encoder and decoder layers each if given."""
+    from seed 0 (matmul weights in ``dtype``, default bf16), phase 4's DMS
+    bias and the delay window ``full_depth_arch`` serves, at ``layers``
+    encoder and decoder layers each if given."""
     from repro_torch.configs import get_arch, get_smoke
     from repro_torch.models import transformer as tfm
-    arch = (get_arch if device == "cuda" else get_smoke)(ENCDEC)
+    arch = full_depth_arch((get_arch if device == "cuda" else get_smoke)(
+        ENCDEC))
     arch = dataclasses.replace(
         arch, num_layers=layers or arch.num_layers,
         encoder_layers=layers or arch.encoder_layers,
@@ -4736,7 +4852,7 @@ def phase_encdec_timing(torch, out, errs, flash_errs):
     from repro_torch.configs import get_arch
     from repro_torch.kernels.dms_attention import ops as fops
     from repro_torch.kernels.dms_attention import ref as fref
-    arch = get_arch(ENCDEC)
+    arch = full_depth_arch(get_arch(ENCDEC))
     gen = torch.Generator(device="cuda").manual_seed(96)
     kw = dataclasses.asdict(encdec_policy(arch))
     max_len = ENCDEC_PROMPT + ENCDEC_NEW
@@ -5380,65 +5496,127 @@ def phase_mesh_dryrun(torch, card=""):
     return rec
 
 
-# -- phase 5l: the paper's own models at full depth ---------------------------
+# -- phases 5l and 5n: models at their published width and full depth --------
 
-# the paper's models 5l serves at their published widths and full depth, in
-# this order (each freed before the next loads)
-PAPER_SERVED = ("llama32-1b", "qwen-r1-7b", "qwen-r1-32b")
-# the DMS delay window 5l serves at: llama's own 16; the Qwen-R1 configs'
-# 256 cut to 16, so that DMS evicts within a trace the time limit allows
-PAPER_WINDOW = 16
-# (prompts, new tokens) of the four staggered requests on four lanes, one
-# decode step a token: 72 decode steps for llama and the 7B, 64 for the
-# 32B (the script's time: a 32B step costs ~0.35 s of host time)
-PAPER_TRACE = {"llama32-1b": ((48, 40, 32, 24), (24, 16, 16, 24)),
-               "qwen-r1-7b": ((48, 40, 32, 24), (24, 16, 16, 24)),
-               "qwen-r1-32b": ((48, 40, 32, 24), (16, 8, 8, 16))}
-PAPER_PAGED = ("llama32-1b", "qwen-r1-7b")      # (d): the 32B fixed only
+# the DMS delay window the full-depth phases (5h, 5l, 5n) serve at: llama's
+# own 16; the other configs' 256 cut to 16, so that DMS evicts within a
+# trace the time limit allows
+FULL_DEPTH_WINDOW = 16
+# the scheduler's chunk there: the requests arrive a tick (a chunk of decode
+# steps) apart, so in chunks of 4 the last of four starts at step 12
+FULL_DEPTH_CHUNK = 4
+# (prompts, new tokens) of four staggered requests on four lanes, one decode
+# step a token: each ends at step 32, every request past the window of 16
+FULL_DEPTH_TRACE = ((20, 16, 12, 8), (12, 12, 12, 12))
+# each model 5l and 5n serve, each freed before the next loads: its trace;
+# ``paged``: served on the pool too (tokens equal to the fixed arenas');
+# ``profiled``: one profiled step; ``memory``: the memory line's (lanes,
+# tokens) at the config's own window; ``export``: the prefill export
+# through flash_fwd, then decode after the import
+FULL_DEPTH = {
+    "llama32-1b": dict(trace=FULL_DEPTH_TRACE, paged=True),
+    "qwen-r1-7b": dict(trace=FULL_DEPTH_TRACE, paged=True, profiled=True),
+    # fixed arenas only: its 65.5 GB of weights leave room for one state
+    # at a time
+    "qwen-r1-32b": dict(trace=FULL_DEPTH_TRACE, profiled=True,
+                        memory=(4, 32768)),
+    "phi3-mini-3.8b": dict(trace=FULL_DEPTH_TRACE, profiled=True,
+                           memory=(8, 32768), export=True),
+    "minitron-4b": dict(trace=FULL_DEPTH_TRACE, profiled=True),
+    "granite-moe-1b-a400m": dict(trace=FULL_DEPTH_TRACE, paged=True),
+}
+PAPER_SERVED = ("llama32-1b", "qwen-r1-7b", "qwen-r1-32b")     # 5l
+# 5n: the configurations no other phase serves
+CATALOG_SERVED = ("phi3-mini-3.8b", "minitron-4b", "granite-moe-1b-a400m")
 PAPER_TF = 16             # (c): teacher-forced kernel-vs-reference steps
-PAPER_PROFILED = ("qwen-r1-7b", "qwen-r1-32b")
 # steps a profiled run: the profiler's cost grows with the ops, ~24 000 a
 # step at the 32B
 PAPER_PROFILE_STEPS = 1
-# the memory line: dms's decode state at the config's own CR and window on
-# 4 lanes of 32768 tokens, allocated beside the 32B's weights
-PAPER_MEMORY = ("qwen-r1-32b", 4, 32768)
-# what may stay allocated on the card when a model of 5l loads
+# what may stay allocated on the card when a model of 5l or 5n loads
 PAPER_HELD = 1 << 30
+# 5n (g): EXPORT_LANES prompts of EXPORT_PROMPT tokens through the prefill
+# export, then this many greedy tokens a lane from the imported caches
+CATALOG_EXPORT_DECODE = 8
 
 
-def paper_arch(arch):
-    """``arch`` with the DMS delay window 5l serves at."""
+def full_depth_arch(arch):
+    """``arch`` with the DMS delay window 5h, 5l and 5n serve at."""
     return dataclasses.replace(arch, dms=dataclasses.replace(
-        arch.dms, window=min(arch.dms.window, PAPER_WINDOW)))
+        arch.dms, window=min(arch.dms.window, FULL_DEPTH_WINDOW)))
 
 
 def paper_policy(arch):
-    """5l's policy keywords: ``dms`` at the config's target CR."""
+    """5l's and 5n's policy keywords: ``dms`` at the config's target CR."""
     return dict(kind="dms", cr=arch.dms.target_cr)
 
 
-def paper_layouts(arch, trace=None, tf=PAPER_TF):
-    """Every (policy keywords, lanes, max_len) 5l builds a decode state for
-    with ``arch`` (its served window): serving fixed (the profile's too)
-    and, for ``PAPER_PAGED``, paged; the kernel-vs-reference trace."""
-    lens, news = (trace or PAPER_TRACE)[arch.name]
+def model_trace(name, trace=None):
+    """(prompts, new tokens) of ``name``'s requests: ``trace[name]`` where
+    given, else ``FULL_DEPTH``'s."""
+    return (trace or {}).get(name) or FULL_DEPTH[name]["trace"]
+
+
+def serving_layouts(arch, trace=None, all_paged=False):
+    """The (policy keywords, lanes, max_len) ``arch`` serves its trace on:
+    fixed arenas and, if ``FULL_DEPTH`` serves it paged (or with
+    ``all_paged``), the pool."""
+    lens, news = model_trace(arch.name, trace)
     kw, max_len = paper_policy(arch), max(a + b for a, b in zip(lens, news))
     out = [(kw, len(lens), max_len)]
-    if arch.name in PAPER_PAGED:
+    if all_paged or FULL_DEPTH[arch.name].get("paged"):
         out.append((dict(kw, paged=True), len(lens), max_len))
-    return out + [(kw, 2, tf + 16)]
+    return out
 
 
-def paper_decode_keys(archs=None, **kw):
-    """Every decode launch shape 5l makes (``paper_layouts`` of each model
-    at full width, or of ``archs``)."""
+def paper_layouts(arch, trace=None, tf=PAPER_TF, all_paged=False,
+                  export=(EXPORT_PROMPT, CATALOG_EXPORT_DECODE)):
+    """Every (policy keywords, lanes, max_len) 5l or 5n builds a decode
+    state for with ``arch`` (its served window): ``serving_layouts`` (the
+    profile's too), the prefill export's imports (``export``: prompt and
+    decode tokens) for a model ``FULL_DEPTH`` exports, and the
+    kernel-vs-reference trace."""
+    out = serving_layouts(arch, trace, all_paged)
+    if FULL_DEPTH[arch.name].get("export"):
+        out += [(dict(kind="dms", cr=8.0, paged=paged), EXPORT_LANES,
+                 sum(export)) for paged in (False, True)]
+    return out + [(paper_policy(arch), 2, tf + 16)]
+
+
+def paper_decode_keys(archs=None, names=PAPER_SERVED, **kw):
+    """Every decode launch shape 5l makes (``paper_layouts`` of each of
+    ``names`` at full width, or of ``archs``)."""
     from repro_torch.configs import get_arch
     keys = set()
-    for arch in archs or [paper_arch(get_arch(n)) for n in PAPER_SERVED]:
+    for arch in archs or [full_depth_arch(get_arch(n)) for n in names]:
         for pol, lanes, max_len in paper_layouts(arch, **kw):
             keys.update(state_keys(arch, pol, lanes, max_len))
     return keys
+
+
+def catalog_decode_keys(archs=None, **kw):
+    """The shapes phase 3 checks for 5n: ``paper_decode_keys`` of
+    ``CATALOG_SERVED``, both modes at every model's serving arenas (5n
+    serves the pool for granite-1b only)."""
+    return paper_decode_keys(archs, CATALOG_SERVED, all_paged=True, **kw)
+
+
+def catalog_flash_cases(arch=None, t=EXPORT_PROMPT):
+    """{name: ``flash_case`` keywords} at phi3-mini's heads (MHA, Dh 96):
+    its retrofit shape (relaxed α, delay 256; timed in phase 7) and 5n
+    (g)'s prefill export (binarised α, the served delay window), bf16."""
+    from repro_torch.configs import get_arch
+    arch = arch or get_arch(CATALOG_SERVED[0])
+    a = arch.attn
+    head = dict(hq=a.num_heads, hkv=a.num_kv_heads, dh=a.head_dim,
+                dtype="bfloat16")
+    return {
+        f"phi3-mini-3.8b retrofit shape (B 2, T 1024), Dh {a.head_dim}":
+            dict(head, b=2, t=1024),
+        f"phi3-mini-3.8b prefill export (B {EXPORT_LANES}, T {t}), Dh "
+        f"{a.head_dim}, binarised alpha":
+            dict(head, b=EXPORT_LANES, t=t, alpha="bin",
+                 delay=min(arch.dms.window, FULL_DEPTH_WINDOW)),
+    }
 
 
 def tree_bytes(tree):
@@ -5450,13 +5628,14 @@ def tree_bytes(tree):
 
 
 def paper_memory(torch, setup, lanes, tokens, own_window, weight_bytes,
-                 free_after_load):
+                 free_after_load, what="5l"):
     """The paper's memory axis beside the weights: ``dms`` at the config's
     CR and own delay window (``own_window``) on ``lanes`` lanes of
     ``tokens`` tokens, its decode state allocated with ``init_decode_state``
     next to the served weights; vanilla's arena for the same lanes and
     length counted on one layer and one lane of host memory, not
-    allocated on the card."""
+    allocated on the card.  On the card dms's state must fit in the memory
+    left free after the weights loaded, and vanilla's must not."""
     from repro_torch.core import policy as policy_lib
     from repro_torch.core.config import KVPolicyConfig
     from repro_torch.core.kv_cache import SlotDMSCache
@@ -5485,7 +5664,7 @@ def paper_memory(torch, setup, lanes, tokens, own_window, weight_bytes,
     room = (f"; {'more' if vanilla_bytes > free_after_load else 'less'} than"
             f" the {gb(free_after_load)} free beside the weights"
             if cuda else "")
-    log(f"5l memory ({arch.name}, {arch.num_layers} layers): bf16 weights "
+    log(f"{what} memory ({arch.name}, {arch.num_layers} layers): bf16 weights "
         f"{weight_bytes / 1e9:.2f} GB; free after the weights loaded "
         f"{gb(free_after_load)} (mem_get_info); peak allocated since the "
         f"load {gb(peak)} (max_memory_allocated); dms decode state at CR "
@@ -5496,40 +5675,56 @@ def paper_memory(torch, setup, lanes, tokens, own_window, weight_bytes,
         f"length: {vanilla_bytes / 1e9:.2f} GB (counted, not allocated)"
         f"{room}")
     if not dms_bytes < vanilla_bytes:
-        raise AssertionError(f"5l memory: dms's state {dms_bytes} B is not "
-                             f"below vanilla's {vanilla_bytes} B")
+        raise AssertionError(f"{what} memory: dms's state {dms_bytes} B is "
+                             f"not below vanilla's {vanilla_bytes} B")
+    if cuda and not dms_bytes < free_after_load < vanilla_bytes:
+        raise AssertionError(f"{what} memory: dms's state {dms_bytes} B must "
+                             f"fit the {free_after_load} B free beside the "
+                             f"weights, vanilla's {vanilla_bytes} B not")
     return {"dms_bytes": dms_bytes, "vanilla_bytes": vanilla_bytes,
             "slots": slots}
 
 
-def phase_paper(torch, device="cuda", checked=None, *, trace=None,
-                tf=PAPER_TF, memory=PAPER_MEMORY):
-    """Phase 5l: llama32-1b, qwen-r1-7b and qwen-r1-32b at their published
-    widths and full depth, random bf16 weights from seed 0 drawn on the
-    device, ``dms`` at each config's target CR with the bias that evicts at
-    that rate and the delay window ``paper_arch`` serves.  Each model: (a)
+def phase_full_depth(torch, names, tag, device="cuda", checked=None,
+                     flash_checked=None, *, trace=None, tf=PAPER_TF,
+                     memory=None, export=(EXPORT_PROMPT,
+                                          CATALOG_EXPORT_DECODE)):
+    """Each of ``names`` at its published width and full depth, random
+    bf16 weights from seed 0 drawn on the device, ``dms`` at the config's
+    target CR with the bias that evicts at that rate and the delay window
+    ``full_depth_arch`` serves, its ``FULL_DEPTH`` entry saying what runs: (a)
     ``arch_serve`` of four staggered requests (``trace``) on four lanes,
-    greedy, through the decode kernel, fixed and, for ``PAPER_PAGED``,
-    paged ((d): tokens equal); (e) each request's peak live tokens below
-    vanilla's count; (c) a ``policy_paths`` trace of ``tf`` steps; a
-    profiled step for ``PAPER_PROFILED``; the memory line for
-    ``memory``'s model.  Every decode step must run the kernel in every
-    layer (``attn_impl_kernel``), and every decode launch must be at a
-    shape phase 3 checked (``checked``; on the CPU, the shapes
-    ``paper_layouts`` predicts).  Each model is freed before the next
-    loads.  Returns the main path's decode launches by shape and the
-    profiles."""
+    greedy, through the decode kernel, fixed and, where ``paged``, paged
+    (tokens equal); each request's peak live tokens below vanilla's count;
+    (c) a ``policy_paths`` trace of ``tf`` steps (a MoE model's held on
+    reference routed as the kernel path did); a profiled step where
+    ``profiled``; the memory line where ``memory`` (or for ``memory`` =
+    (name, lanes, tokens)); where ``export``, ``phase_prefill_export`` of
+    ``export`` = (prompt, decode) tokens under dms, fixed and paged.  Every
+    decode step must run the kernel in every layer (``attn_impl_kernel``),
+    and every decode and flash launch must be at a shape phase 3 checked
+    (``checked``, ``flash_checked``; on the CPU, the shapes
+    ``paper_layouts`` and ``catalog_flash_cases`` predict).  Each model is
+    freed before the next loads.  ``tag`` names the phase in its lines.
+    Returns the main path's decode launches by shape, its flash_fwd
+    launches, the profiles and the memory line's figures."""
     import collections
     import gc
     from repro_torch.configs import get_arch, get_smoke
     from repro_torch.core.config import KVPolicyConfig
+    from repro_torch.kernels.dms_attention import ops as fops
     from repro_torch.kernels.dms_decode import ops
     from repro_torch.models import transformer as tfm
     cuda = device == "cuda"
-    trace = trace or PAPER_TRACE
+    live_step = {"5l": "(e)", "5n": "(d)"}.get(tag, "(e)")
+    memories = {n: FULL_DEPTH[n]["memory"] for n in names
+                if "memory" in FULL_DEPTH[n]}
+    if memory:
+        memories = {memory[0]: memory[1:]}
     main = collections.Counter()
-    seen, flag = set(), {"main": True}
-    real_rows, real_step = ops.decode_rows, tfm.decode_step
+    seen, flash_seen, flag = set(), set(), {"main": True}
+    real_rows, real_step, real_fwd = (ops.decode_rows, tfm.decode_step,
+                                      fops.flash_fwd)
 
     def counting(qf, kf, vf, valf, tblf, nf, block_p, *args, **kw):
         key = launch_key(qf, kf, tblf, block_p, kw.get("shared_kv"))
@@ -5541,11 +5736,16 @@ def phase_paper(torch, device="cuda", checked=None, *, trace=None,
     def kernel_step(*args, **kw):
         out = real_step(*args, **kw)
         if kw.get("use_kernel") and out[2]["attn_impl_kernel"] != 1:
-            raise AssertionError("phase 5l: a decode step left the kernel")
+            raise AssertionError(f"phase {tag}: a decode step left the "
+                                 "kernel")
         return out
 
-    out = {"launches": main, "profiles": {}}
-    expected = set()
+    def flash_recording(q, *args):
+        flash_seen.add(flash_key(q, args[-1]))
+        return real_fwd(q, *args)
+
+    out = {"launches": main, "flash": 0, "profiles": {}}
+    expected, flash_expected = set(), set()
     t_lap = [time.perf_counter()]
 
     def lap(what):
@@ -5554,8 +5754,9 @@ def phase_paper(torch, device="cuda", checked=None, *, trace=None,
         t_lap[0] = now
 
     ops.decode_rows, tfm.decode_step = counting, kernel_step
+    fops.flash_fwd = flash_recording
     try:
-        for name in PAPER_SERVED:
+        for name in names:
             t0 = time.perf_counter()
             full = (get_arch if cuda else get_smoke)(name)
             held = 0
@@ -5564,19 +5765,21 @@ def phase_paper(torch, device="cuda", checked=None, *, trace=None,
                 torch.cuda.empty_cache()
                 held = torch.cuda.memory_allocated()
                 if held > PAPER_HELD:
-                    raise AssertionError(f"5l: {held} B still allocated on "
-                                         f"the card before {name} loads")
-            lens, news = trace[name]
+                    raise AssertionError(f"{tag}: {held} B still allocated "
+                                         f"on the card before {name} loads")
+            lens, news = model_trace(name, trace)
             setup = serving_setup(
                 torch, device=device, arch_name=name, lens=lens, news=news,
                 cr=full.dms.target_cr,
-                dms_window=paper_arch(full).dms.window)
+                dms_window=full_depth_arch(full).dms.window)
+            setup["chunk"] = FULL_DEPTH_CHUNK
             arch, params = setup["arch"], setup["params"]
             weight_bytes, n_params = tree_bytes(params)
             free = torch.cuda.mem_get_info()[0] if cuda else 0
             floor_ms = 1e3 * weight_bytes / HBM_BYTES_PER_S
-            log(f"5l {name}: full depth, {arch.num_layers} of its "
-                f"{full.num_layers} layers; {n_params / 1e9:.2f} B params, "
+            log(f"{tag} {name}: full depth, {arch.num_layers} of its "
+                f"{full.num_layers} layers, {widths(arch)}, padded vocab "
+                f"{arch.padded_vocab}; {n_params / 1e9:.2f} B params, "
                 f"{weight_bytes / 1e9:.2f} GB of weights (a read of them "
                 f"all {floor_ms:.2f} ms at 3.35 TB/s); "
                 + (f"{held} B allocated before the load, {free / 1e9:.2f} "
@@ -5587,29 +5790,44 @@ def phase_paper(torch, device="cuda", checked=None, *, trace=None,
             if cuda:
                 torch.cuda.reset_peak_memory_stats()
             else:
-                expected |= paper_decode_keys([arch], trace=trace, tf=tf)
+                expected |= paper_decode_keys([arch], trace=trace, tf=tf,
+                                              export=export)
+                if FULL_DEPTH[name].get("export"):
+                    flash_expected |= encdec_flash_keys(torch, {
+                        k: v for k, v in catalog_flash_cases(
+                            arch, export[0]).items() if "export" in k},
+                        device)
             kw = paper_policy(arch)
+            paged = FULL_DEPTH[name].get("paged")
             flag["main"] = True
             results = arch_serve(
-                torch, setup, f"5l (a) {name}", kw=kw, uids=(0, 1, 2, 3),
-                layouts=(False, True) if name in PAPER_PAGED else (False,))
+                torch, setup, f"{tag} (a) {name}", kw=kw, uids=(0, 1, 2, 3),
+                layouts=(False, True) if paged else (False,))
             peaks = [results[u].meter.peak_tokens for u in range(len(lens))]
             vanillas = [arch.num_layers * (a + b) for a, b in zip(lens, news)]
             if not all(p < v for p, v in zip(peaks, vanillas)):
-                raise AssertionError(f"5l (e) {name}: peak live tokens "
-                                     f"{peaks}, vanilla's {vanillas}")
-            log(f"5l (e) {name}: peak live tokens a request (summed over "
-                f"layers, mean over kv heads) {peaks}, below the "
+                raise AssertionError(f"{tag} {live_step} {name}: peak live "
+                                     f"tokens {peaks}, vanilla's {vanillas}")
+            log(f"{tag} {live_step} {name}: peak live tokens a request "
+                f"(summed over layers, mean over kv heads) {peaks}, below the "
                 f"{vanillas} vanilla would hold (fractions "
                 f"{[round(p / v, 4) for p, v in zip(peaks, vanillas)]})")
-            lap(f"5l load, (a), (d), (e) {name}")
+            lap(f"{tag} load, (a), {'paged, ' if paged else ''}{live_step} "
+                f"{name}")
+            if FULL_DEPTH[name].get("export"):
+                exported = phase_prefill_export(
+                    torch, setup, t=export[0], steps=export[1],
+                    what=f"{tag} (g) {name}", kinds=("dms",),
+                    force_alpha=True)
+                out["flash"] += exported["flash"]
+                lap(f"{tag} (g) {name}")
             flag["main"] = False
             policy_paths(torch, setup, {f"{name} ({arch.num_layers} "
                                         "layers)": (arch, kw)},
-                         steps=tf, what="5l (c)")
-            lap(f"5l (c) {name}")
-            if name in PAPER_PROFILED:
-                key = f"{name} 5l"
+                         steps=tf, what=f"{tag} (c)")
+            lap(f"{tag} (c) {name}")
+            if FULL_DEPTH[name].get("profiled"):
+                key = f"{name} {tag}"
                 prof = phase_profile(
                     torch, params, arch, {key: KVPolicyConfig(**kw)},
                     lanes=len(lens), max_len=setup["max_len"],
@@ -5617,47 +5835,105 @@ def phase_paper(torch, device="cuda", checked=None, *, trace=None,
                 busy = (f"{prof['device_ms']:.3f} ms device time, busy "
                         f"share {prof['device_ms'] / prof['wall_ms']:.4f}"
                         if prof["device_ms"] else "device time not measured")
-                log(f"5l profile: {name} at {arch.num_layers} layers, "
+                log(f"{tag} profile: {name} at {arch.num_layers} layers, "
                     f"{len(lens)} lanes: {prof['wall_ms']:.2f} ms a decode "
                     f"step = {prof['wall_ms'] / arch.num_layers:.3f} ms a "
                     f"layer; {prof['ops'] / arch.num_layers:.1f} ATen ops a "
                     f"layer; {busy}; beside the weight-read floor "
                     f"{floor_ms:.2f} ms")
                 out["profiles"][name] = dict(prof, floor_ms=floor_ms)
-                lap(f"5l profile {name}")
-            if name == memory[0]:
-                out["memory"] = paper_memory(torch, setup, *memory[1:],
+                lap(f"{tag} profile {name}")
+            if name in memories:
+                out["memory"] = paper_memory(torch, setup, *memories[name],
                                              full.dms.window, weight_bytes,
-                                             free)
+                                             free, what=tag)
             del setup, params, results
             t_lap[0] = time.perf_counter()
-            log(f"seconds: 5l {name} {t_lap[0] - t0:.1f}")
+            log(f"seconds: {tag} {name} {t_lap[0] - t0:.1f}")
     finally:
         ops.decode_rows, tfm.decode_step = real_rows, real_step
+        fops.flash_fwd = real_fwd
     if cuda:
         gc.collect()
         torch.cuda.empty_cache()
     checked = checked if checked is not None else expected
+    flash_checked = (flash_checked if flash_checked is not None
+                     else flash_expected)
     if not seen <= set(checked):
-        raise AssertionError(f"phase 5l launched the decode kernel at "
+        raise AssertionError(f"phase {tag} launched the decode kernel at "
                              f"{sorted(seen - set(checked))}, not among phase"
                              f" 3's checked {sorted(checked)}")
-    log(f"phase 5l's decode launch shapes {sorted(seen)}: each checked in "
-        "phase 3")
+    if not flash_seen <= set(flash_checked):
+        raise AssertionError(f"phase {tag} launched flash_fwd at "
+                             f"{sorted(flash_seen - set(flash_checked))}, "
+                             f"not among phase 3's checked "
+                             f"{sorted(flash_checked)}")
+    log(f"phase {tag}'s decode launch shapes {sorted(seen)}"
+        + (f" and flash launch shapes {sorted(flash_seen)}"
+           if flash_seen else "") + ": each checked in phase 3")
     return out
+
+
+def phase_paper(torch, device="cuda", checked=None, *, trace=None,
+                tf=PAPER_TF, memory=None):
+    """Phase 5l: ``phase_full_depth`` of the paper's models, llama32-1b,
+    qwen-r1-7b and qwen-r1-32b (its 65.5 GB of weights beside dms's 4 x
+    32 768-token state)."""
+    return phase_full_depth(torch, PAPER_SERVED, "5l", device, checked,
+                            trace=trace, tf=tf, memory=memory)
+
+
+def phase_catalog(torch, device="cuda", checked=None, flash_checked=None, *,
+                  trace=None, tf=PAPER_TF, memory=None,
+                  export=(EXPORT_PROMPT, CATALOG_EXPORT_DECODE)):
+    """Phase 5n: ``phase_full_depth`` of the catalog's last three
+    configurations: phi3-mini-3.8b (MHA at Dh 96; (f) its memory line at 8
+    x 32 768 tokens, (g) its prefill export through flash_fwd at Dh 96),
+    minitron-4b (G 3, vocab 256 000) and granite-moe-1b-a400m (32 experts,
+    top-8; (b) also paged)."""
+    return phase_full_depth(torch, CATALOG_SERVED, "5n", device, checked,
+                            flash_checked, trace=trace, tf=tf, memory=memory,
+                            export=export)
+
+
+def full_depth_rows(torch, names, launches, errs, tag, all_paged=False,
+                    seed=96):
+    """Phase 7's decode rows for a full-depth phase: the kernel at each
+    model's serving shapes (``serving_layouts``), each with its launches
+    there."""
+    from repro_torch.configs import get_arch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows = []
+    for name in names:
+        arch = full_depth_arch(get_arch(name))
+        rows += layout_rows(torch, gen, arch,
+                            serving_layouts(arch, all_paged=all_paged),
+                            launches, errs, tag=f", {tag} full depth")
+    return rows
 
 
 def phase_paper_timing(torch, launches, errs):
     """Phase 7's rows for 5l: the decode kernel at each model's serving
-    shapes (``paper_layouts``' serving layouts: fixed, and shared-pool for
-    ``PAPER_PAGED``), each with its launches in 5l."""
-    from repro_torch.configs import get_arch
-    gen = torch.Generator(device="cuda").manual_seed(96)
-    rows = []
-    for name in PAPER_SERVED:
-        arch = paper_arch(get_arch(name))
-        rows += layout_rows(torch, gen, arch, paper_layouts(arch)[:-1],
-                            launches, errs, tag=", 5l full depth")
+    shapes (fixed, and shared-pool where 5l serves the pool)."""
+    return full_depth_rows(torch, PAPER_SERVED, launches, errs, "5l")
+
+
+def phase_catalog_timing(torch, out, errs, flash_errs):
+    """Phase 7's rows for 5n: the decode kernel at each model's serving
+    arenas in both modes (the pool served for granite-1b only), then
+    fwd, dq and dkv at phi3-mini's retrofit shape and ``flash_fwd`` at (g)'s
+    prefill export, Dh 96, each beside its bound counted at Dh 96."""
+    rows = full_depth_rows(torch, CATALOG_SERVED, out["launches"], errs, "5n",
+                           all_paged=True, seed=95)
+    (retrofit, r_kw), (export, e_kw) = catalog_flash_cases().items()
+    rows += phase_flash_timing(
+        torch, dict.fromkeys(("flash_fwd", "flash_dq", "flash_dkv"), 0),
+        flash_errs[retrofit], kw=r_kw,
+        label=" (phi3-mini-3.8b retrofit shape, Dh 96)")
+    rows += phase_flash_timing(
+        torch, {"flash_fwd": out["flash"]}, flash_errs[export], kw=e_kw,
+        label=" (phi3-mini-3.8b prefill export, Dh 96)",
+        kernels=("flash_fwd",))
     return rows
 
 
@@ -6215,7 +6491,7 @@ def profile_train_step(torch, arch, out, batch_t, step):
                                           batch_t, step, use_kernel=True)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = device_events(torch, prof)
+    events = device_events(torch, prof.key_averages())
     dev_ms = sum(e.self_device_time_total for e in events) / 1e3
     flash_ms = sum(e.self_device_time_total for e in events
                    if "flash_" in e.key) / 1e3
@@ -6734,6 +7010,10 @@ def main() -> int:
                                          what="phase 5m")
     reasoner_flash = reasoner_flash_cases()
     reasoner_flash_errs = flash_vs_plain(torch, reasoner_flash)
+    catalog_keys = catalog_decode_keys()
+    _, catalog_errs = check_decode_keys(torch, catalog_keys, what="phase 5n")
+    catalog_flash = catalog_flash_cases()
+    catalog_flash_errs = flash_vs_plain(torch, catalog_flash)
     lap("phases 1-3")
     served = phase_serve(torch, shallow)
     lap("phase 4")
@@ -6790,6 +7070,10 @@ def main() -> int:
                               flash_checked=encdec_flash_keys(torch,
                                                               reasoner_flash))
     lap("phase 5m")
+    catalog = phase_catalog(torch, checked=catalog_keys,
+                            flash_checked=encdec_flash_keys(torch,
+                                                            catalog_flash))
+    lap("phase 5n")
     trained = phase_train(torch)
     lap("phase 6")
     kernels = phase_timing(torch, main_shape, {"fixed": served["launches"],
@@ -6810,6 +7094,8 @@ def main() -> int:
     kernels += phase_paper_timing(torch, paper["launches"], paper_errs)
     kernels += phase_reasoner_timing(torch, reasoned, reasoner_errs,
                                      reasoner_flash_errs)
+    kernels += phase_catalog_timing(torch, catalog, catalog_errs,
+                                    catalog_flash_errs)
     lap("phase 7")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

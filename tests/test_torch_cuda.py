@@ -659,6 +659,50 @@ def test_decode_paper_groupings_match_plain(cuda_device, bh, g, dh, nb):
         *fixed, BP, splits=splits).float(), **BF16)
 
 
+# (B·Hkv, G, Dh, table entries) of phase 5n: phi3-mini's MHA at Dh 96 on 4
+# lanes of 32 kv heads (B·Hkv 128, one split a row) at its served arena (48
+# slots), its prefill export's (112) and over a 40-entry table; minitron's
+# G 3 and granite-1b's G 2 on 4 lanes of 8 kv heads
+CATALOG_SHAPES = [(128, 1, 96, 3), (128, 1, 96, 7), (128, 1, 96, 40),
+                  (32, 3, 128, 3), (32, 2, 64, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,g,dh,nb", CATALOG_SHAPES,
+                         ids=[f"BH{bh}-G{g}-Dh{dh}-nb{nb}"
+                              for bh, g, dh, nb in CATALOG_SHAPES])
+def test_decode_catalog_shapes_match_plain(cuda_device, bh, g, dh, nb):
+    """The catalog's last three served in phase 5n: phi3-mini's G 1 at Dh
+    96 (six k-steps of the tensor-core tile, 192-byte rows, 15 of the
+    tile's 16 rows empty) over 128 rows, so one split a row on a card of
+    fewer than 256 SMs and no cluster combine; minitron-4b's G 3 at Dh 128
+    and granite-moe-1b's G 2 at Dh 64.  Fixed arenas and the shared pool
+    (NaN in every unlisted block and page, rows of n = 0, 1 and NB_tbl)
+    give the same bits, on a second launch too, and agree with the plain
+    version and with the plain version of the kernel's split."""
+    from repro_torch.kernels.dms_decode.ref import dms_decode_plain_split
+    fixed, shared = _split_case(cuda_device, g, dh, nb, seed=bh + nb,
+                                front_only=False, bh=bh)
+    splits = ops.launch_splits(fixed[0], nb)
+    if bh == 128 and ops.sm_count(cuda_device) < 256:
+        assert splits == 1
+    before = (ops.launches, ops.shared_launches)
+    runs = [(ops.decode_rows(*fixed, BP), ops.decode_rows(*shared, BP,
+                                                          shared_kv=True))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert (ops.launches, ops.shared_launches) == (before[0] + 2,
+                                                   before[1] + 2)
+    (out_f, out_s), (again_f, again_s) = runs
+    assert torch.equal(out_f, out_s)
+    assert torch.equal(out_f, again_f) and torch.equal(out_s, again_s)
+    assert torch.isfinite(out_f.float()).all() and not out_f[0].float().any()
+    torch.testing.assert_close(out_f.float(), dms_decode_plain(
+        *fixed, BP).float(), **BF16)
+    torch.testing.assert_close(out_f.float(), dms_decode_plain_split(
+        *fixed, BP, splits=splits).float(), **BF16)
+
+
 # (B·Hkv, table entries) of phase 5m's trained reasoner, G 2 at Dh 16:
 # vanilla's one lane (48 slots), dms's four chains (32) and the
 # teacher-forced trace's two lanes (32)

@@ -176,6 +176,100 @@ def test_paper_launch_keys_keep_each_models_head_grouping():
     assert (32, 5, 128, 48, 16) in keys and (16, 5, 128, 48, 16) in keys
 
 
+def test_smoke_catalog_phase_on_the_cpu(capsys):
+    """Phase 5n on the smoke configs of phi3-mini-3.8b, minitron-4b and
+    granite-moe-1b-a400m (plain kernel versions, its own 32-step trace, a
+    short prefill export): every request ok, granite's pool tokens equal
+    its fixed arenas', live tokens below vanilla's, the kernel-vs-reference
+    trace, phi3's and minitron's profiles, phi3's memory line and prefill
+    export, and every decode and flash launch at a shape ``paper_layouts``
+    and ``catalog_flash_cases`` predict."""
+    out = chip_smoke.phase_catalog(torch, device="cpu", tf=4,
+                                   memory=("phi3-mini-3.8b", 8, 256),
+                                   export=(48, 4))
+    printed = capsys.readouterr().out
+    for name in chip_smoke.CATALOG_SERVED:
+        assert f"5n (a) {name}: requests [0, 1, 2, 3]" in printed
+        assert f"5n (d) {name}: peak live tokens" in printed
+        assert f"5n (c): {name} (2 layers) kernel vs reference" in printed
+    assert printed.count("32 decode steps") == 4     # granite paged too
+    assert printed.count("tokens equal to the fixed arenas'") == 1
+    assert "5n (g) phi3-mini-3.8b prefill export, dms" in printed
+    assert "alpha flips between the paths" in printed
+    assert sorted(out["profiles"]) == ["minitron-4b", "phi3-mini-3.8b"]
+    assert 0 < out["memory"]["dms_bytes"] < out["memory"]["vanilla_bytes"]
+    assert "phase 5n's decode launch shapes" in printed
+    assert "and flash launch shapes [(True, 4, 48, 2, 2, 16" in printed
+    # the plain versions launch nothing; the wrapper was called on the path
+    assert sum(out["launches"].values()) > 0
+
+
+def test_catalog_launch_keys_keep_each_models_head_grouping():
+    """The shapes phase 3 checks for 5n at full width: phi3-mini's G 1 at
+    Dh 96 over B·Hkv 128 (4 lanes of 32 kv heads), minitron-4b's G 3 at Dh
+    128 and granite-1b's G 2 at Dh 64 over 32, each in both modes at its
+    served arena of 48 slots; phi3's prefill export arenas; the flash
+    kernels at phi3's Dh 96, its retrofit shape and (g)'s export with the
+    served delay window of 16."""
+    keys = chip_smoke.catalog_decode_keys()
+    assert {(k[1], k[2]) for k in keys} == {(1, 96), (3, 128), (2, 64)}
+    assert {k[:3] for k in keys if len(k) == 7} == {
+        (128, 1, 96), (32, 3, 128), (32, 2, 64)}
+    assert {(128, 1, 96, 48, 16), (32, 3, 128, 48, 16),
+            (32, 2, 64, 48, 16), (128, 1, 96, 112, 16)} <= keys
+    flash = chip_smoke.encdec_flash_keys(
+        torch, chip_smoke.catalog_flash_cases(), device="cpu")
+    assert flash == {(True, 2, 1024, 32, 32, 96, "bfloat16", 256),
+                     (True, 4, 512, 32, 32, 96, "bfloat16", 16)}
+
+
+def test_route_forcer_hands_each_call_the_recorded_experts():
+    """The reference path of a full-depth MoE trace routes as the kernel
+    path did: each call gets the recorded expert ids in order, the router's
+    probabilities at them renormalised, and a flag says where its own
+    choice of experts differed."""
+    from repro_torch.models import layers
+    gen = torch.Generator().manual_seed(5)
+    p = {"router": torch.randn((8, 6), generator=gen)}
+    xt = torch.randn((2, 1, 8), generator=gen)
+    probs, _, own = layers.moe_route(p, xt, 2)
+    other = (own + 1) % 6
+    rerouted = []
+    forcing, real = chip_smoke.route_forcer(torch, layers, [own, other],
+                                            rerouted)
+    assert real is layers.moe_route
+    for want in (own, other):
+        got_probs, got_p, got_e = forcing(p, xt, 2)
+        assert torch.equal(got_e, want) and torch.equal(got_probs, probs)
+        weights = probs.gather(-1, want)
+        torch.testing.assert_close(got_p, weights / weights.sum(-1,
+                                                                 keepdim=True))
+    assert rerouted == [False, True]
+
+
+def test_alpha_forcer_records_then_hands_the_recorded_alphas():
+    """The held reference path of 5n (g)'s prefill export takes the kernel
+    path's α^bin in every layer: recorded in order, handed back in order,
+    with the count of the reference's own decisions that differ."""
+    from repro_torch.core import dms as dms_lib
+    from repro_torch.core.config import DMSConfig
+    gen = torch.Generator().manual_seed(6)
+    cfg = DMSConfig(logit_bias=0.0)
+    qs = [torch.randn((2, 5, 4, 8), generator=gen) for _ in range(2)]
+    alphas = []
+    recording, real = chip_smoke.alpha_forcer(dms_lib, alphas)
+    own = [recording(q, 2, cfg)[0] for q in qs]
+    assert all(torch.equal(a, b) for a, b in zip(alphas, own))
+    alphas[1] = ~alphas[1]                         # every decision flipped
+    flips = []
+    forcing = chip_smoke.alpha_forcer(dms_lib, alphas, flips)[0]
+    for q, want in zip(qs, alphas):
+        got, q_out = forcing(q, 2, cfg)
+        assert torch.equal(got, want)
+        assert torch.equal(q_out, real(q, 2, cfg)[1])
+    assert flips == [0, alphas[1].numel()]
+
+
 def test_smoke_reasoner_phase_on_the_cpu(capsys):
     """Phase 5m at the demo's own width on the CPU (the kernels' plain
     versions), its steps, problems and traces cut: the training's flash
