@@ -230,7 +230,31 @@ Phases (any failure raises, so the exit code is non-zero):
               on the card; its measured peak (``max_memory_allocated``)
               must lie within ``MESH_PEAK_TOL`` of ``MemTracker``'s
               prediction; the roofline's compute, memory and collective
-              terms of that run are printed beside them.
+              terms of that run are printed beside them.  (c) The decode
+              kernel on every slot shard of qwen-r1-1.5b's decode cells on
+              the 16x16 mesh at CR 8 (``MESH_SHARD_CELLS``), cut as the
+              sharding rule cuts them (``sharding.cache_shardings`` on the
+              dry-run's own decode state): ``decode_32k`` (8 lanes a rank,
+              slots over ``model``) under H2O (4112 slots, weights out),
+              dms (4368) and Quest (32768, its top-k page table), and
+              ``long_500k`` (1 lane, slots over ``data``) under H2O (65552,
+              weights out) and dms (65808); 16 shards each, none of the
+              weight-driven or dms ones block-aligned.  Every shard goes
+              through ``attention.shard_partial`` under ``use_kernel`` (the
+              kernel's slot-shard mode, NaN in every unlisted block) and
+              the shards are combined by ``attention.combine_shards``, a
+              reduction over the shard index in place of the all-reduce.
+              Each shard's m and l within ``WEIGHTS_TOL`` of its plain
+              version's (``ref.dms_decode_plain_shard``), its output
+              within ``FLASH_REL_TOL`` (bf16) of the plain output's largest
+              magnitude; the combined output within ``KERNEL_TOL`` and that
+              relative bound of the whole-arena kernel's and of the plain
+              version's; the combined weights, where asked, within
+              ``WEIGHTS_TOL`` and 1e-4 of the largest weight; the
+              slot-shard launch count exactly one a shard, read per arena;
+              one shard's call timed beside its bound, its plain version
+              and SDPA over the shard with a bool mask (rows of the
+              ``kernels`` line).
 5l. paper   — the paper's own models at their published widths and full
               depth, random bf16 weights from seed 0 drawn on the card,
               each freed before the next loads: llama32-1b (16 layers,
@@ -5458,6 +5482,308 @@ def phase_mesh(torch, card="", device="cuda", layers=MESH_LAYERS,
     return launches
 
 
+# (c): (cell, policy, weights out) of qwen-r1-1.5b's decode cells on the
+# production mesh at MESH_SHARD_CR
+MESH_SHARD_CELLS = (("decode_32k", "h2o", True), ("decode_32k", "dms", False),
+                    ("decode_32k", "quest", False),
+                    ("long_500k", "h2o", True), ("long_500k", "dms", False))
+MESH_SHARD_CR = 8.0
+MESH_SHARD_TIMED = 1          # the shard (c) times: a straddling one
+
+
+def mesh_shard_cells(cells=MESH_SHARD_CELLS, cr=MESH_SHARD_CR):
+    """(c)'s layouts, from the port's own provisioning and sharding rule:
+    the dry-run's decode state of each cell (``steps.decode_input_specs``,
+    fake tensors) and ``sharding.cache_spec`` of its K arena on the
+    production mesh.  Each: dict(name, lanes (a rank), hkv, g, dh, p (the
+    whole arena's slots), shards, bp, weights, quest)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.config import SHAPES, KVPolicyConfig
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch.mesh import production_axes
+    from repro_torch.parallel import sharding
+    # one layer: the rule reads a layer's (B, H, P, Dh), not the depth
+    arch = dataclasses.replace(get_arch("qwen-r1-1.5b"), num_layers=1)
+    axes = production_axes()
+    out = []
+    for cell, policy, weights in cells:
+        shape = SHAPES[cell]
+        cfg = KVPolicyConfig(kind=policy, cr=cr)
+        cache = steps_lib.decode_input_specs(arch, shape, cfg)["cache"]
+        (path, k), = [(pth, x) for pth, x in sharding.leaves_with_path(cache)
+                      if pth[-1] == "k" and x.dim() == 5][:1]
+        spec = sharding.cache_spec(path, tuple(k.shape), axes,
+                                   shape.global_batch, arch)
+
+        def split(entry):
+            names = () if entry is None else (
+                (entry,) if isinstance(entry, str) else tuple(entry))
+            return math.prod(sharding.axis_size(axes, a) for a in names)
+
+        _, b, hkv, p, dh = k.shape
+        out.append(dict(
+            name=f"{cell} {policy}", lanes=b // split(spec[1]),
+            hkv=hkv // split(spec[2]), g=arch.attn.q_per_kv, dh=dh, p=p,
+            shards=split(spec[3]),
+            bp=cfg.quest_page_size if policy == "quest" else cfg.block_p,
+            weights=weights, quest=policy == "quest",
+            top=(max(int(p / cr) // cfg.quest_page_size, 1)
+                 if policy == "quest" else 0)))
+    return out
+
+
+def rel_err(got, want):
+    """max |got - want| over max |want| (0 where both are all zero)."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs().max().item()
+    return err / max(want.abs().max().item(), 1e-30) if err else 0.0
+
+
+def shard_case(torch, gen, c, device="cuda"):
+    """Operands of one (c) layout over its whole arena, rows (lanes x hkv):
+    the weight-driven and dms arenas by ``make_case`` (every block with a
+    visible slot listed in shuffled order); Quest's ``top`` pages of each
+    row selected at random, listed ascending, every slot of them visible.
+    K/V of every unlisted block is NaN."""
+    rows, p, bp = c["lanes"] * c["hkv"], c["p"], c["bp"]
+    if not c["quest"]:
+        return make_case(torch, gen, bh=rows, g=c["g"], dh=c["dh"], p=p,
+                         bp=bp, density=0.97 if c["weights"] else 0.85,
+                         device=device)
+    nb = p // bp
+    q = torch.randn((rows, c["g"], c["dh"]), generator=gen,
+                    device=device).to(torch.bfloat16)
+    k, v = (torch.randn((rows, p, c["dh"]), generator=gen, device=device)
+            .to(torch.bfloat16) for _ in range(2))
+    score = torch.rand((rows, nb), generator=gen, device=device)
+    pages = torch.zeros((rows, nb), dtype=torch.bool, device=device)
+    pages.scatter_(1, score.topk(c["top"], dim=1).indices, True)
+    tbl = torch.argsort((~pages).to(torch.int8), dim=1,
+                        stable=True).to(torch.int32)
+    n = pages.sum(dim=1).to(torch.int32)
+    valid = pages.repeat_interleave(bp, dim=1)
+    k[~valid] = float("nan")
+    v[~valid] = float("nan")
+    return q, k, v, valid, tbl, n
+
+
+def shard_entry(torch, c, operands, lo, hi, launches, err):
+    """A ``kernels`` row: one shard's slot-shard call ``[lo, hi)`` timed
+    beside its plain version, SDPA over the shard's K/V with its bool mask
+    (the listed visible slots), and the bound: the shard's listed slots'
+    K/V and flags, the table entries, q read once, the output and
+    statistics (and the kept entries' weights) written once."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.dms_decode import ops
+    from repro_torch.kernels.dms_decode import ref
+    q, k, v, valid, tbl, n = operands
+    rows, g, dh = q.shape
+    bp, w = c["bp"], c["weights"]
+    ks, vs = k[:, lo:hi].contiguous(), v[:, lo:hi].contiguous()
+    vals = valid[:, lo:hi].contiguous()
+    args = (q, ks, vs, vals, tbl, n, bp)
+    saved = ops.shard_launches
+    ms = time_cuda(torch, lambda: ops.decode_rows(*args, need_weights=w,
+                                                  slot_lo=lo))
+    ops.shard_launches = saved              # timing is not the path's
+    plain_ms = time_cuda(torch, lambda: ref.dms_decode_plain_shard(
+        *args, lo, need_weights=w))
+    nb = c["p"] // bp
+    entry_live = torch.arange(tbl.shape[1], device=tbl.device) < n[:, None]
+    listed = torch.zeros((rows, nb + 1), dtype=torch.bool, device=tbl.device)
+    listed.scatter_(1, torch.where(entry_live, tbl.long(), nb), True)
+    in_shard = listed[:, :nb].repeat_interleave(bp, dim=1)[:, lo:hi]
+    slots = int(in_shard.sum().item())
+    kept = int((listed[:, :nb].reshape(rows, nb, 1)
+                & (torch.arange(nb, device=tbl.device)[None, :, None] * bp
+                   < hi)
+                & ((torch.arange(nb, device=tbl.device)[None, :, None] + 1)
+                   * bp > lo)).sum().item())
+    b = rows // c["hkv"]
+    mask = (in_shard & vals).reshape(b, c["hkv"], 1, hi - lo)
+    qs = q.reshape(b, c["hkv"] * g, 1, dh)
+    kd = torch.nan_to_num(ks).reshape(b, c["hkv"], hi - lo, dh)
+    vd = torch.nan_to_num(vs).reshape(b, c["hkv"], hi - lo, dh)
+    mask = mask.repeat_interleave(g, dim=1)
+    library_ms = time_cuda(torch, lambda: F.scaled_dot_product_attention(
+        qs, kd, vd, attn_mask=mask, enable_gqa=True))
+    moved = (slots * dh * (ks.element_size() + vs.element_size()) + slots
+             + 4 * (int(n.sum().item()) + rows)
+             + 2 * q.numel() * q.element_size() + 8 * rows * g
+             + (4 * kept * g * (bp + 1) if w else 0))
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = 4.0 * g * dh * slots / BF16_FLOPS_PER_S * 1e3
+    entry = {
+        "name": f"dms_decode_slot_shard ({c['name']}"
+                f"{', weights out' if w else ''})",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/dms_decode/csrc/dms_decode.cu",
+        "replaces": "src/repro/kernels/dms_decode/dms_decode.py:118",
+        "launches": launches, "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": library_ms,
+    }
+    log(f"timing: {entry['name']}: shard [{lo}, {hi}) of {c['p']} slots "
+        f"(rows {rows}, G {g}, Dh {dh}, block_p {bp}; over the rows {kept} "
+        f"listed blocks overlap it, {slots} listed slots in it): kernel "
+        f"{ms:.4f} ms in "
+        f"clusters of {ops.launch_splits(q, tbl.shape[1])} splits a row, "
+        f"bound {entry['bound_ms']:.5f} ms ({moved} B), plain "
+        f"{plain_ms:.4f} ms, SDPA over the shard {library_ms:.4f} ms")
+    return entry
+
+
+def phase_mesh_shards(torch, card="", device="cuda", cells=None):
+    """Phase 5k (c) (see the module docstring).  ``cells``: layouts as
+    :func:`mesh_shard_cells` gives them (its production ones by default).
+    On the CPU the kernel is its plain version and nothing is timed.
+    Returns the ``kernels`` rows (none on the CPU)."""
+    from repro_torch.core.config import AttentionConfig
+    from repro_torch.core.policy import AttendSpec
+    from repro_torch.kernels.dms_decode import ops
+    from repro_torch.kernels.dms_decode import ref
+    from repro_torch.models import attention
+    t_all = time.perf_counter()
+    cuda = device == "cuda"
+    cells = mesh_shard_cells() if cells is None else cells
+    gen = torch.Generator(device=device).manual_seed(5300)
+    cases = [shard_case(torch, gen, c, device) for c in cells]
+    t0 = time.perf_counter()
+    ops.shard_launches = 0
+    combined, launched = [], []
+    for c, (q, k, v, valid, tbl, n) in zip(cells, cases):
+        b, hkv, g, dh, p = c["lanes"], c["hkv"], c["g"], c["dh"], c["p"]
+        loc = p // c["shards"]
+        cfg = AttentionConfig(num_heads=hkv * g, num_kv_heads=hkv,
+                              head_dim=dh)
+        q4 = q.reshape(b, 1, hkv * g, dh)
+        vis = valid.reshape(b, hkv, p)
+        parts = []
+        before = ops.shard_launches
+        for r in range(c["shards"]):
+            lo = r * loc
+            # a rank's shard is its own storage: contiguous
+            spec = AttendSpec(
+                k[:, lo:lo + loc].reshape(b, hkv, loc, dh).contiguous(),
+                v[:, lo:lo + loc].reshape(b, hkv, loc, dh).contiguous(), vis,
+                block_tbl=tbl.reshape(b, hkv, -1),
+                block_n=n.reshape(b, hkv), block_p=c["bp"],
+                needs_weights=c["weights"])
+            parts.append(attention.shard_partial(
+                q4, spec, None, cfg, True, None, lo,
+                need_weights=c["weights"]))
+        launched.append(ops.shard_launches - before)
+        stack = attention.ShardPartial(*(torch.stack(
+            [getattr(x, f) for x in parts]) for f in ("m", "l", "acc")))
+        out, _ = attention.combine_shards(stack, ref.reduce_stacked,
+                                          q4.shape)
+        weights = None
+        if c["weights"]:
+            m, den, _ = ref.combine_partials(stack.m, stack.l, stack.acc)
+            weights = torch.cat([x.weights(m, den) for x in parts],
+                                dim=-1).reshape(b * hkv, p)
+        combined.append((out.reshape(b * hkv, g, dh).to(torch.bfloat16),
+                         weights, parts))
+    if cuda:
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    want = sum(c["shards"] for c in cells) if cuda else 0
+    if ops.shard_launches != want:
+        raise AssertionError(f"phase 5k (c): {ops.shard_launches} slot-shard "
+                             f"launches, want one a shard ({want})")
+    path_launches = ops.shard_launches
+    saved = (ops.launches, ops.weights_launches)
+    rows = []
+    for c, case, (out, weights, parts), count in zip(cells, cases, combined,
+                                                     launched):
+        q, k, v, valid, tbl, n = case
+        bp, nb, loc = c["bp"], c["p"] // c["bp"], c["p"] // c["shards"]
+        # each shard's own (out, m, l) against its plain version
+        shard_err = shard_stat_err = 0.0
+        for r, part in enumerate(parts):
+            lo = r * loc
+            p_out, p_m, p_l = ref.dms_decode_plain_shard(
+                q, k[:, lo:lo + loc], v[:, lo:lo + loc],
+                valid[:, lo:lo + loc], tbl, n, bp, lo)
+            rows_g = p_m.shape
+            k_m, k_l = part.m.reshape(rows_g), part.l.reshape(rows_g)
+            torch.testing.assert_close(k_m, p_m, **WEIGHTS_TOL)
+            torch.testing.assert_close(k_l, p_l, **WEIGHTS_TOL)
+            k_out = (part.acc.reshape(p_out.shape)
+                     / torch.where(k_l > 0, k_l, 1.0)[..., None])
+            shard_err = max(shard_err, rel_err(k_out, p_out.float()))
+            shard_stat_err = max(shard_stat_err,
+                                 (k_m - p_m).abs().max().item(),
+                                 (k_l - p_l).abs().max().item())
+        if shard_err > FLASH_REL_TOL["bfloat16"]:
+            raise AssertionError(
+                f"phase 5k (c) [{c['name']}]: a shard's output differs from "
+                f"its plain version by {shard_err:.3e} of its largest "
+                f"magnitude (> {FLASH_REL_TOL['bfloat16']})")
+        if c["weights"]:
+            raw = ops.decode_rows(q, k, v, valid, tbl, n, bp,
+                                  need_weights=True)
+            whole, whole_w = raw[0], ops.table_weights_to_arena(
+                *raw[1:], n, tbl, nb)
+            praw = ref.dms_decode_plain_weights(q, k, v, valid, tbl, n, bp)
+            plain, plain_w = praw[0], ops.table_weights_to_arena(
+                *praw[1:], n, tbl, nb)
+        else:
+            whole = ops.decode_rows(q, k, v, valid, tbl, n, bp)
+            plain = ref.dms_decode_plain(q, k, v, valid, tbl, n, bp)
+        if not bool(torch.isfinite(out.float()).all()):
+            raise AssertionError(f"phase 5k (c) [{c['name']}]: non-finite "
+                                 "combined output")
+        torch.testing.assert_close(out.float(), whole.float(), **KERNEL_TOL)
+        torch.testing.assert_close(out.float(), plain.float(), **KERNEL_TOL)
+        err = max((out.float() - x.float()).abs().max().item()
+                  for x in (whole, plain))
+        rel = max(rel_err(out, x) for x in (whole, plain))
+        if rel > FLASH_REL_TOL["bfloat16"]:
+            raise AssertionError(
+                f"phase 5k (c) [{c['name']}]: the combined output differs "
+                f"by {rel:.3e} of the largest magnitude (> "
+                f"{FLASH_REL_TOL['bfloat16']})")
+        werr = wrel = None
+        if weights is not None:
+            for x in (whole_w, plain_w):
+                torch.testing.assert_close(weights, x, **WEIGHTS_TOL)
+            werr = max((weights - x).abs().max().item()
+                       for x in (whole_w, plain_w))
+            wrel = max(rel_err(weights, x) for x in (whole_w, plain_w))
+            if wrel > WEIGHTS_TOL["rtol"]:
+                raise AssertionError(
+                    f"phase 5k (c) [{c['name']}]: the combined weights "
+                    f"differ by {wrel:.3e} of the largest weight (> "
+                    f"{WEIGHTS_TOL['rtol']})")
+        log(f"phase 5k (c) [{c['name']}]: {c['lanes']} lanes x {c['hkv']} "
+            f"kv heads a rank, {c['p']} slots cut into {c['shards']} shards "
+            f"of {loc} (block_p {bp}); each shard's kernel m and l against "
+            f"its plain version: max abs err {shard_stat_err:.3e} (atol "
+            f"{WEIGHTS_TOL['atol']}, rtol {WEIGHTS_TOL['rtol']}), its output "
+            f"{shard_err:.3e} of the largest magnitude; the shards' kernel "
+            f"partials combined against the whole-arena kernel and the plain "
+            f"version: output max abs err {err:.3e}, {rel:.3e} of the largest "
+            f"magnitude (atol {KERNEL_TOL['atol']}, rtol "
+            f"{KERNEL_TOL['rtol']}; relative {FLASH_REL_TOL['bfloat16']})"
+            + ("" if werr is None else
+               f", weights max abs err {werr:.3e}, {wrel:.3e} of the largest "
+               f"weight (atol {WEIGHTS_TOL['atol']}, rtol "
+               f"{WEIGHTS_TOL['rtol']}; relative {WEIGHTS_TOL['rtol']})")
+            + f"; {count} launches; {card}")
+        if cuda:
+            rows.append(shard_entry(torch, c, case, MESH_SHARD_TIMED * loc,
+                                    (MESH_SHARD_TIMED + 1) * loc, count,
+                                    err if werr is None else max(err, werr)))
+    ops.launches, ops.weights_launches = saved
+    log(f"phase 5k (c): {path_launches} slot-shard launches over "
+        f"{len(cells)} arenas ({secs:.2f} s with the combines), one a shard; "
+        f"{card}")
+    log(f"seconds: 5k (c) {time.perf_counter() - t_all:.1f}")
+    return rows
+
+
 def phase_mesh_dryrun(torch, card=""):
     """Phase 5k (b): one dry-run cell for real on the card, in a
     subprocess; its measured peak against MemTracker's within
@@ -7063,6 +7389,7 @@ def main() -> int:
     dh256 = phase_dh256(torch, checked=set(dh256_keys))
     lap("phase 5i")
     phase_mesh(torch, card)
+    shard_rows = phase_mesh_shards(torch, card)
     lap("phase 5k")
     paper = phase_paper(torch, checked=paper_keys)
     lap("phase 5l")
@@ -7096,6 +7423,7 @@ def main() -> int:
                                      reasoner_flash_errs)
     kernels += phase_catalog_timing(torch, catalog, catalog_errs,
                                     catalog_flash_errs)
+    kernels += shard_rows
     lap("phase 7")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -43,8 +43,9 @@ import torch
 from repro_torch.core import block_pool
 from repro_torch.core.block_pool import BlockPool
 from repro_torch.core.kv_cache import (INVALID_POS, BlockTable, _round_up,
-                                       commit, event_mask, init_arena,
-                                       prefix_block_spec, write_rows)
+                                       arena_slots, commit, event_mask,
+                                       init_arena, prefix_block_spec,
+                                       update_rows, whole_slots, write_rows)
 
 _I32 = torch.int32
 
@@ -113,7 +114,11 @@ class WeightEvictCache:
         reports it: it inserts into and evicts from inactive lanes too and
         rolls them back afterwards (``lane_select``), so an inactive lane
         counts the token this step would have inserted.  ``kw`` goes to the
-        victim rule."""
+        victim rule.  On a slot shard of a split arena (whose metadata is
+        whole) ``attn_weights`` are the shard's slots, assembled over the
+        shards first (:func:`~repro_torch.core.kv_cache.whole_slots`), so
+        the victim is the argmin over the whole row, as on one rank."""
+        attn_weights = whole_slots(attn_weights)
         valid = self.valid
         n = valid.sum(dim=2)
         if active is not None:
@@ -275,7 +280,7 @@ class QuestCache:
         active lanes.  Returns the (B,) length every lane would have."""
         t = self.length.clone()              # the commit advances the leaf
         b, h, n_pages = self.kmin.shape[:3]
-        s = self.k.shape[2]
+        s = arena_slots(self.k)
         if self.pool is None:
             # the reference's dynamic_update_slice clamps the offset
             write_rows(self.k, self.v,
@@ -312,8 +317,9 @@ class QuestCache:
         return (ub >= thresh) & live[:, None]
 
     def token_mask_from_pages(self, page_mask: torch.Tensor) -> torch.Tensor:
-        """(B, H, S): the written slots of the selected pages."""
-        s = self.k.shape[2]
+        """(B, H, S): the written slots of the selected pages (S the whole
+        arena's slots, on a slot shard too)."""
+        s = arena_slots(self.k)
         idx = torch.arange(s, device=page_mask.device)
         tok = page_mask[..., idx // self.page_size]
         return tok & (idx < self.length[:, None, None])
@@ -327,25 +333,26 @@ class QuestCache:
                             stable=True).to(_I32)
         return tbl, page_mask.sum(dim=-1).to(_I32)
 
-    # the views take any leading axes (a stacked state's layers)
+    # the views take any leading axes (a stacked state's layers) and count
+    # the whole arena's S slots, on a slot shard too
 
     def valid_mask(self) -> torch.Tensor:
         """Lazy (..., B, 1, S) length-prefix occupancy."""
-        s = self.k.shape[-2]
+        s = arena_slots(self.k)
         return (torch.arange(s, device=self.length.device)
                 < self.length[..., None, None])
 
     def positions(self) -> torch.Tensor:
-        return torch.arange(self.k.shape[-2], dtype=_I32,
-                            device=self.length.device).expand(
-                                self.k.shape[:-1])
+        s = arena_slots(self.k)
+        return torch.arange(s, dtype=_I32, device=self.length.device).expand(
+            self.k.shape[:-2] + (s,))
 
     def retained_tokens(self, length: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:
         """(..., B, H): the written tokens — the whole cache stays (Quest's
         trade-off).  ``length`` (..., B) overrides the cache's."""
         length = self.length if length is None else length
-        written = torch.clamp(length, max=self.k.shape[-2])
+        written = torch.clamp(length, max=arena_slots(self.k))
         return written[..., None].expand(self.k.shape[:-2])
 
     def reads_per_step(self, length: Optional[torch.Tensor] = None
@@ -429,25 +436,23 @@ class DMCCache:
         z_old = torch.where(merge, self.z.gather(2, tgt_c.long()[..., None])
                             [..., 0], 0.0)
         z_new = z_old + omega
-        if self.pool is None:
-            bi = torch.arange(b, device=tgt.device)[:, None].expand(b, h)
-            hi = torch.arange(h, device=tgt.device)[None, :].expand(b, h)
-            k_old = self.k[bi, hi, tgt_c.long()]
-            v_old = self.v[bi, hi, tgt_c.long()]
-        else:
-            k_old = block_pool.gather_rows(self.pool.k, self.phys, tgt,
-                                           self.block_p)
-            v_old = block_pool.gather_rows(self.pool.v, self.phys, tgt,
-                                           self.block_p)
-        k_row = ((torch.where(merge[..., None], k_old, 0.0) * z_old[..., None]
-                  + kf * omega[..., None]) / z_new[..., None])
-        v_row = ((torch.where(merge[..., None], v_old, 0.0) * z_old[..., None]
-                  + vf * omega[..., None]) / z_new[..., None])
+
+        def merged(k_old, v_old):
+            return tuple((torch.where(merge[..., None], old, 0.0)
+                          * z_old[..., None] + new * omega[..., None])
+                         / z_new[..., None] for old, new in ((k_old, kf),
+                                                             (v_old, vf)))
+
         write = event_mask(active, (b, h), device=tgt.device) & (tgt < p)
         if self.pool is None:
-            write_rows(self.k, self.v, tgt_c, k_row[..., None, :],
-                       v_row[..., None, :], write)
+            # a slot shard reads and writes the target row where it owns it
+            update_rows(self.k, self.v, tgt_c, merged, write)
         else:
+            k_row, v_row = merged(
+                block_pool.gather_rows(self.pool.k, self.phys, tgt,
+                                       self.block_p),
+                block_pool.gather_rows(self.pool.v, self.phys, tgt,
+                                       self.block_p))
             block_pool.token_write(self.pool, self.phys, tgt[..., None],
                                    k_row[..., None, :], v_row[..., None, :],
                                    write[..., None])

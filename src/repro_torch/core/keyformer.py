@@ -18,7 +18,10 @@ is a per-layer parameter scalar, the IEEE bits of the fp32 value of the
 layer's ``attn.wo[0, 0]`` — of the fp32 master weight, which bf16 serving
 weights no longer hold (see :func:`repro_torch.models.transformer.
 layer_salts`).  It is the same on the kernel and the reference attention
-paths, so the noise never forks on float rounding of activations.
+paths, so the noise never forks on float rounding of activations.  On a
+slot-split arena (:mod:`repro_torch.parallel.spmd`) every rank holds the
+whole row's slot metadata, so each draws the whole row's noise, as one
+rank does, and picks the same victim.
 
 Like the reference, this module plugs in only through ``@register_policy``;
 ``repro_torch.core.policy`` imports it at the end so that it registers.

@@ -47,7 +47,7 @@ import contextlib
 import contextvars
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import torch
 
@@ -88,23 +88,45 @@ def commit(cache, meta: Dict[str, torch.Tensor],
 # Slot-sharded arenas (multi-device decode)
 # ---------------------------------------------------------------------------
 
-#: (offset, total) while a decode step runs on one slot shard of its arenas
-#: (:mod:`repro_torch.parallel.spmd`): the local arena holds slots
-#: ``[offset, offset + P_local)`` of ``total``; the slot metadata is whole.
-_ARENA_SHARD: contextvars.ContextVar[Optional[Tuple[int, int]]] = \
+#: (offset, total, gather) while a decode step runs on one slot shard of
+#: its arenas (:mod:`repro_torch.parallel.spmd`): the local arena holds
+#: slots ``[offset, offset + P_local)`` of ``total``; the slot metadata is
+#: whole; ``gather`` sums a zero-padded (..., total) tensor over the shards.
+_ARENA_SHARD: contextvars.ContextVar[
+    Optional[Tuple[int, int, Optional[Callable]]]] = \
     contextvars.ContextVar("arena_shard", default=None)
 
 
 @contextlib.contextmanager
-def arena_shard(offset: int, total: int) -> Iterator[None]:
+def arena_shard(offset: int, total: int,
+                gather: Optional[Callable] = None) -> Iterator[None]:
     """Within the block, arenas are slot shards: slot indices stay global,
-    :func:`write_rows` writes only the rows whose slot this shard owns, and
-    :func:`arena_slots` gives the whole arena's slot count."""
-    tok = _ARENA_SHARD.set((int(offset), int(total)))
+    :func:`write_rows` and :func:`update_rows` touch only the rows whose
+    slot this shard owns, :func:`arena_slots` gives the whole arena's slot
+    count, and :func:`whole_slots` assembles per-slot values of the shards
+    through ``gather`` (a sum over the shards: an all-reduce)."""
+    tok = _ARENA_SHARD.set((int(offset), int(total), gather))
     try:
         yield
     finally:
         _ARENA_SHARD.reset(tok)
+
+
+def whole_slots(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (..., P_local), a value for each slot of this shard, as (...,
+    P) over the whole arena: each shard's values in its own slots, zeros
+    elsewhere, summed over the shards, so each slot holds exactly its
+    owner's value.  Outside :func:`arena_shard` (or already whole) ``x``
+    itself."""
+    shard = _ARENA_SHARD.get()
+    if shard is None or x.shape[-1] == shard[1]:
+        return x
+    offset, total, gather = shard
+    if gather is None:
+        raise ValueError("whole_slots: this slot shard has no gather")
+    full = x.new_zeros(x.shape[:-1] + (total,))
+    full.narrow(-1, offset, x.shape[-1]).copy_(x)
+    return gather(full)
 
 
 def arena_slots(arena: torch.Tensor) -> int:
@@ -140,6 +162,32 @@ def write_rows(k_arena: torch.Tensor, v_arena: torch.Tensor,
         if active is not None:
             rows = torch.where(active, rows, arena[bi, hi, si])
         arena[bi, hi, si] = rows
+
+
+def update_rows(k_arena: torch.Tensor, v_arena: torch.Tensor,
+                slot: torch.Tensor, fn: Callable,
+                active: Optional[torch.Tensor]) -> None:
+    """Read-modify-write one row per (lane, head) of a fixed arena (B, H,
+    P, Dh), in place: ``fn(k_old, v_old)`` (each (B, H, Dh), the rows at
+    ``slot`` (B, H)) gives the new rows, written through :func:`write_rows`
+    where ``active`` ((B, H); None = all).  On a slot shard a row is read
+    and written only by the shard that owns it: elsewhere ``fn`` sees zeros
+    and its result is dropped."""
+    si = slot.long()
+    b, h = si.shape
+    shard = _ARENA_SHARD.get()
+    local = si if shard is None else si - shard[0]
+    own = (local >= 0) & (local < k_arena.shape[2])
+    idx = local.clamp(0, k_arena.shape[2] - 1)
+    bi = torch.arange(b, device=si.device)[:, None].expand(b, h)
+    hi = torch.arange(h, device=si.device)[None, :].expand(b, h)
+    k_old, v_old = k_arena[bi, hi, idx], v_arena[bi, hi, idx]
+    if shard is not None:
+        k_old = torch.where(own[..., None], k_old, 0.0)
+        v_old = torch.where(own[..., None], v_old, 0.0)
+    k_row, v_row = fn(k_old, v_old)
+    write_rows(k_arena, v_arena, slot, k_row[..., None, :],
+               v_row[..., None, :], active)
 
 
 # ---------------------------------------------------------------------------

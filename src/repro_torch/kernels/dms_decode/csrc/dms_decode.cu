@@ -24,7 +24,18 @@
 //     final statistics m_out[row] and l_out[row] (G).  Entries i >= n are
 //     never written.  The wrapper (ops.py) rescales each entry by
 //     exp(m_blk - m_out) / l_out, sums the G heads and scatters to logical
-//     arena rows: the weights that TOVA, H2O and Keyformer evict by.
+//     arena rows: the weights that TOVA, H2O and Keyformer evict by;
+//   * slot-shard mode (`shard`, a fixed arena whose slot axis is split
+//     across ranks, as the reference's sharding rule splits it in a decode
+//     cell whose batch and heads cannot take the mesh), with or without
+//     weights-out: the row's arena is the shard [slot_lo, slot_lo + P) of
+//     the whole row, P need not be a multiple of block_p, and the table
+//     (replicated over the shards) names global block ids.  Each split
+//     keeps the entries of its range whose block overlaps the shard, in
+//     table order, so a block outside the shard is never read; a block
+//     that straddles the shard's edge loads its rows inside the shard and
+//     zero-fills the rest, which count as dead slots.  The shard's m and l
+//     go to m_out and l_out beside the output, for the ranks to combine.
 //
 // What bounds it: device-memory bytes, in principle.  A decode step does
 // ~2*G*Dh flops per K/V slot it reads (G = 6 query heads per kv head on
@@ -91,7 +102,9 @@
 // the same bits in either layout.
 //
 // Not done here (see PERF.md and ROADMAP B1): in weights-out mode, the
-// wrapper's rescale, group sum and scatter fused into the epilogue.
+// wrapper's rescale, group sum and scatter fused into the epilogue.  A
+// shard's splits still cut the whole row's entries, so a shard whose
+// overlapping blocks sit together in the table leaves other splits idle.
 //
 // Plain C interface, loaded with ctypes; launches on the caller's stream and
 // returns cudaGetLastError().
@@ -230,16 +243,17 @@ __host__ __device__ __forceinline__ int split_entries(int nb_tbl, int nsplit) {
 // `stages` ring stages of (K chunk, V chunk, live flags), each of cs16
 // rows (the chunk's slots rounded up to the m16 tile), then q (bf16), the
 // chunk's scores, the running statistics, the combine's factors and the
-// split's `tcap` table entries.  After the loop the split's fp32
-// accumulator (G x Dh) takes the ring's first bytes.
+// split's `tcap` table entries; in slot-shard mode also the kept entries'
+// indices in the table and a count per warp for keeping them.  After the
+// loop the split's fp32 accumulator (G x Dh) takes the ring's first bytes.
 struct Layout {
   int cb, cs, cs16, stages;      // blocks and slots of a chunk; ring depth
   int kst, vst, sst;             // row strides: K and q, V (bf16); scores
   size_t k, v, live, stage;      // offsets within a stage; stage bytes
-  size_t q, s, stats, comb, tbl, bytes;
+  size_t q, s, stats, comb, tbl, idx, wcnt, bytes;
 
   __host__ __device__ Layout(int g, int dh, int block_p, int stages_,
-                             int tcap) {
+                             int tcap, int shard) {
     cb = block_p >= kChunkSlots ? 1 : kChunkSlots / block_p;
     cs = cb * block_p;
     cs16 = (cs + 15) / 16 * 16;
@@ -256,7 +270,9 @@ struct Layout {
     stats = s + (size_t)g * sst * 4;             // m, l, corr: 3G floats
     comb = stats + (size_t)3 * g * 4;            // fac (S x G), M, L, M_<s
     tbl = round16(comb + (size_t)(kMaxSplit + 3) * g * 4);
-    bytes = tbl + (size_t)tcap * 4;
+    idx = tbl + (size_t)tcap * 4;
+    wcnt = idx + (shard ? (size_t)tcap * 4 : 0);
+    bytes = wcnt + (shard ? (size_t)kWarps * 4 : 0);
   }
 };
 
@@ -275,10 +291,11 @@ dms_decode_kernel(const __nv_bfloat16* __restrict__ q,     // (BH, G, Dh)
                   float* __restrict__ l_out,     // (BH, G)
                   int g, int dh, int p, int nb_tbl, int block_p,
                   float scale, int has_cap, float cap, int shared_kv,
-                  int valid_vec, int stages, int nsplit, uint32_t m_vpr,
-                  uint32_t m_bp) {
+                  int shard, int slot_lo, int valid_vec, int stages,
+                  int nsplit, uint32_t m_vpr, uint32_t m_bp) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout L(g, dh, block_p, stages, split_entries(nb_tbl, nsplit));
+  const Layout L(g, dh, block_p, stages, split_entries(nb_tbl, nsplit),
+                 shard);
   const int cb = L.cb, kst = L.kst, vst = L.vst, sst = L.sst;
   __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem + L.q);
   float* acc_s = reinterpret_cast<float*>(smem);    // after the loop
@@ -291,6 +308,9 @@ dms_decode_kernel(const __nv_bfloat16* __restrict__ q,     // (BH, G, Dh)
   float* lg_s = mg_s + g;              // the row's denominator (G)
   float* mlt_s = lg_s + g;             // max of the splits before this one (G)
   int32_t* tbl_s = reinterpret_cast<int32_t*>(smem + L.tbl);  // [e0, e1)
+  // slot-shard mode: the table index of each kept entry; counts per warp
+  int32_t* idx_s = reinterpret_cast<int32_t*>(smem + L.idx);
+  int32_t* wcnt_s = reinterpret_cast<int32_t*>(smem + L.wcnt);
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = blockIdx.x % nsplit;   // the cluster spans x
@@ -306,13 +326,20 @@ dms_decode_kernel(const __nv_bfloat16* __restrict__ q,     // (BH, G, Dh)
   const int count = min(max(n[row], 0), nb_tbl);
   const int e0 = (int)((long long)rank * count / nsplit);
   const int e1 = (int)((long long)(rank + 1) * count / nsplit);
-  const int nchunks = (e1 - e0 + cb - 1) / cb;
   const int32_t* tbl_row = tbl + (size_t)row * nb_tbl;
   // first K/V slot of a table entry naming block (or page) `blk`
   auto kv_slot0 = [&](int32_t blk) {
     const size_t b = (size_t)min(max(blk, 0), nblk - 1);
     return shared_kv ? b * block_p : (size_t)row * p + b * block_p;
   };
+  // slot-shard mode: the shard's slot of row j of block `blk`, in [0, p)
+  // when the shard holds it
+  auto shard_slot = [&](int32_t blk, int j) {
+    return (long long)blk * block_p + j - slot_lo;
+  };
+  // the split's entries in tbl_s (all of [e0, e1), or on a slot shard
+  // those that overlap it) and its chunks; set once the table is read
+  int nkept = 0, nchunks = 0;
 
   // stage chunk c into ring stage c % stages, its entries' K/V from the
   // split's table in shared memory.  Always commits a group (maybe empty),
@@ -326,13 +353,27 @@ dms_decode_kernel(const __nv_bfloat16* __restrict__ q,     // (BH, G, Dh)
       __nv_bfloat16* k_st = reinterpret_cast<__nv_bfloat16*>(st + L.k);
       __nv_bfloat16* v_st = reinterpret_cast<__nv_bfloat16*>(st + L.v);
       uint8_t* live_st = st + L.live;
-      const int i0 = e0 + c * cb;
-      const int slots = min(cb, e1 - i0) * block_p;
+      const int i0 = c * cb;
+      const int slots = min(cb, nkept - i0) * block_p;
       const int slots16 = (slots + 15) / 16 * 16;
       for (int e = tid; e < slots * vpr; e += kThreads) {
         const int j = fast_div(e, m_vpr);
         const int c8 = (e - j * vpr) * 8;
         const int ei = fast_div(j, m_bp);
+        if (shard) {
+          // a straddling block's rows outside the shard: zeros, never read
+          const long long ls = shard_slot(ent[ei], j - ei * block_p);
+          if (ls >= 0 && ls < p) {
+            const size_t src = ((size_t)row * p + (size_t)ls) * dh + c8;
+            cp_async16(k_st + j * kst + c8, k + src);
+            cp_async16(v_st + j * vst + c8, v + src);
+          } else {
+            const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+            *reinterpret_cast<uint4*>(k_st + j * kst + c8) = z;
+            *reinterpret_cast<uint4*>(v_st + j * vst + c8) = z;
+          }
+          continue;
+        }
         const size_t src = (kv_slot0(ent[ei]) + (j - ei * block_p)) * dh + c8;
         cp_async16(k_st + j * kst + c8, k + src);
         cp_async16(v_st + j * vst + c8, v + src);
@@ -344,11 +385,17 @@ dms_decode_kernel(const __nv_bfloat16* __restrict__ q,     // (BH, G, Dh)
       }
       auto valid_at = [&](int j) {
         const int ei = fast_div(j, m_bp);
-        const size_t s0 = shared_kv ? ((size_t)row * nb_tbl + i0 + ei) * block_p
+        const size_t s0 = shared_kv ? ((size_t)row * nb_tbl + e0 + i0 + ei) * block_p
                                     : kv_slot0(ent[ei]);
         return valid + s0 + (j - ei * block_p);
       };
-      if (valid_vec) {
+      if (shard) {
+        for (int j = tid; j < slots; j += kThreads) {
+          const int ei = fast_div(j, m_bp);
+          const long long ls = shard_slot(ent[ei], j - ei * block_p);
+          live_st[j] = ls >= 0 && ls < p ? valid[(size_t)row * p + (size_t)ls] : 0;
+        }
+      } else if (valid_vec) {
         for (int j = 4 * tid; j < slots; j += 4 * kThreads)
           cp_async4(live_st + j, valid_at(j));
       } else {
@@ -368,8 +415,42 @@ dms_decode_kernel(const __nv_bfloat16* __restrict__ q,     // (BH, G, Dh)
     if (e < gd / 8) q_r[r] = q_row[e];
   }
   // the split's whole range of the table, read once: no chunk waits on a
-  // load of its entries
-  for (int i = tid; i < e1 - e0; i += kThreads) tbl_s[i] = tbl_row[e0 + i];
+  // load of its entries.  In slot-shard mode only the entries whose block
+  // overlaps the shard are kept, in table order (a ballot per warp, then
+  // the warps' counts in order), beside their index in the table.
+  nkept = e1 - e0;
+  if (!shard) {
+    for (int i = tid; i < e1 - e0; i += kThreads) tbl_s[i] = tbl_row[e0 + i];
+  } else {
+    nkept = 0;
+    for (int base = 0; base < e1 - e0; base += kThreads) {
+      const int i = base + tid;
+      int32_t blk = 0;
+      bool keep = false;
+      if (i < e1 - e0) {
+        blk = tbl_row[e0 + i];
+        keep = shard_slot(blk, block_p) > 0 && shard_slot(blk, 0) < p;
+      }
+      const unsigned ballot = __ballot_sync(0xffffffffu, keep);
+      if (lane == 0) wcnt_s[warp] = __popc(ballot);
+      __syncthreads();
+      int at = nkept, total = nkept;
+      for (int w = 0; w < kWarps; ++w) {
+        if (w < warp) at += wcnt_s[w];
+        total += wcnt_s[w];
+      }
+      if (keep) {
+        at += __popc(ballot & ((1u << lane) - 1u));
+        tbl_s[at] = blk;
+        idx_s[at] = e0 + i;
+      }
+      nkept = total;
+      __syncthreads();                // the counts are rewritten next round
+    }
+  }
+  // the table index of the split's i-th kept entry
+  auto entry_of = [&](int i) { return shard ? idx_s[i] : e0 + i; };
+  nchunks = (nkept + cb - 1) / cb;
   __syncthreads();
   for (int c = 0; c < stages; ++c) stage_chunk(c);
 #pragma unroll
@@ -401,8 +482,8 @@ dms_decode_kernel(const __nv_bfloat16* __restrict__ q,     // (BH, G, Dh)
     const __nv_bfloat16* k_st = reinterpret_cast<const __nv_bfloat16*>(st + L.k);
     const __nv_bfloat16* v_st = reinterpret_cast<const __nv_bfloat16*>(st + L.v);
     const uint8_t* live_st = st + L.live;
-    const int i0 = e0 + c * cb;
-    const int ne = min(cb, e1 - i0);
+    const int i0 = c * cb;
+    const int ne = min(cb, nkept - i0);
     const int slots = ne * block_p;
     const int slots16 = (slots + 15) / 16 * 16;
 
@@ -467,7 +548,7 @@ dms_decode_kernel(const __nv_bfloat16* __restrict__ q,     // (BH, G, Dh)
           float bmax = kNegInf;
           for (int j = lane; j < block_p; j += 32) bmax = fmaxf(bmax, se[j]);
           m_new = fmaxf(m_new, warp_max(bmax));
-          const size_t entry = (size_t)row * nb_tbl + i0 + ei;
+          const size_t entry = (size_t)row * nb_tbl + entry_of(i0 + ei);
           float* w_row = w_blk + (entry * g + gi) * block_p;
           for (int j = lane; j < block_p; j += 32)
             w_row[j] = le[j] ? expf(se[j] - m_new) : 0.f;
@@ -606,9 +687,9 @@ dms_decode_kernel(const __nv_bfloat16* __restrict__ q,     // (BH, G, Dh)
   // weights-out: entries whose split-local running max is below the max of
   // the splits before them take the row's running max in table order
   if (w_blk != nullptr && rank > 0) {
-    for (int x = tid; x < (e1 - e0) * g; x += kThreads) {
+    for (int x = tid; x < nkept * g; x += kThreads) {
       const int gi = x % g;
-      const size_t entry = (size_t)row * nb_tbl + e0 + x / g;
+      const size_t entry = (size_t)row * nb_tbl + entry_of(x / g);
       const float mt = m_blk[entry * g + gi];
       const float mlt = mlt_s[gi];
       if (mt < mlt) {
@@ -642,41 +723,49 @@ cudaError_t allow() {
 // The ring depth of a shape: the deepest (up to kMaxStages) that leaves two
 // blocks on an SM, else one stage.
 extern "C" int dms_decode_stages(int g, int dh, int block_p, int nb_tbl,
-                                 int nsplit) {
+                                 int nsplit, int shard) {
   const int tcap = split_entries(nb_tbl, nsplit);
   for (int s = kMaxStages; s > 1; --s)
-    if (Layout(g, dh, block_p, s, tcap).bytes <= kTwoBlocks) return s;
+    if (Layout(g, dh, block_p, s, tcap, shard).bytes <= kTwoBlocks) return s;
   return 1;
 }
 
 // `nsplit`: the splits (thread blocks, one cluster) of each row's table,
 // 1 to 16, chosen by the wrapper (ops.splits) from B*Hkv, the SM count and
-// NB_tbl.
+// NB_tbl.  `shard`: the slot-shard mode, `p` the shard's slots a row and
+// `slot_lo` its first slot in the whole row (fixed arenas only).
 extern "C" int dms_decode_fwd(const void* q, const void* k, const void* v,
                               const void* valid, const void* tbl,
                               const void* n, void* out, void* w_blk,
                               void* m_blk, void* m_out, void* l_out, int bh,
                               int g, int dh, int p, int nb_tbl, int block_p,
                               float scale, int has_cap, float cap,
-                              int shared_kv, int nsplit, void* stream) {
+                              int shared_kv, int shard, int slot_lo,
+                              int nsplit, void* stream) {
   if (bh < 0 || g < 1 || g > kMaxG || dh < 8 || dh > kMaxDh || dh % 8 != 0 ||
-      block_p < 1 || block_p > kMaxBlockP || p < block_p || p % block_p != 0 ||
-      nb_tbl < 0 || nsplit < 1 || nsplit > kMaxSplit)
+      block_p < 1 || block_p > kMaxBlockP || nb_tbl < 0 || nsplit < 1 ||
+      nsplit > kMaxSplit)
     return (int)cudaErrorInvalidValue;
-  // weights-out takes all four outputs or none
-  const int nw = (w_blk != nullptr) + (m_blk != nullptr) + (m_out != nullptr) +
-                 (l_out != nullptr);
-  if (nw != 0 && nw != 4) return (int)cudaErrorInvalidValue;
+  if (shard ? (p < 1 || slot_lo < 0 || shared_kv)
+            : (p < block_p || p % block_p != 0))
+    return (int)cudaErrorInvalidValue;
+  // weights-out takes w_blk and m_blk with the statistics m_out and l_out;
+  // the statistics alone (a slot shard's) take m_out and l_out
+  if ((w_blk != nullptr) != (m_blk != nullptr) ||
+      (m_out != nullptr) != (l_out != nullptr) ||
+      (w_blk != nullptr && m_out == nullptr))
+    return (int)cudaErrorInvalidValue;
   if (bh == 0) return (int)cudaSuccess;
-  const int stages = dms_decode_stages(g, dh, block_p, nb_tbl, nsplit);
+  const int stages = dms_decode_stages(g, dh, block_p, nb_tbl, nsplit, shard);
   const size_t smem =
-      Layout(g, dh, block_p, stages, split_entries(nb_tbl, nsplit)).bytes;
+      Layout(g, dh, block_p, stages, split_entries(nb_tbl, nsplit), shard)
+          .bytes;
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   cudaError_t e = allow();
   if (e != cudaSuccess) return (int)e;
   // `valid` by 4-byte copies when every entry's flags start 4-byte aligned
-  const int valid_vec = (uintptr_t)valid % 4 == 0 && block_p % 4 == 0 &&
-                        (shared_kv || p % 4 == 0);
+  const int valid_vec = !shard && (uintptr_t)valid % 4 == 0 &&
+                        block_p % 4 == 0 && (shared_kv || p % 4 == 0);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)bh * nsplit);
   cfg.blockDim = dim3(kThreads);
@@ -694,7 +783,7 @@ extern "C" int dms_decode_fwd(const void* q, const void* k, const void* v,
       (const __nv_bfloat16*)v, (const uint8_t*)valid, (const int32_t*)tbl,
       (const int32_t*)n, (__nv_bfloat16*)out, (float*)w_blk, (float*)m_blk,
       (float*)m_out, (float*)l_out, g, dh, p, nb_tbl, block_p, scale, has_cap,
-      cap, shared_kv, valid_vec, stages, nsplit, fast_div_m(dh / 8),
-      fast_div_m(block_p));
+      cap, shared_kv, shard, slot_lo, valid_vec, stages, nsplit,
+      fast_div_m(dh / 8), fast_div_m(block_p));
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }

@@ -25,6 +25,15 @@ outputs in table order (weights-out mode) and this wrapper rescales them,
 sums the G heads and scatters them to logical arena rows
 (:func:`table_weights_to_arena`).
 
+**Slot-shard mode** (:func:`dms_decode_shard`, a fixed arena whose slot
+axis is split across ranks): the arena is the rank's shard ``[slot_lo,
+slot_lo + P_local)``, the table the whole row's (global block ids, blocks
+need not align with the shard), and the kernel reads only the listed slots
+inside the shard.  It returns the shard's output with its max and
+denominator, which the ranks combine, and with ``need_weights`` the raw
+weights-out outputs, which :func:`table_weights_to_arena` scatters to the
+shard's slots under the combined statistics.
+
 CUDA tensors go to the hand-written kernel (``csrc/dms_decode.cu``) or the
 call raises; CPU tensors go to the plain version (:mod:`.ref`).  Nothing
 else picks the path.
@@ -39,6 +48,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.dms_decode.ref import (dms_decode_plain,
+                                                dms_decode_plain_shard,
                                                 dms_decode_plain_shared,
                                                 dms_decode_plain_weights)
 
@@ -49,11 +59,13 @@ MAX_SPLITS = 16
 SOURCE = Path(__file__).resolve().parent / "csrc" / "dms_decode.cu"
 
 #: kernel launches since the last reset (the CPU path never counts), in
-#: fixed-arena mode, in shared-pool mode, and in weights-out mode (either
-#: layout; counted here only)
+#: fixed-arena mode, in shared-pool mode, in weights-out mode (either
+#: layout; counted here only), and in slot-shard mode (with or without
+#: weights; counted here only)
 launches = 0
 shared_launches = 0
 weights_launches = 0
+shard_launches = 0
 
 
 def _round_up(x: int, m: int) -> int:
@@ -66,9 +78,10 @@ def _library() -> ctypes.CDLL:
     if fn.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [ptr] * 11 + [i32] * 6 + [ctypes.c_float, i32,
-                                                ctypes.c_float, i32, i32, ptr]
+                                                ctypes.c_float, i32, i32, i32,
+                                                i32, ptr]
         fn.restype = i32
-        lib.dms_decode_stages.argtypes = [i32] * 5
+        lib.dms_decode_stages.argtypes = [i32] * 6
         lib.dms_decode_stages.restype = i32
     return lib
 
@@ -107,8 +120,10 @@ def launch_splits(qf: torch.Tensor, nb_tbl: int) -> int:
 
 
 def stages(g: int, dh: int, block_p: int, nb_tbl: int, nsplit: int) -> int:
-    """The kernel's ring depth at a shape (asked of the built kernel)."""
-    return int(_library().dms_decode_stages(g, dh, block_p, nb_tbl, nsplit))
+    """The kernel's ring depth at a shape (asked of the built kernel), out
+    of slot-shard mode."""
+    return int(_library().dms_decode_stages(g, dh, block_p, nb_tbl, nsplit,
+                                            0))
 
 
 def modeled_hbm_bytes(block_n: torch.Tensor, block_p: int, head_dim: int,
@@ -121,12 +136,18 @@ def modeled_hbm_bytes(block_n: torch.Tensor, block_p: int, head_dim: int,
 
 
 def _launch(qf, kf, vf, valf, tblf, nf, block_p, logit_cap, shared_kv,
-            need_weights=False, nsplit=None):
+            need_weights=False, nsplit=None, slot_lo=None):
     """The kernel on CUDA tensors of the flattened layout; raises on what it
     does not take.  With ``need_weights`` returns the five outputs of the
     weights-out mode.  ``nsplit`` overrides :func:`launch_splits` (a sweep
-    of the split count)."""
-    global launches, shared_launches, weights_launches
+    of the split count).  ``slot_lo`` (an int) is the slot-shard mode:
+    returns ``(out, m, l)``, or the five weights-out outputs."""
+    global launches, shared_launches, weights_launches, shard_launches
+    shard = slot_lo is not None
+    if shard and (shared_kv or slot_lo < 0):
+        raise ValueError("dms_decode kernel: a slot shard is a fixed arena "
+                         f"at a slot offset >= 0, got slot_lo={slot_lo}, "
+                         f"shared_kv={shared_kv}")
     bh, g, dh = qf.shape
     p = kf.shape[1]
     if not (1 <= g <= MAX_G and 8 <= dh <= MAX_DH and dh % 8 == 0):
@@ -154,43 +175,47 @@ def _launch(qf, kf, vf, valf, tblf, nf, block_p, logit_cap, shared_kv,
         raise ValueError("dms_decode kernel: q/k/v must be 16-byte aligned")
     out = torch.empty_like(qf)
     nbt = tblf.shape[1]
-    extra = ()
-    if need_weights:
-        # entries >= n stay unwritten: the wrapper never trusts them
-        f32 = dict(dtype=torch.float32, device=qf.device)
-        extra = (torch.empty((bh, nbt, g, block_p), **f32),
-                 torch.empty((bh, nbt, g), **f32),
-                 torch.empty((bh, g), **f32), torch.empty((bh, g), **f32))
+    f32 = dict(dtype=torch.float32, device=qf.device)
+    # entries >= n (and, on a shard, entries whose block lies outside it)
+    # stay unwritten: the wrapper never trusts them
+    w = ((torch.empty((bh, nbt, g, block_p), **f32),
+          torch.empty((bh, nbt, g), **f32)) if need_weights else ())
+    stats = ((torch.empty((bh, g), **f32), torch.empty((bh, g), **f32))
+             if need_weights or shard else ())
+    res = (out,) + w + stats if stats else out
     if bh == 0:
-        return (out,) + extra if need_weights else out
+        return res
     lib = _library()
-    w_ptrs = [t.data_ptr() for t in extra] if need_weights else [None] * 4
+    ptrs = ([t.data_ptr() for t in w] or [None, None]) + (
+        [t.data_ptr() for t in stats] or [None, None])
     if nsplit is None:
         nsplit = launch_splits(qf, nbt)
     with torch.cuda.device(qf.device):
         stream = torch.cuda.current_stream(qf.device).cuda_stream
         err = lib.dms_decode_fwd(
             qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), valf.data_ptr(),
-            tblf.data_ptr(), nf.data_ptr(), out.data_ptr(), *w_ptrs,
+            tblf.data_ptr(), nf.data_ptr(), out.data_ptr(), *ptrs,
             bh, g, dh, p, nbt, block_p, float(dh ** -0.5),
             int(logit_cap is not None),
             float(logit_cap if logit_cap is not None else 0.0),
-            int(shared_kv), int(nsplit), stream)
+            int(shared_kv), int(shard), int(slot_lo or 0), int(nsplit), stream)
     if err != 0:
         raise RuntimeError(f"dms_decode kernel launch failed: CUDA error {err}")
-    if need_weights:
+    if shard:
+        shard_launches += 1
+    elif need_weights:
         weights_launches += 1
-        return (out,) + extra
-    if shared_kv:
+    elif shared_kv:
         shared_launches += 1
     else:
         launches += 1
-    return out
+    return res
 
 
 def decode_rows(qf, kf, vf, valf, tblf, nf, block_p: int,
                 logit_cap: Optional[float] = None,
-                shared_kv: bool = False, need_weights: bool = False):
+                shared_kv: bool = False, need_weights: bool = False,
+                slot_lo: Optional[int] = None):
     """The kernel's own interface: q (BH, G, Dh); block_tbl (BH, NB_tbl)
     int32; block_n (BH,) int32 -> (BH, G, Dh).  Fixed-arena mode: k, v (BH,
     P, Dh), valid (BH, P), table entries index the row's own arena.
@@ -200,11 +225,21 @@ def decode_rows(qf, kf, vf, valf, tblf, nf, block_p: int,
     w_blk, m_blk, m_out, l_out)`` (see
     :func:`~repro_torch.kernels.dms_decode.ref.dms_decode_plain_weights`;
     the kernel leaves entries ``>= n`` of ``w_blk``/``m_blk`` unwritten).
+    ``slot_lo``: the slot-shard mode, k, v (BH, P_local, Dh) and valid (BH,
+    P_local) the shard ``[slot_lo, slot_lo + P_local)`` of each row, table
+    entries global block ids; returns ``(out, m, l)`` (see
+    :func:`~repro_torch.kernels.dms_decode.ref.dms_decode_plain_shard`), or
+    with ``need_weights`` the five weights-out outputs.
     CUDA tensors launch the kernel; CPU tensors run the plain version."""
     if qf.is_cuda:
         return _launch(qf, kf, vf, valf, tblf, nf, block_p, logit_cap,
-                       shared_kv, need_weights)
+                       shared_kv, need_weights, slot_lo=slot_lo)
     if qf.device.type == "cpu":
+        if slot_lo is not None:
+            if shared_kv:
+                raise ValueError("dms_decode: a slot shard is a fixed arena")
+            return dms_decode_plain_shard(qf, kf, vf, valf, tblf, nf, block_p,
+                                          slot_lo, logit_cap, need_weights)
         if need_weights:
             return dms_decode_plain_weights(qf, kf, vf, valf, tblf, nf,
                                             block_p, logit_cap, shared_kv)
@@ -216,7 +251,8 @@ def decode_rows(qf, kf, vf, valf, tblf, nf, block_p: int,
 def table_weights_to_arena(w_blk: torch.Tensor, m_blk: torch.Tensor,
                            m_out: torch.Tensor, l_out: torch.Tensor,
                            block_n: torch.Tensor, ltbl: torch.Tensor,
-                           nb_arena: int) -> torch.Tensor:
+                           nb_arena: int, slot_lo: Optional[int] = None,
+                           p_local: Optional[int] = None) -> torch.Tensor:
     """The weights-out mode's raw outputs -> group-summed softmax weights
     per logical arena slot, (BH, nb_arena * block_p) fp32.
 
@@ -228,15 +264,33 @@ def table_weights_to_arena(w_blk: torch.Tensor, m_blk: torch.Tensor,
     scattered to a dump row past the arena that is sliced off — CUDA has no
     ``mode="drop"``.  A row with ``l_out == 0`` (n = 0, or every listed slot
     hidden) gives zeros; the reference attention path gives a uniform row
-    there (docs/kernels.md, "edge case")."""
+    there (docs/kernels.md, "edge case").
+
+    On a slot shard (``slot_lo``, ``p_local``: the slot-shard mode's raw
+    outputs) ``m_out``/``l_out`` are the statistics combined over the
+    shards, the rows are the shard's ``p_local`` slots, (BH, p_local), and
+    each listed slot lands at its global slot less ``slot_lo``; the slots
+    of a block outside the shard (unwritten entries) and those of a
+    straddling block that lie outside it are dropped."""
     bh, nbt, g, bp = w_blk.shape
     row_live = (torch.arange(nbt, device=ltbl.device)[None, :]
                 < block_n[:, None])                                # (BH, NBt)
+    if slot_lo is not None:
+        lo = ltbl.long() * bp - slot_lo                            # (BH, NBt)
+        row_live = row_live & (lo < p_local) & (lo + bp > 0)
     l_safe = torch.where(l_out <= 0.0, 1.0, l_out)                  # (BH, G)
     corr = (torch.exp(torch.clamp(m_blk - m_out[:, None, :], max=0.0))
             / l_safe[:, None, :])                                   # (BH, NBt, G)
     w_tbl = (w_blk * corr[..., None]).sum(dim=2)                    # (BH, NBt, bp)
     w_tbl = torch.where(row_live[..., None], w_tbl, 0.0)
+    if slot_lo is not None:
+        slot = lo[..., None] + torch.arange(bp, device=lo.device)   # (BH, NBt, bp)
+        own = row_live[..., None] & (slot >= 0) & (slot < p_local)
+        w_slots = torch.zeros((bh, p_local + 1), dtype=torch.float32,
+                              device=w_blk.device)
+        w_slots.scatter_(1, torch.where(own, slot, p_local).reshape(bh, -1),
+                         torch.where(own, w_tbl, 0.0).reshape(bh, -1))
+        return w_slots[:, :p_local]
     rows = torch.where(row_live, ltbl.long().clamp(0, nb_arena - 1), nb_arena)
     w_arena = torch.zeros((bh, nb_arena + 1, bp), dtype=torch.float32,
                           device=w_blk.device)
@@ -349,3 +403,61 @@ def dms_decode_attention(
                                      p_arena // bp)
     return (out.reshape(b, 1, hq, dh),
             weights.reshape(b, hkv, p_arena)[:, :, :p])
+
+
+def dms_decode_shard(
+    q: torch.Tensor,                 # (B, 1, Hq, Dh)
+    k: torch.Tensor,                 # (B, Hkv, P_local, Dh): the shard
+    v: torch.Tensor,
+    valid: torch.Tensor,             # (B, Hkv, P_local) bool
+    *,
+    block_tbl: torch.Tensor,         # (B, Hkv, NB) int32, global block ids
+    block_n: torch.Tensor,           # (B, Hkv) int32
+    block_p: int,
+    slot_lo: int,
+    logit_cap: Optional[float] = None,
+    need_weights: bool = False,
+):
+    """One decode token's attention over one slot shard ``[slot_lo, slot_lo
+    + P_local)`` of a fixed arena whose slot axis is split across ranks.
+    Returns ``(out, m, l, weights)``: ``out`` (B, 1, Hq, Dh) normalised over
+    the shard's listed visible slots, ``m`` and ``l`` (B, Hkv, G) fp32 its
+    max and denominator (-1e30 and 0 where the shard holds none), and, with
+    ``need_weights``, ``weights(m_all, l_all)``, which gives the shard's
+    (B, Hkv, P_local) group-summed weights under the statistics ``m_all``
+    and ``l_all`` (B, Hkv, G) combined over every shard (else None)."""
+    b, _, hq, dh = q.shape
+    hkv, p_loc = k.shape[1], k.shape[2]
+    if k.shape != (b, hkv, p_loc, dh) or v.shape != k.shape \
+            or valid.shape != k.shape[:3]:
+        raise ValueError("k/v must be (B, Hkv, P_local, Dh) matching q and "
+                         f"valid (B, Hkv, P_local); got {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}, {tuple(valid.shape)}")
+    if hq % hkv:
+        raise ValueError(f"{hq} query heads do not group over {hkv} kv heads")
+    if not block_p or block_tbl.shape[:2] != (b, hkv) \
+            or block_n.shape != (b, hkv):
+        raise ValueError("a slot shard needs block_p and a block table "
+                         "(B, Hkv, NB) with block_n (B, Hkv)")
+    g = hq // hkv
+    qf = q[:, 0].reshape(b * hkv, g, dh)
+    kf, vf = k.reshape(b * hkv, p_loc, dh), v.reshape(b * hkv, p_loc, dh)
+    valf = valid.reshape(b * hkv, p_loc)
+    tblf = block_tbl.reshape(b * hkv, -1)
+    nf = block_n.reshape(b * hkv)
+    res = decode_rows(qf, kf, vf, valf, tblf, nf, block_p, logit_cap,
+                      need_weights=need_weights, slot_lo=slot_lo)
+    out, m, l = (res[0], res[3], res[4]) if need_weights else res
+    weights = None
+    if need_weights:
+        w_blk, m_blk = res[1], res[2]
+
+        def weights(m_all, l_all):
+            w = table_weights_to_arena(
+                w_blk, m_blk, m_all.reshape(b * hkv, g),
+                l_all.reshape(b * hkv, g), nf, tblf, 0, slot_lo=slot_lo,
+                p_local=p_loc)
+            return w.reshape(b, hkv, p_loc)
+
+    return (out.reshape(b, 1, hq, dh), m.reshape(b, hkv, g),
+            l.reshape(b, hkv, g), weights)

@@ -18,7 +18,12 @@ the same logical contents give the same bits in either layout.
 layout: the output and the four raw outputs the kernel writes.
 :func:`dms_decode_plain_split` does the same arithmetic the way the kernel
 orders it: each row's listed entries cut into contiguous splits, each split
-attended on its own, the splits combined by their log-sum-exp statistics.
+attended on its own, the splits combined by their log-sum-exp statistics
+(:func:`combine_partials`).  :func:`dms_decode_plain_shard` is the kernel's
+slot-shard mode: the row's arena is one shard of a slot-split arena, the
+table's entries stay global block ids, and only the slots of listed blocks
+that lie in the shard are read; it returns the shard's statistics beside
+its output, which :func:`combine_partials` combines over the shards.
 """
 from __future__ import annotations
 
@@ -110,25 +115,11 @@ def dms_decode_plain_shared(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                              block_p), logit_cap)
 
 
-def dms_decode_plain_weights(q: torch.Tensor, k: torch.Tensor,
-                             v: torch.Tensor, valid: torch.Tensor,
-                             block_tbl: torch.Tensor, block_n: torch.Tensor,
-                             block_p: int, logit_cap: Optional[float] = None,
-                             shared_kv: bool = False):
-    """The weights-out mode, in the layout ``shared_kv`` names (operands as
-    :func:`dms_decode_plain` or :func:`dms_decode_plain_shared`).  Returns
-    ``(out, w_blk, m_blk, m_out, l_out)``: ``w_blk`` (BH, NB_tbl, G,
-    block_p) fp32 holds each listed entry's ``exp(s - m_blk)`` (0 on dead
-    slots), ``m_blk`` (BH, NB_tbl, G) the running max after that entry (a
-    running max in table order: :func:`torch.cummax` of the entries'
-    maxima), ``m_out``/``l_out`` (BH, G) the final max and denominator.
-    The kernel leaves entries ``>= n`` unwritten; here they hold 0 and
-    ``NEG_INF``."""
-    listed = _listed_shared if shared_kv else _listed_fixed
-    kl, vl, live = listed(k, v, valid, block_tbl, block_n, block_p)
+def _weights_listed(q, kl, vl, live, block_n, nbt, block_p, logit_cap):
+    """The weights-out outputs over listed operands in table order (see
+    :func:`dms_decode_plain_weights`)."""
     out = _attend_listed(q, kl, vl, live, logit_cap)
     bh, g, dh = q.shape
-    nbt = block_tbl.shape[1]
     s = torch.einsum("hgd,hpd->hgp", q.float(),
                      torch.where(live[..., None], kl.float(), 0.0)) * dh ** -0.5
     if logit_cap is not None:
@@ -151,6 +142,95 @@ def dms_decode_plain_weights(q: torch.Tensor, k: torch.Tensor,
             m_blk.permute(0, 2, 1).contiguous(), m_out, l_out)
 
 
+def dms_decode_plain_weights(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, valid: torch.Tensor,
+                             block_tbl: torch.Tensor, block_n: torch.Tensor,
+                             block_p: int, logit_cap: Optional[float] = None,
+                             shared_kv: bool = False):
+    """The weights-out mode, in the layout ``shared_kv`` names (operands as
+    :func:`dms_decode_plain` or :func:`dms_decode_plain_shared`).  Returns
+    ``(out, w_blk, m_blk, m_out, l_out)``: ``w_blk`` (BH, NB_tbl, G,
+    block_p) fp32 holds each listed entry's ``exp(s - m_blk)`` (0 on dead
+    slots), ``m_blk`` (BH, NB_tbl, G) the running max after that entry (a
+    running max in table order: :func:`torch.cummax` of the entries'
+    maxima), ``m_out``/``l_out`` (BH, G) the final max and denominator.
+    The kernel leaves entries ``>= n`` unwritten; here they hold 0 and
+    ``NEG_INF``."""
+    listed = _listed_shared if shared_kv else _listed_fixed
+    kl, vl, live = listed(k, v, valid, block_tbl, block_n, block_p)
+    return _weights_listed(q, kl, vl, live, block_n, block_tbl.shape[1],
+                           block_p, logit_cap)
+
+
+def _listed_shard(k, v, valid, block_tbl, block_n, block_p, slot_lo):
+    """One slot shard of a fixed arena: (K, V, live) of the listed blocks'
+    slots in table order, (BH, NB_tbl * block_p, ...); a slot outside the
+    shard ``[slot_lo, slot_lo + P_local)`` is dead and reads nothing (its
+    K/V are 0)."""
+    bh, p_loc, _ = k.shape
+    nbt = block_tbl.shape[1]
+    slot = (block_tbl.long()[..., None] * block_p - slot_lo
+            + torch.arange(block_p, device=k.device)).reshape(bh, -1)
+    own = (slot >= 0) & (slot < p_loc)
+    idx = slot.clamp(0, max(p_loc - 1, 0))
+
+    def gather(x):
+        got = x.gather(1, idx[..., None].expand(-1, -1, x.shape[2]))
+        return torch.where(own[..., None], got, 0.0)
+
+    live = (own & (valid.gather(1, idx) != 0)
+            & _listed(block_n, nbt, block_p))
+    return gather(k), gather(v), live
+
+
+def dms_decode_plain_shard(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           valid: torch.Tensor, block_tbl: torch.Tensor,
+                           block_n: torch.Tensor, block_p: int, slot_lo: int,
+                           logit_cap: Optional[float] = None,
+                           need_weights: bool = False):
+    """The slot-shard mode.  The row's arena is the shard ``[slot_lo,
+    slot_lo + P_local)`` of a split arena: k, v (BH, P_local, Dh) and valid
+    (BH, P_local) hold the shard's slots only (``P_local`` need not be a
+    ``block_p`` multiple); block_tbl (BH, NB_tbl) and block_n (BH,) are the
+    whole row's table, whose entries are global block ids.  A listed block
+    that straddles the shard's edge contributes the slots inside it; one
+    outside contributes nothing.  Returns ``(out, m, l)``: the output
+    normalised over the shard's slots and its max and denominator (BH, G),
+    -1e30 and 0 where the shard holds no listed visible slot.  With
+    ``need_weights`` returns the weights-out mode's ``(out, w_blk, m_blk,
+    m_out, l_out)`` over the same slots; entries whose block lies outside
+    the shard (which the kernel leaves unwritten) hold 0 and the running
+    max."""
+    kl, vl, live = _listed_shard(k, v, valid, block_tbl, block_n, block_p,
+                                 slot_lo)
+    res = _weights_listed(q, kl, vl, live, block_n, block_tbl.shape[1],
+                          block_p, logit_cap)
+    return res if need_weights else (res[0], res[3], res[4])
+
+
+def reduce_stacked(x: torch.Tensor, op: str) -> torch.Tensor:
+    """``x``'s parts stacked on its leading axis, reduced over it (``op``
+    ``"max"`` or ``"sum"``): :func:`combine_partials`' reduction where the
+    parts lie on one device."""
+    return x.amax(0) if op == "max" else x.sum(0)
+
+
+def combine_partials(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
+                     reduce=reduce_stacked):
+    """Partial attentions over disjoint parts of a row -> the row's.  ``m``
+    and ``l`` (..., G) are a part's max and denominator, ``acc`` (..., G,
+    Dh) its unnormalised fp32 accumulator (a normalised output times ``l``),
+    -1e30 and 0 for a part that sees no slot; ``reduce(x, op)`` reduces
+    ``x`` over the parts (``"max"`` or ``"sum"``): over a stacked leading
+    axis (:func:`reduce_stacked`) or, one part a rank, an all-reduce.
+    Returns ``(m, l, acc)`` of the row: ``m = max_s m_s``, ``l = sum_s l_s
+    e^(m_s - m)``, ``acc = sum_s acc_s e^(m_s - m)``.  The output is ``acc /
+    l`` (0 where ``l`` is 0)."""
+    m_all = reduce(m, "max")
+    f = torch.exp(m - m_all)
+    return m_all, reduce(l * f, "sum"), reduce(acc * f[..., None], "sum")
+
+
 def dms_decode_plain_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            valid: torch.Tensor, block_tbl: torch.Tensor,
                            block_n: torch.Tensor, block_p: int,
@@ -162,8 +242,7 @@ def dms_decode_plain_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     are cut into ``splits`` contiguous ranges, ``[s n // S, (s + 1) n //
     S)`` for split s (empty where n < S).  Each split attends over its range
     with its own max ``m_s`` and denominator ``l_s`` (-1e30 and 0 when it
-    sees no slot); the output is ``sum_s acc_s e^(m_s - m) / sum_s l_s
-    e^(m_s - m)`` with ``m = max_s m_s``, summed in split order.
+    sees no slot); the splits are combined by :func:`combine_partials`.
 
     With ``need_weights`` returns ``(out, w_blk, m_blk, m_out, l_out)`` as
     the weights-out mode does: each split first weighs its entries against
@@ -206,15 +285,7 @@ def dms_decode_plain_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             w_blk = torch.where(mine[:, None, :, None], w, w_blk)
             m_blk = torch.where(mine[:, None, :], m_run, m_blk)
         m_before = torch.maximum(m_before, m_s)
-    m = stats[0][0]
-    for m_s, _, _ in stats[1:]:
-        m = torch.maximum(m, m_s)
-    l_sum = torch.zeros_like(m)
-    acc = torch.zeros((bh, g, dh), device=q.device)
-    for m_s, l_s, acc_s in stats:
-        f = torch.exp(m_s - m)
-        l_sum = l_sum + l_s * f
-        acc = acc + acc_s * f[..., None]
+    m, l_sum, acc = combine_partials(*(torch.stack(x) for x in zip(*stats)))
     out = (acc / torch.where(l_sum > 0, l_sum, 1.0)[..., None]).to(q.dtype)
     if not need_weights:
         return out

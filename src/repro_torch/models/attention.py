@@ -32,6 +32,7 @@ from repro_torch.core.config import ArchConfig, AttentionConfig
 from repro_torch.device import torch_dtype
 from repro_torch.kernels.dms_attention import ops as fkops
 from repro_torch.kernels.dms_decode import ops as dkops
+from repro_torch.kernels.dms_decode import ref as dkref
 from repro_torch.models.layers import apply_rope, softcap
 from repro_torch.parallel import spmd
 
@@ -369,7 +370,7 @@ def decode_attention(
         return inner, out, meters, impl
 
     inner, out, meters, impl = spmd.local_decode(
-        core, cache.policy, cache.cache, q, k_new_c, v_new_c, pol_aux,
+        core, cache.cache, q, k_new_c, v_new_c, pol_aux,
         _masked_decode, _split_decode)
     cache = dataclasses.replace(cache, cache=inner)
     y = spmd.merge_heads(out) @ p["wo"].to(dtype)
@@ -417,43 +418,96 @@ def _masked_decode(q, spec, window, cfg, use_kernel, pos_t=None,
             w.sum(dim=2) if need_weights else None, "ref")
 
 
+@dataclasses.dataclass
+class ShardPartial:
+    """One slot shard's part of a decode step's attention (see
+    :func:`shard_partial`): its max ``m`` and denominator ``l`` (B, Hkv, G)
+    fp32, its unnormalised accumulator ``acc`` (B, Hkv, G, Dh) fp32 and,
+    when weights were asked for, ``weights(m_all, l_all)`` -> the shard's
+    (B, Hkv, P_local) group-summed weights under the combined statistics."""
+
+    m: torch.Tensor
+    l: torch.Tensor
+    acc: torch.Tensor
+    weights: Optional[Any] = None
+
+
+def shard_partial(q, spec, window, cfg, use_kernel, pos_t, offset: int,
+                  need_weights: bool = False) -> ShardPartial:
+    """The attention of :func:`_masked_decode` on one slot shard of a split
+    arena, before the shards are combined: ``spec`` holds the local K/V
+    (slots ``[offset, offset + P_local)``), the whole slot mask and
+    positions and the whole row's block table.  Under ``use_kernel`` the
+    decode kernel's slot-shard mode reads the shard's listed slots (on a
+    CUDA tensor it launches the kernel or raises); else the plain einsum
+    over the shard."""
+    if spec.pool is not None:
+        raise NotImplementedError("a slot-split arena has no pool: the "
+                                  "sharding rule replicates the pool")
+    k, v = spec.k, spec.v
+    p_loc = k.shape[2]
+    vis, pos = spec.visible, spec.positions
+    b, _, hq, dh = q.shape
+    hkv = k.shape[1]
+    g = hq // hkv
+    vis = vis[..., offset:offset + p_loc]
+    if window is not None and pos is not None and pos_t is not None:
+        pos = pos[..., offset:offset + p_loc]
+        ptl = torch.as_tensor(pos_t, dtype=torch.int32,
+                              device=q.device).expand(b)
+        vis = vis & (pos > (ptl[:, None, None] - window))
+    vis = vis.expand(b, hkv, p_loc)
+    if use_kernel:
+        out, m, l, weights = dkops.dms_decode_shard(
+            q, k, v, vis.contiguous(), block_tbl=spec.block_tbl,
+            block_n=spec.block_n, block_p=spec.block_p, slot_lo=offset,
+            logit_cap=cfg.logit_softcap, need_weights=need_weights)
+        acc = out[:, 0].reshape(b, hkv, g, dh).float() * l[..., None]
+        return ShardPartial(m, l, acc, weights)
+    qg = q[:, 0].reshape(b, hkv, g, dh).to(k.dtype)
+    scores = torch.einsum("bhgd,bhpd->bhgp", qg.float(), k.float())
+    scores = softcap(scores * (dh ** -0.5), cfg.logit_softcap)
+    scores = torch.where(vis[:, :, None, :], scores, NEG_INF)
+    m = scores.amax(dim=-1)
+    p = torch.exp(scores - m[..., None])
+    acc = torch.einsum("bhgp,bhpd->bhgd", p, v.float())
+    weights = None
+    if need_weights:
+        def weights(m_all, l_all):
+            f = torch.exp(m - m_all) / l_all
+            return (p * f[..., None]).sum(dim=2)
+    return ShardPartial(m, p.sum(dim=-1), acc, weights)
+
+
+def combine_shards(part: ShardPartial, reduce, q_shape):
+    """The step's attention from each shard's :class:`ShardPartial`, by
+    :func:`~repro_torch.kernels.dms_decode.ref.combine_partials` with
+    ``reduce(x, op)`` (an all-reduce over the slot shards).  Returns (out
+    ``q_shape`` fp32, the shard's weights or None)."""
+    m, den, num = dkref.combine_partials(part.m, part.l, part.acc, reduce)
+    out = num / torch.where(den > 0, den, 1.0)[..., None]
+    weights = None if part.weights is None else part.weights(m, den)
+    return out.reshape(q_shape), weights
+
+
 def _split_decode(groups, offset: int):
-    """The attention of :func:`_masked_decode` on one slot shard of a
-    split arena (:func:`repro_torch.parallel.spmd.local_decode`): ``spec``
-    holds the local K/V and the whole slot mask and positions, of which
-    this shard reads ``[offset, offset + P_local)``; the partial maxima,
-    denominators and outputs are reduced over ``groups``.  The reference
-    path only (the kernel returns no partials); no weights out."""
+    """The attention of :func:`_masked_decode` on one slot shard of a split
+    arena (:func:`repro_torch.parallel.spmd.local_decode`): each rank
+    attends over its shard (:func:`shard_partial`; under ``use_kernel`` the
+    decode kernel) and the partial maxima, denominators and outputs are
+    reduced over ``groups`` (:func:`combine_shards`).  With
+    ``need_weights`` the weights returned are the shard's own (B, Hkv,
+    P_local), normalised over the whole row."""
+
+    def reduce(x, op):
+        return spmd.all_reduce(x, op, groups)
 
     def attend(q, spec, window, cfg, use_kernel, pos_t=None,
                need_weights=False):
-        if use_kernel or need_weights or spec.pool is not None:
-            raise NotImplementedError(
-                "a slot-split arena attends on the reference path, with no "
-                "weights out and no pool")
-        k, v = spec.k, spec.v
-        p_loc = k.shape[2]
-        vis, pos = spec.visible, spec.positions
-        b, _, hq, dh = q.shape
-        hkv = k.shape[1]
-        g = hq // hkv
-        vis = vis[..., offset:offset + p_loc]
-        if window is not None and pos is not None and pos_t is not None:
-            pos = pos[..., offset:offset + p_loc]
-            ptl = torch.as_tensor(pos_t, dtype=torch.int32,
-                                  device=q.device).expand(b)
-            vis = vis & (pos > (ptl[:, None, None] - window))
-        vis = vis.expand(b, hkv, p_loc)
-        qg = q[:, 0].reshape(b, hkv, g, dh).to(k.dtype)
-        scores = torch.einsum("bhgd,bhpd->bhgp", qg.float(), k.float())
-        scores = softcap(scores * (dh ** -0.5), cfg.logit_softcap)
-        scores = torch.where(vis[:, :, None, :], scores, NEG_INF)
-        m = spmd.all_reduce(scores.amax(dim=-1), "max", groups)
-        p = torch.exp(scores - m[..., None])
-        den = spmd.all_reduce(p.sum(dim=-1), "sum", groups)
-        num = spmd.all_reduce(
-            torch.einsum("bhgp,bhpd->bhgd", p, v.float()), "sum", groups)
-        out = num / den[..., None]
-        return out.reshape(b, 1, hq, dh).to(q.dtype), None, "ref"
+        part = shard_partial(q, spec, window, cfg, use_kernel, pos_t, offset,
+                             need_weights)
+        out, weights = combine_shards(part, reduce, q.shape)
+        return (out.to(q.dtype), weights,
+                "kernel" if use_kernel else "ref")
 
     return attend

@@ -50,10 +50,6 @@ from repro_torch.core import kv_cache
 
 _BATCH, _HEADS, _SLOTS = "batch", "heads", "slots"
 
-#: decode policies whose step runs on a slot shard: their arena writes all
-#: go through ``write_rows`` and they read slot counts from whole metadata
-SLOT_SPLIT_POLICIES = ("vanilla", "window", "dms", "dms_masked")
-
 
 def _dtensor_cls():
     from torch.distributed.tensor import DTensor
@@ -474,7 +470,7 @@ def local_prepare(prepare: Callable, cache, aux: Dict[str, Any]):
         return prepare(lc.local, aux)
 
 
-def local_decode(core: Callable, policy: str, cache, q, k_new, v_new,
+def local_decode(core: Callable, cache, q, k_new, v_new,
                  aux: Dict[str, Any], attend: Callable, split_attend):
     """One layer's ``core(cache, q, k_new, v_new, aux, attend) -> (cache,
     out, meters, impl)`` on the local shards.  q (B, 1, Hq, Dh), k_new/v_new
@@ -493,13 +489,9 @@ def local_decode(core: Callable, policy: str, cache, q, k_new, v_new,
     vl = _localize(v_new, mesh, roles, kv_dims)
     la = _local_aux(aux, mesh, roles)
     if lc.split:
-        if policy not in SLOT_SPLIT_POLICIES:
-            raise NotImplementedError(
-                f"policy {policy!r} on a slot-split arena: its step reads or "
-                "writes arena rows outside write_rows (supported: "
-                f"{', '.join(SLOT_SPLIT_POLICIES)})")
         groups = [(mesh, i) for i, r in enumerate(roles) if r == _SLOTS]
-        with kv_cache.arena_shard(lc.offset, lc.total):
+        with kv_cache.arena_shard(lc.offset, lc.total,
+                                  lambda x: all_reduce(x, "sum", groups)):
             _, out, meters, impl = core(lc.local, ql, kl, vl, la,
                                         split_attend(groups, lc.offset))
         lc.commit()

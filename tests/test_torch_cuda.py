@@ -1170,3 +1170,77 @@ def test_audit_kernel_combo_on_the_card(cuda_device):
                                 device=cuda_device)
         assert not gating(rep.findings), [str(f) for f in rep.findings]
         assert rep.kernel_events == rep.launches == rep.attn_layers
+
+
+# -- decode, the slot-shard mode (a slot-split arena, one rank's shard) -------
+
+# (rows, G, Dh, P, block_p, shards, weights out, cap): phase 5k (c)'s
+# qwen-r1-1.5b layouts (decode_32k: 8 lanes x 2 kv heads, H2O's 4112 and
+# dms's 4368 slots in 16 shards; long_500k: 1 lane, 65552 and 65808), then
+# G 16 and Dh 256 with the softcap 50 in uneven shards
+SHARD_SHAPES = [(16, 6, 128, 4112, 16, 16, True, None),
+                (16, 6, 128, 4368, 16, 16, False, None),
+                (2, 6, 128, 65552, 16, 16, True, None),
+                (2, 6, 128, 65808, 16, 16, False, None),
+                (4, 16, 64, 400, 16, 6, True, None),
+                (4, 2, 256, 352, 16, 5, False, 50.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,g,dh,p,bp,shards,weights,cap", SHARD_SHAPES,
+                         ids=["decode_32k h2o", "decode_32k dms",
+                              "long_500k h2o", "long_500k dms", "g16",
+                              "dh256 softcap"])
+def test_decode_slot_shards_match_plain(cuda_device, rows, g, dh, p, bp,
+                                        shards, weights, cap):
+    """Every shard ``[r p // S, (r + 1) p // S)`` of the arena through the
+    slot-shard mode against ``dms_decode_plain_shard`` on the same tensors:
+    the output, ``m`` and ``l`` (with weights out, the shard's weights
+    scattered under its own statistics).  Live blocks are listed in
+    shuffled order; the last third of the arena holds no visible slot, so
+    its shards list nothing (m = -1e30, l = 0, out 0); K/V of every
+    unlisted block is NaN.  One slot-shard launch a shard, none in any
+    other mode."""
+    from repro_torch.kernels.dms_decode.ref import dms_decode_plain_shard
+    gen = torch.Generator().manual_seed(p + rows)
+    nb = p // bp
+    valid = torch.rand((rows, p), generator=gen) < 0.8
+    valid[:, 2 * p // 3:] = False
+    live = valid.reshape(rows, nb, bp).any(-1)
+    n = live.sum(-1).int()
+    tbl = torch.zeros((rows, nb), dtype=torch.int32)
+    for r in range(rows):
+        ids = torch.nonzero(live[r]).flatten()
+        tbl[r, :len(ids)] = ids[torch.randperm(len(ids), generator=gen)].int()
+    q = torch.randn((rows, g, dh), generator=gen).bfloat16()
+    k = torch.randn((rows, p, dh), generator=gen).bfloat16()
+    v = torch.randn((rows, p, dh), generator=gen).bfloat16()
+    dead = ~live.repeat_interleave(bp, dim=1)
+    k[dead], v[dead] = float("nan"), float("nan")
+    q, k, v, valid, tbl, n = (x.to(cuda_device)
+                              for x in (q, k, v, valid, tbl, n))
+    before = (ops.launches, ops.weights_launches, ops.shard_launches)
+    for r in range(shards):
+        lo, hi = r * p // shards, (r + 1) * p // shards
+        args = (q, k[:, lo:hi].contiguous(), v[:, lo:hi].contiguous(),
+                valid[:, lo:hi].contiguous(), tbl, n, bp, cap)
+        got = ops.decode_rows(*args, need_weights=weights, slot_lo=lo)
+        want = dms_decode_plain_shard(*args[:7], lo, cap,
+                                      need_weights=weights)
+        out, m, l = (got[0], got[3], got[4]) if weights else got
+        w_out, w_m, w_l = (want[0], want[3], want[4]) if weights else want
+        assert torch.isfinite(out.float()).all()
+        torch.testing.assert_close(out.float(), w_out.float(), **BF16)
+        torch.testing.assert_close(m, w_m, **F32)
+        torch.testing.assert_close(l, w_l, **F32)
+        if lo >= 2 * p // 3:
+            assert (m == -1e30).all() and not l.any() and not out.any()
+        if weights:
+            got_w, want_w = (ops.table_weights_to_arena(
+                x[1], x[2], m, l, n, tbl, 0, slot_lo=lo, p_local=hi - lo)
+                for x in (got, want))
+            assert torch.isfinite(got_w).all()
+            torch.testing.assert_close(got_w, want_w, **F32)
+    torch.cuda.synchronize()
+    assert (ops.launches, ops.weights_launches, ops.shard_launches) == \
+        (before[0], before[1], before[2] + shards)

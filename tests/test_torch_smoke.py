@@ -305,3 +305,40 @@ def test_reasoner_launch_keys_are_the_demos_arenas():
     assert sorted((kw["b"], kw["t"], kw["dh"], kw.get("delay", 0))
                   for kw in cases.values()) == [(32, 32, 16, 0),
                                                 (32, 32, 16, 4)]
+
+
+def test_mesh_shard_cells_cut_as_the_sharding_rule_cuts():
+    """Phase 5k (c)'s layouts come from the dry-run's decode state and the
+    sharding rule: qwen-r1-1.5b's ``decode_32k`` at 8 lanes a rank and
+    ``long_500k`` at 1, each arena cut 16 ways; only Quest's shards are
+    whole blocks."""
+    got = {c["name"]: c for c in chip_smoke.mesh_shard_cells()}
+    want = {"decode_32k h2o": (8, 4112), "decode_32k dms": (8, 4368),
+            "decode_32k quest": (8, 32768), "long_500k h2o": (1, 65552),
+            "long_500k dms": (1, 65808)}
+    assert {n: (c["lanes"], c["p"]) for n, c in got.items()} == want
+    for name, c in got.items():
+        assert (c["hkv"], c["g"], c["dh"], c["bp"], c["shards"]) == \
+            (2, 6, 128, 16, 16)
+        assert ((c["p"] // c["shards"]) % c["bp"] == 0) == c["quest"], name
+    assert got["decode_32k quest"]["top"] == 256
+
+
+def test_smoke_mesh_shards_phase_on_the_cpu(capsys):
+    """Phase 5k (c) on small arenas with the plain versions: each shard's
+    m, l and output against its plain shard version, every shard's
+    partial, combined, within ``KERNEL_TOL`` and ``FLASH_REL_TOL`` of the
+    whole arena, weights within ``WEIGHTS_TOL``; no kernel launch counted,
+    no row timed."""
+    cells = [dict(name="h2o", lanes=2, hkv=2, g=3, dh=16, p=80, shards=4,
+                  bp=16, weights=True, quest=False, top=0),
+             dict(name="dms", lanes=1, hkv=2, g=6, dh=32, p=96, shards=8,
+                  bp=16, weights=False, quest=False, top=0),
+             dict(name="quest", lanes=2, hkv=2, g=2, dh=16, p=128, shards=4,
+                  bp=8, weights=False, quest=True, top=4)]
+    assert chip_smoke.phase_mesh_shards(torch, device="cpu",
+                                        cells=cells) == []
+    printed = capsys.readouterr().out
+    assert printed.count("the shards' kernel partials combined") == 3
+    assert printed.count("each shard's kernel m and l against its plain") == 3
+    assert "0 slot-shard launches over 3 arenas" in printed
